@@ -1,0 +1,1 @@
+"""Device kernels of the port, each beside its plain torch version."""

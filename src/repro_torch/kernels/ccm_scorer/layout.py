@@ -1,0 +1,107 @@
+"""Feature-plane indices shared by the plain torch scorer (ref.py), the
+CUDA kernel (csrc/ccm_scorer.cu) and the engine's packing.  A copy of
+``repro/kernels/ccm_scorer/layout.py``; the constants are asserted equal to
+the JAX package's.  ops.py documents the full packed-tile layout.
+"""
+from __future__ import annotations
+
+
+class AV:
+    """Per-candidate feature planes, index into av (E, N_AV, A) — the same
+    row meanings apply to bv (E, N_AV, B).  ``*_peer`` rows describe what the
+    candidate does to the OTHER endpoint (e.g. ``s_add_peer`` on an
+    a-candidate = shared bytes arriving at rank b)."""
+
+    intra = 0        # v(C -> C) intra-cluster volume
+    out_own = 1      # v(C -> own rank)
+    in_own = 2       # v(own rank -> C)
+    out_peer = 3     # v(C -> peer rank)
+    in_peer = 4      # v(peer rank -> C)
+    out_other = 5    # v(C -> any third rank)
+    in_other = 6     # v(any third rank -> C)
+    load = 7         # sum of task loads
+    mem = 8          # sum of task memory
+    ovh = 9          # max task overhead
+    s_rm = 10        # shared bytes leaving the own rank if C moves
+    h_rm = 11        # homing bytes leaving the own rank if C moves
+    s_add_peer = 12  # shared bytes arriving at the peer rank if C moves
+    h_add_peer = 13  # homing bytes arriving at the peer rank if C moves
+
+
+N_AV = 14
+
+
+class PM:
+    """Pairwise feature planes, index into pm (E, N_PM, A, B)."""
+
+    x_ab = 0   # v(A_i -> B_j)
+    x_ba = 1   # v(B_j -> A_i)
+    cs_a = 2   # shared-bytes correction on rank a for blocks in both A_i, B_j
+    ch_a = 3   # homing correction on rank a
+    cs_b = 4   # shared-bytes correction on rank b
+    ch_b = 5   # homing correction on rank b
+
+
+N_PM = 6
+
+
+class SC:
+    """Per-event scalars, index into sc (E, N_SC).  ``f_xy`` are current
+    rank-to-rank flows (a = rank a, b = rank b, o = all other ranks);
+    ``base_*`` are the incrementally-maintained CCMState volume bases the
+    flow deltas are applied to.  ``speed_*`` and ``mem_cap_*`` are consumed
+    by the host-side work combine (ops.combine_work), not by the kernel."""
+
+    f_ab = 0
+    f_ba = 1
+    f_aa = 2
+    f_bb = 3
+    f_ao = 4
+    f_oa = 5
+    f_bo = 6
+    f_ob = 7
+    base_sent_a = 8
+    base_recv_a = 9
+    base_sent_b = 10
+    base_recv_b = 11
+    vol_aa = 12
+    vol_bb = 13
+    load_a = 14
+    load_b = 15
+    shared_a = 16
+    shared_b = 17
+    hom_a = 18
+    hom_b = 19
+    mem_base_a = 20
+    mem_task_a = 21
+    ovh_a = 22
+    mem_base_b = 23
+    mem_task_b = 24
+    ovh_b = 25
+    na = 26          # true candidate count on a (mask bound, as float)
+    nb = 27          # true candidate count on b
+    speed_a = 28     # host combine only
+    speed_b = 29
+    mem_cap_a = 30   # packed pre-scaled via repro_torch.core.ccm.effective_mem_cap
+    mem_cap_b = 31   # (relative tolerance + pressure headroom baked in)
+
+
+N_SC = 32
+
+
+class OUT:
+    """Output planes, index into out (E, N_OUT, A, B)."""
+
+    load_a = 0
+    load_b = 1
+    off_a = 2
+    off_b = 3
+    on_a = 4
+    on_b = 5
+    hom_a = 6
+    hom_b = 7
+    mem_a = 8
+    mem_b = 9
+
+
+N_OUT = 10
