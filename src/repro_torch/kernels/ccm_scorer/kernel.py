@@ -2,11 +2,9 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/ccm_scorer/kernel.py:35``
 (``_scorer_kernel`` / ``score_tiles_fwd``).  The source is compiled with
-``nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false`` into a shared
-library with a plain C interface at first use, under ``build/kernels/`` at
-the root of the checkout (named by a hash of the source and the flags, so a
-stale build is never loaded), and bound with ctypes.  A failed build or
-launch raises; nothing falls back.
+``nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false`` at first use and
+bound with ctypes (``kernels/_build.py``).  A failed build or launch raises;
+nothing falls back.
 
 :func:`score_tiles` takes the packed tiles (ops.py documents the layout):
 on CPU tensors it is the plain torch version (:func:`ref.score_tiles`); on
@@ -16,21 +14,15 @@ on the current stream, and counts the launch in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ccm_scorer import ref
 from repro_torch.kernels.ccm_scorer.layout import N_AV, N_OUT, N_PM, N_SC
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "ccm_scorer.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.CSRC / "ccm_scorer.cu"
 
 #: kernel launches per dtype, counted where the kernel is launched only
 LAUNCHES = {"float64": 0, "float32": 0}
@@ -45,18 +37,6 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    found = shutil.which("nvcc")
-    if found is None and CUDA_HOME:
-        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
-        found = cand if os.path.isfile(cand) else None
-    if found is None:
-        raise RuntimeError("nvcc not found (PATH or CUDA_HOME): the CUDA "
-                           "toolkit is needed to build the ccm_scorer kernel")
-    return found
-
-
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/ccm_scorer.cu`` (once per process, and not at all when
     a build of the same source and flags exists) and load it.  Returns the
@@ -64,22 +44,7 @@ def build(verbose: bool = False) -> Path:
     global _lib
     if _lib is not None:
         return Path(_lib._name)
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"libccm_scorer-{tag}.so"
-    if not path.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+    lib = _build.load(SOURCE, verbose)
     for name in ("ccm_scorer_f64", "ccm_scorer_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
@@ -88,7 +53,7 @@ def build(verbose: bool = False) -> Path:
     lib.ccm_scorer_error_string.argtypes = [ctypes.c_int]
     lib.ccm_scorer_error_string.restype = ctypes.c_char_p
     _lib = lib
-    return path
+    return Path(lib._name)
 
 
 def _check(av, bv, pm, sc) -> None:

@@ -48,15 +48,16 @@ def reset_stats() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The scoring device of an entry point: ``None`` means ``"cuda"``,
-    which raises when no card is present; ``"cpu"`` only when asked."""
+    """The device of an entry point (the balancer's scorer, task timing,
+    cost-model training): ``None`` means ``"cuda"``, which raises when no
+    card is present; ``"cpu"`` only when asked."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "repro_torch scores on a CUDA device by default and "
+                "repro_torch runs on a CUDA device by default and "
                 "torch.cuda.is_available() is false; pass device='cpu' to "
-                "run the plain torch scorer on the host")
+                "run the plain torch versions on the host")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -23,3 +23,8 @@ else:
         "ci", derandomize=True, deadline=None,
         suppress_health_check=[HealthCheck.too_slow])
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
