@@ -10,9 +10,10 @@ line):
 
 1. Print the python, torch and CUDA versions, the card, and the card's name
    and power limit as nvidia-smi reports them.
-2. Build the scorer and assembly-tile kernels (``src/repro_torch/csrc/``)
-   from the checkout's sources into ``build/``, one nvcc each, in parallel,
-   and print the build seconds and ptxas's report.
+2. Build the four kernels (``src/repro_torch/csrc/``: the scorer, the
+   assembly tile, flash attention and the expert GEMM) from the checkout's
+   sources into ``build/``, one nvcc each, in parallel, and print the build
+   seconds and ptxas's report.
 3. Hold the kernel against its plain torch version on the card: float64 and
    float32, E in {1, 8, 64}, A, B in {1, 13, 16, 128}, random masks, exact
    equality (``torch.equal``), the masked tail (0 / +inf) and NaN
@@ -51,14 +52,47 @@ line):
    reproduce the reference's counts.  Assembly-kernel launches, counted
    from zero before each measured run, must equal ``repeats * tasks +
    signatures``.
-6. Time the kernels, their plain versions and their bounds at the shapes
-   the main paths launched most (CUDA events, median of repeats), and
-   profile one float64 solo main-path run with ``torch.profiler``: device
-   time by kernel and copy, and the device's idle share of the run's wall
-   time.
-7. Import every module of ``repro_torch``, check that no module of JAX or
-   ``repro`` was loaded, then print one JSON line of per-run numbers, the
-   card line, one JSON line of per-kernel numbers and, as the last line,
+6. Serving ``qwen3-moe-30b-a3b`` on the card.  Hold the flash-attention
+   kernel (``csrc/flash_attention.cu``) against its plain torch version in
+   float32 (``atol=rtol=2e-5``) and bf16 (``2e-2``) on the cases of
+   ``tests/test_kernels.py``, the serve shape (B 4, S 512, 32 / 4 heads,
+   hd 128), a length that is no tile multiple, rows that see no key (exactly
+   0) and head dims 8 and 256, and its block shapes against each other
+   (``atol=1e-5``); hold the expert-GEMM kernel (``csrc/moe_gemm.cu``)
+   against its plain version (``rtol=1e-5, atol=1e-4`` in float32,
+   ``rtol=3e-2, atol=3e-1`` in bf16) at the serve path's shapes and ragged
+   ones.  Then serve: the model at its published width with its depth cut
+   to 8 of 48 layers, bf16 weights from the port's init (a seeded
+   ``torch.Generator`` on the card), ``serve_batch`` with 4 requests of
+   512-token prompts and 32 new tokens.  Launches, counted from zero just
+   before the run, must be exactly 8 flash (one per layer, prefill) and
+   3 x 8 x 33 = 792 expert GEMM (a prefill and 32 decode steps); prints the
+   prefill and decode-step seconds, tokens/s, peak memory and, from
+   ``torch.profiler`` over one more run, the device's idle share.  Last,
+   the same weights on the CPU against the card (TF32 off): a 64-token
+   prompt and 4 teacher-forced decode steps, each step's logits held to
+   the serving contract (normalised log-probs within ``atol=0.07,
+   rtol=0.05``, argmax equal), with the count of top-k router selections
+   that differ, then again with the card's routing pinned to the CPU's.
+   In float32 (the same weight values, widened) the contract must hold.
+   In bf16 the discrete router turns the two devices' different last-bit
+   rounding into a different expert for near-tied tokens, and the logits
+   are bf16-spaced, so the contract is reported, and the run fails only
+   on a difference that rounding does not explain: a router flip where
+   the CPU's k-th and (k+1)-th logits lie further apart than twice the
+   token's logit change, a pinned log-prob beyond the contract's
+   tolerance, or a pinned argmax that differs where the CPU's top two
+   logits lie further apart than twice the step's largest logit error.
+7. Time the kernels, their plain versions and their bounds at the shapes
+   the main paths launched most (CUDA events, median of repeats; for the
+   new kernels also one PyTorch call of the same function, SDPA and
+   ``torch.bmm``, timed only), and profile one float64 solo main-path run
+   with ``torch.profiler``: device time by kernel and copy, and the
+   device's idle share of the run's wall time.
+8. Import every module of ``repro_torch``, check that no module of JAX or
+   ``repro`` was loaded, then print one JSON line each of serve, per-run
+   and assembly numbers, the card line, one JSON line of per-kernel numbers
+   and, as the last line,
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or when the
@@ -103,6 +137,42 @@ ASM_EXPECT = dict(tasks=5018, transfers=107, off_home=63, waves=2)
 # the reference's homing planner's errors (assembly/homing.py)
 HOMING_FAULTS = ("homing did not converge",
                  "homing infeasible: no node has headroom")
+# the serving path: qwen3-moe-30b-a3b at its published width, depth cut to
+# 8 of 48 layers (the card-against-CPU check keeps a copy of the weights in
+# host memory); 4 requests of 512-token prompts, 32 new tokens
+SERVE_ARCH = "qwen3-moe-30b-a3b"
+SERVE_LAYERS = 8
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
+CHECK_PROMPT, CHECK_STEPS = 64, 4
+PEAK_BF16 = 989e12          # dense bf16 tensor-core rate, H100 SXM
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash/kernel.py:28"
+GEMM_SOURCE = "src/repro_torch/csrc/moe_gemm.cu"
+GEMM_REPLACES = "src/repro/kernels/moe_gemm/kernel.py:22"
+# tests/test_kernels.py's tolerances: flash atol = rtol = tol; the expert
+# GEMM rtol = tol, atol = 10 tol
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+GEMM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap): the cases of
+# tests/test_kernels.py, then the serve shape, a length that is no multiple
+# of the 64-row tile, rows that see no key (a window ending before the
+# keys do), head dims 8 and 256
+FLASH_CASES = (
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0),
+    (1, 256, 256, 4, 4, 64, True, 64, 0.0),
+    (2, 128, 128, 8, 2, 32, True, 0, 50.0),
+    (1, 192, 192, 2, 1, 64, False, 0, 0.0),
+    (1, 96, 160, 2, 2, 64, False, 0, 0.0),
+    (4, 512, 512, 32, 4, 128, True, 0, 0.0),
+    (1, 100, 100, 4, 2, 128, True, 0, 0.0),
+    (1, 128, 64, 2, 1, 64, False, 16, 0.0),
+    (1, 37, 37, 2, 2, 8, True, 0, 0.0),
+    (1, 70, 70, 2, 1, 256, True, 0, 0.0),
+)
+# (E, C, d, f): the serve path's prefill gate/up and down, its decode
+# gate/up, then ragged C, d and f
+GEMM_SHAPES = ((128, 168, 2048, 768), (128, 168, 768, 2048),
+               (128, 4, 2048, 768), (3, 37, 100, 70), (5, 16, 64, 130))
 
 
 def fail(msg: str) -> None:
@@ -644,7 +714,416 @@ def assembly_path(torch, asm_kernel, asm_ref, kernel, launch) -> dict:
     return out
 
 
-# -------------------------------------------------------------- 6. timing
+# ------------------------------------------------------------ 6. serving
+def fold_heads(x, heads):
+    """(B, S, H, hd) -> (B * H, S, hd), the kernel's layout."""
+    b, s, _, hd = x.shape
+    return x.transpose(1, 2).reshape(b * heads, s, hd).contiguous()
+
+
+def check_flash_kernel(torch, flash_ops, flash_ref, rng) -> dict:
+    """The flash kernel against its plain version on the card; returns the
+    largest absolute error per dtype."""
+    worst = {}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        tol = FLASH_TOL[name]
+        worst[name] = 0.0
+        for case in FLASH_CASES:
+            b, sq, skv, hq, hkv, hd, causal, window, cap = case
+            q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                                    device="cuda")
+                       for shape in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                                     (b, skv, hkv, hd)))
+            got = flash_ops.flash_attention(q, k, v, causal=causal,
+                                            window=window, softcap=cap)
+            want = flash_ref.reference_attention(
+                fold_heads(q, hq), fold_heads(k, hkv), fold_heads(v, hkv),
+                causal=causal, window=window, softcap=cap)
+            want = want.reshape(b, hq, sq, hd).transpose(1, 2)
+            torch.cuda.synchronize()
+            label = f"flash {name} {case}"
+            if got.shape != (b, sq, hq, hd) or got.dtype != dtype:
+                fail(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+            try:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+            except AssertionError as err:
+                fail(f"{label}: kernel != plain version: {err}")
+            if not causal and window and sq > skv + window:
+                dead = got[:, skv + window:]
+                if not (dead == 0).all():
+                    fail(f"{label}: rows that see no key are not 0")
+            worst[name] = max(worst[name],
+                              (got.float() - want.float()).abs().max().item())
+            n_cases += 1
+    # block-shape independence (float32, the reference's atol 1e-5)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 200, 4, 64)),
+                            dtype=torch.float32, device="cuda")
+               for _ in range(3))
+    outs = [flash_ops.flash_attention(q, k, v, block_q=bq, block_k=bk)
+            for bq, bk in ((64, 64), (32, 32), (64, 17), (16, 64))]
+    for o in outs[1:]:
+        if not torch.allclose(o, outs[0], atol=1e-5, rtol=0):
+            fail("flash: the result depends on the block shape")
+    print(f"flash kernel == plain version on {n_cases} cases (float32 "
+          f"atol=rtol=2e-5, bfloat16 2e-2; block shapes (64, 64), (32, 32), "
+          f"(64, 17), (16, 64) within 1e-5); max_abs_err {worst}", flush=True)
+    return worst
+
+
+def check_gemm_kernel(torch, gemm_ops, gemm_ref, rng) -> dict:
+    """The expert-GEMM kernel against its plain version on the card (no
+    TF32 in the plain version); returns the largest absolute error per
+    dtype."""
+    worst = {}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        tol = GEMM_TOL[name]
+        worst[name] = 0.0
+        for e, c, d, f in GEMM_SHAPES:
+            x = torch.tensor(rng.standard_normal((e, c, d)), dtype=dtype,
+                             device="cuda")
+            w = torch.tensor(rng.standard_normal((e, d, f)) / d ** 0.5,
+                             dtype=dtype, device="cuda")
+            got = gemm_ops.expert_gemm(x, w)
+            want = gemm_ref.reference_expert_gemm(x, w)
+            torch.cuda.synchronize()
+            label = f"expert_gemm {name} ({e}, {c}, {d}) x ({e}, {d}, {f})"
+            if got.shape != (e, c, f) or got.dtype != dtype:
+                fail(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+            try:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=10 * tol)
+            except AssertionError as err:
+                fail(f"{label}: kernel != plain version: {err}")
+            worst[name] = max(worst[name],
+                              (got.float() - want.float()).abs().max().item())
+            n_cases += 1
+    print(f"expert_gemm kernel == plain version on {n_cases} cases (rtol "
+          f"1e-5, atol 1e-4 in float32; rtol 3e-2, atol 3e-1 in bfloat16); "
+          f"max_abs_err {worst}", flush=True)
+    return worst
+
+
+class RouteLog:
+    """Wraps ``repro_torch.models.moe.route``: records each call's router
+    logits and top-k indices, or replays recorded top-k choices."""
+
+    def __init__(self, moe):
+        self.moe, self.route = moe, moe.route
+        self.calls, self.replay = [], None
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def __call__(self, x_flat, router_w, top_k):
+        import torch
+        probs, top_vals, top_idx = self.route(x_flat, router_w, top_k)
+        if self.replay is not None:
+            top_vals, top_idx = (t.to(x_flat.device)
+                                 for t in self.replay.pop(0))
+        self.calls.append(((x_flat.to(torch.float32) @ router_w).cpu(),
+                           top_vals.cpu(), top_idx.cpu()))
+        return probs, top_vals, top_idx
+
+
+def route_flips(calls, ref_calls, top_k):
+    """(tokens whose top-k set differs from the reference run's, of them
+    those that rounding cannot explain: the reference's k-th and (k+1)-th
+    router logits lie further apart than twice that token's largest logit
+    change)."""
+    import torch
+    flips, unexplained = 0, 0
+    for (lg, _, idx), (lg_r, _, idx_r) in zip(calls, ref_calls, strict=True):
+        flipped = (torch.sort(idx, -1)[0] != torch.sort(idx_r, -1)[0]).any(-1)
+        top = torch.sort(lg_r, -1, descending=True)[0]
+        gap = top[:, top_k - 1] - top[:, top_k]
+        drift = (lg - lg_r).abs().max(-1)[0]
+        flips += int(flipped.sum())
+        unexplained += int((flipped & (gap > 2 * drift)).sum())
+    return flips, unexplained
+
+
+def forced_logits(torch, model, params, tokens):
+    """Prefill on ``tokens[:, :prompt]``, then teacher-forced decode steps
+    on the rest: the last-position logits of each, float32 on the CPU."""
+    from repro_torch.launch.serve import pad_caches
+    prompt = tokens.shape[1] - CHECK_STEPS
+    t = torch.as_tensor(tokens, dtype=torch.int64, device=model.device)
+    with torch.inference_mode():
+        caches, logits = model.prefill_fn(params, {"tokens": t[:, :prompt]})
+        caches = pad_caches(caches, tokens.shape[1])
+        out = [logits[:, 0].float().cpu()]
+        for i in range(CHECK_STEPS):
+            caches, logits = model.decode_fn(
+                params, caches, t[:, prompt + i:prompt + i + 1], prompt + i)
+            out.append(logits[:, 0].float().cpu())
+    return out
+
+
+def contract_errors(torch, got, want):
+    """The serving contract (``tests/test_decode_parity.py``) on each step:
+    normalised log-probs within ``atol=0.07, rtol=0.05`` and argmax equal.
+    Returns (all steps met it, per-step max abs error, per-step worst
+    excess over the tolerance)."""
+    ok, errs, excess = True, [], []
+    for g, w in zip(got, want, strict=True):
+        g = g - g.max(-1, keepdim=True)[0]
+        w = w - w.max(-1, keepdim=True)[0]
+        diff = (g - w).abs()
+        errs.append(diff.max().item())
+        over = (diff - (0.07 + 0.05 * w.abs())).max().item()
+        excess.append(over)
+        ok = ok and over <= 0 and bool((g.argmax(-1) == w.argmax(-1)).all())
+    return ok, errs, excess
+
+
+class StepClock:
+    """Wraps a model's prefill and decode functions with CUDA events, and
+    keeps the prefill logits."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model = torch, model
+        self.prefill, self.decode = model.prefill_fn, model.decode_fn
+        self.events, self.logits = [], None
+        model.prefill_fn, model.decode_fn = self._prefill, self._decode
+
+    def _timed(self, kind, fn, *args):
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        self.events.append((kind, start, end))
+        return out
+
+    def _prefill(self, *args):
+        out = self._timed("prefill", self.prefill, *args)
+        self.logits = out[1]
+        return out
+
+    def _decode(self, *args):
+        return self._timed("decode", self.decode, *args)
+
+    def restore(self):
+        self.model.prefill_fn, self.model.decode_fn = self.prefill, \
+            self.decode
+
+    def seconds(self, kind):
+        return [s.elapsed_time(e) / 1e3 for k, s, e in self.events
+                if k == kind]
+
+
+def serve_path(torch, flash_kernel, gemm_kernel) -> dict:
+    """``qwen3-moe-30b-a3b`` at its published width, depth cut to
+    ``SERVE_LAYERS`` of 48, served through ``serve_batch`` on the card; then
+    the same weights on the CPU against the card, teacher-forced."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.model import build_model
+    from torch.profiler import ProfilerActivity, profile
+
+    # the router is a float32 product: TF32 would move its near-ties, so it
+    # stays off (as it is by default) for every float32 product here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = configs.get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg)                        # device "cuda"
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    serve_batch(model, params, prompts[:1, :16], 2)        # warm-up
+    shapes = {"flash": Counter(), "gemm": Counter()}
+    flash_fwd, gemm_fwd = (flash_kernel.flash_attention_fwd,
+                           gemm_kernel.expert_gemm_fwd)
+
+    def flash_rec(q, k, v, **kw):
+        shapes["flash"][(tuple(q.shape), tuple(k.shape))] += 1
+        return flash_fwd(q, k, v, **kw)
+
+    def gemm_rec(x, w):
+        shapes["gemm"][(tuple(x.shape), tuple(w.shape))] += 1
+        return gemm_fwd(x, w)
+
+    flash_kernel.flash_attention_fwd = flash_rec
+    gemm_kernel.expert_gemm_fwd = gemm_rec
+    clock = StepClock(torch, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_kernel.reset_launches()
+    gemm_kernel.reset_launches()
+    t0 = time.perf_counter()
+    tokens = serve_batch(model, params, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash": dict(flash_kernel.LAUNCHES),
+                "gemm": dict(gemm_kernel.LAUNCHES)}
+    peak = torch.cuda.max_memory_allocated()
+    flash_kernel.flash_attention_fwd = flash_fwd
+    gemm_kernel.expert_gemm_fwd = gemm_fwd
+    clock.restore()
+    want_flash = SERVE_LAYERS
+    want_gemm = 3 * SERVE_LAYERS * (1 + SERVE_NEW)
+    if launches["flash"] != {"bfloat16": want_flash, "float32": 0} \
+            or launches["gemm"] != {"bfloat16": want_gemm, "float32": 0}:
+        fail(f"serve: launches {launches}, expected flash {want_flash} and "
+             f"expert_gemm {want_gemm} in bfloat16")
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab_size \
+            or not torch.isfinite(clock.logits).all():
+        fail(f"serve: bad tokens {tokens.shape} or non-finite logits")
+    prefill_s = clock.seconds("prefill")[0]
+    decode_s = clock.seconds("decode")
+    out = dict(
+        arch=cfg.name, layers=f"{SERVE_LAYERS} of {full.num_layers}",
+        q_heads=cfg.num_heads,
+        params=n_params, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+        new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
+        prefill_s=prefill_s, decode_step_s_median=float(np.median(decode_s)),
+        decode_step_s_min=min(decode_s), decode_step_s_max=max(decode_s),
+        tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
+        decode_tokens_per_s=SERVE_BATCH * len(decode_s) / sum(decode_s),
+        peak_memory_gb=peak / 1e9, launches=launches,
+        shapes={k: [[list(map(list, s)), n] for s, n in v.most_common()]
+                for k, v in shapes.items()})
+    print(f"serve: {cfg.name}, {SERVE_LAYERS} of {full.num_layers} layers, "
+          f"{n_params} parameters (bf16, init on the card {init_s:.2f} s); "
+          f"{SERVE_BATCH} requests x {SERVE_PROMPT}-token prompts, "
+          f"{SERVE_NEW} new tokens: prefill {prefill_s!r} s, decode step "
+          f"median {out['decode_step_s_median']!r} s, {out['tokens_per_s']!r}"
+          f" tokens/s over {wall!r} s, peak memory {peak / 1e9!r} GB; "
+          f"launches flash {want_flash}, expert_gemm {want_gemm}", flush=True)
+
+    # the device's idle share over one more serve run, from the profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_batch(model, params, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    rows = {}
+    for ev in prof.key_averages():
+        dev_us = device_us(ev)
+        if dev_us:
+            rows[ev.key] = dict(count=ev.count, device_ms=dev_us / 1e3)
+    busy_ms = sum(r["device_ms"] for r in rows.values())
+    top = sorted(rows.items(), key=lambda kv: -kv[1]["device_ms"])[:8]
+    out["profile"] = dict(wall_s=prof_wall, device_busy_ms=busy_ms,
+                          device_idle_share=1.0 - busy_ms / 1e3 / prof_wall
+                          if busy_ms else None,
+                          top=[[k, v] for k, v in top])
+    print(json.dumps({"serve_profile": out["profile"]}), flush=True)
+
+    # the same weights on the CPU against the card, teacher-forced: in bf16
+    # (the served weights), then in float32 (the same values, widened)
+    check = rng.integers(0, cfg.vocab_size, (1, CHECK_PROMPT + CHECK_STEPS))
+    bf = card_vs_cpu(torch, cfg, model, params, check)
+    if bf["router_flips_unexplained"] or bf["pinned_excess"] > 0 \
+            or bf["pinned_argmax_unexplained"]:
+        fail(f"card vs cpu, bf16: a difference that rounding does not "
+             f"explain (a kernel fault): {bf}")
+    wide = build_model(cfg, dtype=torch.float32)
+    wide_params = tree_map(lambda t: t.to(torch.float32), params)
+    f32 = card_vs_cpu(torch, cfg, wide, wide_params, check)
+    del wide_params
+    torch.cuda.empty_cache()
+    if not f32["contract_met"]:
+        fail(f"card vs cpu, float32: serving contract missed: {f32}")
+    out["card_vs_cpu"] = {"bfloat16": bf, "float32": f32}
+    return out
+
+
+def card_vs_cpu(torch, cfg, model, params, check) -> dict:
+    """``model`` with ``params`` on the card against the same weights on the
+    CPU, on ``check`` teacher-forced: the serving contract per step, the
+    top-k router selections that differ (and how many of them rounding
+    explains), and the same with the card's routing pinned to the CPU's,
+    where an argmax that differs must be a near tie (the CPU's top two
+    logits closer than twice the step's largest logit error)."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    label = dtype_name(model.dtype)
+    with RouteLog(moe) as card_routes:
+        card = forced_logits(torch, model, params, check)
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_model = build_model(cfg, device="cpu", dtype=model.dtype)
+    with RouteLog(moe) as cpu_routes:
+        cpu = forced_logits(torch, cpu_model, cpu_params, check)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    ok, errs, excess = contract_errors(torch, card, cpu)
+    flips, unexplained = route_flips(card_routes.calls, cpu_routes.calls,
+                                     cfg.top_k)
+    with RouteLog(moe) as pinned:
+        pinned.replay = [(c[1], c[2]) for c in cpu_routes.calls]
+        card_pinned = forced_logits(torch, model, params, check)
+    ok_p, errs_p, excess_p = contract_errors(torch, card_pinned, cpu)
+    gaps, argmax_p, near_tie = [], [], []
+    for g, w in zip(card_pinned, cpu, strict=True):
+        top2 = torch.topk(w[0], 2).values
+        gaps.append(float(top2[0] - top2[1]))
+        argmax_p.append(int(g.argmax()) == int(w.argmax()))
+        near_tie.append(gaps[-1] <= 2 * float((g - w).abs().max()))
+    out = dict(
+        contract_met=ok, max_abs_err=errs, excess_over_tolerance=excess,
+        argmax_equal=[int(g.argmax()) == int(w.argmax())
+                      for g, w in zip(card, cpu)],
+        max_abs_logit_err=[float((g - w).abs().max())
+                           for g, w in zip(card, cpu)],
+        router_tokens=sum(int(c[2].shape[0]) for c in cpu_routes.calls),
+        router_flips=flips, router_flips_unexplained=unexplained,
+        pinned_contract_met=ok_p, pinned_max_abs_err=errs_p,
+        pinned_excess=max(excess_p), pinned_argmax_equal=argmax_p,
+        cpu_top2_gap=gaps,
+        pinned_argmax_unexplained=sum(not a and not t for a, t
+                                      in zip(argmax_p, near_tie)),
+        cpu_s=cpu_s)
+    print(f"card vs cpu, {label} ({CHECK_PROMPT}-token prompt, "
+          f"{CHECK_STEPS} teacher-forced steps): serving contract "
+          f"{'met' if ok else 'MISSED'}; max abs error of normalised "
+          f"log-probs per step {errs}; argmax equal {out['argmax_equal']}; "
+          f"top-k selections differing in {flips} of {out['router_tokens']} "
+          f"token routings ({unexplained} not explained by rounding); with "
+          f"the card's routing pinned to the cpu's: contract "
+          f"{'met' if ok_p else 'MISSED'}, max abs error {errs_p}, argmax "
+          f"equal {argmax_p} (cpu top-two gaps {gaps}); cpu {cpu_s:.1f} s",
+          flush=True)
+    return out
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+# -------------------------------------------------------------- 7. timing
 def time_ms(torch, fn, reps: int, rounds: int = 7) -> float:
     """Median over ``rounds`` of the mean time of ``reps`` calls, from CUDA
     events around the calls."""
@@ -804,6 +1283,71 @@ def profile_main_path(torch, kernel) -> dict:
     return out
 
 
+def time_serve_kernels(torch, flash_kernel, flash_ref, gemm_kernel, gemm_ref,
+                       serve) -> dict:
+    """Each new kernel at the shapes the serve path launched (bf16): kernel,
+    plain version, one PyTorch call computing the same function (timed
+    here only, never on the path) and the bound: the larger of the bytes
+    (each input read once, the output written once) over the HBM rate and
+    the operations over the bf16 tensor-core peak.  CUDA events, median of
+    rounds."""
+    import torch.nn.functional as F
+    hq = serve["q_heads"]
+    times = {"flash": {}, "gemm": {}}
+    for (q_shape, k_shape), n in serve["shapes"]["flash"]:
+        bhq, sq, hd = q_shape
+        bhkv, skv, _ = k_shape
+        q = torch.randn(q_shape, dtype=torch.bfloat16, device="cuda")
+        k = torch.randn(k_shape, dtype=torch.bfloat16, device="cuda")
+        v = torch.randn(k_shape, dtype=torch.bfloat16, device="cuda")
+        b, group = bhq // hq, bhq // bhkv
+        q4 = q.reshape(b, hq, sq, hd)
+        k4, v4 = (t.reshape(b, hq // group, skv, hd)
+                  .repeat_interleave(group, dim=1) for t in (k, v))
+        k_ms = time_ms(torch, lambda: flash_kernel.flash_attention_fwd(
+            q, k, v, causal=True), 20)
+        p_ms = time_ms(torch, lambda: flash_ref.reference_attention(
+            q, k, v, causal=True), 10)
+        l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 20)
+        pairs = bhq * sum(min(i + 1, skv) for i in range(sq))
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        ops = 4 * pairs * hd
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
+        key = f"q={list(q_shape)},kv={list(k_shape)}"
+        times["flash"][key] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
+            operations=ops, launches=n)
+        print(f"time flash {key}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
+              f"sdpa {l_ms!r} ms, bound {max(t_b, t_o)!r} ms "
+              f"({times['flash'][key]['bound_by']}, {nbytes} B, {ops} "
+              f"operations), {n} launches", flush=True)
+    for (x_shape, w_shape), n in serve["shapes"]["gemm"]:
+        e, c, d = x_shape
+        f = w_shape[2]
+        x = torch.randn(x_shape, dtype=torch.bfloat16, device="cuda")
+        w = torch.randn(w_shape, dtype=torch.bfloat16, device="cuda") \
+            / d ** 0.5
+        k_ms = time_ms(torch, lambda: gemm_kernel.expert_gemm_fwd(x, w), 20)
+        p_ms = time_ms(torch, lambda: gemm_ref.reference_expert_gemm(x, w),
+                       10)
+        l_ms = time_ms(torch, lambda: torch.bmm(x, w), 20)
+        nbytes = 2 * (e * c * d + e * d * f + e * c * f)
+        ops = 2 * e * c * d * f
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
+        key = f"x={list(x_shape)},w={list(w_shape)}"
+        times["gemm"][key] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
+            operations=ops, launches=n)
+        print(f"time expert_gemm {key}: kernel {k_ms!r} ms, plain {p_ms!r} "
+              f"ms, bmm {l_ms!r} ms, bound {max(t_b, t_o)!r} ms "
+              f"({times['gemm'][key]['bound_by']}, {nbytes} B, {ops} "
+              f"operations), {n} launches", flush=True)
+    return times
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -820,6 +1364,12 @@ def main() -> None:
     from repro_torch.kernels.assembly import ops as asm_ops
     from repro_torch.kernels.assembly import ref as asm_ref
     from repro_torch.kernels.ccm_scorer import kernel, launch, ref
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.moe_gemm import kernel as gemm_kernel
+    from repro_torch.kernels.moe_gemm import ops as gemm_ops
+    from repro_torch.kernels.moe_gemm import ref as gemm_ref
 
     # 1. versions and the card
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -828,11 +1378,12 @@ def main() -> None:
           f"{torch.cuda.get_device_capability(0)}", flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
-    # 2. build both kernels, one nvcc each, in parallel
+    # 2. build the four kernels, one nvcc each, in parallel
     t0 = time.perf_counter()
-    reports = _build.compile_sources([kernel.SOURCE, asm_kernel.SOURCE],
+    kernel_mods = (kernel, asm_kernel, flash_kernel, gemm_kernel)
+    reports = _build.compile_sources([m.SOURCE for m in kernel_mods],
                                      verbose=True)
-    libs = [kernel.build(), asm_kernel.build()]
+    libs = [m.build() for m in kernel_mods]
     for source, report in reports.items():
         print(f"nvcc {source.name}:\n{report}", flush=True)
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
@@ -845,12 +1396,18 @@ def main() -> None:
     # 5. the assembly application (launch counts zeroed inside, per run)
     asm_worst = check_assembly_kernel(torch, asm_ops, asm_ref, rng)
     asm = assembly_path(torch, asm_kernel, asm_ref, kernel, launch)
-    # 6. times at the main paths' shapes, and where the time goes
+    # 6. serving qwen3-moe-30b-a3b (launch counts zeroed inside)
+    flash_worst = check_flash_kernel(torch, flash_ops, flash_ref, rng)
+    gemm_worst = check_gemm_kernel(torch, gemm_ops, gemm_ref, rng)
+    serve = serve_path(torch, flash_kernel, gemm_kernel)
+    # 7. times at the main paths' shapes, and where the time goes
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
     asm_times = time_assembly_kernel(torch, asm_ops, asm_ref, asm)
+    serve_times = time_serve_kernels(torch, flash_kernel, flash_ref,
+                                     gemm_kernel, gemm_ref, serve)
     prof = profile_main_path(torch, kernel)
 
-    # 7. imports, then the result
+    # 8. imports, then the result
     import repro_torch
     for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         importlib.import_module(mod.name)
@@ -886,6 +1443,28 @@ def main() -> None:
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
         "library_ms": None, "shape": key, "by_shape": asm_times,
     })
+    for name, key, worst_err, source, replaces in (
+            ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
+             FLASH_REPLACES),
+            ("expert_gemm_bf16", "gemm", gemm_worst, GEMM_SOURCE,
+             GEMM_REPLACES)):
+        by_shape = serve_times[key]
+        shape = max(by_shape, key=lambda k: by_shape[k]["launches"])
+        m = by_shape[shape]
+        n = serve["launches"][key]["bfloat16"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "launches_by_path": {"serve": n},
+            "max_abs_err": worst_err["bfloat16"],
+            "max_abs_err_float32": worst_err["float32"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "shape": shape,
+            "by_shape": by_shape,
+        })
+    print(json.dumps({"serve": {k: v for k, v in serve.items()
+                                if k != "shapes"}}), flush=True)
     print(json.dumps({"main_path": mp["runs"],
                       "device_idle_share": prof["device_idle_share"]}),
           flush=True)
