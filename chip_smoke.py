@@ -10,10 +10,10 @@ line):
 
 1. Print the python, torch and CUDA versions, the card, and the card's name
    and power limit as nvidia-smi reports them.
-2. Build the four kernels (``src/repro_torch/csrc/``: the scorer, the
-   assembly tile, flash attention and the expert GEMM) from the checkout's
-   sources into ``build/``, one nvcc each, in parallel, and print the build
-   seconds and ptxas's report.
+2. Build the six kernels (``src/repro_torch/csrc/``: the scorer, the
+   assembly tile, flash attention, the expert GEMM, WKV6 and the RG-LRU
+   scan) from the checkout's sources into ``build/``, one nvcc each, in
+   parallel, and print the build seconds and ptxas's report.
 3. Hold the kernel against its plain torch version on the card: float64 and
    float32, E in {1, 8, 64}, A, B in {1, 13, 16, 128}, random masks, exact
    equality (``torch.equal``), the masked tail (0 / +inf) and NaN
@@ -57,7 +57,9 @@ line):
    float32 (``atol=rtol=2e-5``) and bf16 (``2e-2``) on the cases of
    ``tests/test_kernels.py``, the serve shape (B 4, S 512, 32 / 4 heads,
    hd 128), a length that is no tile multiple, rows that see no key (exactly
-   0) and head dims 8 and 256, and its block shapes against each other
+   0), head dims 8 and 256, and recurrentgemma-9b's local attention as
+   served (B 4, S 2560, 16 query heads on one K/V head, hd 256, window
+   2048), and its block shapes against each other
    (``atol=1e-5``); hold the expert-GEMM kernel (``csrc/moe_gemm.cu``)
    against its plain version (``rtol=1e-5, atol=1e-4`` in float32,
    ``rtol=3e-2, atol=3e-1`` in bf16) at the serve path's shapes and ragged
@@ -68,7 +70,8 @@ line):
    before the run, must be exactly 8 flash (one per layer, prefill) and
    3 x 8 x 33 = 792 expert GEMM (a prefill and 32 decode steps); prints the
    prefill and decode-step seconds, tokens/s, peak memory and, from
-   ``torch.profiler`` over one more run, the device's idle share.  Last,
+   ``torch.profiler`` over one more run, the device's idle share (with
+   bounds that count the kernels the profiler left unrecorded).  Last,
    the same weights on the CPU against the card (TF32 off): a 64-token
    prompt and 4 teacher-forced decode steps, each step's logits held to
    the serving contract (normalised log-probs within ``atol=0.07,
@@ -83,16 +86,49 @@ line):
    token's logit change, a pinned log-prob beyond the contract's
    tolerance, or a pinned argmax that differs where the CPU's top two
    logits lie further apart than twice the step's largest logit error.
-7. Time the kernels, their plain versions and their bounds at the shapes
+7. Serving the recurrent LMs on the card.  Hold the WKV6 kernel
+   (``csrc/wkv6.cu``) against its plain versions in float32 and bf16 (r,
+   k, v; log_w and u float32): y against the sequential oracle and the
+   chunked version at chunks 16, 32 and 64, the final state against the
+   chunked version's (``atol=2e-4``, ``rtol=1e-5``; bf16 y ``rtol=2^-7``,
+   one ulp), on ``tests/test_kernels.py``'s chunk-boundary and fast-decay
+   cases (log_w -15 and the clip extreme -exp(8), where only the oracle
+   holds y: the chunked form is inexact there), the serve shape (B 4, S
+   512, H 64, hd 64) with the test's decay and the model's initial one, a
+   ragged S and head dims 8 and 128; hold the RG-LRU kernel
+   (``csrc/rglru.cu``) against its plain version (``atol=1e-4``,
+   ``rtol=1e-5``; bf16 ``rtol=2^-7``) on ``tests/test_kernels.py``'s
+   cases, the serve shape (4, 2560, 4096) and ragged S and W.  Then serve
+   ``rwkv6-7b`` and ``recurrentgemma-9b`` at their published widths and
+   full depths (7.58 G and 9.40 G parameters, bf16 weights from the port's
+   init), each with ``serve_batch`` of 4 requests (512- and 2560-token
+   prompts; the latter past the 2048-token local window) and 32 new
+   tokens.  Launches, counted from zero just before the run, must be
+   exactly 32 wkv6 (bf16), and 26 rglru (float32) and 12 flash (bf16),
+   and nothing else; prints the prefill and decode-step seconds,
+   tokens/s, peak memory and the device's idle share as for qwen.  Each
+   model is freed before the next.  Last, each model's first layers (2 of
+   rwkv6's, one period of 3 of recurrentgemma's) on the CPU against the
+   card on the same weights, teacher-forced for 4 steps after a 100-token
+   (rwkv6) or 2112-token (recurrentgemma, past the window) prompt; in bf16
+   recurrentgemma's prompt is 64 tokens (bf16 products are slow on the
+   CPU).  The serving contract must hold in float32 and in bf16, where an
+   argmax may differ only at a near tie (the CPU's top two logits closer
+   than twice the step's largest logit error).
+8. Time the kernels, their plain versions and their bounds at the shapes
    the main paths launched most (CUDA events, median of repeats; for the
-   new kernels also one PyTorch call of the same function, SDPA and
-   ``torch.bmm``, timed only), and profile one float64 solo main-path run
-   with ``torch.profiler``: device time by kernel and copy, and the
-   device's idle share of the run's wall time.
-8. Import every module of ``repro_torch``, check that no module of JAX or
-   ``repro`` was loaded, then print one JSON line each of serve, per-run
-   and assembly numbers, the card line, one JSON line of per-kernel numbers
-   and, as the last line,
+   serve kernels also one PyTorch call of the same function, SDPA and
+   ``torch.bmm``, timed only; the assembly tile, wkv6 and rglru also as
+   ``device_ms``, launches queued behind a sleep on the card), and
+   profile one float64 solo main-path run with ``torch.profiler``: device
+   time by kernel and copy, and the device's idle share of the run's wall
+   time.
+9. Import every module of ``repro_torch``, check that no module of JAX or
+   ``repro`` was loaded, then print one JSON line each of serve, recurrent
+   serve, per-run and assembly numbers, the card line, one JSON line of
+   per-kernel numbers (all seven kernels: the scorer's two instantiations,
+   the assembly tile, flash, the expert GEMM, wkv6 and rglru) and, as the
+   last line,
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or when the
@@ -100,6 +136,7 @@ Exits non-zero, printing no result, without a CUDA card or when the
 """
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import pkgutil
@@ -115,6 +152,11 @@ SRC = ROOT / "src"
 # H100 SXM, NVIDIA data sheet: HBM3 rate, and the non-tensor-core FP64 and
 # FP32 rates (the scorer does adds, subtracts, maxima and compares)
 HBM_BYTES_PER_S = 3.35e12
+# card clock cycles to sleep while the host queues the launches that
+# device_ms times (about 50 ms at the H100's 1.98 GHz boost clock)
+QUEUE_SLEEP_CYCLES = 10 ** 8
+# seconds of idle host time at each end of a profiled run (profiled_run)
+PROFILE_MARGIN_S = 0.1
 PEAK_OPS = {"float64": 34e12, "float32": 67e12}
 # operations per (ia, ib) lane of the scorer: 106 adds, subtractions and
 # maxima plus the two mask compares (csrc/ccm_scorer.cu); selects not counted
@@ -156,7 +198,9 @@ GEMM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap): the cases of
 # tests/test_kernels.py, then the serve shape, a length that is no multiple
 # of the 64-row tile, rows that see no key (a window ending before the
-# keys do), head dims 8 and 256
+# keys do), head dims 8 and 256, and recurrentgemma-9b's local attention as
+# served (16 query heads on one K/V head, hd 256, 2560 tokens past the
+# 2048-token window, so whole key tiles before the window are skipped)
 FLASH_CASES = (
     (2, 128, 128, 4, 2, 64, True, 0, 0.0),
     (1, 256, 256, 4, 4, 64, True, 64, 0.0),
@@ -168,11 +212,51 @@ FLASH_CASES = (
     (1, 128, 64, 2, 1, 64, False, 16, 0.0),
     (1, 37, 37, 2, 2, 8, True, 0, 0.0),
     (1, 70, 70, 2, 1, 256, True, 0, 0.0),
+    (4, 2560, 2560, 16, 1, 256, True, 2048, 0.0),
 )
 # (E, C, d, f): the serve path's prefill gate/up and down, its decode
 # gate/up, then ragged C, d and f
 GEMM_SHAPES = ((128, 168, 2048, 768), (128, 168, 768, 2048),
                (128, 4, 2048, 768), (3, 37, 100, 70), (5, 16, 64, 130))
+
+# the recurrent serving paths, at their published widths and full depths:
+# rwkv6-7b (32 rwkv6 layers: 32 wkv6 launches in prefill) and
+# recurrentgemma-9b (12 periods of rglru, rglru, local_attn and 2 rglru:
+# 26 rglru and 12 flash launches in prefill, with 2560-token prompts, past
+# the 2048-token window); each entry: arch, prompt length, prefill
+# launches {kernel: (dtype, count)}, the card-vs-cpu check's depth and its
+# prompt length per dtype (recurrentgemma's bf16 check on the CPU at 64
+# tokens: bf16 products are slow there; float32 at 2112, past the window)
+RWKV_ARCH, RG_ARCH = "rwkv6-7b", "recurrentgemma-9b"
+REC_SERVES = (
+    (RWKV_ARCH, 512, {"wkv6": ("bfloat16", 32)}, 2,
+     {"bfloat16": 100, "float32": 100}),
+    (RG_ARCH, 2560, {"rglru": ("float32", 26), "flash": ("bfloat16", 12)}, 3,
+     {"bfloat16": 64, "float32": 2112}),
+)
+WKV_SOURCE = "src/repro_torch/csrc/wkv6.cu"
+WKV_REPLACES = "src/repro/kernels/rwkv6/kernel.py:22"
+RGLRU_SOURCE = "src/repro_torch/csrc/rglru.cu"
+RGLRU_REPLACES = "src/repro/kernels/rglru/kernel.py:25"
+# tests/test_kernels.py's tolerances (wkv6 atol 2e-4, rglru 1e-4), with a
+# relative term of 1e-5 for the serve shapes' larger values in float32 and
+# one bf16 ulp (2^-7) for bf16 outputs
+WKV_ATOL, RGLRU_ATOL = 2e-4, 1e-4
+WKV_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+# (B, S, H, hd, log_w): tests/test_kernels.py's chunk-boundary cases and
+# fast decay (-15, and the model's clip at -exp(8)), the serve shape with
+# the test's decay and with the model's initial decay -exp(-6), a ragged
+# S, head dims 8 and 128
+WKV_CASES = (
+    (2, 64, 2, 32, None), (2, 128, 2, 32, None), (1, 64, 1, 16, -15.0),
+    (1, 64, 1, 16, -2980.9579870417283), (4, 512, 64, 64, None),
+    (4, 512, 64, 64, -0.0024787521766663585), (1, 100, 4, 64, None),
+    (1, 37, 2, 8, None), (1, 70, 2, 128, None),
+)
+# (B, S, W): tests/test_kernels.py's rglru cases, the serve shape, ragged
+# S and W
+RGLRU_CASES = ((2, 128, 64), (2, 256, 64), (2, 64, 128), (4, 2560, 4096),
+               (3, 77, 50), (1, 1, 300), (2, 100, 4100))
 
 
 def fail(msg: str) -> None:
@@ -921,25 +1005,20 @@ class StepClock:
                 if k == kind]
 
 
-def serve_path(torch, flash_kernel, gemm_kernel) -> dict:
-    """``qwen3-moe-30b-a3b`` at its published width, depth cut to
-    ``SERVE_LAYERS`` of 48, served through ``serve_batch`` on the card; then
-    the same weights on the CPU against the card, teacher-forced."""
-    import dataclasses
-
+def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
+                  mods):
+    """``cfg`` served through ``serve_batch`` on the card: bf16 weights
+    from the port's init (a seeded generator on the card), ``SERVE_BATCH``
+    prompts of ``prompt_len`` tokens (numpy seed 0), ``SERVE_NEW`` new
+    tokens, after a short warm-up.  Every kernel of ``mods`` has its
+    launches counted from zero and its launch shapes logged; they must
+    equal ``want`` ({kernel: (dtype, count)}, every other count 0).
+    Returns (numbers, model, params, the numpy generator)."""
     import numpy as np
 
-    from repro_torch import configs
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models.model import build_model
-    from torch.profiler import ProfilerActivity, profile
 
-    # the router is a float32 product: TF32 would move its near-ties, so it
-    # stays off (as it is by default) for every float32 product here
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    full = configs.get_config(SERVE_ARCH)
-    cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     model = build_model(cfg)                        # device "cuda"
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -947,94 +1026,86 @@ def serve_path(torch, flash_kernel, gemm_kernel) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
     rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, prompt_len))
     serve_batch(model, params, prompts[:1, :16], 2)        # warm-up
-    shapes = {"flash": Counter(), "gemm": Counter()}
-    flash_fwd, gemm_fwd = (flash_kernel.flash_attention_fwd,
-                           gemm_kernel.expert_gemm_fwd)
-
-    def flash_rec(q, k, v, **kw):
-        shapes["flash"][(tuple(q.shape), tuple(k.shape))] += 1
-        return flash_fwd(q, k, v, **kw)
-
-    def gemm_rec(x, w):
-        shapes["gemm"][(tuple(x.shape), tuple(w.shape))] += 1
-        return gemm_fwd(x, w)
-
-    flash_kernel.flash_attention_fwd = flash_rec
-    gemm_kernel.expert_gemm_fwd = gemm_rec
     clock = StepClock(torch, model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_kernel.reset_launches()
-    gemm_kernel.reset_launches()
-    t0 = time.perf_counter()
-    tokens = serve_batch(model, params, prompts, SERVE_NEW)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash": dict(flash_kernel.LAUNCHES),
-                "gemm": dict(gemm_kernel.LAUNCHES)}
+    for mod in mods.values():
+        mod.reset_launches()
+    with ShapeLog(mods) as log:
+        t0 = time.perf_counter()
+        tokens = serve_batch(model, params, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: dict(mod.LAUNCHES) for name, mod in mods.items()}
     peak = torch.cuda.max_memory_allocated()
-    flash_kernel.flash_attention_fwd = flash_fwd
-    gemm_kernel.expert_gemm_fwd = gemm_fwd
     clock.restore()
-    want_flash = SERVE_LAYERS
-    want_gemm = 3 * SERVE_LAYERS * (1 + SERVE_NEW)
-    if launches["flash"] != {"bfloat16": want_flash, "float32": 0} \
-            or launches["gemm"] != {"bfloat16": want_gemm, "float32": 0}:
-        fail(f"serve: launches {launches}, expected flash {want_flash} and "
-             f"expert_gemm {want_gemm} in bfloat16")
+    expected = {name: {"bfloat16": 0, "float32": 0} for name in mods}
+    for name, (dt, n) in want.items():
+        expected[name][dt] = n
+    if launches != expected:
+        fail(f"serve {cfg.name}: launches {launches}, expected {expected}")
     if tokens.shape != (SERVE_BATCH, SERVE_NEW) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab_size \
             or not torch.isfinite(clock.logits).all():
-        fail(f"serve: bad tokens {tokens.shape} or non-finite logits")
+        fail(f"serve {cfg.name}: bad tokens {tokens.shape} or non-finite "
+             "logits")
     prefill_s = clock.seconds("prefill")[0]
     decode_s = clock.seconds("decode")
     out = dict(
-        arch=cfg.name, layers=f"{SERVE_LAYERS} of {full.num_layers}",
-        q_heads=cfg.num_heads,
-        params=n_params, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
-        new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
+        arch=cfg.name, layers=f"{cfg.num_layers} of {full_layers}",
+        q_heads=cfg.num_heads, params=n_params, batch=SERVE_BATCH,
+        prompt=prompt_len, new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
         prefill_s=prefill_s, decode_step_s_median=float(np.median(decode_s)),
         decode_step_s_min=min(decode_s), decode_step_s_max=max(decode_s),
         tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
         decode_tokens_per_s=SERVE_BATCH * len(decode_s) / sum(decode_s),
         peak_memory_gb=peak / 1e9, launches=launches,
-        shapes={k: [[list(map(list, s)), n] for s, n in v.most_common()]
-                for k, v in shapes.items()})
-    print(f"serve: {cfg.name}, {SERVE_LAYERS} of {full.num_layers} layers, "
+        shapes={name: [[list(k), n] for k, n in c.most_common()]
+                for name, c in log.shapes.items() if c},
+        log_shapes=log.shapes)
+    print(f"serve: {cfg.name}, {cfg.num_layers} of {full_layers} layers, "
           f"{n_params} parameters (bf16, init on the card {init_s:.2f} s); "
-          f"{SERVE_BATCH} requests x {SERVE_PROMPT}-token prompts, "
+          f"{SERVE_BATCH} requests x {prompt_len}-token prompts, "
           f"{SERVE_NEW} new tokens: prefill {prefill_s!r} s, decode step "
           f"median {out['decode_step_s_median']!r} s, {out['tokens_per_s']!r}"
           f" tokens/s over {wall!r} s, peak memory {peak / 1e9!r} GB; "
-          f"launches flash {want_flash}, expert_gemm {want_gemm}", flush=True)
+          f"launches {want}", flush=True)
+    out["profile"] = profile_serve(torch, model, params, prompts)
+    print(json.dumps({"serve_profile": {cfg.name: out["profile"]}}),
+          flush=True)
+    return out, model, params, rng
 
-    # the device's idle share over one more serve run, from the profiler
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve_batch(model, params, prompts, SERVE_NEW)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    rows = {}
-    for ev in prof.key_averages():
-        dev_us = device_us(ev)
-        if dev_us:
-            rows[ev.key] = dict(count=ev.count, device_ms=dev_us / 1e3)
-    busy_ms = sum(r["device_ms"] for r in rows.values())
-    top = sorted(rows.items(), key=lambda kv: -kv[1]["device_ms"])[:8]
-    out["profile"] = dict(wall_s=prof_wall, device_busy_ms=busy_ms,
-                          device_idle_share=1.0 - busy_ms / 1e3 / prof_wall
-                          if busy_ms else None,
-                          top=[[k, v] for k, v in top])
-    print(json.dumps({"serve_profile": out["profile"]}), flush=True)
+
+def serve_path(torch, mods) -> dict:
+    """``qwen3-moe-30b-a3b`` at its published width, depth cut to
+    ``SERVE_LAYERS`` of 48, served through ``serve_batch`` on the card
+    (exactly one flash launch per layer and three expert-GEMM launches per
+    layer and forward); then the same weights on the CPU against the card,
+    teacher-forced."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    # the router is a float32 product: TF32 would move its near-ties, so it
+    # stays off (as it is by default) for every float32 product here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = configs.get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS)
+    want = {"flash": ("bfloat16", SERVE_LAYERS),
+            "gemm": ("bfloat16", 3 * SERVE_LAYERS * (1 + SERVE_NEW))}
+    out, model, params, rng = serve_on_card(torch, cfg, full.num_layers,
+                                            SERVE_PROMPT, want, mods)
 
     # the same weights on the CPU against the card, teacher-forced: in bf16
     # (the served weights), then in float32 (the same values, widened)
     check = rng.integers(0, cfg.vocab_size, (1, CHECK_PROMPT + CHECK_STEPS))
     bf = card_vs_cpu(torch, cfg, model, params, check)
-    if bf["router_flips_unexplained"] or bf["pinned_excess"] > 0 \
-            or bf["pinned_argmax_unexplained"]:
+    if bf["router_flips_unexplained"] or bf["pinned"]["max_excess"] > 0 \
+            or bf["pinned"]["argmax_unexplained"]:
         fail(f"card vs cpu, bf16: a difference that rounding does not "
              f"explain (a kernel fault): {bf}")
     wide = build_model(cfg, dtype=torch.float32)
@@ -1048,16 +1119,47 @@ def serve_path(torch, flash_kernel, gemm_kernel) -> dict:
     return out
 
 
+def profile_serve(torch, model, params, prompts) -> dict:
+    """The device's idle share over one more ``serve_batch`` run, and the
+    eight kernels with the most device time (``profiled_run``)."""
+    from repro_torch.launch.serve import serve_batch
+    out = profiled_run(torch, lambda: serve_batch(model, params, prompts,
+                                                  SERVE_NEW))
+    rows = out.pop("by_name")
+    out["top"] = [list(kv) for kv in sorted(
+        rows.items(), key=lambda kv: -kv[1]["device_ms"])[:8]]
+    return out
+
+
+def compare_steps(torch, card, cpu) -> dict:
+    """The card's teacher-forced logits against the CPU's: the serving
+    contract per step, and each step whose argmax differs checked for a
+    near tie (the CPU's top two logits closer than twice the step's largest
+    logit error)."""
+    ok, errs, excess = contract_errors(torch, card, cpu)
+    gaps, argmax_eq, logit_err = [], [], []
+    for g, w in zip(card, cpu, strict=True):
+        top2 = torch.topk(w[0], 2).values
+        gaps.append(float(top2[0] - top2[1]))
+        logit_err.append(float((g - w).abs().max()))
+        argmax_eq.append(bool((g.argmax(-1) == w.argmax(-1)).all()))
+    return dict(
+        contract_met=ok, max_abs_err=errs, excess_over_tolerance=excess,
+        max_excess=max(excess), argmax_equal=argmax_eq,
+        max_abs_logit_err=logit_err, cpu_top2_gap=gaps,
+        argmax_unexplained=sum(not a and gap > 2 * err for a, gap, err
+                               in zip(argmax_eq, gaps, logit_err)))
+
+
 def card_vs_cpu(torch, cfg, model, params, check) -> dict:
     """``model`` with ``params`` on the card against the same weights on the
-    CPU, on ``check`` teacher-forced: the serving contract per step, the
-    top-k router selections that differ (and how many of them rounding
-    explains), and the same with the card's routing pinned to the CPU's,
-    where an argmax that differs must be a near tie (the CPU's top two
-    logits closer than twice the step's largest logit error)."""
+    CPU, on ``check`` teacher-forced (``compare_steps``).  Where the model
+    routes tokens to experts, also the top-k router selections that differ
+    (and how many of them rounding explains), and the steps compared again
+    with the card's routing pinned to the CPU's."""
     from repro_torch.models import moe
     from repro_torch.models.model import build_model
-    label = dtype_name(model.dtype)
+    label = f"{cfg.name} {dtype_name(model.dtype)}"
     with RouteLog(moe) as card_routes:
         card = forced_logits(torch, model, params, check)
     t0 = time.perf_counter()
@@ -1067,42 +1169,34 @@ def card_vs_cpu(torch, cfg, model, params, check) -> dict:
         cpu = forced_logits(torch, cpu_model, cpu_params, check)
     cpu_s = time.perf_counter() - t0
     del cpu_params
-    ok, errs, excess = contract_errors(torch, card, cpu)
-    flips, unexplained = route_flips(card_routes.calls, cpu_routes.calls,
-                                     cfg.top_k)
-    with RouteLog(moe) as pinned:
-        pinned.replay = [(c[1], c[2]) for c in cpu_routes.calls]
-        card_pinned = forced_logits(torch, model, params, check)
-    ok_p, errs_p, excess_p = contract_errors(torch, card_pinned, cpu)
-    gaps, argmax_p, near_tie = [], [], []
-    for g, w in zip(card_pinned, cpu, strict=True):
-        top2 = torch.topk(w[0], 2).values
-        gaps.append(float(top2[0] - top2[1]))
-        argmax_p.append(int(g.argmax()) == int(w.argmax()))
-        near_tie.append(gaps[-1] <= 2 * float((g - w).abs().max()))
-    out = dict(
-        contract_met=ok, max_abs_err=errs, excess_over_tolerance=excess,
-        argmax_equal=[int(g.argmax()) == int(w.argmax())
-                      for g, w in zip(card, cpu)],
-        max_abs_logit_err=[float((g - w).abs().max())
-                           for g, w in zip(card, cpu)],
-        router_tokens=sum(int(c[2].shape[0]) for c in cpu_routes.calls),
-        router_flips=flips, router_flips_unexplained=unexplained,
-        pinned_contract_met=ok_p, pinned_max_abs_err=errs_p,
-        pinned_excess=max(excess_p), pinned_argmax_equal=argmax_p,
-        cpu_top2_gap=gaps,
-        pinned_argmax_unexplained=sum(not a and not t for a, t
-                                      in zip(argmax_p, near_tie)),
-        cpu_s=cpu_s)
-    print(f"card vs cpu, {label} ({CHECK_PROMPT}-token prompt, "
-          f"{CHECK_STEPS} teacher-forced steps): serving contract "
-          f"{'met' if ok else 'MISSED'}; max abs error of normalised "
-          f"log-probs per step {errs}; argmax equal {out['argmax_equal']}; "
-          f"top-k selections differing in {flips} of {out['router_tokens']} "
-          f"token routings ({unexplained} not explained by rounding); with "
-          f"the card's routing pinned to the cpu's: contract "
-          f"{'met' if ok_p else 'MISSED'}, max abs error {errs_p}, argmax "
-          f"equal {argmax_p} (cpu top-two gaps {gaps}); cpu {cpu_s:.1f} s",
+    out = dict(layers=cfg.num_layers, prompt=check.shape[1] - CHECK_STEPS,
+               steps=CHECK_STEPS, **compare_steps(torch, card, cpu))
+    routing = ""
+    if cpu_routes.calls:
+        flips, unexplained = route_flips(card_routes.calls, cpu_routes.calls,
+                                         cfg.top_k)
+        with RouteLog(moe) as pinned:
+            pinned.replay = [(c[1], c[2]) for c in cpu_routes.calls]
+            card_pinned = forced_logits(torch, model, params, check)
+        p = out["pinned"] = compare_steps(torch, card_pinned, cpu)
+        out.update(
+            router_tokens=sum(int(c[2].shape[0]) for c in cpu_routes.calls),
+            router_flips=flips, router_flips_unexplained=unexplained)
+        routing = (
+            f"; top-k selections differing in {flips} of "
+            f"{out['router_tokens']} token routings ({unexplained} not "
+            f"explained by rounding); with the card's routing pinned to the "
+            f"cpu's: contract {'met' if p['contract_met'] else 'MISSED'}, "
+            f"max abs error {p['max_abs_err']}, argmax equal "
+            f"{p['argmax_equal']} (cpu top-two gaps {p['cpu_top2_gap']})")
+    out["cpu_s"] = cpu_s
+    print(f"card vs cpu, {label} ({cfg.num_layers} layers, {out['prompt']}"
+          f"-token prompt, {CHECK_STEPS} teacher-forced steps): serving "
+          f"contract {'met' if out['contract_met'] else 'MISSED'}; max abs "
+          f"error of normalised log-probs per step {out['max_abs_err']}; "
+          f"argmax equal {out['argmax_equal']} (cpu top-two gaps "
+          f"{out['cpu_top2_gap']}, max logit errors "
+          f"{out['max_abs_logit_err']}){routing}; cpu {cpu_s:.1f} s",
           flush=True)
     return out
 
@@ -1123,7 +1217,194 @@ def tree_leaves(tree):
     return [tree]
 
 
-# -------------------------------------------------------------- 7. timing
+# ------------------------------------------------ 7. serving the recurrent LMs
+def wkv6_inputs(torch, rng, b, s, h, hd, log_w, dtype):
+    """tests/test_kernels.py's distributions: r, k at 0.5, v standard,
+    log_w = -exp(N(0, 1)) unless given, u at 0.3; r, k, v in ``dtype``,
+    log_w and u float32, on the card."""
+    import numpy as np
+
+    def card(a, dt=torch.float32):
+        return torch.tensor(a, dtype=torch.float32, device="cuda").to(dt)
+    lw = (-np.exp(rng.standard_normal((b, s, h, hd))) if log_w is None
+          else np.full((b, s, h, hd), log_w))
+    return (card(rng.standard_normal((b, s, h, hd)) * 0.5, dtype),
+            card(rng.standard_normal((b, s, h, hd)) * 0.5, dtype),
+            card(rng.standard_normal((b, s, h, hd)), dtype), card(lw),
+            card(rng.standard_normal((h, hd)) * 0.3))
+
+
+def check_wkv6_kernel(torch, wkv_ops, wkv_ref, rng) -> dict:
+    """The WKV6 kernel against its plain versions on the card: y against
+    the sequential oracle (the kernel's own form) and against the chunked
+    version at chunks 16, 32 and 64 (16 only past 128 tokens), the final
+    state against the chunked version's.  Returns the largest absolute
+    errors per dtype."""
+    worst = {}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        rtol = WKV_RTOL[name]
+        worst[name] = {"y": 0.0, "state": 0.0}
+        for b, s, h, hd, log_w in WKV_CASES:
+            r, k, v, lw, u = wkv6_inputs(torch, rng, b, s, h, hd, log_w,
+                                         dtype)
+            y, state = wkv_ops.wkv6(r, k, v, lw, u)
+            fold = [t.transpose(1, 2).reshape(b * h, s, hd)
+                    for t in (r, k, v, lw)]
+            oracle = wkv_ref.reference_wkv6(*fold, u.repeat(b, 1))
+            oracle = oracle.reshape(b, h, s, hd).transpose(1, 2)
+            torch.cuda.synchronize()
+            label = f"wkv6 {name} (B, S, H, hd) = ({b}, {s}, {h}, {hd}), " \
+                f"log_w {log_w or '-exp(N(0, 1))'}"
+            if y.shape != r.shape or y.dtype != dtype \
+                    or state.shape != (b, h, hd, hd) \
+                    or not (torch.isfinite(y).all()
+                            and torch.isfinite(state).all()):
+                fail(f"{label}: shape/dtype {tuple(y.shape)} {y.dtype}, "
+                     f"{tuple(state.shape)}, or non-finite output")
+            # at the clip extreme the chunked form's cumulated log-decay
+            # reaches -4.8e4 in a chunk, where a float32 ulp is 2^-8, so its
+            # y is inexact there (tests/test_torch_wkv6.py); the oracle, the
+            # kernel's own form, holds y, and the state (exact in both) is
+            # held to the chunked form's
+            chunked_y = log_w is None or log_w > -100
+            try:
+                torch.testing.assert_close(y.float(), oracle.float(),
+                                           atol=WKV_ATOL, rtol=rtol)
+                for chunk in (16, 32, 64) if s <= 128 else (16,):
+                    want_y, want_state = wkv_ref.wkv6_chunked(
+                        r, k, v, lw, u, chunk=chunk)
+                    if chunked_y:
+                        torch.testing.assert_close(
+                            y.float(), want_y.to(dtype).float(),
+                            atol=WKV_ATOL, rtol=rtol)
+                    torch.testing.assert_close(state, want_state,
+                                               atol=WKV_ATOL, rtol=1e-5)
+            except AssertionError as err:
+                fail(f"{label}: kernel != plain version: {err}")
+            w = worst[name]
+            w["y"] = max(w["y"], (y.float() - oracle.float()).abs().max()
+                         .item())
+            w["state"] = max(w["state"],
+                             (state - want_state).abs().max().item())
+            n_cases += 1
+    print(f"wkv6 kernel == plain versions on {n_cases} cases (y and final "
+          f"state; float32 atol={WKV_ATOL}, rtol=1e-5; bfloat16 y rtol=2^-7, "
+          f"one ulp); max_abs_err {worst}", flush=True)
+    return worst
+
+
+def check_rglru_kernel(torch, rglru_ops, rglru_ref, rng) -> dict:
+    """The RG-LRU kernel against its plain version on the card; returns the
+    largest absolute error per dtype."""
+    import numpy as np
+    worst = {}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        worst[name] = 0.0
+        for b, s, w in RGLRU_CASES:
+            la = torch.tensor(-np.exp(rng.standard_normal((b, s, w))) * 0.1
+                              - 1e-3, dtype=torch.float32, device="cuda")
+            bb = torch.tensor(rng.standard_normal((b, s, w)),
+                              dtype=torch.float32, device="cuda").to(dtype)
+            got = rglru_ops.rglru_scan_op(la, bb)
+            want = rglru_ref.reference_rglru(la, bb)
+            torch.cuda.synchronize()
+            label = f"rglru {name} (B, S, W) = ({b}, {s}, {w})"
+            if got.shape != bb.shape or got.dtype != dtype:
+                fail(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+            try:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=RGLRU_ATOL,
+                                           rtol=WKV_RTOL[name])
+            except AssertionError as err:
+                fail(f"{label}: kernel != plain version: {err}")
+            worst[name] = max(worst[name],
+                              (got.float() - want.float()).abs().max().item())
+            n_cases += 1
+    print(f"rglru kernel == plain version on {n_cases} cases (float32 "
+          f"atol={RGLRU_ATOL}, rtol=1e-5; bfloat16 rtol=2^-7, one ulp); "
+          f"max_abs_err {worst}", flush=True)
+    return worst
+
+
+class ShapeLog:
+    """Wraps the kernel launchers ``mods[name].<FWD[name]>``: counts each
+    launch's argument shapes (and keywords) while in the ``with``."""
+
+    FWD = {"wkv6": "wkv6_fwd", "rglru": "rglru_fwd",
+           "flash": "flash_attention_fwd", "gemm": "expert_gemm_fwd"}
+
+    def __init__(self, mods):
+        self.mods = mods
+        self.shapes = {name: Counter() for name in mods}
+        self.saved = {}
+
+    def __enter__(self):
+        for name, mod in self.mods.items():
+            fn = self.saved[name] = getattr(mod, self.FWD[name])
+            setattr(mod, self.FWD[name], self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def rec(*args, **kw):
+            key = (tuple(tuple(a.shape) for a in args),
+                   tuple(sorted(kw.items())))
+            self.shapes[name][key] += 1
+            return fn(*args, **kw)
+        return rec
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            setattr(mod, self.FWD[name], self.saved[name])
+
+
+def serve_recurrent(torch, arch, prompt_len, want, cut, check_lens,
+                    mods) -> dict:
+    """``arch`` at its published width and full depth, served through
+    ``serve_batch`` on the card (``serve_on_card``, launches held to
+    ``want``); then the first ``cut`` layers' weights on the CPU against
+    the card, teacher-forced, on prompts of ``check_lens[dtype]``
+    tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    # the rglru gates and the card-vs-cpu check are float32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(arch)
+    out, model, params, rng = serve_on_card(torch, cfg, cfg.num_layers,
+                                            prompt_len, want, mods)
+
+    # the first `cut` layers' weights on the CPU against the card: in bf16
+    # (the served weights), then in float32 (the same values, widened)
+    cut_cfg = dataclasses.replace(cfg, num_layers=cut)
+    cut_params = dict(params, blocks=params["blocks"][:cut])
+    out["card_vs_cpu"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = dtype_name(dtype)
+        check = rng.integers(0, cfg.vocab_size,
+                             (1, check_lens[name] + CHECK_STEPS))
+        res = card_vs_cpu(
+            torch, cut_cfg, build_model(cut_cfg, dtype=dtype),
+            tree_map(lambda t: t.to(dtype) if t.dtype == torch.bfloat16
+                     else t, cut_params), check)
+        torch.cuda.empty_cache()
+        if name == "float32" and not res["contract_met"]:
+            fail(f"card vs cpu, {arch} float32: serving contract missed: "
+                 f"{res}")
+        if res["max_excess"] > 0 or res["argmax_unexplained"]:
+            fail(f"card vs cpu, {arch} {name}: a difference beyond the "
+                 f"serving contract that rounding does not explain: {res}")
+        out["card_vs_cpu"][name] = res
+    return out
+
+
+# -------------------------------------------------------------- 8. timing
 def time_ms(torch, fn, reps: int, rounds: int = 7) -> float:
     """Median over ``rounds`` of the mean time of ``reps`` calls, from CUDA
     events around the calls."""
@@ -1196,21 +1477,74 @@ def device_us(ev) -> float:
     return getattr(ev, "cuda_time_total", 0.0) if dev_us is None else dev_us
 
 
-def device_ms(torch, fn, name: str, reps: int = 50) -> float:
-    """Mean device time of kernel ``name`` per call of ``fn``, from
-    ``torch.profiler`` (the CUDA-event time of back-to-back calls is set by
-    the host when a launch takes less than its Python wrapper)."""
+def profiled_run(torch, run) -> dict:
+    """``run()`` under ``torch.profiler``: its wall time, the device time
+    and count of each kernel, copy and set by name, their busy total, and
+    the device's idle share of the wall time.  The profiler can leave a
+    few kernels unrecorded, so their number is counted: the kernel launch
+    calls it recorded on the host (``cudaLaunchKernel*``,
+    ``cuLaunchKernel*``) less the kernels it recorded on the card.  The
+    idle share is given only where none is missing; the bounds always are,
+    the lower one counting each missing kernel as long as the longest one
+    recorded.  The run starts and ends ``PROFILE_MARGIN_S`` inside the
+    profiled window, where fewer kernels went unrecorded on an H100 (the
+    rwkv6 and recurrentgemma serve runs: 6 and 280 of about 10^5 without
+    the margin; 3 and 0, then 4 and 6, with it)."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
+    cuda = torch.autograd.DeviceType.CUDA
+    rows, calls = {}, 0
+    for ev in prof.key_averages():
+        if ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            calls += ev.count
+        elif ev.device_type == cuda:
+            rows[ev.key] = dict(count=ev.count, device_ms=device_us(ev) / 1e3)
+    missing = calls - sum(r["count"] for k, r in rows.items()
+                          if not k.startswith(("Memcpy", "Memset")))
+    longest_ms = max((device_us(e) for e in prof.events()
+                      if e.device_type == cuda), default=0.0) / 1e3
+    busy_ms = sum(r["device_ms"] for r in rows.values())
+    idle = 1.0 - busy_ms / 1e3 / wall
+    bounds = [1.0 - (busy_ms + max(missing, 0) * longest_ms) / 1e3 / wall,
+              idle]
+    if missing:
+        print(f"profiler: {missing} of {calls} launched kernels unrecorded; "
+              f"device idle share within {bounds}", flush=True)
+    return dict(wall_s=wall, launch_calls=calls, kernels_unrecorded=missing,
+                device_busy_ms=busy_ms,
+                device_idle_share=idle if missing == 0 else None,
+                device_idle_share_bounds=bounds, by_name=rows)
+
+
+def device_ms(torch, fn, reps: int = 50) -> float:
+    """Mean device time per call of ``fn``, from CUDA events around
+    ``reps`` calls queued behind a sleep on the card, so that the host's
+    time between launches is hidden (the event time of back-to-back calls
+    is set by the host when a launch takes less than its Python wrapper).
+    Fails if the host took longer to queue the calls than the card slept."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if name in ev.key:
-            return device_us(ev) / 1e3 / reps
-    return None
+    slept, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    slept.record()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= slept.elapsed_time(start):
+        fail(f"device_ms: queueing {reps} calls took {host_ms} ms, longer "
+             f"than the card slept ({slept.elapsed_time(start)} ms)")
+    return start.elapsed_time(end) / reps
 
 
 def time_assembly_kernel(torch, asm_ops, asm_ref, asm_path) -> dict:
@@ -1233,7 +1567,7 @@ def time_assembly_kernel(torch, asm_ops, asm_ref, asm_path) -> dict:
                                   block_r=TILE_BLOCK, block_c=TILE_BLOCK)
 
         k_ms = time_ms(torch, launch_one, 200)
-        k_dev_ms = device_ms(torch, launch_one, "assembly_tile_kernel")
+        k_dev_ms = device_ms(torch, launch_one)
         p_ms = time_ms(torch, lambda: asm_ref.reference_tile(
             pr, pc, couple, q), 5 if q > 16 else 20)
         nbytes = nr * nc * (4 + 1) + (nr + nc) * 12
@@ -1257,73 +1591,80 @@ def time_assembly_kernel(torch, asm_ops, asm_ref, asm_path) -> dict:
 def profile_main_path(torch, kernel) -> dict:
     """Device time of one float64 solo main-path run, by kernel and copy,
     and the device's idle share of the run's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import (CCMParams, ccm_lb, initial_assignment,
                                   scaling_phase)
     phase = scaling_phase(256)
     a0 = initial_assignment(phase)
     kernel.reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ccm_lb(phase, a0, CCMParams(), device="cuda", **MAIN_KW)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = {}
-    for ev in prof.key_averages():
-        dev_us = device_us(ev)
-        if dev_us:
-            rows[ev.key] = dict(count=ev.count, device_ms=dev_us / 1e3)
-    busy_ms = sum(r["device_ms"] for r in rows.values())
-    out = dict(wall_s=wall, launches=kernel.LAUNCHES["float64"],
-               device_busy_ms=busy_ms,
-               device_idle_share=(1.0 - busy_ms / 1e3 / wall)
-               if busy_ms else None, by_name=rows)
+    out = profiled_run(torch, lambda: ccm_lb(phase, a0, CCMParams(),
+                                             device="cuda", **MAIN_KW))
+    out["launches"] = kernel.LAUNCHES["float64"]
     print(json.dumps({"profile": out}), flush=True)
     return out
 
 
+def time_flash(torch, flash_kernel, flash_ref, q_shape, k_shape, hq: int,
+               window: int, launches: int) -> dict:
+    """Flash at one launched shape (bf16, causal, ``window`` if not 0):
+    kernel, plain version, SDPA (K/V repeated to Hq, a window as a boolean
+    mask; timed here only, never on the path) and the bound: the larger of
+    the bytes (q, k, v read once, the output written once) over the HBM
+    rate and the visible pairs' operations over the bf16 tensor-core
+    peak."""
+    import torch.nn.functional as F
+    bhq, sq, hd = q_shape
+    bhkv, skv, _ = k_shape
+    q = torch.randn(q_shape, dtype=torch.bfloat16, device="cuda")
+    k = torch.randn(k_shape, dtype=torch.bfloat16, device="cuda")
+    v = torch.randn(k_shape, dtype=torch.bfloat16, device="cuda")
+    b, group = bhq // hq, bhq // bhkv
+    q4 = q.reshape(b, hq, sq, hd)
+    k4, v4 = (t.reshape(b, hq // group, skv, hd)
+              .repeat_interleave(group, dim=1) for t in (k, v))
+    mask = None
+    if window:
+        q_pos = torch.arange(sq, device="cuda")[:, None]
+        k_pos = torch.arange(skv, device="cuda")[None, :]
+        mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    big = bhq * sq * skv > 2 ** 28
+    k_ms = time_ms(torch, lambda: flash_kernel.flash_attention_fwd(
+        q, k, v, causal=True, window=window), 5 if big else 20)
+    p_ms = time_ms(torch, lambda: flash_ref.reference_attention(
+        q, k, v, causal=True, window=window), 2 if big else 10)
+    l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, is_causal=mask is None), 20)
+    pairs = bhq * sum(min(i + 1, skv, window or skv) for i in range(sq))
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    ops = 4 * pairs * hd
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
+    key = f"q={list(q_shape)},kv={list(k_shape)}" \
+        + (f",window={window}" if window else "")
+    out = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bytes=nbytes, operations=ops, launches=launches)
+    print(f"time flash {key}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
+          f"sdpa {l_ms!r} ms, bound {out['bound_ms']!r} ms "
+          f"({out['bound_by']}, {nbytes} B, {ops} operations), {launches} "
+          f"launches", flush=True)
+    return {key: out}
+
+
 def time_serve_kernels(torch, flash_kernel, flash_ref, gemm_kernel, gemm_ref,
                        serve) -> dict:
-    """Each new kernel at the shapes the serve path launched (bf16): kernel,
-    plain version, one PyTorch call computing the same function (timed
-    here only, never on the path) and the bound: the larger of the bytes
-    (each input read once, the output written once) over the HBM rate and
-    the operations over the bf16 tensor-core peak.  CUDA events, median of
-    rounds."""
-    import torch.nn.functional as F
-    hq = serve["q_heads"]
+    """Each of the qwen serve path's kernels at the shapes it launched
+    (bf16): kernel, plain version, one PyTorch call computing the same
+    function (timed here only, never on the path) and the bound: the larger
+    of the bytes (each input read once, the output written once) over the
+    HBM rate and the operations over the bf16 tensor-core peak.  CUDA
+    events, median of rounds."""
     times = {"flash": {}, "gemm": {}}
-    for (q_shape, k_shape), n in serve["shapes"]["flash"]:
-        bhq, sq, hd = q_shape
-        bhkv, skv, _ = k_shape
-        q = torch.randn(q_shape, dtype=torch.bfloat16, device="cuda")
-        k = torch.randn(k_shape, dtype=torch.bfloat16, device="cuda")
-        v = torch.randn(k_shape, dtype=torch.bfloat16, device="cuda")
-        b, group = bhq // hq, bhq // bhkv
-        q4 = q.reshape(b, hq, sq, hd)
-        k4, v4 = (t.reshape(b, hq // group, skv, hd)
-                  .repeat_interleave(group, dim=1) for t in (k, v))
-        k_ms = time_ms(torch, lambda: flash_kernel.flash_attention_fwd(
-            q, k, v, causal=True), 20)
-        p_ms = time_ms(torch, lambda: flash_ref.reference_attention(
-            q, k, v, causal=True), 10)
-        l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), 20)
-        pairs = bhq * sum(min(i + 1, skv) for i in range(sq))
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-        ops = 4 * pairs * hd
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
-        key = f"q={list(q_shape)},kv={list(k_shape)}"
-        times["flash"][key] = dict(
-            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=max(t_b, t_o),
-            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
-            operations=ops, launches=n)
-        print(f"time flash {key}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
-              f"sdpa {l_ms!r} ms, bound {max(t_b, t_o)!r} ms "
-              f"({times['flash'][key]['bound_by']}, {nbytes} B, {ops} "
-              f"operations), {n} launches", flush=True)
-    for (x_shape, w_shape), n in serve["shapes"]["gemm"]:
+    for ((q_shape, k_shape, _), kw), n in \
+            serve["log_shapes"]["flash"].items():
+        times["flash"].update(time_flash(torch, flash_kernel, flash_ref,
+                                         q_shape, k_shape, serve["q_heads"],
+                                         dict(kw)["window"], n))
+    for ((x_shape, w_shape), _), n in serve["log_shapes"]["gemm"].items():
         e, c, d = x_shape
         f = w_shape[2]
         x = torch.randn(x_shape, dtype=torch.bfloat16, device="cuda")
@@ -1345,6 +1686,79 @@ def time_serve_kernels(torch, flash_kernel, flash_ref, gemm_kernel, gemm_ref,
               f"ms, bmm {l_ms!r} ms, bound {max(t_b, t_o)!r} ms "
               f"({times['gemm'][key]['bound_by']}, {nbytes} B, {ops} "
               f"operations), {n} launches", flush=True)
+    return times
+
+
+def time_recurrent_kernels(torch, mods, refs, flash_ref, rec, rng) -> dict:
+    """The recurrent paths' kernels at the shapes they launched: wkv6 (bf16
+    r, k, v; float32 log_w and u) and rglru (float32) against their plain
+    versions (the chunked WKV6 at chunk 16, the sequential RG-LRU) and
+    their bounds (the larger of the bytes, each input read once and each
+    output written once, over the HBM rate, and the float32 operations over
+    the float32 peak: 4 hd^2 a token and head for WKV6, exp, multiply and
+    add an element for the RG-LRU), kernel time also as ``device_ms``;
+    and flash at recurrentgemma's local-attention shape.  No single
+    PyTorch call computes a data-dependent-decay WKV or a linear
+    recurrence, so both have no library time."""
+    times = {"wkv6": {}, "rglru": {}, "flash": {}}
+    for ((r_shape, *_), _), n in rec[RWKV_ARCH]["log_shapes"]["wkv6"].items():
+        b, s, h, hd = r_shape
+        r, k, v, lw, u = wkv6_inputs(torch, rng, b, s, h, hd, None,
+                                     torch.bfloat16)
+
+        def launch_one():
+            mods["wkv6"].wkv6_fwd(r, k, v, lw, u)
+
+        k_ms = time_ms(torch, launch_one, 50)
+        k_dev = device_ms(torch, launch_one)
+        p_ms = time_ms(torch, lambda: refs["wkv6"].wkv6_chunked(
+            r, k, v, lw, u), 3)
+        # r, k, v read and y written in bf16; log_w, u and the state float32
+        nbytes = (2 * 4 * r.numel() + 4 * lw.numel() + 4 * u.numel()
+                  + 4 * b * h * hd * hd)
+        ops = 4 * hd * hd * b * s * h
+        t_b, t_o = (nbytes / HBM_BYTES_PER_S * 1e3,
+                    ops / PEAK_OPS["float32"] * 1e3)
+        key = f"r={list(r_shape)}"
+        times["wkv6"][key] = dict(
+            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
+            bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
+            operations=ops, launches=n)
+        print(f"time wkv6 {key}: kernel {k_ms!r} ms (device {k_dev!r} ms), "
+              f"plain {p_ms!r} ms, bound {max(t_b, t_o)!r} ms "
+              f"({times['wkv6'][key]['bound_by']}, {nbytes} B, {ops} "
+              f"operations), {n} launches", flush=True)
+    for ((la_shape, _), _), n in rec[RG_ARCH]["log_shapes"]["rglru"].items():
+        la = -torch.rand(la_shape, device="cuda") * 0.1 - 1e-3
+        bb = torch.randn(la_shape, device="cuda")
+
+        def launch_one():
+            mods["rglru"].rglru_fwd(la, bb)
+
+        k_ms = time_ms(torch, launch_one, 20)
+        k_dev = device_ms(torch, launch_one, reps=20)
+        p_ms = time_ms(torch, lambda: refs["rglru"].reference_rglru(la, bb),
+                       1, rounds=5)
+        nbytes = 3 * 4 * la.numel()
+        ops = 3 * la.numel()
+        t_b, t_o = (nbytes / HBM_BYTES_PER_S * 1e3,
+                    ops / PEAK_OPS["float32"] * 1e3)
+        key = f"x={list(la_shape)}"
+        times["rglru"][key] = dict(
+            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
+            bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
+            operations=ops, launches=n)
+        print(f"time rglru {key}: kernel {k_ms!r} ms (device {k_dev!r} ms), "
+              f"plain {p_ms!r} ms, bound {max(t_b, t_o)!r} ms "
+              f"({times['rglru'][key]['bound_by']}, {nbytes} B), {n} "
+              f"launches", flush=True)
+    for ((q_shape, k_shape, _), kw), n in \
+            rec[RG_ARCH]["log_shapes"]["flash"].items():
+        times["flash"].update(time_flash(
+            torch, mods["flash"], flash_ref, q_shape, k_shape,
+            rec[RG_ARCH]["q_heads"], dict(kw)["window"], n))
     return times
 
 
@@ -1370,6 +1784,12 @@ def main() -> None:
     from repro_torch.kernels.moe_gemm import kernel as gemm_kernel
     from repro_torch.kernels.moe_gemm import ops as gemm_ops
     from repro_torch.kernels.moe_gemm import ref as gemm_ref
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru import ref as rglru_ref
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
 
     # 1. versions and the card
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1378,9 +1798,10 @@ def main() -> None:
           f"{torch.cuda.get_device_capability(0)}", flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
-    # 2. build the four kernels, one nvcc each, in parallel
+    # 2. build the six kernels, one nvcc each, in parallel
     t0 = time.perf_counter()
-    kernel_mods = (kernel, asm_kernel, flash_kernel, gemm_kernel)
+    kernel_mods = (kernel, asm_kernel, flash_kernel, gemm_kernel, wkv_kernel,
+                   rglru_kernel)
     reports = _build.compile_sources([m.SOURCE for m in kernel_mods],
                                      verbose=True)
     libs = [m.build() for m in kernel_mods]
@@ -1399,15 +1820,32 @@ def main() -> None:
     # 6. serving qwen3-moe-30b-a3b (launch counts zeroed inside)
     flash_worst = check_flash_kernel(torch, flash_ops, flash_ref, rng)
     gemm_worst = check_gemm_kernel(torch, gemm_ops, gemm_ref, rng)
-    serve = serve_path(torch, flash_kernel, gemm_kernel)
-    # 7. times at the main paths' shapes, and where the time goes
+    serve_mods = {"wkv6": wkv_kernel, "rglru": rglru_kernel,
+                  "flash": flash_kernel, "gemm": gemm_kernel}
+    serve = serve_path(torch, serve_mods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 7. serving rwkv6-7b and recurrentgemma-9b (launch counts zeroed
+    # inside); each model is freed before the next
+    wkv_worst = check_wkv6_kernel(torch, wkv_ops, wkv_ref, rng)
+    rglru_worst = check_rglru_kernel(torch, rglru_ops, rglru_ref, rng)
+    rec = {}
+    for arch, prompt, want, cut, check_lens in REC_SERVES:
+        rec[arch] = serve_recurrent(torch, arch, prompt, want, cut,
+                                    check_lens, serve_mods)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 8. times at the main paths' shapes, and where the time goes
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
     asm_times = time_assembly_kernel(torch, asm_ops, asm_ref, asm)
     serve_times = time_serve_kernels(torch, flash_kernel, flash_ref,
                                      gemm_kernel, gemm_ref, serve)
+    rec_times = time_recurrent_kernels(
+        torch, serve_mods, {"wkv6": wkv_ref, "rglru": rglru_ref}, flash_ref,
+        rec, rng)
     prof = profile_main_path(torch, kernel)
 
-    # 8. imports, then the result
+    # 9. imports, then the result
     import repro_torch
     for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         importlib.import_module(mod.name)
@@ -1443,19 +1881,23 @@ def main() -> None:
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
         "library_ms": None, "shape": key, "by_shape": asm_times,
     })
-    for name, key, worst_err, source, replaces in (
+    serve_times["flash"].update(rec_times["flash"])
+    flash_by_path = {f"serve_{SERVE_ARCH}": serve["launches"]["flash"][
+        "bfloat16"], f"serve_{RG_ARCH}": rec[RG_ARCH]["launches"]["flash"][
+        "bfloat16"]}
+    for name, key, worst_err, source, replaces, by_path in (
             ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
-             FLASH_REPLACES),
+             FLASH_REPLACES, flash_by_path),
             ("expert_gemm_bf16", "gemm", gemm_worst, GEMM_SOURCE,
-             GEMM_REPLACES)):
+             GEMM_REPLACES, {f"serve_{SERVE_ARCH}": serve["launches"][
+                 "gemm"]["bfloat16"]})):
         by_shape = serve_times[key]
         shape = max(by_shape, key=lambda k: by_shape[k]["launches"])
         m = by_shape[shape]
-        n = serve["launches"][key]["bfloat16"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n,
-            "launches_by_path": {"serve": n},
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": worst_err["bfloat16"],
             "max_abs_err_float32": worst_err["float32"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
@@ -1463,8 +1905,39 @@ def main() -> None:
             "library_ms": m["library_ms"], "shape": shape,
             "by_shape": by_shape,
         })
+    for name, key, dtype, arch, worst_bf16, worst_f32, source, replaces in (
+            ("wkv6_bf16", "wkv6", "bfloat16", RWKV_ARCH,
+             wkv_worst["bfloat16"]["y"], wkv_worst["float32"]["y"],
+             WKV_SOURCE, WKV_REPLACES),
+            ("rglru_f32", "rglru", "float32", RG_ARCH,
+             rglru_worst["bfloat16"], rglru_worst["float32"], RGLRU_SOURCE,
+             RGLRU_REPLACES)):
+        by_shape = rec_times[key]
+        shape = max(by_shape, key=lambda k: by_shape[k]["launches"])
+        m = by_shape[shape]
+        n = rec[arch]["launches"][key][dtype]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "launches_by_path": {f"serve_{arch}": n},
+            "max_abs_err": worst_bf16 if dtype == "bfloat16" else worst_f32,
+            "max_abs_err_bfloat16": worst_bf16,
+            "max_abs_err_float32": worst_f32,
+            "ms": m["ms"], "device_ms": m["device_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes "
+            + ("a data-dependent-decay WKV" if key == "wkv6"
+               else "a linear recurrence"),
+            "shape": shape, "by_shape": by_shape,
+        })
+    kernels[-2]["max_abs_err_state"] = {k: v["state"]
+                                        for k, v in wkv_worst.items()}
     print(json.dumps({"serve": {k: v for k, v in serve.items()
-                                if k != "shapes"}}), flush=True)
+                                if k != "log_shapes"}}), flush=True)
+    print(json.dumps({"serve_recurrent": {
+        arch: {k: v for k, v in r.items() if k != "log_shapes"}
+        for arch, r in rec.items()}}), flush=True)
     print(json.dumps({"main_path": mp["runs"],
                       "device_idle_share": prof["device_idle_share"]}),
           flush=True)

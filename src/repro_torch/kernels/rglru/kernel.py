@@ -1,0 +1,88 @@
+"""The CUDA RG-LRU scan kernel (``csrc/rglru.cu``): build, bind and launch.
+
+Replaces the Pallas TPU kernel ``repro/kernels/rglru/kernel.py:55``
+(``rglru_fwd`` → ``_rglru_kernel``).  Built and bound like the port's other
+kernels (``kernels/_build.py``); a failed build or launch raises, nothing
+falls back.  :func:`rglru_fwd` launches it on CUDA tensors only, on the
+current stream, and counts the launch in :data:`LAUNCHES`;
+``ops.rglru_scan_op`` is the entry point that also takes CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = _build.CSRC / "rglru.cu"
+
+#: kernel launches per dtype of b, counted where the kernel is launched only
+LAUNCHES = {"bfloat16": 0, "float32": 0}
+
+_DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+_MAX_GRID_Y = 65535
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/rglru.cu`` (once per process, and not at all when a
+    build of the same source and flags exists) and load it.  Returns the
+    library's path.  ``verbose`` prints nvcc's ``-Xptxas -v`` report."""
+    global _lib
+    if _lib is not None:
+        return Path(_lib._name)
+    lib = _build.load(SOURCE, verbose)
+    for name in ("rglru_bf16", "rglru_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.rglru_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return Path(lib._name)
+
+
+def _check(log_a, b) -> None:
+    if b.device.type != "cuda" or log_a.device != b.device:
+        raise ValueError("rglru: log_a and b must be on one CUDA device (got "
+                         f"{log_a.device}, {b.device})")
+    if log_a.dtype != torch.float32 or b.dtype not in _DTYPES:
+        raise ValueError("rglru: log_a float32, b bfloat16 or float32 (got "
+                         f"{log_a.dtype}, {b.dtype})")
+    if b.dim() != 3 or log_a.shape != b.shape:
+        raise ValueError("rglru: expected log_a and b (B, S, W), got "
+                         f"{tuple(log_a.shape)}, {tuple(b.shape)}")
+    if not (log_a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("rglru: inputs must be contiguous")
+    bsz, s, w = b.shape
+    if bsz > _MAX_GRID_Y or max(s, w) >= 2 ** 31 or b.numel() >= 2 ** 62:
+        raise ValueError(f"rglru: unsupported shape {tuple(b.shape)}")
+
+
+def rglru_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: log_a (B, S, W) float32, b (B, S, W) bfloat16 or
+    float32, contiguous on one CUDA device -> h (B, S, W) in b's dtype."""
+    _check(log_a, b)
+    bsz, s, w = b.shape
+    out = torch.empty_like(b)
+    if out.numel() == 0:
+        return out
+    build()
+    fn = _lib.rglru_bf16 if b.dtype == torch.bfloat16 else _lib.rglru_f32
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = fn(log_a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, s, w,
+                stream)
+    if rc != 0:
+        raise RuntimeError("rglru kernel launch failed: "
+                           + _lib.rglru_error_string(rc).decode())
+    LAUNCHES[_DTYPES[b.dtype]] += 1
+    return out

@@ -4,7 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --smoke --device cpu --batch 4 --prompt-len 32 --max-new 32
 
-runs on the card by default (``--device cuda``); weights are random, drawn
+serves any decoder LM the port runs (attention and MoE blocks,
+``rwkv6-7b``, ``recurrentgemma-9b``).  It runs on the card by default (``--device cuda``); weights are random, drawn
 from a seeded ``torch.Generator``.
 """
 from __future__ import annotations
@@ -25,19 +26,20 @@ _KV_KEYS = ("k", "v")
 
 def pad_caches(caches, target_len: int):
     """Pad every layer's K/V cache along the sequence axis to
-    ``target_len`` (zeros past the prompt)."""
+    ``target_len`` (zeros past the prompt).  Only the ``k`` and ``v``
+    leaves are touched: recurrent state (``wkv``, the shifts, ``h``,
+    ``conv``) has no sequence axis."""
     out = []
     for cache in caches:
-        padded = {}
+        padded = dict(cache)
         for key in _KV_KEYS:
-            leaf = cache[key]
-            if leaf.shape[-3] < target_len:
+            leaf = cache.get(key)
+            if leaf is not None and leaf.shape[-3] < target_len:
                 shape = list(leaf.shape)
                 shape[-3] = target_len
                 grown = leaf.new_zeros(shape)
                 grown[..., :leaf.shape[-3], :, :] = leaf
-                leaf = grown
-            padded[key] = leaf
+                padded[key] = grown
         out.append(padded)
     return out
 

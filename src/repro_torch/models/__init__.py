@@ -1,1 +1,2 @@
-"""The model stack of the port (decoder LMs with attention and MoE blocks)."""
+"""The model stack of the port (decoder LMs with attention, MoE, rwkv6 and
+rglru blocks)."""

@@ -43,6 +43,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     return (normed * (offset + weight.to(torch.float32))).to(x.dtype)
 
 
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim in f32 (the RWKV6 output norm); the
+    variance is the biased one, as ``jnp.var``'s."""
+    *lead, d = x.shape
+    xf = x.to(torch.float32).reshape(*lead, num_groups, d // num_groups)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    normed = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (normed * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------- activations
 def _silu(x):
     # jax.nn.silu's formula, so that bf16 rounds where the reference does

@@ -1,9 +1,10 @@
 """Uniform model API, after the JAX package's ``models/model.py``.
 
 ``build_model(cfg)`` returns a ``Model`` with init / prefill / decode
-closures for the decoder LMs this slice of the port runs (attention and MoE
-blocks).  There is no mesh: one device holds the model.  The reference's
-``input_specs`` / ``cache_specs`` serve its dry-run and are not ported.
+closures for the decoder LMs the port runs (attention, MoE, ``rwkv6`` and
+``rglru`` blocks).  There is no mesh: one device holds the model.  The
+reference's ``input_specs`` / ``cache_specs`` serve its dry-run and are not
+ported.
 """
 from __future__ import annotations
 

@@ -1,0 +1,157 @@
+"""RWKV6 ("Finch") block, after the JAX package's ``models/rwkv6.py``:
+data-dependent token shift and the WKV6 recurrence with per-channel
+data-dependent decay (the time mix), and the squared-ReLU channel mix.
+[arXiv:2404.05892]
+
+Prefill (:func:`time_mix_forward`) runs the recurrence through
+``kernels/rwkv6`` (the CUDA kernel on the card, its plain chunked version
+on the CPU), which also returns the final (B, H, hd, hd) state.  Decode
+(:func:`time_mix_step`) is the O(1)-state step in plain torch, as it is jnp
+code outside any Pallas kernel in the reference.  Parameter names and
+shapes are the reference's, so ``convert.lm_params_from_reference``
+carries weights across unchanged.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rwkv6 import ops as wkv6_ops
+from repro_torch.models.layers import activation, dense_init, group_norm
+
+MIX_LORA = 32
+DECAY_LORA = 64
+
+
+def init_time_mix(gen, cfg: ModelConfig, dtype=torch.bfloat16,
+                  device="cuda"):
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "mu_x": torch.zeros((d,), **f32),
+        "mu": torch.zeros((5, d), **f32),
+        "mix_a": dense_init(gen, (d, 5 * MIX_LORA), scale=0.1, **f32),
+        "mix_b": torch.zeros((5, MIX_LORA, d), **f32),
+        "w0": torch.full((h, hd), -6.0, **f32),
+        "w_a": dense_init(gen, (d, DECAY_LORA), scale=0.1, **f32),
+        "w_b": torch.zeros((DECAY_LORA, d), **f32),
+        "u": torch.zeros((h, hd), **f32),
+        "w_r": dense_init(gen, (d, d), dtype=dtype, device=device),
+        "w_k": dense_init(gen, (d, d), dtype=dtype, device=device),
+        "w_v": dense_init(gen, (d, d), dtype=dtype, device=device),
+        "w_g": dense_init(gen, (d, d), dtype=dtype, device=device),
+        "w_o": dense_init(gen, (d, d), dtype=dtype, device=device),
+        "ln_w": torch.ones((d,), **f32),
+        "ln_b": torch.zeros((d,), **f32),
+    }
+
+
+def init_channel_mix(gen, cfg: ModelConfig, dtype=torch.bfloat16,
+                     device="cuda"):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": torch.zeros((d,), dtype=torch.float32, device=device),
+        "mu_r": torch.zeros((d,), dtype=torch.float32, device=device),
+        "w_k": dense_init(gen, (d, f), dtype=dtype, device=device),
+        "w_v": dense_init(gen, (f, d), dtype=dtype, device=device),
+        "w_r": dense_init(gen, (d, d), dtype=dtype, device=device),
+    }
+
+
+def _token_shift(x, prev=None):
+    """Shift the sequence right by one; ``prev`` (B, d) fills slot 0 (the
+    decode carry)."""
+    if prev is None:
+        pad = torch.zeros_like(x[:, :1])
+    else:
+        pad = prev[:, None, :].to(x.dtype)
+    return torch.cat([pad, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p, x, shifted):
+    """RWKV6 data-dependent interpolation -> (5, B, S, d) mixed inputs,
+    float32."""
+    dx = (shifted - x).to(torch.float32)
+    xf = x.to(torch.float32)
+    xxx = xf + dx * p["mu_x"]
+    lora = torch.tanh(xxx @ p["mix_a"])                 # (B, S, 5 * r)
+    b, s, _ = lora.shape
+    lora = lora.reshape(b, s, 5, MIX_LORA)
+    delta = torch.einsum("bsnr,nrd->nbsd", lora, p["mix_b"])
+    return xf[None] + dx[None] * (p["mu"][:, None, None, :] + delta)
+
+
+def _projections(p, x, shifted, cfg: ModelConfig):
+    mixed = _ddlerp(p, x, shifted)
+    xr, xk, xv, xw, xg = [mixed[i].to(x.dtype) for i in range(5)]
+    b, s, d = x.shape
+    h, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    r = (xr @ p["w_r"]).reshape(b, s, h, hd)
+    k = (xk @ p["w_k"]).reshape(b, s, h, hd)
+    v = (xv @ p["w_v"]).reshape(b, s, h, hd)
+    g = activation("silu")(xg @ p["w_g"])
+    # data-dependent log-decay, < 0 (w = exp(-exp(z))); the reference's
+    # bf16 @ f32 promotes to f32
+    z = p["w0"].reshape(-1) + (torch.tanh(xw.to(torch.float32) @ p["w_a"])
+                               @ p["w_b"])
+    log_w = -torch.exp(torch.clamp(z, -20.0, 8.0)).reshape(b, s, h, hd)
+    return r, k, v, g, log_w
+
+
+def _out(p, y, g, x, h: int):
+    """Group norm over heads, the silu gate and the output projection."""
+    y = group_norm(y.to(x.dtype), p["ln_w"], p["ln_b"], num_groups=h)
+    y = (y.to(torch.float32) * g).to(x.dtype)
+    return y @ p["w_o"]
+
+
+def time_mix_forward(p, x, cfg: ModelConfig, chunk: int = 16):
+    """Prefill.  x: (B, S, d) -> (B, S, d), and the final (state
+    (B, H, hd, hd) float32, last x (B, d)).  ``chunk`` is the plain
+    version's chunk on the CPU."""
+    b, s, d = x.shape
+    h = d // cfg.rwkv_head_dim
+    shifted = _token_shift(x)
+    r, k, v, g, log_w = _projections(p, x, shifted, cfg)
+    y, state = wkv6_ops.wkv6(r, k, v, log_w, p["u"], chunk=chunk)
+    return _out(p, y.reshape(b, s, d), g, x, h), (state, x[:, -1, :])
+
+
+def wkv6_step(state, r, k, v, log_w, u):
+    """O(1) decode step.  state: (B, H, hd, hd); r, k, v, log_w:
+    (B, H, hd).  Returns (new state, y (B, H, hd)), float32."""
+    rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
+    # y[j] = sum_i r_i (S[i, j] + u_i k_i v_j)
+    y = torch.einsum("bhk,bhkv->bhv", rf, state) + (
+        (rf * u[None] * kf).sum(-1, keepdim=True) * vf)
+    new_state = state * torch.exp(log_w.to(torch.float32))[..., None] + (
+        kf[..., :, None] * vf[..., None, :])
+    return new_state, y
+
+
+def time_mix_step(p, x, state, prev_x, cfg: ModelConfig):
+    """Decode step.  x: (B, 1, d); state: (B, H, hd, hd); prev_x: (B, d).
+    Returns (out (B, 1, d), (new state, last x))."""
+    b, _, d = x.shape
+    h = d // cfg.rwkv_head_dim
+    shifted = _token_shift(x, prev=prev_x)
+    r, k, v, g, log_w = _projections(p, x, shifted, cfg)
+    new_state, y = wkv6_step(state, r[:, 0], k[:, 0], v[:, 0], log_w[:, 0],
+                             p["u"])
+    return _out(p, y.reshape(b, 1, d), g, x, h), (new_state, x[:, -1, :])
+
+
+def channel_mix_forward(p, x, prev_x=None):
+    """Squared-ReLU channel mix.  Returns (out, last x carry)."""
+    shifted = _token_shift(x, prev=prev_x)
+    dx = (shifted - x).to(torch.float32)
+    xf = x.to(torch.float32)
+    xk = (xf + dx * p["mu_k"]).to(x.dtype)
+    xr = (xf + dx * p["mu_r"]).to(x.dtype)
+    kk = torch.square(F.relu(xk @ p["w_k"]))
+    out = torch.sigmoid((xr @ p["w_r"]).to(torch.float32)).to(x.dtype) \
+        * (kk @ p["w_v"])
+    return out, x[:, -1, :]

@@ -1,18 +1,20 @@
-"""Decoder-only LM assembly for the attention and MoE block kinds, after the
-JAX package's ``models/transformer.py``.
+"""Decoder-only LM assembly, after the JAX package's ``models/transformer.py``.
 
 Parameters are plain dicts: ``{"embed", "blocks": [one dict per layer],
 "final_norm"[, "lm_head"]}``.  Layer ``l`` has kind
 ``cfg.layer_kinds()[l]``; a Python loop over the blocks replaces the
 reference's ``lax.scan`` over stacked periods and its unrolled tail
 (``convert.lm_params_from_reference`` un-stacks a reference tree into this
-layout).  Serving state is one ``{"k", "v"}`` KV cache per layer, (B, S,
-Hkv, hd) each.
+layout).  Serving state is one dict per layer, as the reference's
+``_pack_cache`` makes it: ``{"k", "v"}`` (B, S, Hkv, hd) for the attention
+and MoE blocks, ``{"wkv", "tm_shift", "cm_shift"}`` for ``rwkv6`` (the
+(B, H, hd, hd) WKV state and the two token-shift carries), ``{"h",
+"conv"}`` for ``rglru`` (the recurrence's h and the conv tail).
 
-Ported here: ``attn``, ``local_attn`` and ``moe`` blocks, prefill and
-decode.  Not yet: the ``rwkv6`` and ``rglru`` blocks (ROADMAP queue 2,
-items 5-6), the encoder-decoder and the vision front end, and the training
-loss (ROADMAP queue 1, item 11).
+Ported here: the ``attn``, ``local_attn``, ``moe``, ``rwkv6`` and
+``rglru`` blocks, prefill and decode.  Not yet: the encoder-decoder and the
+vision front end, the ring KV cache and the training loss (ROADMAP queue
+1, item 11).
 """
 from __future__ import annotations
 
@@ -24,22 +26,17 @@ from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_MOE,
                                       BLOCK_REC, BLOCK_RWKV, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (dense_init, init_mlp, mlp_forward,
                                        rms_norm, softcap)
 
 _ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_MOE)
-_NOT_PORTED = {
-    BLOCK_RWKV: "the rwkv6 block is not ported yet (ROADMAP queue 2, item 5: "
-                "rwkv6-7b serving with the wkv6 kernel)",
-    BLOCK_REC: "the rglru block is not ported yet (ROADMAP queue 2, item 6: "
-               "recurrentgemma-9b with the rglru kernel)",
-}
+_KINDS = _ATTN_KINDS + (BLOCK_RWKV, BLOCK_REC)
 
 
 def _check_kind(kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
-    if kind not in _ATTN_KINDS:
+    if kind not in _KINDS:
         raise ValueError(kind)
 
 
@@ -65,18 +62,24 @@ def check_config(cfg: ModelConfig) -> None:
 def init_block(gen, kind: str, cfg: ModelConfig, dtype=torch.bfloat16,
                device="cuda") -> Dict[str, Any]:
     _check_kind(kind)
+    f32 = dict(dtype=torch.float32, device=device)
+    kw = dict(dtype=dtype, device=device)
     p: Dict[str, Any] = {
-        "norm_attn": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                 device=device),
-        "norm_mlp": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                device=device),
-        "attn": attn.init_attention(gen, cfg, dtype=dtype, device=device),
+        "norm_attn": torch.zeros((cfg.d_model,), **f32),
+        "norm_mlp": torch.zeros((cfg.d_model,), **f32),
     }
+    if kind in _ATTN_KINDS:
+        p["attn"] = attn.init_attention(gen, cfg, **kw)
     if kind == BLOCK_MOE:
-        p["moe"] = moe_lib.init_moe(gen, cfg, dtype=dtype, device=device)
+        p["moe"] = moe_lib.init_moe(gen, cfg, **kw)
+    elif kind == BLOCK_RWKV:
+        p["time_mix"] = rwkv_lib.init_time_mix(gen, cfg, **kw)
+        p["channel_mix"] = rwkv_lib.init_channel_mix(gen, cfg, **kw)
+    elif kind == BLOCK_REC:
+        p["rec"] = rglru_lib.init_rglru_block(gen, cfg, **kw)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
     else:
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
-                            device=device)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
     return p
 
 
@@ -102,28 +105,58 @@ def init_lm(gen, cfg: ModelConfig, dtype=torch.bfloat16,
 # ------------------------------------------------------------------- forward
 def block_train(p, kind: str, x, positions, cfg: ModelConfig,
                 return_kv: bool = False):
-    """One block, full-sequence.  Returns (x, stats, kv_or_None)."""
+    """One block, full-sequence.  Returns (x, stats, cache_or_None), the
+    cache packed as ``block_decode`` takes it."""
     _check_kind(kind)
     stats = {}
-    mask_kind = "local" if kind == BLOCK_LOCAL else "causal"
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    a, k_c, v_c = attn.attention_forward_kv(
-        p["attn"], h, cfg, mask_kind=mask_kind, positions=positions)
-    x = x + a
-    h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-    if kind == BLOCK_MOE:
-        y, stats = moe_lib.moe_forward(p["moe"], h, cfg, cfg.act)
-    else:
+    if kind == BLOCK_RWKV:
+        y, (wkv, tm_last) = rwkv_lib.time_mix_forward(p["time_mix"], h, cfg)
+        x = x + y
+        h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+        y, cm_last = rwkv_lib.channel_mix_forward(p["channel_mix"], h)
+        cache = {"wkv": wkv, "tm_shift": tm_last, "cm_shift": cm_last}
+    elif kind == BLOCK_REC:
+        y, (h_last, tail) = rglru_lib.rglru_block_forward(p["rec"], h, cfg)
+        x = x + y
+        h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
         y = mlp_forward(p["mlp"], h, cfg.act)
-    return x + y, stats, ((k_c, v_c) if return_kv else None)
+        cache = {"h": h_last, "conv": tail}
+    else:
+        mask_kind = "local" if kind == BLOCK_LOCAL else "causal"
+        a, k_c, v_c = attn.attention_forward_kv(
+            p["attn"], h, cfg, mask_kind=mask_kind, positions=positions)
+        x = x + a
+        h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+        if kind == BLOCK_MOE:
+            y, stats = moe_lib.moe_forward(p["moe"], h, cfg, cfg.act)
+        else:
+            y = mlp_forward(p["mlp"], h, cfg.act)
+        cache = {"k": k_c, "v": v_c}
+    return x + y, stats, (cache if return_kv else None)
 
 
 def block_decode(p, kind: str, x, cache, pos: int, cfg: ModelConfig):
-    """One block, one-token decode; ``cache`` ({"k", "v"}) is updated in
-    place.  Returns (x, cache)."""
+    """One block, one-token decode; a K/V cache is updated in place, the
+    recurrent state is replaced.  Returns (x, cache)."""
     _check_kind(kind)
-    mask_kind = "local" if kind == BLOCK_LOCAL else "causal"
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    if kind == BLOCK_RWKV:
+        y, (wkv, tm_last) = rwkv_lib.time_mix_step(
+            p["time_mix"], h, cache["wkv"], cache["tm_shift"], cfg)
+        x = x + y
+        h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+        y, cm_last = rwkv_lib.channel_mix_forward(p["channel_mix"], h,
+                                                  prev_x=cache["cm_shift"])
+        return x + y, {"wkv": wkv, "tm_shift": tm_last, "cm_shift": cm_last}
+    if kind == BLOCK_REC:
+        y, (h_last, tail) = rglru_lib.rglru_block_forward(
+            p["rec"], h, cfg, state=(cache["h"], cache["conv"]))
+        x = x + y
+        h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+        return x + mlp_forward(p["mlp"], h, cfg.act), {"h": h_last,
+                                                        "conv": tail}
+    mask_kind = "local" if kind == BLOCK_LOCAL else "causal"
     a, ck, cv = attn.attention_decode(p["attn"], h, cache["k"], cache["v"],
                                       pos, cfg, mask_kind=mask_kind)
     x = x + a
@@ -156,8 +189,8 @@ def run_stack(params, x, positions, cfg: ModelConfig,
     caches: List[Dict[str, torch.Tensor]] = []
     per_period, tail_stats = [], []
     for i, (p, kind) in enumerate(zip(params["blocks"], kinds)):
-        x, st, kv = block_train(p, kind, x, positions, cfg,
-                                return_kv=collect_cache)
+        x, st, cache = block_train(p, kind, x, positions, cfg,
+                                   return_kv=collect_cache)
         if i < n_periods * period:
             if i % period == 0:
                 per_period.append([])
@@ -165,7 +198,7 @@ def run_stack(params, x, positions, cfg: ModelConfig,
         else:
             tail_stats.append(st)
         if collect_cache:
-            caches.append({"k": kv[0], "v": kv[1]})
+            caches.append(cache)
     merged = [_merge_stats(sts) for sts in per_period]
     stats: Dict[str, Any] = {}
     if merged and "aux_loss" in merged[0]:

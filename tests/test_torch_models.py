@@ -1,15 +1,18 @@
 """Port parity, the model stack's modules: ``repro_torch.configs`` and
-``repro_torch.models.{layers,attention,moe}`` and ``convert``'s LM weights,
-against the JAX package on the same inputs and weights (made with numpy or
-carried across).
+``repro_torch.models.{layers,attention,moe,rwkv6,rglru}`` and ``convert``'s
+LM weights, against the JAX package on the same inputs and weights (made
+with numpy or carried across).
 
 The reference's MoE runs under ``shard_map`` on a (1, 1) mesh made with
 ``jax.make_mesh(..., axis_types=(AxisType.Auto,) * 2)``: its own
 ``make_local_mesh`` raises on jax 0.9 (ROADMAP queue 3).  Tolerances, per
 test: configs exact; the float32 modules ``atol=rtol=1e-5`` (the same
 float32 operations; XLA's and torch's sin, cos, exp and sums differ in the
-last bits); bf16 to one bf16 ulp (``atol=rtol=1e-2``); router statistics
-exact (counts) or ``rtol=1e-6`` (aux loss).
+last bits), ``atol=rtol=1e-4`` for the rwkv6 and rglru blocks (a chunked
+WKV6 and a sequential scan against XLA's chunked WKV6 and associative
+scan: the same functions, summed in another order); bf16 to one bf16 ulp
+(``atol=rtol=1e-2``); router statistics exact (counts) or ``rtol=1e-6``
+(aux loss).
 """
 import dataclasses
 
@@ -24,18 +27,21 @@ from repro import configs as r_configs
 from repro.models import attention as r_attn
 from repro.models import layers as r_layers
 from repro.models import moe as r_moe
+from repro.models import rglru as r_rglru
+from repro.models import rwkv6 as r_rwkv6
 from repro.models.layers import split_lp_tree
 from repro.models.transformer import init_lm as r_init_lm
 from repro.sharding import MeshAxes
 from repro_torch import configs
 from repro_torch.convert import lm_params_from_reference
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, rglru, rwkv6
 from repro_torch.models.transformer import init_lm
 
 MESH = jax.make_mesh((1, 1), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2)
 AXES = MeshAxes.for_mesh(MESH)
 F32 = dict(atol=1e-5, rtol=1e-5)
+REC = dict(atol=1e-4, rtol=1e-4)
 
 
 def _t(a, dtype=torch.float32):
@@ -100,6 +106,24 @@ def test_layers_match_reference(dtype):
     for name in ("silu", "gelu", "relu", "relu2"):
         np.testing.assert_allclose(_np(layers.activation(name)(tx)),
                                    _np(r_layers.activation(name)(jx)), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_matches_reference(dtype):
+    """``group_norm`` (the RWKV6 output norm; biased variance, eps 1e-5) on
+    inputs with a mean and spread per group.  Tolerance 1e-5 (float32), one
+    bf16 ulp (bfloat16)."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tol = F32 if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((2, 7, 64)) * 3 + 2).astype(np.float32)
+    w = rng.standard_normal((64,)).astype(np.float32)
+    b = rng.standard_normal((64,)).astype(np.float32)
+    got = layers.group_norm(_t(x, tdt), _t(w), _t(b), num_groups=4)
+    want = r_layers.group_norm(jnp.asarray(x, jdt), jnp.asarray(w),
+                               jnp.asarray(b), num_groups=4)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
 
 
 # ---------------------------------------------------------------- attention
@@ -218,6 +242,114 @@ def test_top_breaks_ties_like_jax():
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
 
 
+# -------------------------------------------------------- rwkv6 and rglru
+def _randomized(p, rng, skip=()):
+    """Replace the reference init's constant leaves (zeros, ones, -6) with
+    random values, so that every term of the block is exercised."""
+    out = {}
+    for k, a in p.items():
+        if k not in skip and np.ptp(a) == 0:
+            a = (a + rng.standard_normal(a.shape) * 0.3).astype(np.float32)
+        out[k] = a
+    return out
+
+
+def _rwkv_case(seed=0):
+    arch = "rwkv6-7b"
+    cfg, r_cfg = configs.get_smoke_config(arch), \
+        r_configs.get_smoke_config(arch)
+    rng = np.random.default_rng(seed)
+    tm = _randomized(_values(r_rwkv6.init_time_mix(
+        jax.random.key(1), r_cfg, dtype=jnp.float32)), rng)
+    tm["w0"] = (-5.0 + rng.standard_normal(tm["w0"].shape)).astype(
+        np.float32)
+    cm = _randomized(_values(r_rwkv6.init_channel_mix(
+        jax.random.key(2), r_cfg, dtype=jnp.float32)), rng)
+    x = rng.standard_normal((2, 37, cfg.d_model)).astype(np.float32)
+    return cfg, r_cfg, tm, cm, x
+
+
+def test_rwkv6_time_mix_matches_reference():
+    """``time_mix_forward`` (prefill: the WKV6 entry point's plain chunked
+    version, 37 tokens, a ragged length) and then ``time_mix_step`` (decode
+    from the prefill's state and shift), float32 weights carried across
+    with the LoRA, decay and bonus terms made non-trivial.  Tolerance
+    ``atol=rtol=1e-4``."""
+    cfg, r_cfg, tm, _, x = _rwkv_case()
+    tp = _torch_tree(tm)
+    out, (state, last) = rwkv6.time_mix_forward(tp, _t(x[:, :-1]), cfg)
+    want, (w_state, w_last) = jax.jit(lambda p_, x_: r_rwkv6.time_mix_forward(
+        p_, x_, r_cfg))(tm, jnp.asarray(x[:, :-1]))
+    np.testing.assert_allclose(_np(out), _np(want), **REC)
+    np.testing.assert_allclose(_np(state), _np(w_state), **REC)
+    np.testing.assert_allclose(_np(last), _np(w_last), **REC)
+    out, (state, last) = rwkv6.time_mix_step(tp, _t(x[:, -1:]), state, last,
+                                             cfg)
+    want, (w_state, w_last) = jax.jit(lambda p_, x_, s_, l_:
+                                      r_rwkv6.time_mix_step(
+                                          p_, x_, s_, l_, r_cfg))(
+        tm, jnp.asarray(x[:, -1:]), w_state, w_last)
+    np.testing.assert_allclose(_np(out), _np(want), **REC)
+    np.testing.assert_allclose(_np(state), _np(w_state), **REC)
+    np.testing.assert_allclose(_np(last), _np(w_last), **REC)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_channel_mix_matches_reference(dtype):
+    """``channel_mix_forward`` without and with a decode carry.  Tolerance
+    1e-5 (float32) or one bf16 ulp (bfloat16)."""
+    cfg, _, _, cm, x = _rwkv_case(seed=1)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tol = F32 if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    tp = {k: _t(a, torch.float32 if k.startswith("mu") else tdt)
+          for k, a in cm.items()}
+    jp = {k: jnp.asarray(a, jnp.float32 if k.startswith("mu") else jdt)
+          for k, a in cm.items()}
+    for prev in (None, x[:, 0]):
+        got = rwkv6.channel_mix_forward(
+            tp, _t(x, tdt), None if prev is None else _t(prev, tdt))
+        want = r_rwkv6.channel_mix_forward(
+            jp, jnp.asarray(x, jdt),
+            None if prev is None else jnp.asarray(prev, jdt))
+        assert got[0].dtype == tdt
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), _np(w), **tol)
+
+
+def test_rglru_block_matches_reference():
+    """``rglru_block_forward`` on recurrentgemma's smoke config, float32
+    weights carried across (conv, gate biases and the decay made
+    non-trivial): a 29-token prefill (the scan entry point's plain
+    version), a decode step from its state (plain ``h = a h0 + b``), and a
+    multi-token run from a state (h0 folded into the first step).  The
+    gates alone as well.  Tolerance ``atol=rtol=1e-4``."""
+    arch = "recurrentgemma-9b"
+    cfg, r_cfg = configs.get_smoke_config(arch), \
+        r_configs.get_smoke_config(arch)
+    rng = np.random.default_rng(3)
+    p = _randomized(_values(r_rglru.init_rglru_block(
+        jax.random.key(1), r_cfg, dtype=jnp.float32)), rng)
+    tp = _torch_tree(p)
+    x = rng.standard_normal((2, 36, cfg.d_model)).astype(np.float32)
+    fwd = jax.jit(lambda p_, x_, st: r_rglru.rglru_block_forward(
+        p_, x_, r_cfg, state=st))
+    got = rglru.rglru_block_forward(tp, _t(x[:, :29]), cfg)
+    want = fwd(p, jnp.asarray(x[:, :29]), None)
+    for g, w in zip((got[0],) + got[1], (want[0],) + tuple(want[1])):
+        np.testing.assert_allclose(_np(g), _np(w), **REC)
+    for lo, hi in ((29, 30), (30, 36)):
+        got = rglru.rglru_block_forward(tp, _t(x[:, lo:hi]), cfg,
+                                        state=got[1])
+        want = fwd(p, jnp.asarray(x[:, lo:hi]), tuple(want[1]))
+        for g, w in zip((got[0],) + got[1], (want[0],) + tuple(want[1])):
+            np.testing.assert_allclose(_np(g), _np(w), **REC)
+    y = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+    log_a, b = rglru._gates(tp, _t(y), cfg)
+    want_a, want_b = r_rglru._gates(p, jnp.asarray(y), r_cfg)
+    np.testing.assert_allclose(_np(torch.exp(log_a)), _np(want_a), **F32)
+    np.testing.assert_allclose(_np(b), _np(want_b), **F32)
+
+
 # ------------------------------------------------------------------ convert
 @pytest.fixture(scope="module")
 def qwen_values():
@@ -308,3 +440,36 @@ def test_run_stack_stats_match_reference(qwen_values):
                                   _np(want["expert_counts"]))
     np.testing.assert_allclose(float(stats["aux_loss"]),
                                float(want["aux_loss"]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_lm_params_from_reference_recurrent_archs(arch):
+    """Tolerance: none.  The reference's rwkv6 and recurrentgemma trees
+    (recurrentgemma's smoke config: one scanned period and a 2-layer
+    ``tail``) carry across unchanged: every leaf of every layer equals the
+    reference's scan slice or tail block, with the port's own init's keys,
+    shapes and dtypes."""
+    r_cfg = r_configs.get_smoke_config(arch)
+    cfg = configs.get_smoke_config(arch)
+    vals, _ = split_lp_tree(r_init_lm(jax.random.key(0), r_cfg))
+    vals = jax.tree.map(np.asarray, vals)
+    n_periods = cfg.num_layers // cfg.pattern_period
+    assert ("tail" in vals) == (arch == "recurrentgemma-9b")
+    params = lm_params_from_reference(vals, cfg)
+    own = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert len(params["blocks"]) == cfg.num_layers
+    for layer, (block, own_block) in enumerate(zip(params["blocks"],
+                                                   own["blocks"])):
+        if layer < n_periods * cfg.pattern_period:
+            p, i = divmod(layer, cfg.pattern_period)
+            want = jax.tree.map(lambda a: a[p], vals["scan"][f"b{i}"])
+        else:
+            want = vals["tail"][f"t{layer - n_periods * cfg.pattern_period}"]
+        got_leaves = jax.tree_util.tree_leaves_with_path(block)
+        want_leaves = dict(jax.tree_util.tree_leaves_with_path(want))
+        own_leaves = dict(jax.tree_util.tree_leaves_with_path(own_block))
+        assert len(got_leaves) == len(want_leaves) == len(own_leaves)
+        for path, leaf in got_leaves:
+            np.testing.assert_array_equal(_np(leaf), _np(want_leaves[path]))
+            assert leaf.shape == own_leaves[path].shape
+            assert leaf.dtype == own_leaves[path].dtype

@@ -2,8 +2,10 @@
 ``serve_batch`` against the JAX package's on the same weights (the
 reference's init, carried across with ``convert.lm_params_from_reference``)
 and the same prompts (numpy), for ``qwen3-moe-smoke`` (MoE blocks: the
-expert GEMM) and ``tinyllama-smoke`` (dense blocks), on the CPU, where the
-kernels run their plain versions.
+expert GEMM), ``tinyllama-smoke`` (dense blocks), ``rwkv6-smoke`` (rwkv6
+blocks: WKV6) and ``recurrentgemma-smoke`` (rglru blocks: the RG-LRU scan,
+and local attention with a window of 16 that the 24-token prompt exceeds),
+on the CPU, where the kernels run their plain versions.
 
 The reference is built on a (1, 1) mesh made with ``jax.make_mesh(...,
 axis_types=(AxisType.Auto,) * 2)``: its own ``make_local_mesh`` raises on
@@ -46,7 +48,8 @@ from repro_torch.models.model import build_model
 
 MESH = jax.make_mesh((1, 1), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2)
-ARCHS = ["qwen3-moe-30b-a3b", "tinyllama-1.1b"]
+ARCHS = ["qwen3-moe-30b-a3b", "tinyllama-1.1b", "rwkv6-7b",
+         "recurrentgemma-9b"]
 B, PROMPT, EXTRA = 2, 24, 6
 
 
@@ -221,19 +224,43 @@ def test_build_model_default_device_is_cuda():
         assert build_model(cfg).device.type == "cuda"
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b",
-                                  "whisper-large-v3",
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
                                   "llava-next-mistral-7b"])
 def test_unported_families_raise(arch):
-    """The block kinds and front ends of later slices raise, naming the
-    ROADMAP item."""
+    """The encoder-decoder and the vision front end, of later slices, raise,
+    naming the ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(configs.get_smoke_config(arch), device="cpu")
 
 
-def test_serve_main_on_cpu(capsys):
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-7b",
+                                  "recurrentgemma-9b"])
+def test_serve_main_on_cpu(arch, capsys):
     """``python -m repro_torch.launch.serve --smoke --device cpu``."""
-    serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu",
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                 "--batch", "2", "--prompt-len", "8", "--max-new", "3"])
     out = capsys.readouterr().out
-    assert "qwen3-moe-smoke on cpu: 2 requests x 3 new tokens" in out
+    name = configs.get_smoke_config(arch).name
+    assert f"{name} on cpu: 2 requests x 3 new tokens" in out
+
+
+def test_pad_caches_pads_only_kv():
+    """recurrentgemma's caches: the local-attention layer's K/V grow to the
+    target length with zeros; the rglru layers' ``h`` and ``conv`` state
+    (no sequence axis) are the same tensors."""
+    cfg = configs.get_smoke_config("recurrentgemma-9b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((B, PROMPT), dtype=torch.int64)
+    with torch.inference_mode():
+        caches, _ = model.prefill_fn(params, {"tokens": tokens})
+    padded = pad_caches(caches, PROMPT + EXTRA)
+    for kind, cache, new in zip(cfg.layer_kinds(), caches, padded,
+                                strict=True):
+        assert set(new) == set(cache)
+        if kind == "local_attn":
+            assert new["k"].shape[1] == PROMPT + EXTRA
+            assert torch.equal(new["v"][:, :PROMPT], cache["v"])
+            assert not new["k"][:, PROMPT:].any()
+        else:
+            assert all(new[k] is cache[k] for k in cache)
