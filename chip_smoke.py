@@ -13,7 +13,8 @@ line):
 2. Build the six kernels (``src/repro_torch/csrc/``: the scorer, the
    assembly tile, flash attention, the expert GEMM, WKV6 and the RG-LRU
    scan) from the checkout's sources into ``build/``, one nvcc each, in
-   parallel, and print the build seconds and ptxas's report.
+   parallel, and print the build seconds and ptxas's report; fail if ptxas
+   spills registers in any kernel.
 3. Hold the kernel against its plain torch version on the card: float64 and
    float32, E in {1, 8, 64}, A, B in {1, 13, 16, 128}, random masks, exact
    equality (``torch.equal``), the masked tail (0 / +inf) and NaN
@@ -57,19 +58,24 @@ line):
    float32 (``atol=rtol=2e-5``) and bf16 (``2e-2``) on the cases of
    ``tests/test_kernels.py``, the serve shape (B 4, S 512, 32 / 4 heads,
    hd 128), a length that is no tile multiple, rows that see no key (exactly
-   0), head dims 8 and 256, and recurrentgemma-9b's local attention as
-   served (B 4, S 2560, 16 query heads on one K/V head, hd 256, window
-   2048), and its block shapes against each other
-   (``atol=1e-5``); hold the expert-GEMM kernel (``csrc/moe_gemm.cu``)
-   against its plain version (``rtol=1e-5, atol=1e-4`` in float32,
-   ``rtol=3e-2, atol=3e-1`` in bf16) at the serve path's shapes and ragged
-   ones.  Then serve: the model at its published width with its depth cut
-   to 8 of 48 layers, bf16 weights from the port's init (a seeded
+   0), head dims 8 and 256, recurrentgemma-9b's local attention as served
+   (B 4, S 2560, 16 query heads on one K/V head, hd 256, window 2048) and
+   gemma2-27b's (S 4608, 32 query heads on 16, hd 128, window 4096,
+   soft-cap 50); in bf16 also against the plain model of its arithmetic,
+   p rounded to bf16 before p . v (``atol=4e-3``, ``rtol=2^-8``), and in
+   float32 its block shapes against each other (``atol=1e-5``); hold the
+   expert-GEMM kernel (``csrc/moe_gemm.cu``) against its plain version
+   (``rtol=1e-5, atol=1e-4`` in float32, ``rtol=3e-2, atol=3e-1`` in bf16
+   and, tighter, within one bf16 ulp: ``rtol=2^-7, atol=1e-3``) at the
+   serve path's four shapes, ragged ones, and C = 1, 13 and 300.  Then
+   serve: the model at its published width with its depth cut to 8 of 48
+   layers, bf16 weights from the port's init (a seeded
    ``torch.Generator`` on the card), ``serve_batch`` with 4 requests of
    512-token prompts and 32 new tokens.  Launches, counted from zero just
    before the run, must be exactly 8 flash (one per layer, prefill) and
    3 x 8 x 33 = 792 expert GEMM (a prefill and 32 decode steps); prints the
-   prefill and decode-step seconds, tokens/s, peak memory and, from
+   prefill (and three more prefills of the same batch, uncounted) and
+   decode-step seconds, tokens/s, peak memory and, from
    ``torch.profiler`` over one more run, the device's idle share (with
    bounds that count the kernels the profiler left unrecorded).  Last,
    the same weights on the CPU against the card (TF32 off): a 64-token
@@ -118,8 +124,11 @@ line):
 8. Time the kernels, their plain versions and their bounds at the shapes
    the main paths launched most (CUDA events, median of repeats; for the
    serve kernels also one PyTorch call of the same function, SDPA and
-   ``torch.bmm``, timed only; the assembly tile, wkv6 and rglru also as
-   ``device_ms``, launches queued behind a sleep on the card), and
+   ``torch.bmm``, timed only; every kernel also as ``device_ms``,
+   launches queued behind a sleep on the card, and flash and the expert
+   GEMM as the host's time to queue one call).  Flash and the expert GEMM
+   are held to their plain versions at every shape the serve paths
+   launched, at the tolerances of phase 6, before they are timed.  Then
    profile one float64 solo main-path run with ``torch.profiler``: device
    time by kernel and copy, and the device's idle share of the run's wall
    time.
@@ -140,6 +149,7 @@ import gc
 import importlib
 import json
 import pkgutil
+import re
 import subprocess
 import sys
 import time
@@ -195,12 +205,28 @@ GEMM_REPLACES = "src/repro/kernels/moe_gemm/kernel.py:22"
 # GEMM rtol = tol, atol = 10 tol
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GEMM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# the bf16 flash kernel against ref.reference_attention_bf16_p, the plain
+# model of its arithmetic (p rounded to bf16 before p . v), which returns
+# float32: rtol half a bf16 ulp (the kernel's output is rounded once), atol
+# for p's rounding, which the kernel applies to exp(s - running max) and
+# the model to exp(s - row max) (each p within 2^-9 of its own, relatively;
+# 2e-3 seen on the served shapes)
+FLASH_P_TOL = dict(atol=4e-3, rtol=2 ** -8)
+# the bf16 expert GEMM against its plain version, tightly: both accumulate
+# the exact bf16 products in float32 and round once, so they differ only
+# where float32 sums taken in another order fall on two sides of a bf16
+# rounding boundary: one bf16 ulp, at most 2^-7 of the value; atol for
+# results near 0, where the sums' own float32 error (about 1e-6 here)
+# outweighs an ulp
+GEMM_P_TOL = dict(rtol=2 ** -7, atol=1e-3)
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap): the cases of
 # tests/test_kernels.py, then the serve shape, a length that is no multiple
 # of the 64-row tile, rows that see no key (a window ending before the
-# keys do), head dims 8 and 256, and recurrentgemma-9b's local attention as
+# keys do), head dims 8 and 256, recurrentgemma-9b's local attention as
 # served (16 query heads on one K/V head, hd 256, 2560 tokens past the
-# 2048-token window, so whole key tiles before the window are skipped)
+# 2048-token window, so whole key tiles before the window are skipped) and
+# gemma2-27b's as served (hd 128, soft-cap 50, 4608 tokens past the
+# 4096-token window)
 FLASH_CASES = (
     (2, 128, 128, 4, 2, 64, True, 0, 0.0),
     (1, 256, 256, 4, 4, 64, True, 64, 0.0),
@@ -213,11 +239,17 @@ FLASH_CASES = (
     (1, 37, 37, 2, 2, 8, True, 0, 0.0),
     (1, 70, 70, 2, 1, 256, True, 0, 0.0),
     (4, 2560, 2560, 16, 1, 256, True, 2048, 0.0),
+    (1, 4608, 4608, 32, 16, 128, True, 4096, 50.0),
 )
 # (E, C, d, f): the serve path's prefill gate/up and down, its decode
-# gate/up, then ragged C, d and f
+# gate/up and down, then ragged C, d and f (the wmma kernel: d or f no
+# multiple of 8), and C = 1, 13 (no multiple of 8) and 300 (two N tiles of
+# the TMA kernel); time_serve_kernels also holds the kernel to its plain
+# version at every shape the serve path launched
 GEMM_SHAPES = ((128, 168, 2048, 768), (128, 168, 768, 2048),
-               (128, 4, 2048, 768), (3, 37, 100, 70), (5, 16, 64, 130))
+               (128, 4, 2048, 768), (128, 4, 768, 2048), (3, 37, 100, 70),
+               (5, 16, 64, 130), (8, 1, 2048, 768), (8, 13, 2048, 768),
+               (8, 300, 2048, 768))
 
 # the recurrent serving paths, at their published widths and full depths:
 # rwkv6-7b (32 rwkv6 layers: 32 wkv6 launches in prefill) and
@@ -806,13 +838,13 @@ def fold_heads(x, heads):
 
 
 def check_flash_kernel(torch, flash_ops, flash_ref, rng) -> dict:
-    """The flash kernel against its plain version on the card; returns the
-    largest absolute error per dtype."""
-    worst = {}
+    """The flash kernel against its plain version on the card, and in bf16
+    also against the plain model of its rounding; returns the largest
+    absolute error per dtype (``bfloat16_p``: against the model)."""
+    worst = {"bfloat16_p": 0.0}
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
-        tol = FLASH_TOL[name]
         worst[name] = 0.0
         for case in FLASH_CASES:
             b, sq, skv, hq, hkv, hd, causal, window, cap = case
@@ -826,21 +858,21 @@ def check_flash_kernel(torch, flash_ops, flash_ref, rng) -> dict:
                 fold_heads(q, hq), fold_heads(k, hkv), fold_heads(v, hkv),
                 causal=causal, window=window, softcap=cap)
             want = want.reshape(b, hq, sq, hd).transpose(1, 2)
-            torch.cuda.synchronize()
+            model = None
+            if dtype == torch.bfloat16:
+                model = flash_ref.reference_attention_bf16_p(
+                    fold_heads(q, hq), fold_heads(k, hkv), fold_heads(v, hkv),
+                    causal=causal, window=window, softcap=cap)
+                model = model.reshape(b, hq, sq, hd).transpose(1, 2)
             label = f"flash {name} {case}"
-            if got.shape != (b, sq, hq, hd) or got.dtype != dtype:
-                fail(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
-            try:
-                torch.testing.assert_close(got.float(), want.float(),
-                                           atol=tol, rtol=tol)
-            except AssertionError as err:
-                fail(f"{label}: kernel != plain version: {err}")
+            err, err_p = hold_flash(torch, got, want, model, label)
+            del model
             if not causal and window and sq > skv + window:
                 dead = got[:, skv + window:]
                 if not (dead == 0).all():
                     fail(f"{label}: rows that see no key are not 0")
-            worst[name] = max(worst[name],
-                              (got.float() - want.float()).abs().max().item())
+            worst[name] = max(worst[name], err)
+            worst["bfloat16_p"] = max(worst["bfloat16_p"], err_p)
             n_cases += 1
     # block-shape independence (float32, the reference's atol 1e-5)
     q, k, v = (torch.tensor(rng.standard_normal((1, 200, 4, 64)),
@@ -852,9 +884,35 @@ def check_flash_kernel(torch, flash_ops, flash_ref, rng) -> dict:
         if not torch.allclose(o, outs[0], atol=1e-5, rtol=0):
             fail("flash: the result depends on the block shape")
     print(f"flash kernel == plain version on {n_cases} cases (float32 "
-          f"atol=rtol=2e-5, bfloat16 2e-2; block shapes (64, 64), (32, 32), "
-          f"(64, 17), (16, 64) within 1e-5); max_abs_err {worst}", flush=True)
+          f"atol=rtol=2e-5, bfloat16 2e-2; bfloat16 == the plain model of "
+          f"its p rounding within {FLASH_P_TOL}; float32 block shapes (64, "
+          f"64), (32, 32), (64, 17), (16, 64) within 1e-5); max_abs_err "
+          f"{worst}", flush=True)
     return worst
+
+
+def hold_flash(torch, got, want, model, label: str) -> tuple:
+    """Fails unless flash's ``got`` has ``want``'s shape and dtype and
+    agrees with the plain version ``want`` at ``FLASH_TOL`` and, unless
+    ``model`` is None, with the plain model of its bf16 p (float32) at
+    ``FLASH_P_TOL``; returns the largest absolute errors against each (0.0
+    without a model)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    tol = FLASH_TOL[dtype_name(got.dtype)]
+    errs = [0.0, 0.0]
+    for i, (what, ref, t) in enumerate((
+            ("plain version", want, dict(atol=tol, rtol=tol)),
+            ("the plain model of its bf16 p", model, FLASH_P_TOL))):
+        if ref is None:
+            continue
+        try:
+            torch.testing.assert_close(got.float(), ref.float(), **t)
+        except AssertionError as err:
+            fail(f"{label}: kernel != {what}: {err}")
+        errs[i] = (got.float() - ref.float()).abs().max().item()
+    return tuple(errs)
 
 
 def check_gemm_kernel(torch, gemm_ops, gemm_ref, rng) -> dict:
@@ -865,7 +923,6 @@ def check_gemm_kernel(torch, gemm_ops, gemm_ref, rng) -> dict:
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
-        tol = GEMM_TOL[name]
         worst[name] = 0.0
         for e, c, d, f in GEMM_SHAPES:
             x = torch.tensor(rng.standard_normal((e, c, d)), dtype=dtype,
@@ -873,23 +930,33 @@ def check_gemm_kernel(torch, gemm_ops, gemm_ref, rng) -> dict:
             w = torch.tensor(rng.standard_normal((e, d, f)) / d ** 0.5,
                              dtype=dtype, device="cuda")
             got = gemm_ops.expert_gemm(x, w)
-            want = gemm_ref.reference_expert_gemm(x, w)
-            torch.cuda.synchronize()
-            label = f"expert_gemm {name} ({e}, {c}, {d}) x ({e}, {d}, {f})"
-            if got.shape != (e, c, f) or got.dtype != dtype:
-                fail(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
-            try:
-                torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=tol, atol=10 * tol)
-            except AssertionError as err:
-                fail(f"{label}: kernel != plain version: {err}")
-            worst[name] = max(worst[name],
-                              (got.float() - want.float()).abs().max().item())
+            worst[name] = max(worst[name], hold_gemm(
+                torch, got, gemm_ref.reference_expert_gemm(x, w),
+                f"expert_gemm {name} ({e}, {c}, {d}) x ({e}, {d}, {f})"))
             n_cases += 1
     print(f"expert_gemm kernel == plain version on {n_cases} cases (rtol "
-          f"1e-5, atol 1e-4 in float32; rtol 3e-2, atol 3e-1 in bfloat16); "
-          f"max_abs_err {worst}", flush=True)
+          f"1e-5, atol 1e-4 in float32; rtol 3e-2, atol 3e-1 and within "
+          f"{GEMM_P_TOL} in bfloat16); max_abs_err {worst}", flush=True)
     return worst
+
+
+def hold_gemm(torch, got, want, label: str) -> float:
+    """Fails unless the expert GEMM's ``got`` has ``want``'s shape and dtype
+    and agrees with it at ``GEMM_TOL`` (rtol tol, atol 10 tol) and, in
+    bf16, at ``GEMM_P_TOL``; returns the largest absolute error."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    tol = GEMM_TOL[dtype_name(got.dtype)]
+    tols = [dict(rtol=tol, atol=10 * tol)]
+    if got.dtype == torch.bfloat16:
+        tols.append(GEMM_P_TOL)
+    for t in tols:
+        try:
+            torch.testing.assert_close(got.float(), want.float(), **t)
+        except AssertionError as err:
+            fail(f"{label}: kernel != plain version within {t}: {err}")
+    return (got.float() - want.float()).abs().max().item()
 
 
 class RouteLog:
@@ -1053,11 +1120,25 @@ def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
              "logits")
     prefill_s = clock.seconds("prefill")[0]
     decode_s = clock.seconds("decode")
+    # the same prefill three times more, after the counted run (its
+    # launches not counted): the spread of one prefill's time, and what of
+    # the first one's is a one-off
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    again = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        model.prefill_fn(params, batch)
+        end.record()
+        end.synchronize()
+        again.append(start.elapsed_time(end) / 1e3)
+    del batch
     out = dict(
         arch=cfg.name, layers=f"{cfg.num_layers} of {full_layers}",
         q_heads=cfg.num_heads, params=n_params, batch=SERVE_BATCH,
         prompt=prompt_len, new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
-        prefill_s=prefill_s, decode_step_s_median=float(np.median(decode_s)),
+        prefill_s=prefill_s, prefill_again_s=again,
+        decode_step_s_median=float(np.median(decode_s)),
         decode_step_s_min=min(decode_s), decode_step_s_max=max(decode_s),
         tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
         decode_tokens_per_s=SERVE_BATCH * len(decode_s) / sum(decode_s),
@@ -1068,7 +1149,8 @@ def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
     print(f"serve: {cfg.name}, {cfg.num_layers} of {full_layers} layers, "
           f"{n_params} parameters (bf16, init on the card {init_s:.2f} s); "
           f"{SERVE_BATCH} requests x {prompt_len}-token prompts, "
-          f"{SERVE_NEW} new tokens: prefill {prefill_s!r} s, decode step "
+          f"{SERVE_NEW} new tokens: prefill {prefill_s!r} s (then "
+          f"{again!r} s), decode step "
           f"median {out['decode_step_s_median']!r} s, {out['tokens_per_s']!r}"
           f" tokens/s over {wall!r} s, peak memory {peak / 1e9!r} GB; "
           f"launches {want}", flush=True)
@@ -1449,15 +1531,17 @@ def time_kernel(torch, kernel, ref, rng, shapes) -> dict:
         for e_n, a_n, b_n in top + [(64, 128, 128)]:
             t = random_tiles(torch, rng, dtype, e_n, a_n, b_n)
             k_ms = time_ms(torch, lambda: kernel.score_tiles(*t), 200)
+            k_dev = device_ms(torch, lambda: kernel.score_tiles(*t))
             p_ms = time_ms(torch, lambda: ref.score_tiles(*t), 20)
             b_ms, b_by, nbytes = bound(name, e_n, a_n, b_n)
             key = f"E={e_n},A={a_n},B={b_n}"
             times.setdefault(name, {})[key] = dict(
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                ms=k_ms, device_ms=k_dev, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by,
                 bytes=nbytes, main_path_launches=shapes[name][(e_n, a_n,
                                                                b_n)])
-            print(f"time {name} {key}: kernel {k_ms!r} ms, plain {p_ms!r} "
-                  f"ms, bound {b_ms!r} ms ({b_by}, {nbytes} B)", flush=True)
+            print(f"time {name} {key}: kernel {k_ms!r} ms (device {k_dev!r} "
+                  f"ms), plain {p_ms!r} ms, bound {b_ms!r} ms ({b_by}, {nbytes} B)", flush=True)
     return times
 
 
@@ -1523,11 +1607,17 @@ def profiled_run(torch, run) -> dict:
 
 
 def device_ms(torch, fn, reps: int = 50) -> float:
+    """``queued_ms``'s device time."""
+    return queued_ms(torch, fn, reps)[0]
+
+
+def queued_ms(torch, fn, reps: int = 50) -> tuple:
     """Mean device time per call of ``fn``, from CUDA events around
     ``reps`` calls queued behind a sleep on the card, so that the host's
     time between launches is hidden (the event time of back-to-back calls
-    is set by the host when a launch takes less than its Python wrapper).
-    Fails if the host took longer to queue the calls than the card slept."""
+    is set by the host when a launch takes less than its Python wrapper),
+    and the mean host time to queue one call.  Fails if the host took
+    longer to queue the calls than the card slept."""
     fn()
     torch.cuda.synchronize()
     slept, start, end = (torch.cuda.Event(enable_timing=True)
@@ -1544,7 +1634,7 @@ def device_ms(torch, fn, reps: int = 50) -> float:
     if host_ms >= slept.elapsed_time(start):
         fail(f"device_ms: queueing {reps} calls took {host_ms} ms, longer "
              f"than the card slept ({slept.elapsed_time(start)} ms)")
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms / reps
 
 
 def time_assembly_kernel(torch, asm_ops, asm_ref, asm_path) -> dict:
@@ -1627,8 +1717,22 @@ def time_flash(torch, flash_kernel, flash_ref, q_shape, k_shape, hq: int,
         k_pos = torch.arange(skv, device="cuda")[None, :]
         mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
     big = bhq * sq * skv > 2 ** 28
-    k_ms = time_ms(torch, lambda: flash_kernel.flash_attention_fwd(
-        q, k, v, causal=True, window=window), 5 if big else 20)
+    key = f"q={list(q_shape)},kv={list(k_shape)}" \
+        + (f",window={window}" if window else "")
+    hold_flash(torch,
+               flash_kernel.flash_attention_fwd(q, k, v, causal=True,
+                                                window=window),
+               flash_ref.reference_attention(q, k, v, causal=True,
+                                             window=window),
+               flash_ref.reference_attention_bf16_p(q, k, v, causal=True,
+                                                    window=window),
+               f"flash at the launched shape {key}")
+
+    def launch_one():
+        flash_kernel.flash_attention_fwd(q, k, v, causal=True, window=window)
+
+    k_ms = time_ms(torch, launch_one, 20)
+    k_dev, k_host = queued_ms(torch, launch_one)
     p_ms = time_ms(torch, lambda: flash_ref.reference_attention(
         q, k, v, causal=True, window=window), 2 if big else 10)
     l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1637,14 +1741,13 @@ def time_flash(torch, flash_kernel, flash_ref, q_shape, k_shape, hq: int,
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())
     ops = 4 * pairs * hd
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
-    key = f"q={list(q_shape)},kv={list(k_shape)}" \
-        + (f",window={window}" if window else "")
-    out = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-               bound_ms=max(t_b, t_o),
+    out = dict(ms=k_ms, device_ms=k_dev, host_ms=k_host, plain_ms=p_ms,
+               library_ms=l_ms, bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations",
                bytes=nbytes, operations=ops, launches=launches)
-    print(f"time flash {key}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
-          f"sdpa {l_ms!r} ms, bound {out['bound_ms']!r} ms "
+    print(f"time flash {key}: kernel {k_ms!r} ms (device {k_dev!r} ms, "
+          f"host {k_host!r} ms a call), "
+          f"plain {p_ms!r} ms, sdpa {l_ms!r} ms, bound {out['bound_ms']!r} ms "
           f"({out['bound_by']}, {nbytes} B, {ops} operations), {launches} "
           f"launches", flush=True)
     return {key: out}
@@ -1670,20 +1773,31 @@ def time_serve_kernels(torch, flash_kernel, flash_ref, gemm_kernel, gemm_ref,
         x = torch.randn(x_shape, dtype=torch.bfloat16, device="cuda")
         w = torch.randn(w_shape, dtype=torch.bfloat16, device="cuda") \
             / d ** 0.5
-        k_ms = time_ms(torch, lambda: gemm_kernel.expert_gemm_fwd(x, w), 20)
+        key = f"x={list(x_shape)},w={list(w_shape)}"
+        hold_gemm(torch, gemm_kernel.expert_gemm_fwd(x, w),
+                  gemm_ref.reference_expert_gemm(x, w),
+                  f"expert_gemm at the launched shape {key}")
+
+        def launch_one():
+            gemm_kernel.expert_gemm_fwd(x, w)
+
+        k_ms = time_ms(torch, launch_one, 20)
+        k_dev, k_host = queued_ms(torch, launch_one)
         p_ms = time_ms(torch, lambda: gemm_ref.reference_expert_gemm(x, w),
                        10)
         l_ms = time_ms(torch, lambda: torch.bmm(x, w), 20)
         nbytes = 2 * (e * c * d + e * d * f + e * c * f)
         ops = 2 * e * c * d * f
         t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
-        key = f"x={list(x_shape)},w={list(w_shape)}"
         times["gemm"][key] = dict(
-            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=max(t_b, t_o),
+            ms=k_ms, device_ms=k_dev, host_ms=k_host, plain_ms=p_ms,
+            library_ms=l_ms, bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
             operations=ops, launches=n)
-        print(f"time expert_gemm {key}: kernel {k_ms!r} ms, plain {p_ms!r} "
-              f"ms, bmm {l_ms!r} ms, bound {max(t_b, t_o)!r} ms "
+        print(f"time expert_gemm {key}: kernel {k_ms!r} ms (device "
+              f"{k_dev!r} ms, host {k_host!r} ms a call), plain {p_ms!r} ms, "
+              f"bmm {l_ms!r} ms, bound "
+              f"{max(t_b, t_o)!r} ms "
               f"({times['gemm'][key]['bound_by']}, {nbytes} B, {ops} "
               f"operations), {n} launches", flush=True)
     return times
@@ -1807,6 +1921,11 @@ def main() -> None:
     libs = [m.build() for m in kernel_mods]
     for source, report in reports.items():
         print(f"nvcc {source.name}:\n{report}", flush=True)
+        spills = [line.strip() for line in report.splitlines()
+                  if any(int(n) for n in re.findall(
+                      r"(\d+) bytes spill (?:stores|loads)", line))]
+        if spills:
+            fail(f"ptxas spills registers in {source.name}: {spills}")
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[str(lib.relative_to(ROOT)) for lib in libs]}", flush=True)
     # 3. the kernel against its plain version
@@ -1866,7 +1985,8 @@ def main() -> None:
             "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": worst[name],
-            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "ms": m["ms"], "device_ms": m["device_ms"],
+            "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "shape": key, "by_shape": times[name],
         })
@@ -1900,7 +2020,9 @@ def main() -> None:
             "launches_by_path": by_path,
             "max_abs_err": worst_err["bfloat16"],
             "max_abs_err_float32": worst_err["float32"],
-            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "max_abs_err_bf16_p": worst_err.get("bfloat16_p"),
+            "ms": m["ms"], "device_ms": m["device_ms"],
+            "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "shape": shape,
             "by_shape": by_shape,

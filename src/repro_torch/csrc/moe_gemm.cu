@@ -9,21 +9,31 @@
 // repro_torch/kernels/moe_gemm/ref.py::reference_expert_gemm.
 //
 // Layout, all contiguous: x (E, C, D), w (E, D, F), out (E, C, F), one type,
-// bf16 or float32.  Grid (ceil(F / BF), ceil(C / BC), E): one block per
-// (F tile, C tile, expert).  The TPU grid's sequential K axis (accumulating
-// in VMEM scratch) is a loop inside the block here, because CUDA blocks run
-// in no order: each step stages an x tile and a w tile in shared memory,
-// zero past C, D and F (so any C, D and F work), and accumulates.
+// bf16 or float32.  The TPU grid's sequential K axis (accumulating in VMEM
+// scratch) is a loop inside the block here, because CUDA blocks run in no
+// order.  Three kernels, chosen by the type and the shape alone:
 //
-// - bf16: tensor cores through the wmma API (16 x 16 x 16 bf16 products,
-//   float accumulators in registers), K step 32, the x and w tiles of the
-//   next two steps in flight as 16-byte asynchronous copies (cp.async, a
-//   three-stage ring) where D or F is a multiple of 8, element loads
-//   otherwise.  Two tiles: 64 x 64 (four warps of 32 x 32)
-//   for the prefill's C = 168, and 16 x 128 (four warps of 16 x 32) for
-//   C <= 16, the decode step's C = 4, so that a block wastes little of its
-//   work on empty capacity rows.  The float tile goes through shared memory
-//   to the bf16 output, rounded to nearest even once.
+// - bf16, D and F multiples of 8 (every config; TMA needs 16-byte row
+//   strides): expert_gemm_tma_kernel, wgmma fed by TMA.  It computes
+//   out^T[e] = w[e]^T . x[e]^T, so that the weights are wgmma's M side (64
+//   rows of F per consumer warpgroup, read MN-major: the transpose bit) and
+//   the tokens its N side (K-major), N = C rounded up to a multiple of 8
+//   (168 stays 168, the decode step's 4 becomes 8), a second grid axis
+//   past 256.  A block of 384 threads owns 128 rows of F of one expert:
+//   two consumer warpgroups and one producer warpgroup whose first thread
+//   keeps 3 to 6 K steps of 64 (a 16 KB w tile and an x tile) in flight in
+//   a ring of mbarrier-guarded stages (128-byte swizzle, zero fill past C,
+//   D and F); setmaxnreg moves registers from the producer (40) to the
+//   consumers (232).  The grid's fastest axis walks an expert's F tiles,
+//   so L2 serves the x re-reads.  The float32 (F, N) tile goes through
+//   shared memory (the ring, once drained) and leaves as 16-byte row
+//   stores, rounded to nearest even once.  csrc/hopper.cuh holds the TMA,
+//   mbarrier and wgmma helpers.
+// - bf16, D or F not a multiple of 8 (the ragged test shapes only):
+//   expert_gemm_bf16_kernel, tensor cores through the wmma API (16 x 16 x
+//   16 bf16 products, float accumulators in registers), K step 32, a
+//   three-stage cp.async ring where D or F is a multiple of 8, element
+//   loads otherwise; tiles of 64 x 64 (C > 16) or 16 x 128 (C <= 16).
 // - float32: the float32 cores, a 64 x 64 tile, K step 16, each of 256
 //   threads accumulating a 4 x 4 block with explicit fused multiply-adds
 //   (__fmaf_rn, which --fmad=false leaves alone) in order k = 0 .. D - 1.
@@ -34,17 +44,19 @@
 // bytes bound.  The decode step's (128, 4, 2048) x (128, 2048, 768) moves
 // 406 MB for 1.6 GFLOP: 0.121 ms, bytes bound; static capacity reads every
 // expert's weights each step, empty experts too (the JAX semantics, kept).
-// What the design does: each weight element is read once per C tile (once
-// in decode, three times at C = 168, where L2 may serve the repeats), with
-// 16-byte copies kept in flight across K steps; the products run on the
-// tensor cores, so the bf16 kernel waits on memory, not arithmetic.  TMA
-// and wgmma are later steps.
+// What the design does: every weight element is read from device memory
+// once per launch (C <= 256), by TMA, several steps ahead of the products,
+// and the MMA rows are weights, so a decode step's four tokens waste no
+// MMA rows of weights, only N columns (8 for 4).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -268,17 +280,184 @@ int launch_bf16(const bf16* x, const bf16* w, bf16* out, int E, int C, int D,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------- bf16, D and F multiples of 8: TMA
+// out^T[e] = w[e]^T . x[e]^T: the weights are wgmma's M side (64 rows of F
+// a consumer warpgroup, two a block), the tokens its N side (N = C rounded
+// up to a multiple of 8, at most 256, a grid axis beyond); K = D in steps
+// of 64.  One producer warpgroup (its first thread issues the loads) keeps
+// STAGES steps of (w tile, x tile) in flight.
+template <int N>
+struct GemmTma {
+  static constexpr int BF = 128;            // F rows of a block
+  static constexpr int BK = 64;             // D of a step (one 128-byte box)
+  static constexpr int W_BYTES = BK * BF * 2;
+  static constexpr int X_BYTES = N * BK * 2;
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr int STAGES = (200 * 1024) / STAGE < 6
+                                    ? (200 * 1024) / STAGE : 6;
+  static constexpr int EPI_LD = BF + 8;     // bf16 row stride of the epilogue
+  static constexpr int THREADS = 384;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE
+                                 + 2 * STAGES * sizeof(uint64_t);
+  static_assert(N % 8 == 0 && N <= 256, "N: a multiple of 8, at most 256");
+  static_assert(STAGES >= 3 && STAGES * STAGE >= N * EPI_LD * 2,
+                "the epilogue reuses the ring");
+};
+
+template <int N>
+__global__ void __launch_bounds__(GemmTma<N>::THREADS, 1)
+expert_gemm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w,
+                       bf16* __restrict__ out, int C, int D, int F) {
+  using P = GemmTma<N>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + P::STAGES * P::STAGE);
+  uint64_t* empty = full + P::STAGES;
+
+  const int f0 = blockIdx.x * P::BF, n0 = blockIdx.y * N, e = blockIdx.z;
+  const int nk = (D + P::BK - 1) / P::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // a consumer warp each
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&map_x);
+      hopper::prefetch_map(&map_w);
+      for (int t = 0; t < nk; ++t) {
+        const int st = t % P::STAGES;
+        hopper::mbar_wait(&empty[st], ((t / P::STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[st], P::STAGE);
+        uint8_t* sw = ring + st * P::STAGE;
+        hopper::tma_load_3d(sw, &map_w, &full[st], f0, t * P::BK, e);
+        hopper::tma_load_3d(sw + P::W_BYTES / 2, &map_w, &full[st], f0 + 64,
+                            t * P::BK, e);
+        hopper::tma_load_3d(sw + P::W_BYTES, &map_x, &full[st], t * P::BK,
+                            n0, e);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup c: F rows f0 + 64 c ..; acc holds (64 of F, N of C)
+  hopper::regs_inc<232>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < nk; ++t) {
+    const int st = t % P::STAGES;
+    hopper::mbar_wait(&full[st], (t / P::STAGES) & 1);
+    const uint8_t* sw = ring + st * P::STAGE + c * (P::W_BYTES / 2);
+    const uint8_t* sx = ring + st * P::STAGE + P::W_BYTES;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < P::BK / 16; ++kk)
+      hopper::WgmmaSS<N, 1, 0>::run(
+          acc, hopper::desc_sw128(sw + kk * 16 * 128, P::W_BYTES / 2, 1024),
+          hopper::desc_sw128(sx + kk * 32, 16, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<N / 2>(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: every load has landed and been read, so the ring holds the
+  // (N, 128) bf16 tile, rounded once, for row-wise 16-byte stores
+  hopper::named_sync(1, 256);
+  bf16* epi = reinterpret_cast<bf16*>(ring);
+  const int fr = 64 * c + 16 * warp + lane / 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        epi[(8 * j + 2 * (lane % 4) + x) * P::EPI_LD + fr + 8 * h] =
+            __float2bfloat16_rn(acc[4 * j + 2 * h + x]);
+  hopper::named_sync(1, 256);
+  bf16* oe = out + (long long)e * C * F;
+  for (int idx = threadIdx.x - 128; idx < N * (P::BF / 8); idx += 256) {
+    const int n = idx / (P::BF / 8), f = (idx % (P::BF / 8)) * 8;
+    if (n0 + n < C && f0 + f < F)
+      *reinterpret_cast<uint4*>(oe + (long long)(n0 + n) * F + f0 + f) =
+          *reinterpret_cast<const uint4*>(epi + n * P::EPI_LD + f);
+  }
+}
+
+template <int N>
+int launch_tma(const bf16* x, const bf16* w, bf16* out, int E, int C, int D,
+               int F, int n_tiles, cudaStream_t stream) {
+  using P = GemmTma<N>;
+  CUtensorMap map_x, map_w;
+  int rc = hopper::make_map_bf16(&map_x, x, D, C, E, N);
+  if (rc == 0) rc = hopper::make_map_bf16(&map_w, w, F, D, E, P::BK);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      expert_gemm_tma_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)P::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((F + P::BF - 1) / P::BF), (unsigned)n_tiles,
+                  (unsigned)E);
+  expert_gemm_tma_kernel<N><<<grid, P::THREADS, P::SMEM, stream>>>(
+      map_x, map_w, out, C, D, F);
+  return (int)cudaGetLastError();
+}
+
+// N = C split into the fewest tiles of at most 256, each rounded up to a
+// multiple of 8
+int launch_tma_any(const bf16* x, const bf16* w, bf16* out, int E, int C,
+                   int D, int F, cudaStream_t stream) {
+  const int n_tiles = (C + 255) / 256;
+  const int n = ((C + n_tiles - 1) / n_tiles + 7) / 8 * 8;
+  switch (n / 8) {
+#define HOPPER_GEMM_CASE(K) \
+  case K:                   \
+    return launch_tma<8 * K>(x, w, out, E, C, D, F, n_tiles, stream);
+    HOPPER_GEMM_CASE(1) HOPPER_GEMM_CASE(2) HOPPER_GEMM_CASE(3)
+    HOPPER_GEMM_CASE(4) HOPPER_GEMM_CASE(5) HOPPER_GEMM_CASE(6)
+    HOPPER_GEMM_CASE(7) HOPPER_GEMM_CASE(8) HOPPER_GEMM_CASE(9)
+    HOPPER_GEMM_CASE(10) HOPPER_GEMM_CASE(11) HOPPER_GEMM_CASE(12)
+    HOPPER_GEMM_CASE(13) HOPPER_GEMM_CASE(14) HOPPER_GEMM_CASE(15)
+    HOPPER_GEMM_CASE(16) HOPPER_GEMM_CASE(17) HOPPER_GEMM_CASE(18)
+    HOPPER_GEMM_CASE(19) HOPPER_GEMM_CASE(20) HOPPER_GEMM_CASE(21)
+    HOPPER_GEMM_CASE(22) HOPPER_GEMM_CASE(23) HOPPER_GEMM_CASE(24)
+    HOPPER_GEMM_CASE(25) HOPPER_GEMM_CASE(26) HOPPER_GEMM_CASE(27)
+    HOPPER_GEMM_CASE(28) HOPPER_GEMM_CASE(29) HOPPER_GEMM_CASE(30)
+    HOPPER_GEMM_CASE(31) HOPPER_GEMM_CASE(32)
+#undef HOPPER_GEMM_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Returns the cudaError_t of the launch (0 on
-// success); the caller checks the shapes (E, C, D, F >= 1, E and the number
-// of C tiles at most 65535).
+// success) or a negative code of hopper::make_map_bf16; the caller checks
+// the shapes (E, C, D, F >= 1, E and the number of C tiles at most 65535;
+// bf16 with D and F multiples of 8: 16-byte aligned bases).
 extern "C" int expert_gemm_bf16(const void* x, const void* w, void* out,
                                 int E, int C, int D, int F, void* stream) {
   const bf16* xt = static_cast<const bf16*>(x);
   const bf16* wt = static_cast<const bf16*>(w);
   bf16* ot = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 8 == 0 && F % 8 == 0)
+    return launch_tma_any(xt, wt, ot, E, C, D, F, st);
   if (C <= 16) return launch_bf16<1, 4, 1, 2>(xt, wt, ot, E, C, D, F, st);
   return launch_bf16<2, 2, 2, 2>(xt, wt, ot, E, C, D, F, st);
 }
@@ -295,5 +474,5 @@ extern "C" int expert_gemm_f32(const void* x, const void* w, void* out,
 }
 
 extern "C" const char* expert_gemm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  return hopper::error_string(code);
 }

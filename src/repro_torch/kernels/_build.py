@@ -2,8 +2,8 @@
 
 Every kernel is compiled with the same flags into a shared library with a
 plain C interface, under ``build/kernels/`` at the root of the checkout,
-named by a hash of its source and the flags (so a stale build is never
-loaded), and bound with ctypes.  A failed build raises; nothing falls back.
+named by a hash of its source, every local header it includes and the
+flags (so a stale build is never loaded), and bound with ctypes.  A failed build raises; nothing falls back.
 :func:`compile_sources` starts one nvcc per source, all at once, so a
 process that needs several kernels waits for the slowest build only.
 """
@@ -12,10 +12,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -35,10 +36,32 @@ def nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def local_sources(source: Path) -> List[Path]:
+    """``source`` and every file it includes with ``#include "..."``,
+    recursively, each found beside the file that includes it; in the order
+    first met."""
+    found, todo = [], [Path(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / name.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return found
+
+
 def library_path(source: Path) -> Path:
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{tag}.so"
+    digest = hashlib.sha256()
+    for path in local_sources(source):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def compile_sources(sources: Sequence[Path],

@@ -54,6 +54,12 @@ def build(verbose: bool = False) -> Path:
     return Path(lib._name)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose base is 16-byte aligned (TMA's rule; a
+    contiguous view at an odd offset is the only tensor that needs one)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check(q, k, v, block_q, block_k) -> None:
     tensors = (q, k, v)
     dev = q.device
@@ -75,6 +81,10 @@ def _check(q, k, v, block_q, block_k) -> None:
                          f"{tuple(k.shape)})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: inputs must be contiguous")
+    if q.dtype == torch.bfloat16 and hd % 8 != 0:
+        raise ValueError("flash_attention: the bf16 kernel's TMA loads need "
+                         "a head dim that is a multiple of 8, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
     if (not 1 <= hd <= MAX_HEAD_DIM or not 1 <= block_q <= TILE
             or not 1 <= block_k <= TILE or bhq > _MAX_GRID_Y
             or max(bhq * sq, bhkv * skv) * hd >= 2 ** 31):
@@ -89,12 +99,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         block_k: int = TILE) -> torch.Tensor:
     """Launch the kernel: q (BHq, Sq, hd), k, v (BHkv, Skv, hd), one dtype
     (bfloat16 or float32), contiguous on one CUDA device -> (BHq, Sq, hd)
-    in q's dtype.  ``block_q`` x ``block_k`` (at most 64 each) is the tile;
-    it changes only the order of float32 sums."""
+    in q's dtype.  float32: ``block_q`` x ``block_k`` (at most 64 each) is
+    the tile; it changes only the order of float32 sums.  bfloat16: the
+    tiles are fixed by the tensor-core design (64 q rows a warpgroup, two a
+    block, and 64 kv rows a stage), so only the default 64 x 64 is taken
+    and another value raises; hd must be a multiple of 8."""
     bhq, sq, hd = q.shape
     bhkv, skv, _ = k.shape
+    if q.dtype == torch.bfloat16 and (block_q, block_k) != (TILE, TILE):
+        raise ValueError("flash_attention: the bf16 kernel's tiles are "
+                         f"fixed at ({TILE}, {TILE}); got ({block_q}, "
+                         f"{block_k})")
     block_q, block_k = min(block_q, max(sq, 1)), min(block_k, max(skv, 1))
     _check(q, k, v, block_q, block_k)
+    if q.dtype == torch.bfloat16:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -107,7 +126,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 bhq, bhkv, sq, skv, hd, block_q, block_k, int(causal),
                 int(window), 1.0 / (hd ** 0.5), float(softcap), stream)
     if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention kernel launch failed ({rc}): "
                            + _lib.flash_attention_error_string(rc).decode())
     LAUNCHES[_DTYPES[q.dtype]] += 1
     return out

@@ -17,8 +17,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     GQA layout contract: q heads are grouped so that head h uses kv head
     h // (Hq // Hkv), as ``models.attention`` groups them.  Heads fold
     kv-major into (B * Hkv * group, S, hd), so the kernel's ``bh // group``
-    lands on the right kv head.  ``block_q`` x ``block_k`` is the kernel's
-    tile (at most 64 x 64).  Tensors that are all on the CPU take the plain
+    lands on the right kv head.  ``block_q`` x ``block_k`` is the float32
+    kernel's tile (at most 64 x 64); the bf16 kernel's is fixed and takes
+    only the default.  Tensors that are all on the CPU take the plain
     version; otherwise the kernel launches, or raises."""
     b, sq, hq, hd = q.shape
     _, skv, hkv, _ = k.shape

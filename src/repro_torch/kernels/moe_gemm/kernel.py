@@ -75,10 +75,16 @@ def _check(x, w) -> None:
 
 def expert_gemm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: x (E, C, d), w (E, d, f), one dtype (bfloat16 or
-    float32), contiguous on one CUDA device -> (E, C, f) in x's dtype."""
+    float32), contiguous on one CUDA device -> (E, C, f) in x's dtype.  In
+    bfloat16 the kernel is chosen by the shape: the TMA / wgmma design where
+    d and f are multiples of 8 (16-byte rows), the wmma one otherwise."""
     _check(x, w)
     e, c, d = x.shape
     f = w.shape[2]
+    if x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+        # TMA reads from 16-byte aligned bases; a contiguous view at an odd
+        # offset is the only tensor that needs the copy
+        x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -90,7 +96,7 @@ def expert_gemm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
                 stream)
     if rc != 0:
-        raise RuntimeError("expert_gemm kernel launch failed: "
+        raise RuntimeError(f"expert_gemm kernel launch failed ({rc}): "
                            + _lib.expert_gemm_error_string(rc).decode())
     LAUNCHES[_DTYPES[x.dtype]] += 1
     return out

@@ -25,6 +25,12 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
 # (E, C, d, f): the reference tests' two shapes, then ragged C and f with d a
 # multiple of the Pallas kernel's K block (its one requirement)
 CASES = [(4, 64, 128, 96), (8, 32, 256, 64), (3, 37, 128, 70), (5, 4, 64, 130)]
+# the bf16 CUDA kernel against the plain version on the card, tightly: both
+# accumulate the exact bf16 products in float32 and round once, so they
+# differ only where float32 sums taken in another order fall on two sides
+# of a bf16 rounding boundary (one ulp, at most 2^-7 of the value); atol
+# for results near 0
+BF16_ULP_TOL = dict(rtol=2 ** -7, atol=1e-3)
 
 
 def _inputs(e, c, d, f, seed=0):
@@ -64,17 +70,25 @@ def test_cuda_launch_raises_on_cpu_tensors():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version_on_the_card():
     """The CUDA kernel against the plain version on the same card inputs, at
-    the tolerances above, at these shapes and the serve path's (prefill
-    C = 168, decode C = 4).  Skips without a card."""
+    the tolerances above (and in bf16 also at ``BF16_ULP_TOL``), at these
+    shapes, the serve path's (prefill C = 168, decode C = 4, gate/up and
+    down) and C = 1, 13 and 300 (two N tiles of the TMA kernel).  Skips
+    without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in DTYPES:
         _, tdt, tol = DTYPES[dtype]
-        for case in CASES + [(128, 168, 2048, 768), (128, 4, 2048, 768)]:
+        for case in CASES + [(128, 168, 2048, 768), (128, 168, 768, 2048),
+                             (128, 4, 2048, 768), (128, 4, 768, 2048),
+                             (8, 1, 2048, 768), (8, 13, 2048, 768),
+                             (8, 300, 2048, 768)]:
             x, w = (torch.tensor(a, dtype=tdt, device="cuda")
                     for a in _inputs(*case))
             got = ops.expert_gemm(x, w)
             want = ref.reference_expert_gemm(x, w)
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol * 10)
+            if tdt == torch.bfloat16:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           **BF16_ULP_TOL)
