@@ -126,7 +126,10 @@ line):
    serve kernels also one PyTorch call of the same function, SDPA and
    ``torch.bmm``, timed only; every kernel also as ``device_ms``,
    launches queued behind a sleep on the card, and flash and the expert
-   GEMM as the host's time to queue one call).  Flash and the expert GEMM
+   GEMM as the host's time to queue one call); the assembly tile at the
+   most-launched signature of each quad order, with the path's launches
+   of each quad order (the mix); and the card's cost of one empty launch,
+   the floor under every ``device_ms``.  Flash and the expert GEMM
    are held to their plain versions at every shape the serve paths
    launched, at the tolerances of phase 6, before they are timed.  Then
    profile one float64 solo main-path run with ``torch.profiler``: device
@@ -134,10 +137,10 @@ line):
    time.
 9. Import every module of ``repro_torch``, check that no module of JAX or
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
-   serve, per-run and assembly numbers, the card line, one JSON line of
-   per-kernel numbers (all seven kernels: the scorer's two instantiations,
-   the assembly tile, flash, the expert GEMM, wkv6 and rglru) and, as the
-   last line,
+   serve, per-run and assembly numbers, the launch floor, the card line,
+   one JSON line of per-kernel numbers (all seven kernels: the scorer's
+   two instantiations, the assembly tile, flash, the expert GEMM, wkv6 and
+   rglru) and, as the last line,
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or when the
@@ -1573,9 +1576,11 @@ def profiled_run(torch, run) -> dict:
     recorded.  The run starts and ends ``PROFILE_MARGIN_S`` inside the
     profiled window, where fewer kernels went unrecorded on an H100 (the
     rwkv6 and recurrentgemma serve runs: 6 and 280 of about 10^5 without
-    the margin; 3 and 0, then 4 and 6, with it)."""
+    the margin; 3 and 0, then 4 and 6, with it), and the profiler keeps
+    its events across cycles (``acc_events``), as its warning asked."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         run()
@@ -1637,27 +1642,42 @@ def queued_ms(torch, fn, reps: int = 50) -> tuple:
     return start.elapsed_time(end) / reps, host_ms / reps
 
 
+def launch_mix(problems) -> Counter:
+    """Assembly-kernel launches per quad order over the measured runs of
+    ``problems``: each task twice, and each signature once more (warm-up)."""
+    mix = Counter()
+    for problem in problems:
+        for (_, _, q), n in signatures(problem).items():
+            mix[q] += 2 * n + 1
+    return mix
+
+
 def time_assembly_kernel(torch, asm_ops, asm_ref, asm_path) -> dict:
     """Assembly kernel (at the application's 16 x 16 tiles), plain version
-    and bound at the signature the path launched most and at (96, 96, 192),
-    on a real task's inputs."""
+    and bound at the signature the path launched most of each quad order,
+    on a real task's inputs, with the path's launches of that quad order."""
     from repro_torch.assembly.execute import TILE_BLOCK
     sigs = asm_path["signatures"]
-    top = sigs.most_common(1)[0][0]
+    mix = launch_mix(asm_path["problems"])
+    if sum(mix.values()) != asm_path["launches"]:
+        fail(f"assembly launch mix {dict(mix)} does not add up to "
+             f"{asm_path['launches']} launches")
+    print(f"assembly launches by quad order: {dict(sorted(mix.items()))}",
+          flush=True)
     times = {}
-    for sig in (top, (96, 96, 192)):
-        problem = next((p for p in asm_path["problems"]
-                        if sig in signatures(p)), None)
-        if problem is None:
-            fail(f"no task of signature {sig} on the assembly path")
+    for quad in ASM_QUADS:
+        sig = max((k for k in sigs if k[2] == quad), key=lambda k: sigs[k])
+        problem = next(p for p in asm_path["problems"]
+                       if sig in signatures(p))
         pr, pc, couple = task_inputs(torch, problem, sig)
         nr, nc, q = sig
+
         def launch_one():
             asm_ops.assembly_tile(pr, pc, couple, quad_order=q,
                                   block_r=TILE_BLOCK, block_c=TILE_BLOCK)
 
         k_ms = time_ms(torch, launch_one, 200)
-        k_dev_ms = device_ms(torch, launch_one)
+        k_dev_ms, host_ms = queued_ms(torch, launch_one)
         p_ms = time_ms(torch, lambda: asm_ref.reference_tile(
             pr, pc, couple, q), 5 if q > 16 else 20)
         nbytes = nr * nc * (4 + 1) + (nr + nc) * 12
@@ -1666,16 +1686,28 @@ def time_assembly_kernel(torch, asm_ops, asm_ref, asm_path) -> dict:
         t_ops = ops / PEAK_OPS["float32"] * 1e3
         key = f"rows={nr},cols={nc},Q={q}"
         times[key] = dict(
-            ms=k_ms, device_ms=k_dev_ms, plain_ms=p_ms,
+            ms=k_ms, device_ms=k_dev_ms, host_ms=host_ms, plain_ms=p_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=nbytes, operations=ops, main_path_tasks=sigs[sig])
+            bytes=nbytes, operations=ops, main_path_tasks=sigs[sig],
+            quad_order_launches=mix[q])
         print(f"time assembly_tile {key}: kernel {k_ms!r} ms (device "
-              f"{k_dev_ms!r} ms), plain "
+              f"{k_dev_ms!r} ms, host {host_ms!r} ms a call), plain "
               f"{p_ms!r} ms, bound {max(t_bytes, t_ops)!r} ms "
-              f"({times[key]['bound_by']}, {nbytes} B, {ops} operations)",
-              flush=True)
+              f"({times[key]['bound_by']}, {nbytes} B, {ops} operations); "
+              f"{mix[q]} launches at Q = {q}", flush=True)
     return times
+
+
+def launch_floor(torch) -> dict:
+    """The card's cost of one launch: an empty kernel
+    (``torch.cuda._sleep(0)``) timed as ``device_ms`` and between events."""
+    out = dict(device_ms=device_ms(torch, lambda: torch.cuda._sleep(0),
+                                   reps=200),
+               event_ms=time_ms(torch, lambda: torch.cuda._sleep(0), 200))
+    print(f"launch floor (empty kernel): {out['device_ms']!r} ms device, "
+          f"{out['event_ms']!r} ms between events", flush=True)
+    return out
 
 
 def profile_main_path(torch, kernel) -> dict:
@@ -1956,6 +1988,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     # 8. times at the main paths' shapes, and where the time goes
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
+    floor = launch_floor(torch)
     asm_times = time_assembly_kernel(torch, asm_ops, asm_ref, asm)
     serve_times = time_serve_kernels(torch, flash_kernel, flash_ref,
                                      gemm_kernel, gemm_ref, serve)
@@ -1990,14 +2023,14 @@ def main() -> None:
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "shape": key, "by_shape": times[name],
         })
-    key = next(iter(asm_times))
+    key = max(asm_times, key=lambda k: asm_times[k]["quad_order_launches"])
     m = asm_times[key]
     kernels.append({
         "name": "assembly_tile_f32", "route": "cuda", "source": ASM_SOURCE,
         "replaces": ASM_REPLACES, "launches": asm["launches"],
         "launches_by_path": {"assembly": asm["launches"]},
         "max_abs_err": max(asm_worst, asm["real_task_max_abs_err"]),
-        "ms": m["ms"], "plain_ms": m["plain_ms"],
+        "ms": m["ms"], "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
         "library_ms": None, "shape": key, "by_shape": asm_times,
     })
@@ -2066,6 +2099,7 @@ def main() -> None:
     print(json.dumps({"assembly": {
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
         flush=True)
+    print(json.dumps({"launch_floor": floor}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,9 +20,11 @@ from repro_torch.assembly.problem import AssemblyProblem, AssemblyTask
 from repro_torch.kernels.assembly.ops import assembly_tile
 from repro_torch.kernels.ccm_scorer.launch import resolve_device
 
-#: the kernel's tile on the application path: tasks are at most 96 x 96
-#: (``task_limit_u``), so 16 x 16 tiles give a task up to 36 CUDA blocks
-#: where the TPU's 128 x 128 would put it on one SM
+#: the bound on the kernel's tile on the application path: tasks are at
+#: most 96 x 96 (``task_limit_u``), and with about sqrt(Q) lanes an entry
+#: (``kernel.launch_geometry``) 16 x 16 tiles give such a task 72 blocks
+#: at Q = 4 and 288 at Q = 64 and 192, where the TPU's 128 x 128 would put
+#: it on one SM
 TILE_BLOCK = 16
 
 

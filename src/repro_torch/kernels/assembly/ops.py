@@ -14,9 +14,10 @@ def assembly_tile(pr: torch.Tensor, pc: torch.Tensor, couple: torch.Tensor,
                   mxu_distance: bool = False) -> torch.Tensor:
     """pr: (nr, 3), pc: (nc, 3), couple: bool (nr, nc) -> (nr, nc) float32.
 
-    ``block_r`` x ``block_c`` is the kernel's tile (one CUDA block each); it
-    does not change the result.  Tensors that are all on the CPU take the
-    plain version; otherwise the kernel launches, or raises."""
+    ``block_r`` x ``block_c`` bounds the kernel's tile (a CUDA block owns
+    at most that many entries; ``kernel.launch_geometry``); it does not
+    change the result.  Tensors that are all on the CPU take the plain
+    version; otherwise the kernel launches, or raises."""
     if all(t.device.type == "cpu" for t in (pr, pc, couple)):
         return ref.reference_tile(pr, pc, couple, quad_order,
                                   mxu_distance=mxu_distance)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -24,7 +25,35 @@ LAUNCHES = {"bfloat16": 0, "float32": 0}
 
 _DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 MAX_HEAD_DIM = 128
+#: tokens staged at a time, and row groups of a head's state (csrc/wkv6.cu)
+TOKENS, ROW_GROUPS = 16, 8
 _lib = None
+
+
+class Geometry(NamedTuple):
+    """One launch of ``csrc/wkv6.cu``: ``grid`` blocks (one per batch and
+    head) of ``threads``, the head dim padded to ``head_pad``, the state
+    spread over ``row_groups`` groups of rows, two columns a thread, in
+    ``smem_bytes`` of shared memory."""
+    grid: int
+    threads: int
+    head_pad: int
+    row_groups: int
+    smem_bytes: int
+
+
+def launch_geometry(b: int, h: int, hd: int, dtype: torch.dtype) -> Geometry:
+    """The launch for r of shape (b, S, h, hd) in ``dtype`` (any S): the
+    kernel's own layout, which it checks; at the served (4, S, 64, 64)
+    256 blocks of 256 threads."""
+    pad = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    tile = TOKENS * pad
+    size = 2 if dtype == torch.bfloat16 else 4
+    # raw log_w (x2), float32 r, k, v, w, r u k, partial y (x row groups),
+    # u, the tokens' bonus; raw r, k, v (x2 each)
+    smem = 4 * ((2 + 5 + ROW_GROUPS) * tile + pad + TOKENS) + size * 6 * tile
+    return Geometry(grid=b * h, threads=ROW_GROUPS * pad // 2, head_pad=pad,
+                    row_groups=ROW_GROUPS, smem_bytes=smem)
 
 
 def reset_launches() -> None:
@@ -42,7 +71,7 @@ def build(verbose: bool = False) -> Path:
     lib = _build.load(SOURCE, verbose)
     for name in ("wkv6_bf16", "wkv6_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.wkv6_error_string.argtypes = [ctypes.c_int]
@@ -88,12 +117,13 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if state.numel() == 0:
         return y, state
     build()
+    geo = launch_geometry(b, h, hd, r.dtype)
     fn = _lib.wkv6_bf16 if r.dtype == torch.bfloat16 else _lib.wkv6_f32
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
                 u.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, hd,
-                stream)
+                geo.threads, geo.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError("wkv6 kernel launch failed: "
                            + _lib.wkv6_error_string(rc).decode())

@@ -15,6 +15,7 @@ Tolerances, per test:
   1e-3) < 2e-2`` against the direct distance, the reference's own bound.
 """
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,9 +35,11 @@ from repro.kernels.assembly.ops import assembly_tile as r_assembly_tile
 from repro_torch.assembly import (balance_assembly, build_problem,
                                   plan_assembly_homing,
                                   run_assembly_comparison)
-from repro_torch.assembly.execute import (analytic_durations, execute_task,
-                                          measure_durations, tile_kernel)
+from repro_torch.assembly.execute import (TILE_BLOCK, analytic_durations,
+                                          execute_task, measure_durations,
+                                          tile_kernel)
 from repro_torch.assembly.homing import plan_homing
+from repro_torch.kernels import _build
 from repro_torch.kernels.assembly import kernel, ref
 from repro_torch.kernels.assembly.ops import assembly_tile
 
@@ -304,6 +307,54 @@ def test_wrapper_rejects_tensors_off_the_card():
         kernel.assembly_tile_fwd(pr, pc, couple, quad_order=4)
 
 
+@pytest.mark.parametrize("q", (1, 3) + QUADS + (300, 5000))
+@pytest.mark.parametrize("nr,nc", [(1, 1), (13, 7), (96, 96), (96, 160),
+                                   (512, 512), (1, 4000)])
+def test_launch_geometry_fits_the_card_and_covers_the_tile(nr, nc, q):
+    """``kernel.launch_geometry``, the launch of ``csrc/assembly_tile.cu``,
+    for several block shapes: within an H100's limits (threads a block,
+    grid rows, shared memory), its blocks' tiles cover every entry exactly
+    once with enough threads for every lane, and the lanes an entry and
+    the segment depend on Q alone (the block shape only bounds the tile,
+    and neither changes the result)."""
+    first = None
+    for block_r, block_c in ((TILE_BLOCK, TILE_BLOCK), (128, 128), (32, 64),
+                             (3, 5), (1, 1)):
+        g = kernel.launch_geometry(nr, nc, q, block_r, block_c)
+        tile_r, tile_c = g.tile
+        assert 1 <= tile_r <= min(block_r, nr)
+        assert 1 <= tile_c <= min(block_c, nc)
+        assert g.lanes & (g.lanes - 1) == 0
+        assert 1 <= g.lanes <= min(q, kernel.MAX_LANES)
+        assert tile_r * tile_c * g.lanes <= kernel.MAX_THREADS
+        assert g.threads % 32 == 0
+        assert 0 <= g.threads - tile_r * tile_c * g.lanes < 32
+        assert (g.grid[0] - 1) * tile_c < nc <= g.grid[0] * tile_c
+        assert (g.grid[1] - 1) * tile_r < nr <= g.grid[1] * tile_r
+        assert g.grid[1] <= 65535
+        assert 1 <= g.segment <= min(q, kernel.SEGMENT)
+        assert g.smem_bytes <= _build.MAX_SMEM_BYTES
+        first = first or (g.lanes, g.segment)
+        assert (g.lanes, g.segment) == first
+
+
+@pytest.mark.parametrize("q", QUADS)
+def test_launch_geometry_fills_the_card_on_application_tasks(q):
+    """A 96 x 96 task at the application's 16 x 16 tiles: about sqrt(Q)
+    lanes an entry (2, 4, 8, 8 at Q 4, 16, 64, 192, the fastest measured on
+    an H100), and at Q >= 16 at least a block for each of the card's 132
+    SMs, in one wave (at most the 64 warps an SM can hold); the constants
+    are the kernel source's."""
+    src = kernel.SOURCE.read_text()
+    assert re.search(r"constexpr int MAX_THREADS = (\d+);", src).group(1) \
+        == str(kernel.MAX_THREADS)
+    g = kernel.launch_geometry(96, 96, q, TILE_BLOCK, TILE_BLOCK)
+    assert g.lanes == {4: 2, 16: 4, 64: 8, 192: 8}[q]
+    blocks = g.grid[0] * g.grid[1]
+    if q >= 16:
+        assert 132 <= blocks and blocks * g.threads // 32 <= 132 * 64
+
+
 def test_port_imports_no_jax():
     """Every module of ``repro_torch``, imported in a fresh interpreter,
     loads no ``jax``, ``jaxlib`` or ``repro`` module."""
@@ -328,7 +379,9 @@ def test_port_imports_no_jax():
 def test_cuda_kernel_matches_plain_version_on_the_card():
     """Runs only where there is a card (``chip_smoke.py`` runs the full
     check).  Tolerance ``rtol=1e-5, atol=1e-4`` against the plain version;
-    block shapes (32, 64) and (128, 128) give equal outputs."""
+    block shapes (32, 64) and (128, 128) give equal outputs, as do the
+    application's 96 x 96 tasks at its own 16 x 16 tiles; a 5000-step
+    ladder (20 segments, over 48 KB of shared memory) holds too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for case in ("96x160", "13x7", "coincident"):
@@ -340,3 +393,20 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
             torch.testing.assert_close(got, ref.reference_tile(*t, q),
                                        rtol=1e-5, atol=1e-4)
             assert torch.equal(got, assembly_tile(*t, quad_order=q))
+    # the application's tasks: 96 x 96 at every quad order through its own
+    # launch (16 x 16 tiles), exactly equal to (128, 128) tiles
+    rng = np.random.default_rng(3)
+    pr, pc = (torch.tensor(rng.uniform(0.0, 2.0, (96, 3)), dtype=torch.float32,
+                           device="cuda") for _ in range(2))
+    couple = torch.tensor(rng.random((96, 96)) < 0.7, device="cuda")
+    for q in QUADS:
+        got = tile_kernel(pr, pc, couple, q)
+        torch.testing.assert_close(got, ref.reference_tile(pr, pc, couple, q),
+                                   rtol=1e-5, atol=1e-4)
+        assert torch.equal(got, assembly_tile(pr, pc, couple, quad_order=q))
+    # a ladder of 20 segments, past 48 KB of shared memory (the opt-in)
+    t = [torch.tensor(a, device="cuda") for a in _tile_inputs("13x7")]
+    assert kernel.launch_geometry(13, 7, 5000).smem_bytes > 48 * 1024
+    torch.testing.assert_close(assembly_tile(*t, quad_order=5000),
+                               ref.reference_tile(*t, 5000), rtol=1e-5,
+                               atol=1e-4)

@@ -14,6 +14,8 @@ the output (``atol=rtol=1e-2``).  The CUDA kernel is held against the plain
 versions on the card by the ``cuda``-marked test, which skips without a
 card.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ import torch
 from repro.kernels.rwkv6 import reference_wkv6 as r_reference_wkv6
 from repro.kernels.rwkv6 import wkv6 as r_wkv6
 from repro.models.rwkv6 import wkv6_chunked as r_wkv6_chunked
+from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6 import kernel, ops, ref
 
 F32 = dict(atol=2e-4, rtol=0)
@@ -142,6 +145,40 @@ def test_cuda_launch_raises_on_cpu_tensors():
         kernel.wkv6_fwd(x, x, x, x, torch.zeros((2, 8)))
 
 
+def test_launch_counts_reset():
+    """``reset_launches`` zeroes every dtype's count (``chip_smoke.py``
+    zeroes them before each run it counts)."""
+    kernel.LAUNCHES["bfloat16"] = 3
+    kernel.reset_launches()
+    assert kernel.LAUNCHES == {"bfloat16": 0, "float32": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [1, 8, 32, 33, 64, 100, 128])
+def test_launch_geometry_fits_the_card(hd, dtype):
+    """``kernel.launch_geometry``, the launch of ``csrc/wkv6.cu`` (which
+    refuses any other): one block per (batch, head); the head dim padded to
+    the smallest of 32, 64, 128 that holds it; two columns a thread and
+    rows a thread in multiples of 4 (16-byte reads); within an H100's
+    threads a block and shared memory; the served (4, S, 64, 64) bf16 as
+    256 blocks of 8 warps.  The constants are the kernel source's."""
+    src = kernel.SOURCE.read_text()
+    for name, value in (("TOKENS", kernel.TOKENS),
+                        ("GROUPS", kernel.ROW_GROUPS)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) \
+            == str(value)
+    g = kernel.launch_geometry(4, 64, hd, dtype)
+    assert g.grid == 256
+    assert g.head_pad in (32, 64, 128) and hd <= g.head_pad
+    assert g.head_pad == 32 or hd > g.head_pad // 2
+    assert g.threads == g.row_groups * g.head_pad // 2
+    assert g.threads % 32 == 0 and g.threads <= 1024
+    assert (g.head_pad // g.row_groups) % 4 == 0
+    assert g.smem_bytes <= _build.MAX_SMEM_BYTES
+    if (hd, dtype) == (64, torch.bfloat16):
+        assert g.threads == 256
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version_on_the_card():
     """The CUDA kernel against the plain versions on the same card inputs:
@@ -149,14 +186,16 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
     ``atol=2e-4, rtol=1e-5``, bf16 y one bf16 ulp, ``rtol=2^-7``), y and
     the final state against ``wkv6_chunked`` (the same; at the clip extreme
     the state only, where the chunked form's y is inexact, as above), at
-    chunk boundaries, a ragged S, fast decay and head dims 8 to 128.  Skips
-    without a card."""
+    chunk boundaries, a ragged S, fast decay, head dims 8 to 128, the
+    served shape (4, 512, 64, 64) and hd 128 at a ragged S.  Skips without
+    a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cases = [(2, 64, 2, 32, None), (2, 128, 2, 32, None),
              (1, 100, 3, 64, None), (1, 64, 1, 16, -15.0),
              (1, 64, 1, 16, -float(np.exp(8.0))), (1, 37, 2, 8, None),
-             (1, 70, 2, 128, None)]
+             (1, 70, 2, 128, None), (4, 512, 64, 64, None),
+             (2, 77, 3, 128, None)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, h, hd, log_w in cases:
             r, k, v, lw, u = (torch.tensor(x, device="cuda") for x in
