@@ -15,10 +15,16 @@ line):
    scan) from the checkout's sources into ``build/``, one nvcc each, in
    parallel, and print the build seconds and ptxas's report; fail if ptxas
    spills registers in any kernel.
-3. Hold the kernel against its plain torch version on the card: float64 and
-   float32, E in {1, 8, 64}, A, B in {1, 13, 16, 128}, random masks, exact
-   equality (``torch.equal``), the masked tail (0 / +inf) and NaN
-   propagation.
+3. Hold the scorer's two kernels against their plain torch versions on
+   the card.  The full tile: float64 and float32, E in {1, 8, 64}, A, B in
+   {1, 13, 16, 128}, random masks, exact equality (``torch.equal``), the
+   masked tail (0 / +inf) and NaN propagation.  The fused pair kernel (the
+   shortlisted pairs, the work combine and eq. 9's feasibility, (3, P)
+   float64 out), bit for bit (NaN as NaN): float64 and float32 (float32
+   planes, float64 combine), E in {1, 8, 64}, (A, B) in {(1, 1), (13, 13),
+   (5, 128), (128, 128)}, P in {1, 32, A*B} an event, events with an empty
+   shortlist inside a batch, pairs in the masked tail, NaN lanes, speeds
+   other than 1, ``memory_constraint`` on and off.
 4. Drive the main path, ``ccm_lb`` with ``n_iter=4, k_rounds=2,
    fanout=4`` on ``device="cuda"``: ``scaling_phase(256)`` (256 ranks, 6400
    tasks, 12,799 comm edges) in float64 solo, float64 with
@@ -26,11 +32,13 @@ line):
    memory-binding phase (the same shape with a 2.4e8-byte cap) in float64
    solo.  Each run is held against the port's own ``device="cpu"`` run
    (identical assignment, transfer log, transfers and max_work), and its
-   kernel launches (counted from zero just before the run, read just after)
-   must equal its scorer calls and be more than zero.  A 16-rank run is also
-   held against the port's scalar reference path (``use_engine=False``),
-   which never calls the scorer.  The launched (E, A, B) shapes are
-   recorded.
+   pair-kernel launches (counted from zero just before the run, read just
+   after) must equal its scorer calls and be more than zero, with no
+   full-tile launch.  A 16-rank run is also held against the port's scalar
+   reference path (``use_engine=False``), which never calls the scorer.
+   The launched (E, A, B) and (E, A, B, P) shapes are recorded, and each
+   run's scorer seconds with their split (pack, h2d, launch, d2h,
+   combine).
 5. The paper's assembly application (section VI) on the card.  Hold the
    assembly-tile kernel (``src/repro_torch/csrc/assembly_tile.cu``) against
    its plain torch version: quad orders 4, 16, 64, 192; shapes (1, 1),
@@ -122,7 +130,9 @@ line):
    argmax may differ only at a near tie (the CPU's top two logits closer
    than twice the step's largest logit error).
 8. Time the kernels, their plain versions and their bounds at the shapes
-   the main paths launched most (CUDA events, median of repeats; for the
+   the main paths launched most (the pair kernel also at E = 64, A = B =
+   128, P = 32 an event, with the launcher's host time a call and its
+   split) (CUDA events, median of repeats; for the
    serve kernels also one PyTorch call of the same function, SDPA and
    ``torch.bmm``, timed only; every kernel also as ``device_ms``,
    launches queued behind a sleep on the card, and flash and the expert
@@ -138,9 +148,9 @@ line):
 9. Import every module of ``repro_torch``, check that no module of JAX or
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
    serve, per-run and assembly numbers, the launch floor, the card line,
-   one JSON line of per-kernel numbers (all seven kernels: the scorer's
-   two instantiations, the assembly tile, flash, the expert GEMM, wkv6 and
-   rglru) and, as the last line,
+   one JSON line of per-kernel numbers (the scorer's pair kernel and its
+   full-tile kernel, each in float64 and float32, the assembly tile,
+   flash, the expert GEMM, wkv6 and rglru) and, as the last line,
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or when the
@@ -174,6 +184,9 @@ PEAK_OPS = {"float64": 34e12, "float32": 67e12}
 # operations per (ia, ib) lane of the scorer: 106 adds, subtractions and
 # maxima plus the two mask compares (csrc/ccm_scorer.cu); selects not counted
 OPS_PER_LANE = 108
+# float64 operations per pair of the pair kernel's combine: per side four
+# products, one quotient and three sums, and the two cap compares
+COMBINE_OPS = 18
 MAIN_KW = dict(n_iter=4, k_rounds=2, fanout=4)
 KERNEL_SOURCE = "src/repro_torch/csrc/ccm_scorer.cu"
 REPLACES = "src/repro/kernels/ccm_scorer/kernel.py:35"
@@ -382,6 +395,115 @@ def check_kernel(torch, kernel, ref, rng) -> dict:
     return worst
 
 
+def pair_events(rng, e_n, a_n, b_n, counts, tails=False, nans=False):
+    """Unpadded per-event features ``(av, bv, pm, sc)`` of an (a_n, b_n)
+    tile each, as the engine builds them (sc float64), with speeds other
+    than 1 and caps that split the pairs, and ``counts[k]`` random pairs of
+    event k, drawn over the whole tile.  ``tails``: each event's na, nb
+    random below the tile's, so that pairs in the masked tail are scored
+    too.  ``nans``: the last event all live and its flows NaN (a NaN W
+    wherever feasible), a NaN memory high in the first event's first
+    a-column and a NaN off-rank volume in the last event's first
+    b-column."""
+    import numpy as np
+    from repro_torch.kernels.ccm_scorer.layout import AV, N_AV, N_PM, N_SC, SC
+    feats, pairs = [], []
+    for n in counts:
+        sc = rng.uniform(0.1, 3.0, N_SC)
+        sc[SC.na], sc[SC.nb] = ((rng.integers(0, a_n), rng.integers(0, b_n))
+                                if tails else (a_n - 1, b_n - 1))
+        sc[SC.speed_a], sc[SC.speed_b] = rng.uniform(0.3, 4.0, 2)
+        sc[SC.mem_cap_a], sc[SC.mem_cap_b] = rng.uniform(4.0, 12.0, 2)
+        feats.append((rng.uniform(-2, 2, (N_AV, a_n)),
+                      rng.uniform(-2, 2, (N_AV, b_n)),
+                      rng.uniform(-2, 2, (N_PM, a_n, b_n)), sc))
+        lanes = rng.choice(a_n * b_n, size=n, replace=False)
+        pairs.append(np.stack([lanes // b_n, lanes % b_n], axis=1))
+    if nans:
+        feats[-1][3][[SC.na, SC.nb]] = a_n - 1, b_n - 1
+        feats[-1][3][SC.f_ab] = float("nan")
+        feats[0][0][AV.ovh, 0] = float("nan")
+        feats[-1][1][AV.out_other, 0] = float("nan")
+    return feats, pairs
+
+
+def pair_inputs(torch, launch, dtype, feats, pairs, params) -> list:
+    """The pair kernel's inputs on the card, packed as the launcher packs
+    them (``launch.pack``): av, bv, pm, sc, cf, offs, pairs."""
+    _, regions, _ = launch.pack(feats, pairs, params, launch.Staging(
+        torch.device("cpu"), dtype))
+    return [torch.from_numpy(v).to("cuda") for v in regions]
+
+
+def check_pair_kernel(torch, kernel, launch, ref, rng) -> dict:
+    """The fused pair kernel against its plain version on the card, bit
+    for bit (NaN as NaN): float64 and float32 (float32 planes, float64
+    combine); E in {1, 8, 64}; (A, B) in {(1, 1), (13, 13), (5, 128),
+    (128, 128)}; P in {1, 32, A*B} per event (events 1 and 5 empty where
+    E >= 8); masked tails; NaN lanes; random coefficients, speeds other
+    than 1; memory_constraint on and off."""
+    from repro_torch.core import CCMParams
+    worst = {}
+    n_cases = 0
+    split = [0, 0]          # infeasible and feasible pairs, constraint on
+    for dtype in (torch.float64, torch.float32):
+        name = dtype_name(dtype)
+        worst[name] = 0.0
+        for e_n in (1, 8, 64):
+            for a_n, b_n in ((1, 1), (13, 13), (5, 128), (128, 128)):
+                for p_n in sorted({1, min(32, a_n * b_n), a_n * b_n}):
+                    for mc in (True, False):
+                        nans = (n_cases % 3 == 0)
+                        counts = [0 if e_n >= 8 and k in (1, 5) else p_n
+                                  for k in range(e_n)]
+                        feats, pairs = pair_events(rng, e_n, a_n, b_n,
+                                                   counts, True, nans)
+                        params = CCMParams(*rng.uniform(0.05, 2.0, 4),
+                                           memory_constraint=mc)
+                        t = pair_inputs(torch, launch, dtype, feats, pairs,
+                                        params)
+                        got = kernel.score_pairs(*t, mc)
+                        want = ref.score_pairs_packed(*t, mc)
+                        torch.cuda.synchronize()
+                        case = (f"{name} E={e_n} A={a_n} B={b_n} P={p_n} "
+                                f"memory_constraint={mc} nans={nans}")
+                        if got.shape != want.shape or \
+                                got.dtype != torch.float64:
+                            fail(f"pair kernel shape/dtype "
+                                 f"{tuple(got.shape)} {got.dtype} at {case}")
+                        try:
+                            torch.testing.assert_close(
+                                got, want, rtol=0, atol=0, equal_nan=True)
+                        except AssertionError as err:
+                            fail(f"pair kernel != plain version at {case}: "
+                                 f"{err}")
+                        # without the constraint every pair of the last
+                        # event has a NaN W
+                        if nans and not mc and not torch.isnan(got).any():
+                            fail(f"NaN inputs gave no NaN output at {case}")
+                        feas = got[2]
+                        if not ((feas == 0) | (feas == 1)).all():
+                            fail(f"feasibility not 0/1 at {case}")
+                        if not torch.isposinf(got[:2, feas == 0]).all():
+                            fail(f"infeasible pair not +inf at {case}")
+                        if mc:
+                            split[0] += int((feas == 0).sum().item())
+                            split[1] += int((feas == 1).sum().item())
+                        ok = torch.isfinite(got) & torch.isfinite(want)
+                        if ok.any():
+                            err = (got[ok] - want[ok]).abs().max().item()
+                            worst[name] = max(worst[name], err)
+                        n_cases += 1
+    if not min(split):
+        fail(f"the caps did not split the pairs (infeasible, feasible: "
+             f"{split})")
+    print(f"pair kernel == plain version on {n_cases} cases (float64 and "
+          f"float32, bit for bit, masked tails, NaN lanes, empty "
+          f"shortlists; {split[0]} infeasible and {split[1]} feasible pairs "
+          f"under the memory constraint); max_abs_err {worst}", flush=True)
+    return worst
+
+
 # --------------------------------------------------------- 4. the main path
 def same_run(a, b) -> bool:
     import numpy as np
@@ -402,6 +524,7 @@ def main_path(torch, kernel, launch) -> dict:
                                   scaling_phase)
     launches = {"float64": 0, "float32": 0}
     shapes = {"float64": Counter(), "float32": Counter()}
+    pair_shapes = {"float64": Counter(), "float32": Counter()}
     runs = {}
 
     # 16 ranks against the scalar reference path (never calls the scorer)
@@ -413,13 +536,16 @@ def main_path(torch, kernel, launch) -> dict:
     launch.reset_stats()
     eng = ccm_lb(small, a_small, CCMParams(), device="cuda", **MAIN_KW)
     torch.cuda.synchronize()
-    n16 = kernel.LAUNCHES["float64"]
+    n16 = kernel.PAIR_LAUNCHES["float64"]
     if not same_run(scalar, eng):
         fail("16 ranks: cuda engine run differs from the scalar reference")
-    if n16 == 0 or n16 != launch.STATS["calls"]:
-        fail(f"16 ranks: {n16} launches vs {launch.STATS['calls']} calls")
+    if n16 == 0 or n16 != launch.STATS["calls"] \
+            or sum(kernel.LAUNCHES.values()):
+        fail(f"16 ranks: {n16} pair launches vs {launch.STATS['calls']} "
+             f"calls, full-tile launches {kernel.LAUNCHES}")
     launches["float64"] += n16
     shapes["float64"].update(launch.STATS["shapes"])
+    pair_shapes["float64"].update(launch.STATS["pair_shapes"])
     print(f"16 ranks: cuda engine == scalar reference ({eng.transfers} "
           f"transfers, {n16} launches)", flush=True)
 
@@ -451,17 +577,20 @@ def main_path(torch, kernel, launch) -> dict:
         gpu = ccm_lb(phase, a0, params, device="cuda", profile=True, **kw)
         torch.cuda.synchronize()
         gpu_s = time.perf_counter() - t0
-        n_launch = dict(kernel.LAUNCHES)
+        n_launch = dict(kernel.PAIR_LAUNCHES)
         calls = launch.STATS["calls"]
 
         if not same_run(gpu, cpu):
             fail(f"{label}: cuda run differs from the cpu run")
         if n_launch[name] == 0 or n_launch[name] != calls \
                 or calls != cpu_calls:
-            fail(f"{label}: kernel launches {n_launch} vs scorer calls "
+            fail(f"{label}: pair kernel launches {n_launch} vs scorer calls "
                  f"{calls} (cpu run {cpu_calls})")
         if sum(n_launch.values()) != n_launch[name]:
             fail(f"{label}: launches of the other dtype {n_launch}")
+        if sum(kernel.LAUNCHES.values()):
+            fail(f"{label}: the full-tile kernel was launched "
+                 f"{kernel.LAUNCHES} on the main path")
         mw = np.asarray(gpu.max_work)
         if (not np.isfinite(mw[-1]) or not mw[-1] < mw[0]
                 or gpu.assignment.shape != (phase.num_tasks,)
@@ -482,6 +611,7 @@ def main_path(torch, kernel, launch) -> dict:
             fail(f"{label}: float32 assignment differs from float64")
         launches[name] += n_launch[name]
         shapes[name].update(launch.STATS["shapes"])
+        pair_shapes[name].update(launch.STATS["pair_shapes"])
         stages = {k: sum(t[k] for t in gpu.stage_timings)
                   for k in gpu.stage_timings[0]}
         cpu_stages = {k: sum(t[k] for t in cpu.stage_timings)
@@ -494,15 +624,21 @@ def main_path(torch, kernel, launch) -> dict:
             ranks_over_cap=over, cuda_stage_s=stages,
             cpu_stage_s=cpu_stages,
             cuda_score_events_s=launch.STATS["seconds"],
+            cuda_score_events_split_s=dict(launch.STATS["split"]),
+            cuda_score_call_ms=launch.STATS["seconds"] / calls * 1e3,
             top_shapes=[[list(k), v] for k, v
                         in launch.STATS["shapes"].most_common(5)])
         print(f"{label}: identical to cpu; {gpu.transfers} transfers, "
-              f"{calls} scorer calls = {n_launch[name]} launches; max_work "
+              f"{calls} scorer calls = {n_launch[name]} pair launches; "
+              "max_work "
               f"{float(mw[0])!r} -> {float(mw[-1])!r}"
               + (f"; ranks over the cap {over[0]} -> {over[1]}"
                  if over else "")
-              + f"; wall cuda {gpu_s:.3f} s, cpu {cpu_s:.3f} s", flush=True)
-    return dict(launches=launches, shapes=shapes, runs=runs)
+              + f"; wall cuda {gpu_s:.3f} s, cpu {cpu_s:.3f} s; scorer "
+              f"calls {launch.STATS['seconds']!r} s, split "
+              f"{launch.STATS['split']}", flush=True)
+    return dict(launches=launches, shapes=shapes, pair_shapes=pair_shapes,
+                runs=runs)
 
 
 # ----------------------------------------------------------- 5. assembly
@@ -739,11 +875,12 @@ def assembly_path(torch, asm_kernel, asm_ref, kernel, launch) -> dict:
     torch.cuda.synchronize()
     stage_s["target_measured"] = time.perf_counter() - t0
     n_target = count_launches(asm_kernel, target_p, "target, measured")
-    if kernel.LAUNCHES["float64"] != launch.STATS["calls"] \
-            or launch.STATS["calls"] == 0:
-        fail(f"target, measured: scorer launches {kernel.LAUNCHES} vs "
-             f"calls {launch.STATS['calls']}")
-    scorer += kernel.LAUNCHES["float64"]
+    if kernel.PAIR_LAUNCHES["float64"] != launch.STATS["calls"] \
+            or launch.STATS["calls"] == 0 or sum(kernel.LAUNCHES.values()):
+        fail(f"target, measured: scorer pair launches {kernel.PAIR_LAUNCHES}"
+             f" vs calls {launch.STATS['calls']}, full-tile launches "
+             f"{kernel.LAUNCHES}")
+    scorer += kernel.PAIR_LAUNCHES["float64"]
     d = bal_m.durations_true
     if not (np.isfinite(d).all() and (d > 0).all()
             and np.isfinite(bal_m.durations_pred).all()
@@ -780,11 +917,12 @@ def assembly_path(torch, asm_kernel, asm_ref, kernel, launch) -> dict:
                                     durations="analytic", seed=0,
                                     device="cuda")
     torch.cuda.synchronize()
-    if kernel.LAUNCHES["float64"] != launch.STATS["calls"] \
-            or launch.STATS["calls"] == 0:
-        fail(f"target, analytic: scorer launches {kernel.LAUNCHES} vs "
-             f"calls {launch.STATS['calls']}")
-    scorer += kernel.LAUNCHES["float64"]
+    if kernel.PAIR_LAUNCHES["float64"] != launch.STATS["calls"] \
+            or launch.STATS["calls"] == 0 or sum(kernel.LAUNCHES.values()):
+        fail(f"target, analytic: scorer pair launches {kernel.PAIR_LAUNCHES}"
+             f" vs calls {launch.STATS['calls']}, full-tile launches "
+             f"{kernel.LAUNCHES}")
+    scorer += kernel.PAIR_LAUNCHES["float64"]
     run_c = run_assembly_comparison(8192, 32, task_limit_u=96,
                                     durations="analytic", seed=0,
                                     device="cpu")
@@ -1548,6 +1686,90 @@ def time_kernel(torch, kernel, ref, rng, shapes) -> dict:
     return times
 
 
+def pair_bound(name: str, e_n: int, p_total: int, a_cols: int,
+               b_cols: int):
+    """Least time of the fused pair scorer's work on an H100 SXM: bytes of
+    the pm entries at the pairs, the distinct a- and b-columns read, the
+    scalar rows (in the dtype), the float64 combine rows, the int32 offsets
+    and pairs, and the (3, P) float64 result, each once, over the HBM rate;
+    against the scorer's operations per pair in the dtype plus the
+    combine's float64 ones, over the peak rates."""
+    from repro_torch.kernels.ccm_scorer.layout import N_AV, N_CF, N_PM, N_SC
+    size = 8 if name == "float64" else 4
+    nbytes = (size * (N_PM * p_total + N_AV * (a_cols + b_cols)
+                      + N_SC * e_n)
+              + 8 * N_CF * e_n + 4 * (e_n + 1) + 8 * p_total + 24 * p_total)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (p_total * OPS_PER_LANE / PEAK_OPS[name]
+             + p_total * COMBINE_OPS / PEAK_OPS["float64"]) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes)
+
+
+def time_pairs(torch, kernel, ref, launch, rng, pair_shapes) -> dict:
+    """The fused pair kernel at the two (E, A, B, P) each dtype's main path
+    launched most, and at E = 64, A = B = 128, P = 32 an event: the launch
+    between events (``ms``) and queued behind a sleep (``device_ms``, and
+    the host's time to queue one launch), the launcher's host time a call
+    (``launch.score_events``: pack, copies, launch, wait and results, with
+    its split), the plain version and the bound.  Each shape's launch is
+    held to the plain version first."""
+    import numpy as np
+    from repro_torch.core import CCMParams
+    params = CCMParams()
+    dev = torch.device("cuda")
+    times = {}
+    for dtype in (torch.float64, torch.float32):
+        name = dtype_name(dtype)
+        top = [k for k, _ in pair_shapes[name].most_common(2)]
+        for e_n, a_n, b_n, p_total in top + [(64, 128, 128, 64 * 32)]:
+            counts = [p_total // e_n + (k < p_total % e_n)
+                      for k in range(e_n)]
+            feats, pairs = pair_events(rng, e_n, a_n, b_n, counts)
+            t = pair_inputs(torch, launch, dtype, feats, pairs, params)
+            out = torch.empty((3, p_total), dtype=torch.float64, device=dev)
+            ptrs = [x.data_ptr() for x in t] + [out.data_ptr()]
+
+            def launch_one():
+                kernel.launch_pairs(dtype, *ptrs, e_n, a_n, b_n, p_total,
+                                    params.memory_constraint,
+                                    torch.cuda.current_stream().cuda_stream)
+
+            key = f"E={e_n},A={a_n},B={b_n},P={p_total}"
+            launch_one()
+            want = ref.score_pairs_packed(*t, params.memory_constraint)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                fail(f"pair kernel != plain version at {name} {key}")
+            k_ms = time_ms(torch, launch_one, 200)
+            k_dev, q_host = queued_ms(torch, launch_one)
+            p_ms = time_ms(torch, lambda: ref.score_pairs_packed(
+                *t, params.memory_constraint), 20)
+            reps = 200 if e_n * a_n * b_n < 10 ** 5 else 20
+            launch.reset_stats()
+            for _ in range(reps):
+                launch.score_events(feats, pairs, params, device=dev,
+                                    dtype=dtype)
+            host_ms = launch.STATS["seconds"] / reps * 1e3
+            split = {k: v / reps * 1e3
+                     for k, v in launch.STATS["split"].items()}
+            a_cols = sum(len(np.unique(pr[:, 0])) for pr in pairs)
+            b_cols = sum(len(np.unique(pr[:, 1])) for pr in pairs)
+            b_ms, b_by, nbytes = pair_bound(name, e_n, p_total, a_cols,
+                                            b_cols)
+            times.setdefault(name, {})[key] = dict(
+                ms=k_ms, device_ms=k_dev, queue_host_ms=q_host,
+                host_ms=host_ms, host_split_ms=split, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                main_path_launches=pair_shapes[name][(e_n, a_n, b_n,
+                                                      p_total)])
+            print(f"time pairs {name} {key}: kernel {k_ms!r} ms (device "
+                  f"{k_dev!r} ms, queued in {q_host!r} ms), launcher "
+                  f"{host_ms!r} ms a call {split}, plain {p_ms!r} ms, "
+                  f"bound {b_ms!r} ms ({b_by}, {nbytes} B)", flush=True)
+    return times
+
+
 def task_inputs(torch, problem, sig):
     """The inputs of the first task of ``problem`` with signature ``sig``
     (rows, cols, quad order), on the card."""
@@ -1720,7 +1942,7 @@ def profile_main_path(torch, kernel) -> dict:
     kernel.reset_launches()
     out = profiled_run(torch, lambda: ccm_lb(phase, a0, CCMParams(),
                                              device="cuda", **MAIN_KW))
-    out["launches"] = kernel.LAUNCHES["float64"]
+    out["launches"] = kernel.PAIR_LAUNCHES["float64"]
     print(json.dumps({"profile": out}), flush=True)
     return out
 
@@ -1963,6 +2185,7 @@ def main() -> None:
     # 3. the kernel against its plain version
     rng = np.random.default_rng(0)
     worst = check_kernel(torch, kernel, ref, rng)
+    pair_worst = check_pair_kernel(torch, kernel, launch, ref, rng)
     # 4. the main path (launch counts zeroed inside, per run)
     mp = main_path(torch, kernel, launch)
     # 5. the assembly application (launch counts zeroed inside, per run)
@@ -1988,6 +2211,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     # 8. times at the main paths' shapes, and where the time goes
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
+    pair_times = time_pairs(torch, kernel, ref, launch, rng,
+                            mp["pair_shapes"])
     floor = launch_floor(torch)
     asm_times = time_assembly_kernel(torch, asm_ops, asm_ref, asm)
     serve_times = time_serve_kernels(torch, flash_kernel, flash_ref,
@@ -2007,16 +2232,35 @@ def main() -> None:
         fail(f"imported JAX or the JAX package: {bad[:5]}")
     kernels = []
     for name in ("float64", "float32"):
-        shape, _ = mp["shapes"][name].most_common(1)[0]
-        key = "E={},A={},B={}".format(*shape)
-        m = times[name][key]
+        short = "f64" if name == "float64" else "f32"
+        shape, _ = mp["pair_shapes"][name].most_common(1)[0]
+        key = "E={},A={},B={},P={}".format(*shape)
+        m = pair_times[name][key]
         by_path = {"ccm_lb_256": mp["launches"][name],
                    "assembly": asm["scorer_launches"]
                    if name == "float64" else 0}
         kernels.append({
-            "name": f"ccm_scorer_{'f64' if name == 'float64' else 'f32'}",
-            "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "name": f"ccm_scorer_pairs_{short}", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": pair_worst[name],
+            "ms": m["ms"], "device_ms": m["device_ms"],
+            "host_ms": m["host_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None,
+            "library_note": "no PyTorch call scores and combines CCM "
+            "exchange pairs", "shape": key, "by_shape": pair_times[name],
+        })
+        # the full-tile kernel: held to its plain version, no longer on
+        # the main path (main_path and assembly_path fail on a launch)
+        shape, _ = mp["shapes"][name].most_common(1)[0]
+        key = "E={},A={},B={}".format(*shape)
+        m = times[name][key]
+        kernels.append({
+            "name": f"ccm_scorer_{short}",
+            "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": 0,
+            "launches_by_path": {"ccm_lb_256": 0, "assembly": 0},
             "max_abs_err": worst[name],
             "ms": m["ms"], "device_ms": m["device_ms"],
             "plain_ms": m["plain_ms"],

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the assembly tile's and WKV6's time goes on one GPU.
+"""Where the assembly tile's, WKV6's and the CCM scorer call's time goes
+on one GPU.
 
     python3 kernel_probe.py [--parent DIR]
 
@@ -17,7 +18,14 @@ application's 16 x 16 tiles, WKV6 at (4, 512, 64, 64) in bf16.
    each in a process of its own through the public entry points
    (``ops.assembly_tile``, ``kernel.wkv6_fwd``), on the same inputs; the
    tile also as ``measure_durations`` times a task (host clock around one
-   launch and a synchronize).
+   launch and a synchronize).  Then the scorer step, in the same turns:
+   the lock events of the 256-rank float64 solo ``ccm_lb`` run (the main
+   path's f64 solo run of ``chip_smoke.py``), recorded once through this
+   checkout's engine, are replayed through each checkout's
+   ``launch.score_events`` (one pass to warm up, one timed), and each
+   checkout also drives that run itself; both report the scorer's calls,
+   host seconds and their split (``launch.STATS``, where the checkout
+   has one).  The replays' results must agree bit for bit across turns.
 2. The tile at every power of two of lanes an entry from 1 to 16 (the
    kernel takes any geometry it is given; ``launch_geometry`` picks one),
    and the host's time of the bare C call at the chosen geometry.
@@ -33,6 +41,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import pickle
 import os
 import subprocess
 import sys
@@ -92,15 +101,103 @@ print(json.dumps(out))
 '''
 
 
-def entry_times(checkout: Path) -> dict:
-    """``ENTRY_TIMES`` in a fresh process on ``checkout``'s package."""
+# the scorer step, run in a process of its own for each checkout: replay
+# the recorded lock events through the checkout's launcher, then drive the
+# 256-rank float64 solo run
+SCORER_TIMES = r'''
+import hashlib, json, pickle, sys, time
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from repro_torch.core import (CCMParams, ccm_lb, initial_assignment,
+                              scaling_phase)
+from repro_torch.kernels.ccm_scorer import launch
+with open(sys.argv[2], "rb") as f:
+    events = pickle.load(f)
+params, dev = CCMParams(), torch.device("cuda")
+
+
+def stats(n_calls):
+    out = dict(calls=launch.STATS["calls"], seconds=launch.STATS["seconds"],
+               call_ms=launch.STATS["seconds"] / n_calls * 1e3)
+    split = launch.STATS.get("split")
+    if split is not None:
+        out["split_call_ms"] = {k: v / n_calls * 1e3
+                                for k, v in split.items()}
+    return out
+
+
+out = {}
+digest = hashlib.sha256()
+for feats, pairs in events:                       # warm-up pass
+    for w_a, w_b, feas in launch.score_events(feats, pairs, params,
+                                              device=dev,
+                                              dtype=torch.float64):
+        digest.update(np.ascontiguousarray(w_a).tobytes())
+        digest.update(np.ascontiguousarray(w_b).tobytes())
+        digest.update(np.ascontiguousarray(feas).tobytes())
+launch.reset_stats()
+t0 = time.perf_counter()
+for feats, pairs in events:
+    launch.score_events(feats, pairs, params, device=dev,
+                        dtype=torch.float64)
+out["replay"] = stats(len(events))
+out["replay"]["loop_call_ms"] = (time.perf_counter() - t0) / len(events) * 1e3
+out["digest"] = digest.hexdigest()
+phase = scaling_phase(256)
+a0 = initial_assignment(phase)
+launch.reset_stats()
+t0 = time.perf_counter()
+run = ccm_lb(phase, a0, params, device="cuda", profile=True, **cs.MAIN_KW)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+out["f64_solo"] = stats(launch.STATS["calls"])
+out["f64_solo"].update(wall_s=wall, score_stage_s=sum(
+    t["score"] for t in run.stage_timings), transfers=run.transfers)
+print(json.dumps(out))
+'''
+
+
+def run_in(checkout: Path, script: str, *args: str) -> dict:
+    """``script`` in a fresh process on ``checkout``'s package; its last
+    line of output, as JSON."""
     env = dict(os.environ, PYTHONPATH=str(checkout / "src"))
-    proc = subprocess.run([sys.executable, "-c", ENTRY_TIMES, str(ROOT)],
+    proc = subprocess.run([sys.executable, "-c", script, str(ROOT), *args],
                           capture_output=True, text=True, env=env,
                           timeout=600, cwd=checkout)
     if proc.returncode != 0:
         sys.exit(f"kernel_probe: timing {checkout} failed:\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def record_scorer_events(path: Path) -> int:
+    """Record every ``launch.score_events`` call's (feats, pairs) of the
+    256-rank float64 solo run on the card, through this checkout, into
+    ``path``; returns the number of calls."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core import (CCMParams, ccm_lb, initial_assignment,
+                                  scaling_phase)
+    from repro_torch.kernels.ccm_scorer import launch
+    events, score = [], launch.score_events
+
+    def record(feats, pairs_list, *args, **kw):
+        events.append((list(feats), list(pairs_list)))
+        return score(feats, pairs_list, *args, **kw)
+
+    phase = scaling_phase(256)
+    launch.score_events = record
+    try:
+        ccm_lb(phase, initial_assignment(phase), CCMParams(), device="cuda",
+               **cs.MAIN_KW)
+        torch.cuda.synchronize()
+    finally:
+        launch.score_events = score
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(events, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return len(events)
 
 
 def tile_lanes(torch, cs, rng) -> dict:
@@ -197,8 +294,17 @@ def main() -> None:
         parent = args.parent.resolve()
         runs = [("parent", parent), ("this", ROOT), ("this", ROOT),
                 ("parent", parent)]
-        res["in_turns"] = [dict(checkout=name, **entry_times(path))
+        res["in_turns"] = [dict(checkout=name, **run_in(path, ENTRY_TIMES))
                            for name, path in runs]
+        from repro_torch.kernels import _build
+        events = _build.BUILD_DIR / "probe" / "scorer_events.pkl"
+        res["scorer_events"] = record_scorer_events(events)
+        res["scorer_in_turns"] = [
+            dict(checkout=name, **run_in(path, SCORER_TIMES, str(events)))
+            for name, path in runs]
+        if len({r["digest"] for r in res["scorer_in_turns"]}) != 1:
+            sys.exit("kernel_probe: the checkouts' scorers disagree on the "
+                     "recorded events")
     res["tile_lanes"] = tile_lanes(torch, cs, rng)
     res["wkv6_phases"] = wkv6_phases(torch, cs, rng)
     res["empty_launch_device_ms"] = cs.device_ms(

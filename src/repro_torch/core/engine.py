@@ -2,13 +2,17 @@
 counterpart of ``repro/core/engine.py``).
 
 Everything here is host numpy, as in the JAX package: the CSR gathers, the
-per-event group-flow matrices (one flat ``np.bincount``), the packed
-feature tiles and the stage-1 peer scores.  Only the stage-2 tile scorer
-leaves the host: :func:`repro_torch.kernels.ccm_scorer.launch.score_events`
-ships a batch of packed tiles to the device, where the hand-written CUDA
-kernel (``csrc/ccm_scorer.cu``) computes the ten work components per
-candidate pair; the affine work combine then runs back on the host
-(``ops.combine_work*``), shared by every device and dtype.
+per-event group-flow matrices (one flat ``np.bincount``), the per-event
+feature tiles and the stage-1 peer scores.  Only the stage-2 scorer leaves
+the host: :func:`repro_torch.kernels.ccm_scorer.launch.score_events` packs
+a batch of events with their shortlisted pairs into one buffer and scores
+it where the engine's device says.  On the card one launch of the
+hand-written CUDA pair kernel (``csrc/ccm_scorer.cu``) computes the ten
+work components of each shortlisted pair, the affine work combine and
+eq. 9's feasibility, and only (w_a, w_b, feasible) per pair comes back; on
+the CPU the plain torch version of the same function does
+(``ref.score_pairs_packed``).  The host combines ``ops.combine_work*``
+are the oracle both are held to.
 
 Incremental state
 -----------------
@@ -435,7 +439,7 @@ class PhaseEngine:
                                    np.ndarray]:
         """Feature planes of one event (see kernels/ccm_scorer/ops.py for
         the layout) — host-side reductions only; everything downstream is
-        elementwise and shared by every device and dtype."""
+        elementwise per pair."""
         st, ph = self.state, self.phase
         r_a, r_b = e.r_a, e.r_b
         agg_a, agg_b = e.agg_a, e.agg_b

@@ -1,39 +1,64 @@
-// CCM stage-2 exchange scorer: the ten work components of every candidate
-// cluster pair of a batch of lock events.
+// CCM stage-2 exchange scorer: the ten work components of candidate cluster
+// pairs of a batch of lock events, and (the fused entry) the CCM work
+// combine and eq. 9's memory feasibility of each shortlisted pair.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ccm_scorer/kernel.py:35
-// (_scorer_kernel, launched by score_tiles_fwd with grid=(E,)).  It computes
-// repro_torch/kernels/ccm_scorer/ref.py::score_planes term for term.
+// (_scorer_kernel, launched by score_tiles_fwd with grid=(E,)).  Both
+// entries evaluate repro_torch/kernels/ccm_scorer/ref.py::score_planes term
+// for term, through one __device__ function (score_lane), so the
+// expression tree, its association, nan_max and the masked tail are written
+// once.
 //
 // Layout (repro_torch/kernels/ccm_scorer/layout.py), all contiguous:
 //   av (E, N_AV, A), bv (E, N_AV, B), pm (E, N_PM, A, B), sc (E, N_SC)
-//   -> out (E, N_OUT, A, B)
-// One thread per (event, ia, ib) lane; grid = (ceil(A*B / 128), E).  A lane
-// reads its 14 a-features, 14 b-features, 6 pairwise planes and the event's
-// scalars, and writes all ten output planes from registers.  Lanes past the
-// event's (na, nb) are the masked tail: 0 on the load/flow/homing planes,
-// +inf on the memory planes.
 //
-// Bitwise contract: the tree uses only add, sub, max, compare and select, in
-// the exact left-to-right association of ref.py, so every lane is the IEEE
-// result of the same operations as the plain version (float64 and float32
-// alike).  Build without --use_fast_math and with --fmad=false (nothing here
-// multiplies, but no contraction may ever creep in).  np.maximum and
-// torch.maximum propagate NaN, while CUDA's fmax returns the other operand,
-// so max is the explicit select nan_max below (torch.maximum's rule,
-// including which operand a tie returns).
+// ccm_scorer_{f64,f32}, the full tile -> out (E, N_OUT, A, B):
+// one thread per (event, ia, ib) lane; grid = (ceil(A*B / 128), E).  Lanes
+// past the event's (na, nb) are the masked tail: 0 on the load/flow/homing
+// planes, +inf on the memory planes.  The tests and chip_smoke.py hold it
+// to its plain version; the balancer no longer calls it.
 //
-// Bound on an H100 SXM (3.35 TB/s HBM3): the kernel must read each input
-// once and write the output once, E*(14*(A+B) + 6*A*B + 32 + 10*A*B)
-// elements of sizeof(T) bytes, against about 108 add/sub/max/compare
-// operations per lane, so it is bound by bytes (16 elements, 128 B in
-// float64, per lane against 108 operations).  Design: the pairwise planes
-// and the output, which are the A*B-sized traffic, are touched exactly once
-// each, coalesced along ib; the per-candidate rows (A+B sized) are re-read
-// by the lanes that share them and are served from L1/L2.  At the main
-// path's tiles (E = 1..8, A, B <= 13: tens of kilobytes) the bound is a few
-// nanoseconds and the launch itself costs microseconds, so the kernel is
-// kept simple; launch count and the host copies around it are the lever.
+// ccm_scorer_pairs_{f64,f32}, the balancer's entry: the shortlisted pairs
+// only, as the JAX package's pair path scores them (kind="pairs",
+// repro/kernels/ccm_scorer/jit.py:213, ref.score_pairs_xp), with the
+// combine on the card as well:
+//   + cf (E, N_CF) float64 combine rows (alpha, beta, gamma, delta,
+//     speed_a, speed_b, mem_cap_a, mem_cap_b), even in the float32 tier,
+//     whose planes are widened exactly to float64 before the combine;
+//   + offs (E + 1) int32 and pairs (P, 2) int32 (ia, ib), ragged per event
+//   -> out (3, P) float64: w_a, w_b, feasible (0.0 / 1.0).
+// One block per event, one thread per pair (looping past PAIR_THREADS); the
+// event's scalar and combine rows are staged once in shared memory.  A pair
+// gathers its a-column, b-column and pairwise entries, evaluates the ten
+// planes, and combines them in the association of ops.combine_work_pairs:
+// W = (((alpha*load)/speed + beta*off) + gamma*on) + delta*hom, feasible =
+// mem_a <= cap_a && mem_b <= cap_b under memory_constraint (a NaN compares
+// false, as in numpy), and W = +inf where infeasible (a NaN W stays where
+// feasible, as np.where keeps it).
+//
+// Bitwise contract: the tree uses only add, sub, max, compare and select,
+// and the combine's products, quotients and sums are the _rn intrinsics, so
+// every result is the IEEE result of the same operations, in the same
+// order, as the plain version and the host combine (float64 and float32
+// alike).  Build without --use_fast_math and with --fmad=false, so that no
+// contraction creeps in anywhere.  np.maximum and torch.maximum propagate
+// NaN, while CUDA's fmax returns the other operand, so max is the explicit
+// select nan_max below (torch.maximum's rule, including which operand a tie
+// returns).
+//
+// What bounds it on an H100: at the balancer's sizes (E = 1..8 events, P <=
+// 32 pairs each, kilobytes in all) neither bytes nor operations do; one
+// launch and the dependent round trips to memory (offsets and rows, then
+// the pair's indices, then its features) do, a few microseconds, most of it
+// the launch itself.  So the design spends exactly one launch per scorer
+// call, stores no full tile (3 * P results, not 10 * E * A * B planes) and
+// makes no second pass for the combine; the host copies one packed buffer
+// in and one (3, P) block out (ccm_scorer_copy, from and to pinned memory)
+// and waits once (ccm_scorer_sync), each a plain C call, since every
+// Python step of the call costs microseconds on the host.  The full tile, where it is large (E = 64, A
+// = B = 128), is bound by bytes: its pairwise planes and output are touched
+// once each, coalesced along ib, and the per-candidate rows are re-read
+// from L1/L2.
 
 #include <cuda_runtime.h>
 
@@ -45,7 +70,9 @@ constexpr int N_AV = 14;
 constexpr int N_PM = 6;
 constexpr int N_SC = 32;
 constexpr int N_OUT = 10;
+constexpr int N_CF = 8;
 constexpr int THREADS = 128;
+constexpr int PAIR_THREADS = 64;
 
 // layout.AV
 enum { AV_INTRA = 0, AV_OUT_OWN, AV_IN_OWN, AV_OUT_PEER, AV_IN_PEER,
@@ -63,6 +90,11 @@ enum { SC_F_AB = 0, SC_F_BA, SC_F_AA, SC_F_BB, SC_F_AO, SC_F_OA, SC_F_BO,
 // layout.OUT
 enum { OUT_LOAD_A = 0, OUT_LOAD_B, OUT_OFF_A, OUT_OFF_B, OUT_ON_A, OUT_ON_B,
        OUT_HOM_A, OUT_HOM_B, OUT_MEM_A, OUT_MEM_B };
+// layout.CF, the float64 combine row of an event
+enum { CF_ALPHA = 0, CF_BETA, CF_GAMMA, CF_DELTA, CF_SPEED_A, CF_SPEED_B,
+       CF_MEM_CAP_A, CF_MEM_CAP_B };
+static_assert(N_SC + N_CF <= PAIR_THREADS, "one load per thread stages the "
+              "scalar and combine rows");
 
 // torch.maximum / np.maximum: a NaN operand wins (the first one if both)
 template <typename T>
@@ -72,24 +104,15 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return (a < b) ? b : a;
 }
 
+// The ten planes of lane (ia, ib) of one event, masked: ``a`` and ``b``
+// point at the lane's a- and b-columns (feature i at a[i * a_n], b[i *
+// b_n]), ``p`` at its pairwise entries (plane k at p[k * ab]), ``s`` at the
+// event's scalars (global or shared memory).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ccm_scorer_kernel(const T* __restrict__ av, const T* __restrict__ bv,
-                  const T* __restrict__ pm, const T* __restrict__ sc,
-                  T* __restrict__ out, int a_n, int b_n) {
-  const long long ab = (long long)a_n * b_n;
-  const long long lane = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (lane >= ab) return;
-  const long long e = blockIdx.y;
-  const int ia = (int)(lane / b_n);
-  const int ib = (int)(lane % b_n);
-
-  const T* a = av + e * N_AV * a_n + ia;      // a-feature i at a[i * a_n]
-  const T* b = bv + e * N_AV * b_n + ib;      // b-feature i at b[i * b_n]
-  const T* p = pm + e * N_PM * ab + lane;     // plane k at p[k * ab]
-  const T* s = sc + e * N_SC;
-  T* o = out + e * N_OUT * ab + lane;         // plane k at o[k * ab]
-
+__device__ __forceinline__ void score_lane(const T* a, int a_n, const T* b,
+                                           int b_n, const T* p, long long ab,
+                                           const T* s, int ia, int ib,
+                                           T (&o)[N_OUT]) {
   const T c_intra = a[AV_INTRA * a_n], r_intra = b[AV_INTRA * b_n];
   const T c_out_own = a[AV_OUT_OWN * a_n], r_out_own = b[AV_OUT_OWN * b_n];
   const T c_in_own = a[AV_IN_OWN * a_n], r_in_own = b[AV_IN_OWN * b_n];
@@ -167,16 +190,94 @@ ccm_scorer_kernel(const T* __restrict__ av, const T* __restrict__ bv,
   const bool live = ((T)ia <= s[SC_NA]) && ((T)ib <= s[SC_NB]);
   const T zero = (T)0;
   const T inf = (T)INFINITY;
-  o[OUT_LOAD_A * ab] = live ? load_a : zero;
-  o[OUT_LOAD_B * ab] = live ? load_b : zero;
-  o[OUT_OFF_A * ab] = live ? off_a : zero;
-  o[OUT_OFF_B * ab] = live ? off_b : zero;
-  o[OUT_ON_A * ab] = live ? on_a : zero;
-  o[OUT_ON_B * ab] = live ? on_b : zero;
-  o[OUT_HOM_A * ab] = live ? hom_a : zero;
-  o[OUT_HOM_B * ab] = live ? hom_b : zero;
-  o[OUT_MEM_A * ab] = live ? mem_a : inf;
-  o[OUT_MEM_B * ab] = live ? mem_b : inf;
+  o[OUT_LOAD_A] = live ? load_a : zero;
+  o[OUT_LOAD_B] = live ? load_b : zero;
+  o[OUT_OFF_A] = live ? off_a : zero;
+  o[OUT_OFF_B] = live ? off_b : zero;
+  o[OUT_ON_A] = live ? on_a : zero;
+  o[OUT_ON_B] = live ? on_b : zero;
+  o[OUT_HOM_A] = live ? hom_a : zero;
+  o[OUT_HOM_B] = live ? hom_b : zero;
+  o[OUT_MEM_A] = live ? mem_a : inf;
+  o[OUT_MEM_B] = live ? mem_b : inf;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ccm_scorer_kernel(const T* __restrict__ av, const T* __restrict__ bv,
+                  const T* __restrict__ pm, const T* __restrict__ sc,
+                  T* __restrict__ out, int a_n, int b_n) {
+  const long long ab = (long long)a_n * b_n;
+  const long long lane = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= ab) return;
+  const long long e = blockIdx.y;
+  const int ia = (int)(lane / b_n);
+  const int ib = (int)(lane % b_n);
+  T o[N_OUT];
+  score_lane<T>(av + e * N_AV * a_n + ia, a_n, bv + e * N_AV * b_n + ib, b_n,
+                pm + e * N_PM * ab + lane, ab, sc + e * N_SC, ia, ib, o);
+  T* dst = out + e * N_OUT * ab + lane;       // plane k at dst[k * ab]
+#pragma unroll
+  for (int k = 0; k < N_OUT; ++k) dst[k * ab] = o[k];
+}
+
+// ops.combine_work_pairs' W, rounded step by step: no contraction.
+__device__ __forceinline__ double combine_work(const double* cf, double load,
+                                               double speed, double off,
+                                               double on, double hom) {
+  const double w = __ddiv_rn(__dmul_rn(cf[CF_ALPHA], load), speed);
+  return __dadd_rn(__dadd_rn(__dadd_rn(w, __dmul_rn(cf[CF_BETA], off)),
+                             __dmul_rn(cf[CF_GAMMA], on)),
+                   __dmul_rn(cf[CF_DELTA], hom));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PAIR_THREADS)
+ccm_scorer_pairs_kernel(const T* __restrict__ av, const T* __restrict__ bv,
+                        const T* __restrict__ pm, const T* __restrict__ sc,
+                        const double* __restrict__ cf,
+                        const int* __restrict__ offs,
+                        const int2* __restrict__ pairs,
+                        double* __restrict__ out, int a_n, int b_n,
+                        int p_total, int mem_constraint) {
+  __shared__ T s_sc[N_SC];
+  __shared__ double s_cf[N_CF];
+  const long long ab = (long long)a_n * b_n;
+  const long long e = blockIdx.x;
+  const int t = threadIdx.x;
+  if (t < N_SC) {
+    s_sc[t] = sc[e * N_SC + t];
+  } else if (t < N_SC + N_CF) {
+    s_cf[t - N_SC] = cf[e * N_CF + (t - N_SC)];
+  }
+  const int p_end = offs[e + 1];
+  const int p_start = offs[e];
+  __syncthreads();
+
+  const T* a0 = av + e * N_AV * a_n;
+  const T* b0 = bv + e * N_AV * b_n;
+  const T* pm0 = pm + e * N_PM * ab;
+  for (int p = p_start + t; p < p_end; p += PAIR_THREADS) {
+    const int2 pair = pairs[p];
+    const int ia = pair.x, ib = pair.y;
+    T o[N_OUT];
+    score_lane<T>(a0 + ia, a_n, b0 + ib, b_n, pm0 + (long long)ia * b_n + ib,
+                  ab, s_sc, ia, ib, o);
+    const bool feasible =
+        !mem_constraint || ((double)o[OUT_MEM_A] <= s_cf[CF_MEM_CAP_A]
+                            && (double)o[OUT_MEM_B] <= s_cf[CF_MEM_CAP_B]);
+    const double w_a = combine_work(s_cf, (double)o[OUT_LOAD_A],
+                                     s_cf[CF_SPEED_A], (double)o[OUT_OFF_A],
+                                     (double)o[OUT_ON_A],
+                                     (double)o[OUT_HOM_A]);
+    const double w_b = combine_work(s_cf, (double)o[OUT_LOAD_B],
+                                     s_cf[CF_SPEED_B], (double)o[OUT_OFF_B],
+                                     (double)o[OUT_ON_B],
+                                     (double)o[OUT_HOM_B]);
+    out[p] = feasible ? w_a : (double)INFINITY;
+    out[(long long)p_total + p] = feasible ? w_b : (double)INFINITY;
+    out[2LL * p_total + p] = feasible ? 1.0 : 0.0;
+  }
 }
 
 template <typename T>
@@ -189,10 +290,37 @@ int launch(const T* av, const T* bv, const T* pm, const T* sc, T* out,
   return (int)cudaGetLastError();
 }
 
+// Returned for a pair off its tile (no CUDA error code is negative).
+constexpr int BAD_PAIR = -1;
+
+template <typename T>
+int launch_pairs(const T* av, const T* bv, const T* pm, const T* sc,
+                 const double* cf, const int* offs, const int* pairs,
+                 double* out, int e_n, int a_n, int b_n, int p_total,
+                 int mem_constraint, const int* host_pairs,
+                 cudaStream_t stream) {
+  // the launcher's host copy of the pairs, checked here rather than in
+  // Python: a pair off its tile would read outside the tiles
+  if (host_pairs != nullptr) {
+    for (long long i = 0; i < 2LL * p_total; i += 2) {
+      if (host_pairs[i] < 0 || host_pairs[i] >= a_n || host_pairs[i + 1] < 0
+          || host_pairs[i + 1] >= b_n) {
+        return BAD_PAIR;
+      }
+    }
+  }
+  ccm_scorer_pairs_kernel<T><<<(unsigned)e_n, PAIR_THREADS, 0, stream>>>(
+      av, bv, pm, sc, cf, offs, reinterpret_cast<const int2*>(pairs), out,
+      a_n, b_n, p_total, mem_constraint);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Each returns the cudaError_t of the launch
-// (0 on success); the caller checks the shapes (e_n, a_n, b_n >= 1).
+// (0 on success) or BAD_PAIR; the caller checks the shapes (e_n, a_n, b_n
+// >= 1; pairs 8-byte aligned) and, unless it passes host_pairs, that every
+// pair lies inside its padded tile.
 extern "C" int ccm_scorer_f64(const double* av, const double* bv,
                               const double* pm, const double* sc, double* out,
                               int e_n, int a_n, int b_n, void* stream) {
@@ -205,6 +333,43 @@ extern "C" int ccm_scorer_f32(const float* av, const float* bv,
                               int e_n, int a_n, int b_n, void* stream) {
   return launch<float>(av, bv, pm, sc, out, e_n, a_n, b_n,
                        (cudaStream_t)stream);
+}
+
+extern "C" int ccm_scorer_pairs_f64(const double* av, const double* bv,
+                                    const double* pm, const double* sc,
+                                    const double* cf, const int* offs,
+                                    const int* pairs, double* out, int e_n,
+                                    int a_n, int b_n, int p_total,
+                                    int mem_constraint,
+                                    const int* host_pairs, void* stream) {
+  return launch_pairs<double>(av, bv, pm, sc, cf, offs, pairs, out, e_n, a_n,
+                              b_n, p_total, mem_constraint, host_pairs,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int ccm_scorer_pairs_f32(const float* av, const float* bv,
+                                    const float* pm, const float* sc,
+                                    const double* cf, const int* offs,
+                                    const int* pairs, double* out, int e_n,
+                                    int a_n, int b_n, int p_total,
+                                    int mem_constraint,
+                                    const int* host_pairs, void* stream) {
+  return launch_pairs<float>(av, bv, pm, sc, cf, offs, pairs, out, e_n, a_n,
+                             b_n, p_total, mem_constraint, host_pairs,
+                             (cudaStream_t)stream);
+}
+
+// The launcher's copies and its wait, on its stream: one copy of the
+// packed buffer in and one of the (3, P) result out, from and to pinned
+// host memory, so both are asynchronous.
+extern "C" int ccm_scorer_copy(void* dst, const void* src, long long nbytes,
+                               void* stream) {
+  return (int)cudaMemcpyAsync(dst, src, (size_t)nbytes, cudaMemcpyDefault,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int ccm_scorer_sync(void* stream) {
+  return (int)cudaStreamSynchronize((cudaStream_t)stream);
 }
 
 extern "C" const char* ccm_scorer_error_string(int code) {

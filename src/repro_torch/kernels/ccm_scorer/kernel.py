@@ -8,8 +8,17 @@ nothing falls back.
 
 :func:`score_tiles` takes the packed tiles (ops.py documents the layout):
 on CPU tensors it is the plain torch version (:func:`ref.score_tiles`); on
-CUDA tensors it launches the kernel, one thread per (event, ia, ib) lane,
-on the current stream, and counts the launch in :data:`LAUNCHES`.
+CUDA tensors it launches the full-tile kernel, one thread per (event, ia,
+ib) lane, on the current stream, and counts the launch in
+:data:`LAUNCHES`.
+
+:func:`score_pairs` is the fused pair scorer the balancer runs: the same
+tiles plus float64 combine rows, int32 pair offsets and pairs, returning
+(3, P) float64 (w_a, w_b, feasible): on CPU tensors the plain version
+(:func:`ref.score_pairs_packed`), on CUDA tensors one launch of the pair
+kernel (:func:`launch_pairs`), counted in :data:`PAIR_LAUNCHES`.  The
+launcher calls :func:`launch_pairs` directly on device pointers into its
+staging buffer, having checked the shapes on the integers it packed.
 """
 from __future__ import annotations
 
@@ -20,21 +29,27 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ccm_scorer import ref
-from repro_torch.kernels.ccm_scorer.layout import N_AV, N_OUT, N_PM, N_SC
+from repro_torch.kernels.ccm_scorer.layout import (N_AV, N_CF, N_OUT, N_PM,
+                                                   N_SC)
 
 SOURCE = _build.CSRC / "ccm_scorer.cu"
 
-#: kernel launches per dtype, counted where the kernel is launched only
+#: full-tile kernel launches per dtype, counted where the kernel is
+#: launched only
 LAUNCHES = {"float64": 0, "float32": 0}
+#: pair kernel launches per dtype, counted where the kernel is launched only
+PAIR_LAUNCHES = {"float64": 0, "float32": 0}
 
 _DTYPES = {torch.float64: "float64", torch.float32: "float32"}
 _MAX_EVENTS = 65535         # grid.y
+_BAD_PAIR = -1              # the pair launch's code for a pair off its tile
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PAIR_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def build(verbose: bool = False) -> Path:
@@ -50,6 +65,16 @@ def build(verbose: bool = False) -> Path:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in ("ccm_scorer_pairs_f64", "ccm_scorer_pairs_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    lib.ccm_scorer_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.c_void_p]
+    lib.ccm_scorer_copy.restype = ctypes.c_int
+    lib.ccm_scorer_sync.argtypes = [ctypes.c_void_p]
+    lib.ccm_scorer_sync.restype = ctypes.c_int
     lib.ccm_scorer_error_string.argtypes = [ctypes.c_int]
     lib.ccm_scorer_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -105,4 +130,114 @@ def score_tiles(av: torch.Tensor, bv: torch.Tensor, pm: torch.Tensor,
         raise RuntimeError("ccm_scorer kernel launch failed: "
                            + _lib.ccm_scorer_error_string(rc).decode())
     LAUNCHES[_DTYPES[av.dtype]] += 1
+    return out
+
+
+def launch_pairs(dtype: torch.dtype, av: int, bv: int, pm: int, sc: int,
+                 cf: int, offs: int, pairs: int, out: int, e_n: int,
+                 a_n: int, b_n: int, p_total: int, memory_constraint: bool,
+                 stream: int, host_pairs: int = 0) -> None:
+    """One launch of the pair kernel on device pointers (ints) laid out as
+    :func:`score_pairs` documents, on ``stream``; counted in
+    :data:`PAIR_LAUNCHES`.  The caller has checked the shapes and, unless
+    it passes ``host_pairs`` (a host copy of the pairs, which the C side
+    then checks before it launches), the pairs; a bad pair raises
+    IndexError (after waiting for ``stream``), a refused launch
+    RuntimeError."""
+    if _lib is None:
+        build()
+    fn = (_lib.ccm_scorer_pairs_f64 if dtype == torch.float64
+          else _lib.ccm_scorer_pairs_f32)
+    rc = fn(av, bv, pm, sc, cf, offs, pairs, out, e_n, a_n, b_n, p_total,
+            memory_constraint, host_pairs, stream)
+    if rc == _BAD_PAIR:
+        synchronize(stream)
+        raise IndexError(f"ccm_scorer: a shortlisted pair lies outside its "
+                         f"tile (A={a_n}, B={b_n})")
+    if rc != 0:
+        _raise(rc, "pair kernel launch")
+    PAIR_LAUNCHES[_DTYPES[dtype]] += 1
+
+
+def _raise(rc: int, what: str) -> None:
+    raise RuntimeError(f"ccm_scorer {what} failed: "
+                       + _lib.ccm_scorer_error_string(rc).decode())
+
+
+def copy_async(dst: int, src: int, nbytes: int, stream: int) -> None:
+    """``cudaMemcpyAsync`` of ``nbytes`` from ``src`` to ``dst`` (device or
+    pinned host pointers, as ints) on ``stream``; raises on an error."""
+    rc = _lib.ccm_scorer_copy(dst, src, nbytes, stream)
+    if rc != 0:
+        _raise(rc, "copy")
+
+
+def synchronize(stream: int) -> None:
+    """Wait for ``stream``; raises on an error of its work."""
+    rc = _lib.ccm_scorer_sync(stream)
+    if rc != 0:
+        _raise(rc, "stream")
+
+
+def check_pair_shapes(e_n: int, a_n: int, b_n: int, p_total: int) -> None:
+    """The limits of the pair kernel's indexing (int offsets and pairs, one
+    block per event)."""
+    if e_n < 1 or a_n < 1 or b_n < 1 or p_total < 0:
+        raise ValueError(f"ccm_scorer pairs: empty tile (E={e_n}, A={a_n}, "
+                         f"B={b_n}, P={p_total})")
+    if a_n * b_n >= 2 ** 31 or p_total >= 2 ** 30 or e_n >= 2 ** 31 - 1:
+        raise ValueError(f"ccm_scorer pairs: too large (E={e_n}, A={a_n}, "
+                         f"B={b_n}, P={p_total})")
+
+
+def _check_pairs(pairs: torch.Tensor, a_n: int, b_n: int) -> None:
+    if pairs.numel() and not bool(((pairs >= 0).all()
+                                   & (pairs[:, 0] < a_n).all()
+                                   & (pairs[:, 1] < b_n).all()).item()):
+        raise IndexError(f"ccm_scorer: a shortlisted pair lies outside its "
+                         f"tile (A={a_n}, B={b_n})")
+
+
+def score_pairs(av: torch.Tensor, bv: torch.Tensor, pm: torch.Tensor,
+                sc: torch.Tensor, cf: torch.Tensor, offs: torch.Tensor,
+                pairs: torch.Tensor, memory_constraint: bool,
+                ) -> torch.Tensor:
+    """(3, P) float64 w_a, w_b, feasible of every event's pairs: ``av``
+    (E, N_AV, A), ``bv`` (E, N_AV, B), ``pm`` (E, N_PM, A, B), ``sc``
+    (E, N_SC) of one scoring dtype, ``cf`` (E, N_CF) float64, ``offs``
+    (E + 1,) int32 (``offs[0] == 0``, non-decreasing) and ``pairs`` (P, 2)
+    int32 with ``0 <= ia < A``, ``0 <= ib < B``.  The plain torch version on
+    CPU tensors, the CUDA pair kernel on CUDA tensors."""
+    tensors = (av, bv, pm, sc, cf, offs, pairs)
+    if all(t.device.type == "cpu" for t in tensors):
+        _check_pairs(pairs, av.shape[2], bv.shape[2])
+        return ref.score_pairs_packed(*tensors, memory_constraint)
+    _check(av, bv, pm, sc)
+    dev = av.device
+    if any(t.device != dev for t in (cf, offs, pairs)):
+        raise ValueError("ccm_scorer pairs: all inputs on one device (got "
+                         f"{[str(t.device) for t in tensors]})")
+    e_n, a_n, b_n = av.shape[0], av.shape[2], bv.shape[2]
+    p_total = pairs.shape[0] if pairs.dim() == 2 else -1
+    if (cf.dtype != torch.float64 or tuple(cf.shape) != (e_n, N_CF)
+            or offs.dtype != torch.int32 or tuple(offs.shape) != (e_n + 1,)
+            or pairs.dtype != torch.int32 or pairs.dim() != 2
+            or pairs.shape[1] != 2
+            or not all(t.is_contiguous() for t in (cf, offs, pairs))
+            or pairs.data_ptr() % 8):
+        raise ValueError("ccm_scorer pairs: expected contiguous cf (E, N_CF) "
+                         "float64, offs (E+1,) int32, pairs (P, 2) int32 "
+                         "(8-byte aligned)")
+    check_pair_shapes(e_n, a_n, b_n, p_total)
+    o = offs.tolist()
+    if o[0] != 0 or o[-1] != p_total or any(x > y for x, y in zip(o, o[1:])):
+        raise ValueError(f"ccm_scorer pairs: bad offsets {o} for P={p_total}")
+    _check_pairs(pairs, a_n, b_n)
+    out = torch.empty((3, p_total), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        launch_pairs(av.dtype, av.data_ptr(), bv.data_ptr(), pm.data_ptr(),
+                     sc.data_ptr(), cf.data_ptr(), offs.data_ptr(),
+                     pairs.data_ptr(), out.data_ptr(), e_n, a_n, b_n,
+                     p_total, memory_constraint,
+                     torch.cuda.current_stream(dev).cuda_stream)
     return out

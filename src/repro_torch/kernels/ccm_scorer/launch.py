@@ -1,50 +1,77 @@
-"""The event launcher: pack a batch of lock events, score it on the device,
-combine on the host.
+"""The event launcher: pack a batch of lock events and score their
+shortlisted pairs, combine included, in one launch.
 
-The counterpart of ``repro/kernels/ccm_scorer/jit.py``'s ``score_events``
-(its tile backends).  The JAX launcher padded tiles into shape buckets so
-that ``jax.jit`` would not retrace, and to the TPU's (8, 128) tiling; the
-CUDA kernel is compiled once for every shape and runs one thread per lane,
-so the port pads a batch only to its largest event (A = max(na)+1, B =
-max(nb)+1).  Padding stays invariant all the same: a padded lane never
-changes a live one (every operation of the scorer is elementwise over the
-tile).  There is no interpret fallback: a tile is scored on the device the
-caller names, and a CUDA failure raises.
+The counterpart of ``repro/kernels/ccm_scorer/jit.py``'s ``score_events``.
+Like its ``kind="pairs"`` path (``jit.py:213``) it scores only the
+shortlist, so the host gets back O(P) values, not O(A*B) tiles.  The JAX
+launcher padded tiles into shape buckets so that ``jax.jit`` would not
+retrace, and to the TPU's (8, 128) tiling; the CUDA kernel is compiled once
+for every shape, so the port pads a batch only to its largest event (A =
+max(na)+1, B = max(nb)+1).  Padding stays invariant all the same: a padded
+lane never changes a live one (every operation of the scorer is elementwise
+over the tile).  There is no interpret fallback: a batch is scored on the
+device the caller names, and a CUDA failure raises.
 
-Per scorer call the host packs all events' tiles into ONE flat buffer of
-the scoring dtype, copies it to the device in one transfer, launches the
-kernel once (``kernel.score_tiles`` on views of that buffer) and copies the
-(E, N_OUT, A, B) result back in one transfer; the work combine runs in
-float64 numpy (``ops.combine_work*``), shared by every device and dtype.
-:data:`STATS` counts the calls, their host seconds and the (E, A, B) shapes
-they launched.
+Per scorer call the host packs every live event's tiles (as they were
+packed for the full-tile scorer, padded to the batch), one float64 combine
+row per event (``layout.CF``), the int32 pair offsets and the int32 pairs
+into ONE flat byte buffer (:func:`pack`).  Where the work combine runs:
+
+- on the card, the buffer is pinned and reused (one per device and
+  dtype); one asynchronous copy moves it into a reused device buffer, one
+  launch of the pair kernel (``kernel.launch_pairs``) scores the pairs and
+  applies the combine and eq. 9's feasibility, one asynchronous copy
+  brings the (3, P) float64 result into a pinned output buffer, and one
+  wait follows: four C calls on the current stream, no torch call (every
+  Python step of a call costs microseconds of host time between the
+  engine's numpy);
+- on the CPU, the same buffer (ordinary memory) goes through the plain
+  version of the same function (``ref.score_pairs_packed``).
+
+The host's float64 combines (``ops.combine_work*``) are the oracle both
+are held to.  :data:`STATS` counts the calls, their host seconds and how
+those split over the steps, and the launched shapes.
 """
 from __future__ import annotations
 
 from collections import Counter
 from time import perf_counter
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.ccm_scorer import kernel, ops
-from repro_torch.kernels.ccm_scorer.layout import N_AV, N_PM, N_SC
+from repro_torch.kernels.ccm_scorer import kernel
+from repro_torch.kernels.ccm_scorer.layout import (CF, CF_FROM_SC, N_AV,
+                                                   N_CF, N_PM, N_SC)
 
 __all__ = ["resolve_device", "check_dtype", "score_events", "STATS",
-           "reset_stats"]
+           "reset_stats", "pack", "Packed", "Staging", "staging"]
 
-#: scorer calls, their host seconds (pack, copies, scorer) and a histogram
-#: of the launched (E, A, B) tile shapes
-STATS = {"calls": 0, "seconds": 0.0, "shapes": Counter()}
+#: scorer calls; their host seconds (the sum of the split); the split by
+#: step: ``pack`` (into the staging buffer), ``h2d`` (queue the copy in),
+#: ``launch``, ``d2h`` (queue the copy out and wait for it, the kernel
+#: included) and ``combine`` (the per-event results out of the (3, P)
+#: block; on the CPU the plain version's work is in ``launch``); a
+#: histogram of the launched (E, A, B) shapes, and of (E, A, B, P)
+STATS = {"calls": 0, "seconds": 0.0, "shapes": Counter(),
+         "pair_shapes": Counter(),
+         "split": dict.fromkeys(("pack", "h2d", "launch", "d2h", "combine"),
+                                0.0)}
 
 _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
+_ALIGN = 16                 # bytes, the start of every packed region
+_CF_FROM_SC = np.array(CF_FROM_SC)
+_MAX_LAYOUTS = 4096         # call shapes whose views a Staging keeps
+_REGIONS = ("av", "bv", "pm", "sc", "cf", "offs", "pairs")
 
 
 def reset_stats() -> None:
     STATS["calls"] = 0
     STATS["seconds"] = 0.0
     STATS["shapes"] = Counter()
+    STATS["pair_shapes"] = Counter()
+    STATS["split"] = dict.fromkeys(STATS["split"], 0.0)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -70,35 +97,193 @@ def check_dtype(dtype) -> torch.dtype:
     return dtype
 
 
-def _score(feats: Sequence[Tuple], device: torch.device,
-           dtype: torch.dtype) -> np.ndarray:
-    """(E, N_OUT, A, B) float64 work components of ``feats``' tiles, zero-
-    padded to the batch's largest event, scored on ``device`` in
-    ``dtype`` (float32 results are upcast exactly)."""
+class Packed(NamedTuple):
+    """One packed scorer call: its shape and the byte offset of each region
+    in the buffer (``av``, ``bv``, ``pm``, ``sc`` in the scoring dtype,
+    ``cf`` float64, ``offs`` and ``pairs`` int32), and its length."""
+    e_n: int
+    a_n: int
+    b_n: int
+    p_total: int
+    offsets: Dict[str, int]
+    nbytes: int
+
+
+def _layout(e_n: int, a_n: int, b_n: int, p_total: int,
+            itemsize: int) -> Packed:
+    sizes = (("cf", e_n * N_CF * 8), ("av", e_n * N_AV * a_n * itemsize),
+             ("bv", e_n * N_AV * b_n * itemsize),
+             ("pm", e_n * N_PM * a_n * b_n * itemsize),
+             ("sc", e_n * N_SC * itemsize), ("offs", (e_n + 1) * 4),
+             ("pairs", p_total * 8))
+    offsets, end = {}, 0
+    for name, size in sizes:
+        offsets[name] = end
+        end += -(-size // _ALIGN) * _ALIGN
+    return Packed(e_n, a_n, b_n, p_total, offsets, end)
+
+
+def _views(buf: np.ndarray, packed: Packed, dtype) -> tuple:
+    """The regions of ``buf`` (a flat uint8 array holding ``packed``) as
+    numpy arrays of their shapes: av, bv, pm, sc, cf, offs, pairs."""
+    e_n, a_n, b_n, p_n, o, _ = packed
+    shapes = ((e_n, N_AV, a_n), (e_n, N_AV, b_n), (e_n, N_PM, a_n, b_n),
+              (e_n, N_SC), (e_n, N_CF), (e_n + 1,), (p_n, 2))
+    types = (_NP_DTYPES[dtype],) * 4 + (np.float64, np.int32, np.int32)
+    return tuple(np.ndarray(shape, dt, buf, o[name])
+                 for name, shape, dt in zip(_REGIONS, shapes, types))
+
+
+def pack(feats: Sequence[Tuple], pairs_list: Sequence[np.ndarray], params,
+         st: "Staging") -> tuple:
+    """Pack a batch of events into ``st``'s host input buffer: their
+    feature tiles (padded to the batch's largest event, zeros in the
+    padding), float64 combine rows (the CCM coefficients and the float64
+    SC row's speeds and caps), int32 pair offsets and pairs.  Returns
+    ``st.layout`` of the call: its layout, the regions' numpy views
+    (:func:`_views`) and their device addresses.  The pairs are
+    checked where they are read: by ``kernel.score_pairs`` on tensors, by
+    the C launch on the card's route."""
     e_n = len(feats)
-    a_n = max(f[0].shape[1] for f in feats)
-    b_n = max(f[1].shape[1] for f in feats)
-    sizes = (e_n * N_AV * a_n, e_n * N_AV * b_n, e_n * N_PM * a_n * b_n,
-             e_n * N_SC)
-    ends = np.cumsum(sizes)
-    buf = np.zeros(int(ends[-1]), _NP_DTYPES[dtype])
-    av = buf[:ends[0]].reshape(e_n, N_AV, a_n)
-    bv = buf[ends[0]:ends[1]].reshape(e_n, N_AV, b_n)
-    pm = buf[ends[1]:ends[2]].reshape(e_n, N_PM, a_n, b_n)
-    sc = buf[ends[2]:].reshape(e_n, N_SC)
+    a_n = b_n = p_total = 0
+    for (av_k, bv_k, _, _), pr_k in zip(feats, pairs_list):
+        a_n = max(a_n, av_k.shape[1])
+        b_n = max(b_n, bv_k.shape[1])
+        p_total += len(pr_k)
+    hit = st.layout(e_n, a_n, b_n, p_total)
+    packed, (av, bv, pm, sc, cf, offs, pr), _ = hit
+    if e_n > 1 and any(f[0].shape[1] != a_n or f[1].shape[1] != b_n
+                       for f in feats):
+        o = packed.offsets
+        st.host_in_np[o["av"]:o["sc"]] = 0
+    cf[0, :CF.speed_a] = (params.alpha, params.beta, params.gamma,
+                          params.delta)
+    end = offs[0] = 0
     for k, (av_k, bv_k, pm_k, sc_k) in enumerate(feats):
         av[k, :, :av_k.shape[1]] = av_k
         bv[k, :, :bv_k.shape[1]] = bv_k
         pm[k, :, :pm_k.shape[1], :pm_k.shape[2]] = pm_k
         sc[k] = sc_k
-    t = torch.from_numpy(buf).to(device)
-    out = kernel.score_tiles(
-        t[:ends[0]].view(e_n, N_AV, a_n),
-        t[ends[0]:ends[1]].view(e_n, N_AV, b_n),
-        t[ends[1]:ends[2]].view(e_n, N_PM, a_n, b_n),
-        t[ends[2]:].view(e_n, N_SC))
-    STATS["shapes"][(e_n, a_n, b_n)] += 1
-    return out.cpu().numpy().astype(np.float64, copy=False)
+        cf[k, CF.speed_a:] = sc_k[_CF_FROM_SC]
+        start, end = end, end + len(pairs_list[k])
+        pr[start:end] = pairs_list[k]
+        offs[k + 1] = end
+    if e_n > 1:
+        cf[1:, :CF.speed_a] = cf[0, :CF.speed_a]
+    return hit
+
+
+class Staging:
+    """The reused buffers of one (device, dtype): a host buffer the packer
+    writes (pinned on the card), its device copy, and a pinned host and a
+    device buffer for the (3, P) result; each grown geometrically on
+    demand, never shrunk (a grown buffer replaces the old one only between
+    calls).  On the CPU only the host input buffer exists (pinning needs
+    CUDA).  :meth:`layout` caches each call shape's layout and views.  One
+    call at a time: the launcher is not for concurrent threads."""
+
+    def __init__(self, device: torch.device, dtype: torch.dtype):
+        self.device, self.dtype = device, dtype
+        self.itemsize = _NP_DTYPES[dtype]().itemsize
+        self.pin = device.type == "cuda"
+        self.host_in = self.host_out = None
+        self._layouts: Dict[tuple, tuple] = {}
+        if self.pin:
+            kernel.build()
+            self.index = (torch.cuda.current_device() if device.index is None
+                          else device.index)
+
+    @staticmethod
+    def _size(have, need: int) -> int:
+        return max(need, 2 * have.numel() if have is not None else 0, 4096)
+
+    def layout(self, e_n: int, a_n: int, b_n: int, p_total: int) -> tuple:
+        """The layout of a call of this shape, its regions as views into
+        the host input buffer (grown to hold it) and, on the card, their
+        addresses in the device input buffer (else None)."""
+        key = (e_n, a_n, b_n, p_total)
+        hit = self._layouts.get(key)
+        if hit is None:
+            kernel.check_pair_shapes(e_n, a_n, b_n, p_total)
+            packed = _layout(e_n, a_n, b_n, p_total, self.itemsize)
+            self._input(packed.nbytes)
+            if len(self._layouts) >= _MAX_LAYOUTS:
+                self._layouts.clear()
+            ptrs = (tuple(self.dev_in_ptr + packed.offsets[name]
+                          for name in _REGIONS) if self.pin else None)
+            hit = self._layouts[key] = (
+                packed, _views(self.host_in_np, packed, self.dtype), ptrs)
+        return hit
+
+    def _input(self, nbytes: int) -> None:
+        if self.host_in is not None and self.host_in.numel() >= nbytes:
+            return
+        size = self._size(self.host_in, nbytes)
+        self.host_in = torch.empty(size, dtype=torch.uint8,
+                                   pin_memory=self.pin)
+        self.host_in_np = self.host_in.numpy()
+        self.host_in_ptr = self.host_in.data_ptr()
+        self._layouts.clear()           # their views are of the old buffer
+        if self.pin:
+            self.dev_in = torch.empty(size, dtype=torch.uint8,
+                                      device=self.index)
+            self.dev_in_ptr = self.dev_in.data_ptr()
+
+    def output(self, n: int) -> None:
+        if self.host_out is None or self.host_out.numel() < n:
+            size = self._size(self.host_out, n)
+            self.host_out = torch.empty(size, dtype=torch.float64,
+                                        pin_memory=True)
+            self.host_out_np = self.host_out.numpy()
+            self.host_out_ptr = self.host_out.data_ptr()
+            self.dev_out = torch.empty(size, dtype=torch.float64,
+                                       device=self.index)
+            self.dev_out_ptr = self.dev_out.data_ptr()
+
+
+_STAGING: Dict[tuple, Staging] = {}
+
+
+def staging(device: torch.device, dtype: torch.dtype) -> Staging:
+    """The launcher's reused :class:`Staging` of ``(device, dtype)``."""
+    key = (device.type, device.index, dtype)
+    st = _STAGING.get(key)
+    if st is None:
+        st = _STAGING[key] = Staging(device, dtype)
+    return st
+
+
+def _score_cuda(st: Staging, packed: Packed, dev_ptrs: Tuple[int, ...],
+                memory_constraint: bool) -> np.ndarray:
+    """Copy the packed buffer in, launch the pair kernel, copy (3, P) out
+    and wait, each one C call on the current stream.  Reusing the staging
+    buffers across calls is safe only because this waits for the result
+    before it returns (and before it raises): no copy of one call is in
+    flight when the next call packs or reads them."""
+    if torch.cuda.current_device() != st.index:
+        with torch.cuda.device(st.index):
+            return _score_cuda(st, packed, dev_ptrs, memory_constraint)
+    split = STATS["split"]
+    t0 = perf_counter()
+    n_out = 3 * packed.p_total
+    st.output(n_out)
+    # the raw handle of torch.cuda.current_stream(), without building a
+    # Stream object on every call
+    stream = torch._C._cuda_getCurrentRawStream(st.index)
+    kernel.copy_async(st.dev_in_ptr, st.host_in_ptr, packed.nbytes, stream)
+    t1 = perf_counter()
+    kernel.launch_pairs(st.dtype, *dev_ptrs, st.dev_out_ptr, packed.e_n,
+                        packed.a_n, packed.b_n, packed.p_total,
+                        memory_constraint, stream, host_pairs=dev_ptrs[-1]
+                        - st.dev_in_ptr + st.host_in_ptr)
+    t2 = perf_counter()
+    kernel.copy_async(st.host_out_ptr, st.dev_out_ptr, 8 * n_out, stream)
+    kernel.synchronize(stream)
+    t3 = perf_counter()
+    split["h2d"] += t1 - t0
+    split["launch"] += t2 - t1
+    split["d2h"] += t3 - t2
+    return st.host_out_np[:n_out].reshape(3, packed.p_total)
 
 
 def score_events(feats: Sequence[Tuple], pairs_list: Sequence[np.ndarray],
@@ -107,11 +292,11 @@ def score_events(feats: Sequence[Tuple], pairs_list: Sequence[np.ndarray],
     """Score a batch of lock events through one scorer launch.
 
     ``feats``: per-event unpadded feature tuples ``(av, bv, pm, sc)`` as
-    built by ``PhaseEngine._event_features`` (av: (N_AV, na+1), ...);
-    ``pairs_list``: per-event (P, 2) int64 shortlists.  Returns per-event
-    ``(w_a, w_b, feasible)`` aligned with each event's pairs.  Events with
-    an empty shortlist are answered without scoring; a batch with none
-    left makes no call.
+    built by ``PhaseEngine._event_features`` (av: (N_AV, na+1), ...; sc
+    float64); ``pairs_list``: per-event (P, 2) int64 shortlists.  Returns
+    per-event ``(w_a, w_b, feasible)`` aligned with each event's pairs.
+    Events with an empty shortlist are answered without scoring; a batch
+    with none left makes no call.
     """
     e_n = len(feats)
     results: List[Optional[Tuple]] = [None] * e_n
@@ -123,24 +308,33 @@ def score_events(feats: Sequence[Tuple], pairs_list: Sequence[np.ndarray],
     if not live:
         return results
 
-    lf = [feats[k] for k in live]
+    split = STATS["split"]
     t0 = perf_counter()
-    out = _score(lf, device, dtype)
+    st = staging(device, dtype)
+    lp = [pairs_list[k] for k in live]
+    packed, regions, dev_ptrs = pack([feats[k] for k in live], lp, params,
+                                     st)
+    t1 = perf_counter()
+    split["pack"] += t1 - t0
+    if st.pin:
+        out = _score_cuda(st, packed, dev_ptrs, params.memory_constraint)
+    else:
+        out = kernel.score_pairs(*map(torch.from_numpy, regions),
+                                 params.memory_constraint).numpy()
+    t2 = perf_counter()
+    w_a, w_b = out[0].copy(), out[1].copy()
+    feas = out[2] != 0.0
+    end = 0
+    for k, p in zip(live, lp):
+        start, end = end, end + p.shape[0]
+        results[k] = (w_a[start:end], w_b[start:end], feas[start:end])
+    t3 = perf_counter()
+    if not st.pin:
+        split["launch"] += t2 - t1
+    split["combine"] += t3 - t2
     STATS["calls"] += 1
-    STATS["seconds"] += perf_counter() - t0
-
-    if len(live) == 1:
-        # solo event: combine only the gathered shortlist lanes
-        p = pairs_list[live[0]]
-        outp = out[0][:, p[:, 0], p[:, 1]]              # (N_OUT, P)
-        results[live[0]] = ops.combine_work_pairs(outp, lf[0][3], params)
-        return results
-    # batched flush: ONE full-tile combine for all events (combine-then-
-    # gather is bitwise-identical per pair to gather-then-combine)
-    sc = np.stack([f[3] for f in lf])
-    w_a, w_b, feas = ops.combine_work(out, sc, params)
-    for j, k in enumerate(live):
-        p = pairs_list[k]
-        ia, ib = p[:, 0], p[:, 1]
-        results[k] = (w_a[j, ia, ib], w_b[j, ia, ib], feas[j, ia, ib])
+    STATS["seconds"] += t3 - t0
+    STATS["shapes"][(packed.e_n, packed.a_n, packed.b_n)] += 1
+    STATS["pair_shapes"][(packed.e_n, packed.a_n, packed.b_n,
+                          packed.p_total)] += 1
     return results

@@ -50,7 +50,8 @@ class SC:
     rank-to-rank flows (a = rank a, b = rank b, o = all other ranks);
     ``base_*`` are the incrementally-maintained CCMState volume bases the
     flow deltas are applied to.  ``speed_*`` and ``mem_cap_*`` are consumed
-    by the host-side work combine (ops.combine_work), not by the kernel."""
+    by the work combine only (ops.combine_work*, and the pair scorer through
+    the float64 CF row), not by the planes."""
 
     f_ab = 0
     f_ba = 1
@@ -80,7 +81,7 @@ class SC:
     ovh_b = 25
     na = 26          # true candidate count on a (mask bound, as float)
     nb = 27          # true candidate count on b
-    speed_a = 28     # host combine only
+    speed_a = 28     # combine only (copied into the CF row)
     speed_b = 29
     mem_cap_a = 30   # packed pre-scaled via repro_torch.core.ccm.effective_mem_cap
     mem_cap_b = 31   # (relative tolerance + pressure headroom baked in)
@@ -105,3 +106,25 @@ class OUT:
 
 
 N_OUT = 10
+
+
+class CF:
+    """The port's float64 combine row of an event, index into cf (E, N_CF)
+    of the pair scorer (``ref.score_pairs_packed``, the CUDA pair kernel):
+    the CCM coefficients and the event's speeds and (pre-scaled) memory
+    caps, copied from its float64 SC row, so that the float32 tier combines
+    against the float64 values as the host combine does."""
+
+    alpha = 0
+    beta = 1
+    gamma = 2
+    delta = 3
+    speed_a = 4
+    speed_b = 5
+    mem_cap_a = 6
+    mem_cap_b = 7
+
+
+N_CF = 8
+#: the SC slots a CF row copies, in CF order from ``CF.speed_a`` on
+CF_FROM_SC = (SC.speed_a, SC.speed_b, SC.mem_cap_a, SC.mem_cap_b)

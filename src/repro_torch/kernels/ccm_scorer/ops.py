@@ -1,6 +1,11 @@
-"""Tile layout and the shared host work combine for the CCM scorer.
+"""Tile layout and the host work combine for the CCM scorer.
 
-The port's counterpart of ``repro/kernels/ccm_scorer/ops.py``.
+The port's counterpart of ``repro/kernels/ccm_scorer/ops.py``.  The
+balancer no longer calls these combines: its launcher scores and combines
+the shortlisted pairs in one fused step (the CUDA pair kernel on the card,
+``ref.score_pairs_packed`` on the CPU).  ``combine_work*`` remain the host
+oracle, the exact float64 numpy expressions of the JAX package's combine,
+that the plain version and the tests hold the kernel to.
 
 Tile / mask layout
 ------------------
@@ -26,10 +31,9 @@ to 0 (flow/load/homing planes) or +inf (memory planes, so tail pairs can
 never appear feasible).
 
 The scorer (ref.score_tiles / kernel.score_tiles) produces the ten *work
-components* per pair (layout.OUT).  It contains no multiplications, so
-applying the CCM coefficients is a separate host step shared by every
-device and dtype, in float64 numpy — the exact expression the scalar
-reference evaluates:
+components* per pair (layout.OUT).  It contains no multiplications; the
+CCM coefficients are applied after it, in float64 — the exact expression
+the scalar reference evaluates, here in numpy:
 
   ``combine_work``: W = alpha*L/speed + beta*Voff + gamma*Von + delta*M_H,
   feasibility from the memory planes vs the per-event caps (eq. 9), and

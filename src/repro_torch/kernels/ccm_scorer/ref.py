@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the CCM stage-2 scorer tiles.
+"""Plain PyTorch version of the CCM stage-2 scorer: full tiles, and the
+shortlisted pairs with the work combine.
 
 The counterpart of ``repro/kernels/ccm_scorer/ref.py`` and the oracle the
 CUDA kernel (``csrc/ccm_scorer.cu``) is held bitwise-equal to.  Both compute
@@ -9,6 +10,12 @@ so every lane is exact IEEE arithmetic in a fixed order: this function on
 the CPU, this function on the card, the kernel and the JAX package's
 ``ref.score_tiles`` / Pallas kernel agree bit for bit in float64, and the
 float32 versions agree with each other.
+
+The pair scorer's combine (:func:`combine_pairs`) multiplies and divides:
+each product, quotient and sum is its own eager float64 operation, rounded
+once, in the association of ``ops.combine_work_pairs``, so it too is
+bitwise-equal to the numpy combine and to the CUDA pair kernel (which
+rounds each step with the ``_rn`` intrinsics).
 
 Eager torch runs each operation below as its own elementwise kernel, so
 nothing re-associates or contracts the tree.  Every expression mirrors the
@@ -22,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ccm_scorer.layout import AV, N_OUT, OUT, PM, SC
+from repro_torch.kernels.ccm_scorer.layout import (AV, CF, N_OUT, OUT, PM,
+                                                   SC)
 
 
 def score_planes(col, row, scal, pmp):
@@ -103,6 +111,18 @@ def score_planes(col, row, scal, pmp):
     return planes
 
 
+def _mask_planes(planes, mask):
+    """Masked tail: flow/load/homing planes -> 0, memory planes -> +inf
+    (so padded pairs can never look feasible).  Plane order = layout.OUT;
+    the planes are stacked along dim 1."""
+    p0 = planes[0]
+    zero = torch.zeros((), dtype=p0.dtype, device=p0.device)
+    inf = torch.full((), float("inf"), dtype=p0.dtype, device=p0.device)
+    out = [torch.where(mask, p, inf if i in (OUT.mem_a, OUT.mem_b) else zero)
+           for i, p in enumerate(planes)]
+    return torch.stack(out, dim=1)
+
+
 def score_tiles(av: torch.Tensor, bv: torch.Tensor, pm: torch.Tensor,
                 sc: torch.Tensor) -> torch.Tensor:
     """Score packed exchange tiles with plain torch operations.
@@ -125,8 +145,74 @@ def score_tiles(av: torch.Tensor, bv: torch.Tensor, pm: torch.Tensor,
     ia = torch.arange(a_n, dtype=dt, device=dev)[None, :, None]
     ib = torch.arange(b_n, dtype=dt, device=dev)[None, None, :]
     mask = (ia <= sc[:, SC.na, None, None]) & (ib <= sc[:, SC.nb, None, None])
-    zero = torch.zeros((), dtype=dt, device=dev)
-    inf = torch.full((), float("inf"), dtype=dt, device=dev)
-    out = [torch.where(mask, p, inf if i in (OUT.mem_a, OUT.mem_b) else zero)
-           for i, p in enumerate(planes)]
-    return torch.stack(out, dim=1)
+    return _mask_planes(planes, mask)
+
+
+def score_pairs(avp: torch.Tensor, bvp: torch.Tensor, pmp: torch.Tensor,
+                sc: torch.Tensor, iaf: torch.Tensor, ibf: torch.Tensor,
+                ) -> torch.Tensor:
+    """Pair-gathered layout: score only a shortlist of candidate pairs (the
+    JAX package's ``ref.score_pairs_xp``).
+
+    ``avp``/``bvp``: (E, N_AV, P) feature rows gathered at the pairs' a-/
+    b-candidate indices, ``pmp``: (E, N_PM, P) pairwise planes gathered at
+    the pairs, ``iaf``/``ibf``: (E, P) pair indices in the scoring dtype
+    (mask bound compare only).  Returns (E, N_OUT, P), bitwise-equal to
+    full-tile scoring followed by the same gather.
+    """
+    planes = score_planes(
+        col=lambda i: avp[:, i],
+        row=lambda i: bvp[:, i],
+        scal=lambda i: sc[:, i, None],
+        pmp=lambda i: pmp[:, i])
+    mask = (iaf <= sc[:, SC.na, None]) & (ibf <= sc[:, SC.nb, None])
+    return _mask_planes(planes, mask)
+
+
+def combine_pairs(out: torch.Tensor, cf: torch.Tensor,
+                  memory_constraint: bool) -> torch.Tensor:
+    """The work combine of ``ops.combine_work_pairs`` in float64 torch:
+    ``out`` (N_OUT, P) planes (widened exactly to float64 first), ``cf``
+    (P, N_CF) float64 combine rows, one per pair.  Returns (3, P) float64:
+    w_a, w_b and feasible as 0.0 / 1.0, with w = +inf where infeasible."""
+    out = out.to(torch.float64)
+    if memory_constraint:
+        feas = ((out[OUT.mem_a] <= cf[:, CF.mem_cap_a])
+                & (out[OUT.mem_b] <= cf[:, CF.mem_cap_b]))
+    else:
+        feas = torch.ones(out.shape[1], dtype=torch.bool, device=out.device)
+    w_a = (cf[:, CF.alpha] * out[OUT.load_a] / cf[:, CF.speed_a]
+           + cf[:, CF.beta] * out[OUT.off_a]
+           + cf[:, CF.gamma] * out[OUT.on_a]
+           + cf[:, CF.delta] * out[OUT.hom_a])
+    w_b = (cf[:, CF.alpha] * out[OUT.load_b] / cf[:, CF.speed_b]
+           + cf[:, CF.beta] * out[OUT.off_b]
+           + cf[:, CF.gamma] * out[OUT.on_b]
+           + cf[:, CF.delta] * out[OUT.hom_b])
+    inf = torch.full((), float("inf"), dtype=torch.float64, device=out.device)
+    return torch.stack([torch.where(feas, w_a, inf),
+                        torch.where(feas, w_b, inf), feas.to(torch.float64)])
+
+
+def score_pairs_packed(av: torch.Tensor, bv: torch.Tensor, pm: torch.Tensor,
+                       sc: torch.Tensor, cf: torch.Tensor, offs: torch.Tensor,
+                       pairs: torch.Tensor, memory_constraint: bool,
+                       ) -> torch.Tensor:
+    """The plain version of the fused pair scorer, on the kernel's inputs:
+    the packed tiles ``av``, ``bv``, ``pm``, ``sc`` (ops.py's layout, one
+    dtype), ``cf`` (E, N_CF) float64 combine rows, ``offs`` (E + 1,) int32
+    pair offsets and ``pairs`` (P, 2) int32 (ia, ib) of every event, back to
+    back.  Returns (3, P) float64: w_a, w_b, feasible (0.0 / 1.0).
+
+    Each pair is scored as an event of one pair (its gathered columns, its
+    event's scalars), which is elementwise the same as
+    :func:`score_pairs` on the whole shortlist; the planes are then
+    combined in float64 (:func:`combine_pairs`)."""
+    e_n, dev = av.shape[0], av.device
+    counts = (offs[1:] - offs[:-1]).to(torch.int64)
+    ev = torch.repeat_interleave(torch.arange(e_n, device=dev), counts)
+    ia, ib = pairs[:, 0].to(torch.int64), pairs[:, 1].to(torch.int64)
+    out = score_pairs(av[ev, :, ia][:, :, None], bv[ev, :, ib][:, :, None],
+                      pm[ev, :, ia, ib][:, :, None], sc[ev],
+                      ia.to(av.dtype)[:, None], ib.to(av.dtype)[:, None])
+    return combine_pairs(out[:, :, 0].T, cf[ev], memory_constraint)

@@ -2,25 +2,33 @@
 (``repro_torch.kernels.ccm_scorer.ref``) and the kernel wrapper's CPU route
 against the JAX package's NumPy reference (``repro.kernels.ccm_scorer
 .ref.score_tiles``) and its Pallas kernel run in interpret mode
-(``score_tiles_fwd(..., interpret=True)``), on the same numpy tiles.
+(``score_tiles_fwd(..., interpret=True)``), on the same numpy tiles; the
+pair scorer (``ref.score_pairs``, and the packed fused version the launcher
+runs, ``ref.score_pairs_packed``) against the reference's pair path
+(``ref.score_pairs_xp``) and its launcher ``jit.score_events(...,
+backend="numpy")``.
 
 Tolerance: none.  The scorer uses only add, sub, max, compare and select
 in one fixed association, so float64 results are bitwise-equal to both
 references, and float32 results bitwise-equal to the float32 interpret
 kernel (``np.testing.assert_array_equal``; NaN lanes must match as NaN).
-The CUDA kernel itself is held to the same plain version on the card by
-``chip_smoke.py`` and by the card-only test at the end of this file."""
+The combine's products, quotients and sums are float64 eager operations,
+each rounded once, as in numpy, so the fused results are bitwise too.
+The CUDA kernels themselves are held to the same plain versions on the
+card by ``chip_smoke.py`` and by the card-only tests in this file."""
 import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ccm_scorer import jit as r_jit
 from repro.kernels.ccm_scorer import layout as r_layout
 from repro.kernels.ccm_scorer import ops as r_ops
 from repro.kernels.ccm_scorer import ref as r_ref
 from repro.kernels.ccm_scorer.kernel import score_tiles_fwd
-from repro_torch.kernels.ccm_scorer import kernel, layout, ops, ref
-from repro_torch.kernels.ccm_scorer.layout import N_AV, N_PM, N_SC, SC
+from repro_torch.kernels.ccm_scorer import kernel, launch, layout, ops, ref
+from repro_torch.kernels.ccm_scorer.layout import (AV, N_AV, N_OUT, N_PM,
+                                                   N_SC, OUT, SC)
 from repro_torch.core import CCMParams
 
 
@@ -185,3 +193,232 @@ def test_cuda_kernel_equals_plain_version_on_the_card():
             assert kernel.LAUNCHES[str(dtype).removeprefix("torch.")] == \
                 before + 1
             assert torch.equal(got, ref.score_tiles(*t))
+
+
+# ------------------------------------------------------------ pair scorer
+def _random_pairs(rng, a_n, b_n, p):
+    """``p`` (ia, ib) pairs of an (a_n, b_n) tile, drawn without
+    replacement (every pair of the tile when ``p`` is ``a_n * b_n``)."""
+    lanes = rng.choice(a_n * b_n, size=p, replace=False)
+    return np.stack([lanes // b_n, lanes % b_n], axis=1).astype(np.int64)
+
+
+def _with_nans(tiles):
+    """NaN in a max operand of two events' lanes (mem_b through the
+    a-overhead, off_b through sent_b) and in one event's scalar (mem_a);
+    the last event's lanes all live, the others keep their masked tails."""
+    av, bv, pm, sc = tiles
+    sc[-1, SC.na], sc[-1, SC.nb] = av.shape[2] - 1, bv.shape[2] - 1
+    av[0, AV.ovh, 0] = np.nan
+    bv[-1, AV.out_other, 0] = np.nan
+    sc[-1, SC.ovh_a] = np.nan
+    return tiles
+
+
+@pytest.mark.parametrize("seed,e_n,a_n,b_n", SHAPES)
+def test_score_pairs_bitwise_vs_reference_pairs_and_tile_gather(
+        seed, e_n, a_n, b_n):
+    """The port's pair layout equals the reference's ``score_pairs_xp`` and
+    the gather of the full tile, bit for bit in float64, masked tails (na,
+    nb below the tile) and NaN lanes included."""
+    rng = np.random.default_rng(100 + seed)
+    av, bv, pm, sc = _with_nans(_random_tiles(seed, e_n, a_n, b_n))
+    p_n = min(a_n * b_n, 7)
+    pr = np.stack([_random_pairs(rng, a_n, b_n, p_n) for _ in range(e_n)])
+    ia, ib = pr[..., 0], pr[..., 1]                     # (E, P)
+    e = np.arange(e_n)[:, None]
+    avp = np.moveaxis(av[e, :, ia], 2, 1)               # (E, N_AV, P)
+    bvp = np.moveaxis(bv[e, :, ib], 2, 1)
+    pmp = np.moveaxis(pm[e, :, ia, ib], 2, 1)
+    iaf, ibf = ia.astype(np.float64), ib.astype(np.float64)
+    got = ref.score_pairs(*(torch.tensor(x) for x in
+                            (avp, bvp, pmp, sc, iaf, ibf))).numpy()
+    assert got.shape == (e_n, N_OUT, p_n)
+    np.testing.assert_array_equal(
+        got, r_ref.score_pairs_xp(avp, bvp, pmp, sc, iaf, ibf))
+    tile = r_ref.score_tiles(av, bv, pm, sc)
+    np.testing.assert_array_equal(
+        got, np.moveaxis(tile[e, :, ia, ib], 2, 1))
+    assert np.isnan(got).any()
+    tail = (ia > sc[:, SC.na, None]) | (ib > sc[:, SC.nb, None])
+    if tail.any():
+        assert (got[:, OUT.mem_a][tail] == np.inf).all()
+
+
+def _events(seed, sizes, mem_constraint=True, nans=False):
+    """Random unpadded per-event features ``(av, bv, pm, sc)`` as the
+    engine builds them (sc float64, na/nb the true counts), speeds other
+    than 1, caps that split the pairs into feasible and not, and ragged
+    shortlists: ``sizes`` holds (na + 1, nb + 1, P) per event, P = 0 for
+    an empty shortlist."""
+    rng = np.random.default_rng(seed)
+    feats, pairs = [], []
+    for a_k, b_k, p in sizes:
+        av = rng.uniform(-2, 2, (N_AV, a_k))
+        bv = rng.uniform(-2, 2, (N_AV, b_k))
+        pm = rng.uniform(-2, 2, (N_PM, a_k, b_k))
+        sc = rng.uniform(0.1, 3.0, N_SC)
+        sc[SC.na], sc[SC.nb] = a_k - 1, b_k - 1
+        sc[SC.speed_a], sc[SC.speed_b] = rng.uniform(0.3, 4.0, 2)
+        sc[SC.mem_cap_a], sc[SC.mem_cap_b] = rng.uniform(8.0, 12.0, 2)
+        if nans:
+            av[AV.ovh, 0] = np.nan
+            bv[AV.load, b_k - 1] = np.nan
+        feats.append((av, bv, pm, sc))
+        pairs.append(_random_pairs(rng, a_k, b_k, p))
+    params = CCMParams(alpha=1.3, beta=0.3, gamma=0.7, delta=0.11,
+                       memory_constraint=mem_constraint)
+    return feats, pairs, params
+
+
+# (na + 1, nb + 1, P) per event: solo events (a full tile, a one-sided
+# give, a 32-pair shortlist), then batches with ragged P, padding and
+# empty shortlists inside
+EVENT_SETS = [
+    [(6, 5, 30)], [(1, 9, 9)], [(13, 13, 32)],
+    [(4, 6, 11), (7, 3, 21), (2, 2, 4)],
+    [(5, 5, 0), (9, 4, 32), (3, 8, 0), (13, 13, 32), (1, 1, 1)],
+    [(13, 13, 32)] * 8,
+]
+
+
+@pytest.mark.parametrize("mem_constraint", [True, False])
+@pytest.mark.parametrize("which", range(len(EVENT_SETS)))
+def test_packed_pairs_bitwise_vs_reference_score_events(which,
+                                                        mem_constraint):
+    """The launcher's CPU route (the packer and the plain fused version)
+    equals the reference launcher ``jit.score_events(...,
+    backend="numpy")`` per pair, solo and batched, ragged and empty
+    shortlists, NaN lanes included."""
+    feats, pairs, params = _events(which, EVENT_SETS[which], mem_constraint,
+                                   nans=which % 2 == 1)
+    launch.reset_stats()
+    got = launch.score_events(feats, pairs, params, device=torch.device(
+        "cpu"), dtype=torch.float64)
+    want = r_jit.score_events(feats, pairs, params, backend="numpy")
+    assert len(got) == len(want) == len(feats)
+    for (wa, wb, fe), (wa2, wb2, fe2), pr in zip(got, want, pairs):
+        assert wa.shape == wb.shape == fe.shape == (len(pr),)
+        assert wa.dtype == np.float64 and fe.dtype == bool
+        np.testing.assert_array_equal(wa, wa2)
+        np.testing.assert_array_equal(wb, wb2)
+        np.testing.assert_array_equal(fe, fe2)
+    live = [s for s in EVENT_SETS[which] if s[2]]
+    assert launch.STATS["calls"] == 1
+    assert dict(launch.STATS["shapes"]) == {
+        (len(live), max(s[0] for s in live), max(s[1] for s in live)): 1}
+    assert sum(launch.STATS["split"].values()) == pytest.approx(
+        launch.STATS["seconds"])
+    if mem_constraint and which % 2 == 0:     # no NaN memory high
+        fe_all = np.concatenate([r[2] for r in got])
+        assert fe_all.any() and not fe_all.all()
+
+
+@pytest.mark.parametrize("which", [0, 3, 4])
+def test_packed_pairs_f32_equal_host_combine_of_f32_planes(which):
+    """In float32 the planes are float32 and the combine float64, against
+    the event's float64 scalar row: the fused result equals
+    ``ops.combine_work_pairs`` (and the reference's) on the widened float32
+    planes, gathered at the pairs, with the float64 row."""
+    feats, pairs, params = _events(10 + which, EVENT_SETS[which])
+    got = launch.score_events(feats, pairs, params, device=torch.device(
+        "cpu"), dtype=torch.float32)
+    for (av, bv, pm, sc), pr, res in zip(feats, pairs, got):
+        if not len(pr):
+            assert all(len(x) == 0 for x in res)
+            continue
+        tiles = [torch.tensor(x[None], dtype=torch.float32)
+                 for x in (av, bv, pm, sc)]
+        planes = ref.score_tiles(*tiles)[0].numpy().astype(np.float64)
+        outp = planes[:, pr[:, 0], pr[:, 1]]
+        for x, y, z in zip(res, ops.combine_work_pairs(outp, sc, params),
+                           r_ops.combine_work_pairs(outp, sc, params)):
+            np.testing.assert_array_equal(x, y)
+            np.testing.assert_array_equal(x, z)
+
+
+def _packed(feats, pairs, params, dtype):
+    st = launch.Staging(torch.device("cpu"), dtype)
+    _, regions, dev_ptrs = launch.pack(feats, pairs, params, st)
+    assert dev_ptrs is None
+    return [torch.from_numpy(v) for v in regions]
+
+
+def test_pack_layout_and_wrapper_cpu_route():
+    """The packed regions hold the padded tiles, the float64 combine rows
+    and the int32 offsets and pairs; ``kernel.score_pairs`` on CPU tensors
+    is the plain fused version; a pair outside its tile raises, through
+    the wrapper and through the launcher."""
+    feats, pairs, params = _events(3, EVENT_SETS[3])
+    av, bv, pm, sc, cf, offs, pr = _packed(feats, pairs, params,
+                                           torch.float64)
+    assert av.shape == (3, N_AV, 7) and pm.shape == (3, N_PM, 7, 6)
+    assert offs.tolist() == [0, 11, 32, 36] and pr.dtype == torch.int32
+    assert (av[0, :, 4:] == 0).all() and (pm[1, :, :, 3:] == 0).all()
+    np.testing.assert_array_equal(cf[:, :4].numpy(), [[1.3, 0.3, 0.7, 0.11]]
+                                  * 3)
+    np.testing.assert_array_equal(
+        cf[:, 4:].numpy(), [f[3][[SC.speed_a, SC.speed_b, SC.mem_cap_a,
+                                  SC.mem_cap_b]] for f in feats])
+    got = kernel.score_pairs(av, bv, pm, sc, cf, offs, pr, True)
+    want = ref.score_pairs_packed(av, bv, pm, sc, cf, offs, pr, True)
+    assert got.shape == (3, 36) and got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for ia, ib in ((7, 0), (0, 6), (-1, 0)):
+        bad = pr.clone()
+        bad[12] = torch.tensor((ia, ib))
+        with pytest.raises(IndexError):
+            kernel.score_pairs(av, bv, pm, sc, cf, offs, bad, True)
+    bad = [p.copy() for p in pairs]
+    bad[1][0] = (7, 0)
+    with pytest.raises(IndexError):
+        launch.score_events(feats, bad, params, device=torch.device("cpu"),
+                            dtype=torch.float64)
+    with pytest.raises(ValueError):
+        kernel.score_pairs(av.to("meta"), bv, pm, sc, cf, offs, pr, True)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_kernel_equals_plain_version_on_the_card():
+    """Runs only where there is a card (``chip_smoke.py`` runs the full
+    check): the fused pair kernel against its plain version, float64 and
+    float32 (float64 combine), exact, with its launch count; and the
+    launcher's card route against its CPU route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for which, mc in ((0, True), (3, False), (4, True), (5, True)):
+        feats, pairs, params = _events(20 + which, EVENT_SETS[which], mc,
+                                       nans=True)
+        for dtype in (torch.float64, torch.float32):
+            t = [x.cuda() for x in _packed(feats, pairs, params, dtype)]
+            name = str(dtype).removeprefix("torch.")
+            before = kernel.PAIR_LAUNCHES[name]
+            got = kernel.score_pairs(*t, mc)
+            assert kernel.PAIR_LAUNCHES[name] == before + 1
+            torch.testing.assert_close(
+                got, ref.score_pairs_packed(*t, mc), rtol=0, atol=0,
+                equal_nan=True)
+            card = launch.score_events(feats, pairs, params,
+                                       device=torch.device("cuda"),
+                                       dtype=dtype)
+            host = launch.score_events(feats, pairs, params,
+                                       device=torch.device("cpu"),
+                                       dtype=dtype)
+            for x, y in zip(card, host):
+                for u, v in zip(x, y):
+                    np.testing.assert_array_equal(u, v)
+    # a pair off its tile raises on the card's route too, and the next
+    # call is unharmed
+    bad = [p.copy() for p in pairs]
+    bad[-1][0] = (0, 13)
+    with pytest.raises(IndexError):
+        launch.score_events(feats, bad, params, device=torch.device("cuda"),
+                            dtype=torch.float64)
+    again = launch.score_events(feats, pairs, params,
+                                device=torch.device("cuda"),
+                                dtype=torch.float64)
+    for x, y in zip(again, launch.score_events(
+            feats, pairs, params, device=torch.device("cpu"),
+            dtype=torch.float64)):
+        for u, v in zip(x, y):
+            np.testing.assert_array_equal(u, v)
