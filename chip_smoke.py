@@ -24,7 +24,14 @@ line):
    planes, float64 combine), E in {1, 8, 64}, (A, B) in {(1, 1), (13, 13),
    (5, 128), (128, 128)}, P in {1, 32, A*B} an event, events with an empty
    shortlist inside a batch, pairs in the masked tail, NaN lanes, speeds
-   other than 1, ``memory_constraint`` on and off.
+   other than 1, ``memory_constraint`` on and off.  The window kernel
+   (``ccm_scorer_spec_f64``: a captured lock event a row, flow matrix to
+   selection) bit for bit, with its flow matrix in shared memory and in
+   global scratch: rows of ``scaling_phase(256)``'s first lock events in
+   windows of 1 to 64 rows, mixed edge buckets, a pair count of 0, every
+   pair infeasible, a tied maximum (the first wins), ``max_candidates=40``
+   (lanes 64: F in shared memory past 48 KB) and ``max_candidates=70``
+   (lanes 128: global scratch only).
 4. Drive the main path, ``ccm_lb`` with ``n_iter=4, k_rounds=2,
    fanout=4`` on ``device="cuda"``: ``scaling_phase(256)`` (256 ranks, 6400
    tasks, 12,799 comm edges) in float64 solo, float64 with
@@ -38,7 +45,14 @@ line):
    reference path (``use_engine=False``), which never calls the scorer.
    The launched (E, A, B) and (E, A, B, P) shapes are recorded, and each
    run's scorer seconds with their split (pack, h2d, launch, d2h,
-   combine).
+   combine).  Then the speculative driver on the same phase
+   (``spec_window=8`` and 32 scan/disjoint, 8 vmap/greedy), each run
+   identical to f64 solo's CPU run, with window-kernel launches equal to
+   the windows that scored a row and no pair or full-tile launch; and
+   ``ccm_lb_many`` of the JAX package's fleet benchmark (64 instances of a
+   16-rank, 400-task phase, window 64, vmap), each instance identical to
+   its solo run on the card's host engine.  Wall and stage seconds,
+   windows, rollbacks and the window launcher's split are printed.
 5. The paper's assembly application (section VI) on the card.  Hold the
    assembly-tile kernel (``src/repro_torch/csrc/assembly_tile.cu``) against
    its plain torch version: quad orders 4, 16, 64, 192; shapes (1, 1),
@@ -141,15 +155,18 @@ line):
    of each quad order (the mix); and the card's cost of one empty launch,
    the floor under every ``device_ms``.  Flash and the expert GEMM
    are held to their plain versions at every shape the serve paths
-   launched, at the tolerances of phase 6, before they are timed.  Then
-   profile one float64 solo main-path run with ``torch.profiler``: device
-   time by kernel and copy, and the device's idle share of the run's wall
+   launched, at the tolerances of phase 6, before they are timed.  The
+   window kernel at the (W, eb) the spec runs launched most, with the
+   launcher's host time a call.  Then profile one float64 solo main-path
+   run and one ``spec_window=8`` run with ``torch.profiler``: device time
+   by kernel and copy, and the device's idle share of the run's wall
    time.
 9. Import every module of ``repro_torch``, check that no module of JAX or
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
    serve, per-run and assembly numbers, the launch floor, the card line,
    one JSON line of per-kernel numbers (the scorer's pair kernel and its
-   full-tile kernel, each in float64 and float32, the assembly tile,
+   full-tile kernel, each in float64 and float32, its window kernel, the
+   assembly tile,
    flash, the expert GEMM, wkv6 and rglru) and, as the last line,
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -190,6 +207,22 @@ COMBINE_OPS = 18
 MAIN_KW = dict(n_iter=4, k_rounds=2, fanout=4)
 KERNEL_SOURCE = "src/repro_torch/csrc/ccm_scorer.cu"
 REPLACES = "src/repro/kernels/ccm_scorer/kernel.py:35"
+# the window kernel replaces the XLA-compiled kind="spec" body (no Pallas)
+SPEC_REPLACES = "src/repro/kernels/ccm_scorer/jit.py:253"
+# the main path's speculative runs: (label, spec_window, spec_mode,
+# spec_fill), each at scaling_phase(256) with MAIN_KW
+SPEC_RUNS = (("spec8 scan/disjoint", 8, "scan", "disjoint"),
+             ("spec32 scan/disjoint", 32, "scan", "disjoint"),
+             ("spec8 vmap/greedy", 8, "vmap", "greedy"))
+# the fleet run: the JAX package's benchmarks/ccmlb_fleet.py full
+# configuration (64 instances of a 16-rank, 400-task random phase)
+FLEET_N = 64
+FLEET_PHASE = dict(num_ranks=16, num_tasks=400, num_blocks=24,
+                   num_comms=1600, mem_cap=1e12)
+FLEET_KW = dict(n_iter=8, k_rounds=2, fanout=8, max_candidates=12)
+# per shortlist slot past the scorer tree and the combine: the diff, the
+# max of the works, two feasibility compares and the selection compare
+SPEC_SLOT_OPS = 5
 ASM_SOURCE = "src/repro_torch/csrc/assembly_tile.cu"
 ASM_REPLACES = "src/repro/kernels/assembly/kernel.py:25"
 # operations per coupled entry and quadrature step, as the JAX package's
@@ -606,6 +639,7 @@ def main_path(torch, kernel, launch) -> dict:
                      f"(ranks over the cap {over}, max_work {mw[[0, -1]]})")
         if phase is scaling and name == "float64" and batch == 1:
             f64_assignment = gpu.assignment
+            f64_cpu_run = cpu
         if name == "float32" and not np.array_equal(gpu.assignment,
                                                     f64_assignment):
             fail(f"{label}: float32 assignment differs from float64")
@@ -638,7 +672,268 @@ def main_path(torch, kernel, launch) -> dict:
               f"calls {launch.STATS['seconds']!r} s, split "
               f"{launch.STATS['split']}", flush=True)
     return dict(launches=launches, shapes=shapes, pair_shapes=pair_shapes,
-                runs=runs)
+                runs=runs, f64_cpu_run=f64_cpu_run)
+
+
+# -------------------------------------------- 3b / 4b. the speculative window
+def spec_capture(phase, params, max_candidates: int, n_events: int):
+    """Window rows of the first ``n_events`` lock events of ``phase``'s
+    first iteration (``MAIN_KW``'s gossip), captured from its initial state
+    as the spec driver captures them (``core.spec._prepare``).  Returns
+    (raws, lanes, pair bucket)."""
+    from collections import deque
+
+    from repro_torch.core import CCMState, PhaseEngine, initial_assignment
+    from repro_torch.core.ccmlb import ProtocolStats
+    from repro_torch.core.quiesce import QuiesceTracker
+    from repro_torch.core.spec import SpecInstance, _prepare, event_sequence
+    from repro_torch.kernels.ccm_scorer.layout import (bucket_lanes,
+                                                       bucket_pairs)
+    st = CCMState.build(phase, initial_assignment(phase), params)
+    eng = PhaseEngine(st, device="cpu")
+    tr = QuiesceTracker(st, eng, params, seed=0,
+                        k_rounds=MAIN_KW["k_rounds"],
+                        fanout=MAIN_KW["fanout"])
+    tr.begin_iteration(0)
+    clusters, _ = tr.update_summaries()
+    seq = event_sequence(phase.num_ranks,
+                         tr.update_work_lists(tr.update_gossip()))
+    inst = SpecInstance(state=st, engine=eng, clusters=clusters,
+                        stats=ProtocolStats(), rebuild=None, queue=deque(),
+                        max_candidates=max_candidates)
+    lanes = bucket_lanes(max_candidates + 1)
+    p_n = bucket_pairs(min(max_candidates * (max_candidates + 2), 32))
+    raws = []
+    for r, p in seq:
+        cap, raw = _prepare(inst, r, p, lanes, lanes, p_n)
+        if cap is not None:
+            raws.append(raw)
+        if len(raws) == n_events:
+            break
+    return raws, lanes, p_n
+
+
+def spec_buffer(torch, launch, raws, lanes: int, p_n: int):
+    """The window of ``raws`` as ``launch.score_spec`` stacks it (padded to
+    a power of two of rows), on the card."""
+    import numpy as np
+    from repro_torch.kernels.ccm_scorer.layout import (bucket_events,
+                                                       spec_offsets)
+    eb = max(e for _, e in raws)
+    offs = spec_offsets(eb, lanes, lanes, p_n)
+    buf = np.zeros((bucket_events(len(raws)), offs[-1]))
+    launch.stack_spec(raws, buf, eb, offs[4])
+    return torch.from_numpy(buf).cuda()
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bit for bit, any NaN equal to any NaN."""
+    return a.shape == b.shape and bool(
+        ((a.view(torch.int64) == b.view(torch.int64))
+         | (torch.isnan(a) & torch.isnan(b))).all().item())
+
+
+def check_spec_kernel(torch, kernel, launch, ref) -> tuple:
+    """The window kernel against its plain version on the card, bit for
+    bit, with the flow matrix in shared memory and in global scratch: real
+    rows of ``scaling_phase(256)``'s first lock events in windows of 1, 8,
+    32 and 64 rows; rows of a 16-rank phase mixed in (other edge buckets);
+    a row with pair count 0, one with every pair infeasible, one whose
+    maximum is tied (the first must win); and ``max_candidates=70`` rows
+    (lanes 128, G = 257: F only fits global scratch), and
+    ``max_candidates=40`` (lanes 64: F in shared memory past the default
+    48 KB, opted in).  The plain version on
+    the card is also held to the plain version on the CPU (the tests'
+    oracle), bit for bit.  Returns (the worst absolute difference, the
+    captured 256-rank rows, their lanes and pair bucket)."""
+    import numpy as np
+    from repro_torch.core import CCMParams, random_phase, scaling_phase
+    from repro_torch.kernels.ccm_scorer.layout import SC, spec_offsets
+    params = CCMParams()
+    big, lanes, p_n = spec_capture(scaling_phase(256), params, 12, 96)
+    small, _, _ = spec_capture(
+        random_phase(11, num_ranks=16, num_tasks=320, num_blocks=48,
+                     num_comms=1280, mem_cap=1e12), params, 12, 24)
+    mid, m_lanes, m_p = spec_capture(scaling_phase(256), params, 40, 8)
+    wide, w_lanes, w_p = spec_capture(scaling_phase(256), params, 70, 24)
+    if len(big) < 96 or {e for _, e in small} == {e for _, e in big}:
+        fail(f"spec capture: {len(big)} rows, edge buckets "
+             f"{sorted({e for _, e in small})} / "
+             f"{sorted({e for _, e in big})}")
+    # edge rows from real ones
+    probe = ref.score_spec_rows(spec_buffer(torch, launch, big, lanes, p_n),
+                                lanes, lanes, p_n).cpu()
+    k_row = next(i for i in range(len(big)) if probe[i, 0] > 0
+                 and np.isfinite(probe[i, 1].item()))
+    row, eb = big[k_row]
+    k = int(probe[k_row, 0])
+    offs = spec_offsets(eb, lanes, lanes, p_n)
+    tie = row.copy()
+    for o in (offs[5], offs[6]) + tuple(offs[3] + q * p_n for q in range(4)):
+        tie[o] = tie[o + k]
+    none, infeasible = row.copy(), row.copy()
+    none[offs[7] + 5] = 0.0
+    infeasible[offs[4] + SC.mem_cap_a] = -1.0
+    edge = [(tie, eb), (none, eb), (infeasible, eb), (row, eb)]
+    mixed = [x for pair in zip(small, big) for x in pair]
+    cases = [("W=1", big[:1], lanes, p_n), ("W=8", big[:8], lanes, p_n),
+             ("W=32", big[8:40], lanes, p_n), ("W=64", big[32:96], lanes,
+                                                p_n),
+             ("mixed edge buckets", mixed, lanes, p_n),
+             ("edge rows", edge, lanes, p_n),
+             ("max_candidates=40", mid, m_lanes, m_p),
+             ("max_candidates=70", wide[:8], w_lanes, w_p),
+             ("max_candidates=70, W=24", wide, w_lanes, w_p)]
+    worst, n_cases = 0.0, 0
+    for label, raws, a_n, p in cases:
+        buf = spec_buffer(torch, launch, raws, a_n, p)
+        want = ref.score_spec_rows(buf, a_n, a_n, p)
+        if not same_bits(torch, want.cpu(),
+                         ref.score_spec_rows(buf.cpu(), a_n, a_n, p)):
+            fail(f"spec plain version: card != cpu at {label}")
+        in_smem = kernel.spec_f_in_smem(a_n, a_n, p)
+        for f_global in ((False, True) if in_smem else (True,)):
+            got = kernel.score_spec_rows(buf, a_n, a_n, p, f_global=f_global)
+            torch.cuda.synchronize()
+            if not same_bits(torch, got, want):
+                bad = (got != want).any(1).nonzero()[:4].flatten().tolist()
+                fail(f"window kernel != plain version at {label} "
+                     f"(F in {'global' if f_global else 'shared'} memory), "
+                     f"rows {bad}: {got[bad].tolist()} vs "
+                     f"{want[bad].tolist()}")
+            ok = torch.isfinite(got) & torch.isfinite(want)
+            if ok.any():
+                worst = max(worst, (got[ok] - want[ok]).abs().max().item())
+            n_cases += 1
+        if label == "edge rows":
+            got = want.cpu()
+            if not (got[0, 0] == 0 and got[0, 1] == probe[k_row, 1]
+                    and got[1, 0] == 0 and torch.isneginf(got[1, 1])
+                    and got[2, 0] == 0 and torch.isneginf(got[2, 1])
+                    and got[3, 0] == k):
+                fail(f"spec edge rows selected {got.tolist()}")
+    if (kernel.spec_f_in_smem(w_lanes, w_lanes, w_p)
+            or not kernel.spec_f_in_smem(m_lanes, m_lanes, m_p)
+            or kernel.spec_smem_bytes(m_lanes, m_lanes, m_p, True)
+            <= 48 * 1024):
+        fail("lanes 64 should put F in opted-in shared memory (above 48 KB)"
+             ", lanes 128 in global scratch")
+    print(f"window kernel == plain version on {n_cases} cases (bit for bit; "
+          f"F in shared memory and in global scratch; 256-rank rows, W 1 to "
+          f"64, mixed edge buckets, pair count 0, all infeasible, a tie, "
+          f"lanes 64 and 128); max_abs_err {worst}", flush=True)
+    return worst, big, lanes, p_n
+
+
+def spec_path(torch, kernel, launch, want) -> dict:
+    """The main path through the speculative driver: ``scaling_phase(256)``
+    with ``MAIN_KW`` on the card for each of ``SPEC_RUNS``, each held to
+    f64 solo's CPU run (``want``).  Window-kernel launches, counted from
+    zero just before each run and read just after, must equal the windows
+    that scored a row (``launch.STATS["spec"]["calls"]``), with no pair or
+    full-tile launch and no pair scorer call; disjoint fill rolls nothing
+    back."""
+    from repro_torch.core import CCMParams, ccm_lb, initial_assignment
+    from repro_torch.core import scaling_phase
+    phase = scaling_phase(256)
+    a0 = initial_assignment(phase)
+    runs, shapes, launches = {}, Counter(), 0
+    for label, window, mode, fill in SPEC_RUNS:
+        kernel.reset_launches()
+        launch.reset_stats()
+        t0 = time.perf_counter()
+        gpu = ccm_lb(phase, a0, CCMParams(), device="cuda", profile=True,
+                     spec_window=window, spec_mode=mode, spec_fill=fill,
+                     **MAIN_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = kernel.SPEC_LAUNCHES["float64"]
+        rec = launch.STATS["spec"]
+        if not same_run(gpu, want):
+            fail(f"{label}: cuda spec run differs from f64 solo's cpu run")
+        if (n == 0 or n != rec["calls"] or n > gpu.spec_windows
+                or sum(kernel.PAIR_LAUNCHES.values())
+                or sum(kernel.LAUNCHES.values()) or launch.STATS["calls"]):
+            fail(f"{label}: window launches {n}, windows that scored "
+                 f"{rec['calls']} of {gpu.spec_windows}, pair launches "
+                 f"{kernel.PAIR_LAUNCHES}, full-tile {kernel.LAUNCHES}, pair "
+                 f"scorer calls {launch.STATS['calls']}")
+        if fill == "disjoint" and gpu.spec_rollbacks:
+            fail(f"{label}: {gpu.spec_rollbacks} rollbacks under disjoint "
+                 "fill")
+        stages = {k: sum(t[k] for t in gpu.stage_timings)
+                  for k in gpu.stage_timings[0]}
+        shapes.update(rec["shapes"])
+        launches += n
+        runs[label] = dict(
+            window=window, mode=mode, fill=fill, transfers=gpu.transfers,
+            windows=gpu.spec_windows, rollbacks=gpu.spec_rollbacks,
+            launches=n, rows=rec["rows"], cuda_s=wall, cuda_stage_s=stages,
+            score_spec_s=rec["seconds"], score_spec_split_s=dict(
+                rec["split"]),
+            score_spec_call_ms=rec["seconds"] / n * 1e3,
+            top_shapes=[[list(k), v] for k, v
+                        in rec["shapes"].most_common(5)])
+        print(f"{label}: identical to f64 solo's cpu run; {gpu.transfers} "
+              f"transfers, {gpu.spec_windows} windows ({gpu.spec_rollbacks} "
+              f"rollbacks), {n} window launches for {rec['rows']} rows; wall "
+              f"cuda {wall!r} s; stages {stages}; score_spec "
+              f"{rec['seconds']!r} s, split {rec['split']}", flush=True)
+    return dict(runs=runs, shapes=shapes, launches=launches)
+
+
+def fleet_path(torch, kernel, launch) -> dict:
+    """``ccm_lb_many`` of the JAX package's fleet benchmark configuration
+    (``FLEET_N`` instances of ``random_phase(1000 + i, **FLEET_PHASE)``,
+    ``CCMParams(delta=1e-9)``, ``FLEET_KW``, window ``FLEET_N``, mode
+    vmap) on the card, every instance held to its solo run on the card's
+    host engine (``ccm_lb(seed=i)``, pair kernel).  Window launches,
+    counted from zero just before the fleet run, must equal the windows
+    that scored a row, with no pair launch."""
+    from repro_torch.core import (CCMParams, ccm_lb, ccm_lb_many,
+                                  initial_assignment, random_phase)
+    phases = [random_phase(1000 + i, **FLEET_PHASE) for i in range(FLEET_N)]
+    a0s = [initial_assignment(p) for p in phases]
+    params = CCMParams(delta=1e-9)
+    kernel.reset_launches()
+    launch.reset_stats()
+    t0 = time.perf_counter()
+    fleet = ccm_lb_many(phases, a0s, params, seed=0, device="cuda",
+                        window=FLEET_N, mode="vmap", **FLEET_KW)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    n = kernel.SPEC_LAUNCHES["float64"]
+    rec = dict(launch.STATS["spec"])
+    if (n == 0 or n != rec["calls"] or sum(kernel.PAIR_LAUNCHES.values())
+            or sum(kernel.LAUNCHES.values())):
+        fail(f"fleet: window launches {n} vs windows that scored "
+             f"{rec['calls']}, pair launches {kernel.PAIR_LAUNCHES}")
+    kernel.reset_launches()
+    launch.reset_stats()
+    t0 = time.perf_counter()
+    solos = [ccm_lb(phases[i], a0s[i], params, seed=i, device="cuda",
+                    **FLEET_KW) for i in range(FLEET_N)]
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    solo_launches = kernel.PAIR_LAUNCHES["float64"]
+    bad = [i for i in range(FLEET_N) if not same_run(fleet[i], solos[i])]
+    if bad:
+        fail(f"fleet instances {bad[:8]} differ from their solo runs")
+    out = dict(instances=FLEET_N, transfers=sum(r.transfers for r in fleet),
+               rollbacks=sum(r.spec_rollbacks for r in fleet),
+               instance_windows=sum(r.spec_windows for r in fleet),
+               launches=n, rows=rec["rows"], fleet_s=fleet_s,
+               score_spec_s=rec["seconds"],
+               score_spec_split_s=dict(rec["split"]),
+               top_shapes=[[list(k), v] for k, v
+                           in rec["shapes"].most_common(5)],
+               solo_loop_s=solo_s, solo_pair_launches=solo_launches)
+    print(f"fleet: {FLEET_N} instances identical to their solo runs; "
+          f"{out['transfers']} transfers, {n} window launches for "
+          f"{rec['rows']} rows; wall {fleet_s!r} s (solo loop {solo_s!r} s, "
+          f"{solo_launches} pair launches); score_spec {rec['seconds']!r} s, "
+          f"split {rec['split']}", flush=True)
+    return out
 
 
 # ----------------------------------------------------------- 5. assembly
@@ -1770,6 +2065,85 @@ def time_pairs(torch, kernel, ref, launch, rng, pair_shapes) -> dict:
     return times
 
 
+def spec_bound(buf, lanes: int, p_n: int):
+    """Least time of the window kernel's work on these rows on an H100
+    SXM: the rows read once and (W, 4) written once over the HBM rate,
+    against this data's float64 operations over the float64 peak: each
+    real edge's scatter add, the slice sums (four per group over a side's
+    lanes, the eight flow sums) and, per valid shortlist slot, the scorer
+    tree, the combine and the selection (pad rows need none)."""
+    from repro_torch.kernels.ccm_scorer.layout import (spec_edge_bucket,
+                                                       spec_groups,
+                                                       spec_offsets)
+    w_n, row_len = buf.shape
+    eb = spec_edge_bucket(row_len, lanes, lanes, p_n)
+    g_n = spec_groups(lanes, lanes)[2]
+    o_ms = spec_offsets(eb, lanes, lanes, p_n)[7]
+    counts = buf[:, o_ms + 5]
+    real = counts > 0
+    edges = int(((buf[:, :eb] != 0) & real[:, None]).sum().item())
+    slots = int(counts.sum().item())
+    ops = (edges + int(real.sum().item()) * (4 * g_n * lanes + 8 * lanes)
+           + slots * (OPS_PER_LANE + COMBINE_OPS + SPEC_SLOT_OPS))
+    nbytes = 8 * w_n * row_len + 8 * 4 * w_n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["float64"] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def time_spec(torch, kernel, ref, launch, shapes, raws, lanes: int,
+              p_n: int) -> dict:
+    """The window kernel at the (W, eb) the spec runs launched most, on
+    real 256-rank rows of that edge bucket: the launch between events
+    (``ms``), queued behind a sleep (``device_ms``, and the host's time to
+    queue one launch), the launcher's host time a call (``score_spec``:
+    stacking, copies, launch, wait; with its split), the plain version and
+    the bound.  The launch is held to the plain version first."""
+    (w_n, eb), n_main = shapes.most_common(1)[0]
+    same = [r for r in raws if r[1] == eb] or raws
+    rows = [same[i % len(same)] for i in range(w_n)]
+    buf = spec_buffer(torch, launch, rows, lanes, p_n)
+    if buf.shape[0] != w_n or max(e for _, e in rows) != eb:
+        fail(f"time_spec: built W={buf.shape[0]}, eb="
+             f"{max(e for _, e in rows)} for ({w_n}, {eb})")
+    out = torch.empty((w_n, 4), dtype=torch.float64, device="cuda")
+
+    def launch_one():
+        kernel.launch_spec(buf.data_ptr(), out.data_ptr(), 0, w_n, eb,
+                           lanes, lanes, p_n,
+                           torch.cuda.current_stream().cuda_stream)
+
+    launch_one()
+    want = ref.score_spec_rows(buf, lanes, lanes, p_n)
+    torch.cuda.synchronize()
+    if not same_bits(torch, out, want):
+        fail(f"window kernel != plain version at W={w_n}, eb={eb}")
+    k_ms = time_ms(torch, launch_one, 200)
+    k_dev, q_host = queued_ms(torch, launch_one)
+    p_ms = time_ms(torch, lambda: ref.score_spec_rows(buf, lanes, lanes,
+                                                      p_n), 3, rounds=3)
+    launch.reset_stats()
+    reps = 200
+    for _ in range(reps):
+        launch.score_spec(rows, a_lanes=lanes, b_lanes=lanes, p_n=p_n,
+                          device=torch.device("cuda"))
+    rec = launch.STATS["spec"]
+    host_ms = rec["seconds"] / reps * 1e3
+    split = {k: v / reps * 1e3 for k, v in rec["split"].items()}
+    b_ms, b_by, nbytes, ops = spec_bound(buf, lanes, p_n)
+    key = f"W={w_n},eb={eb},A=B={lanes},P={p_n}"
+    print(f"time spec {key}: kernel {k_ms!r} ms (device {k_dev!r} ms, "
+          f"queued in {q_host!r} ms), launcher {host_ms!r} ms a call "
+          f"{split}, plain {p_ms!r} ms, bound {b_ms!r} ms ({b_by}, {nbytes} "
+          f"B, {ops} operations); {n_main} main-path launches at this "
+          f"shape", flush=True)
+    return dict(shape=key, ms=k_ms, device_ms=k_dev, queue_host_ms=q_host,
+                host_ms=host_ms, host_split_ms=split, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops,
+                main_path_launches=n_main)
+
+
 def task_inputs(torch, problem, sig):
     """The inputs of the first task of ``problem`` with signature ``sig``
     (rows, cols, quad order), on the card."""
@@ -1944,6 +2318,22 @@ def profile_main_path(torch, kernel) -> dict:
                                              device="cuda", **MAIN_KW))
     out["launches"] = kernel.PAIR_LAUNCHES["float64"]
     print(json.dumps({"profile": out}), flush=True)
+    return out
+
+
+def profile_spec_path(torch, kernel) -> dict:
+    """The same for the first of ``SPEC_RUNS``."""
+    from repro_torch.core import (CCMParams, ccm_lb, initial_assignment,
+                                  scaling_phase)
+    phase = scaling_phase(256)
+    a0 = initial_assignment(phase)
+    _, window, mode, fill = SPEC_RUNS[0]
+    kernel.reset_launches()
+    out = profiled_run(torch, lambda: ccm_lb(
+        phase, a0, CCMParams(), device="cuda", spec_window=window,
+        spec_mode=mode, spec_fill=fill, **MAIN_KW))
+    out["launches"] = kernel.SPEC_LAUNCHES["float64"]
+    print(json.dumps({"profile_spec": out}), flush=True)
     return out
 
 
@@ -2186,8 +2576,13 @@ def main() -> None:
     rng = np.random.default_rng(0)
     worst = check_kernel(torch, kernel, ref, rng)
     pair_worst = check_pair_kernel(torch, kernel, launch, ref, rng)
-    # 4. the main path (launch counts zeroed inside, per run)
+    spec_worst, spec_rows, spec_lanes, spec_p = check_spec_kernel(
+        torch, kernel, launch, ref)
+    # 4. the main path (launch counts zeroed inside, per run), then through
+    # the speculative driver, and the fleet
     mp = main_path(torch, kernel, launch)
+    sp = spec_path(torch, kernel, launch, mp.pop("f64_cpu_run"))
+    fleet = fleet_path(torch, kernel, launch)
     # 5. the assembly application (launch counts zeroed inside, per run)
     asm_worst = check_assembly_kernel(torch, asm_ops, asm_ref, rng)
     asm = assembly_path(torch, asm_kernel, asm_ref, kernel, launch)
@@ -2213,6 +2608,8 @@ def main() -> None:
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
     pair_times = time_pairs(torch, kernel, ref, launch, rng,
                             mp["pair_shapes"])
+    spec_times = time_spec(torch, kernel, ref, launch, sp["shapes"],
+                           spec_rows, spec_lanes, spec_p)
     floor = launch_floor(torch)
     asm_times = time_assembly_kernel(torch, asm_ops, asm_ref, asm)
     serve_times = time_serve_kernels(torch, flash_kernel, flash_ref,
@@ -2221,6 +2618,7 @@ def main() -> None:
         torch, serve_mods, {"wkv6": wkv_ref, "rglru": rglru_ref}, flash_ref,
         rec, rng)
     prof = profile_main_path(torch, kernel)
+    prof_spec = profile_spec_path(torch, kernel)
 
     # 9. imports, then the result
     import repro_torch
@@ -2267,6 +2665,20 @@ def main() -> None:
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "shape": key, "by_shape": times[name],
         })
+    spec_by_path = {"ccm_lb_256_spec": sp["launches"],
+                    f"fleet_{FLEET_N}": fleet["launches"]}
+    kernels.append({
+        "name": "ccm_scorer_spec_f64", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": SPEC_REPLACES,
+        "launches": sum(spec_by_path.values()),
+        "launches_by_path": spec_by_path, "max_abs_err": spec_worst,
+        "ms": spec_times["ms"], "device_ms": spec_times["device_ms"],
+        "host_ms": spec_times["host_ms"], "plain_ms": spec_times["plain_ms"],
+        "bound_ms": spec_times["bound_ms"],
+        "bound_by": spec_times["bound_by"], "library_ms": None,
+        "library_note": "no PyTorch call scores a CCM window",
+        "shape": spec_times["shape"], "timing": spec_times,
+    })
     key = max(asm_times, key=lambda k: asm_times[k]["quad_order_launches"])
     m = asm_times[key]
     kernels.append({
@@ -2340,6 +2752,11 @@ def main() -> None:
     print(json.dumps({"main_path": mp["runs"],
                       "device_idle_share": prof["device_idle_share"]}),
           flush=True)
+    print(json.dumps({"spec_path": sp["runs"], "fleet": fleet,
+                      "spec_device_idle_share": prof_spec[
+                          "device_idle_share"],
+                      "spec_device_idle_share_bounds": prof_spec[
+                          "device_idle_share_bounds"]}), flush=True)
     print(json.dumps({"assembly": {
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
         flush=True)

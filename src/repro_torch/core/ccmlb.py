@@ -23,9 +23,10 @@ by summation-order ulps, so a sub-ulp near-tie between two candidate
 exchanges could in principle diverge the paths).
 
 The port's counterpart of ``repro/core/ccmlb.py``: the same host control
-flow and the same §IV-B protocol handlers.  Not ported yet: the
-speculative-scan driver (``spec_window > 1``), the async driver and
-multi-phase carry-over (see ROADMAP.md).
+flow and the same §IV-B protocol handlers.  ``spec_window > 1`` routes
+stage 2 through the speculative-scan driver (core/spec.py): a window of
+lock events a launch of the window kernel.  Not ported yet: the async
+driver and multi-phase carry-over (see ROADMAP.md).
 
 Batched lock events: ``batch_lock_events=k`` defers the scoring of up to
 ``k`` executable lock events whose rank pairs are pairwise disjoint, then
@@ -81,9 +82,11 @@ from repro_torch.core.engine import (ExchangeEvent, PhaseEngine,
 from repro_torch.core.locks import LockManager
 from repro_torch.core.problem import CCMParams, Phase
 from repro_torch.core.quiesce import QuiesceTracker
+from repro_torch.core.spec import (SPEC_FILLS, SpecInstance, event_sequence,
+                                   run_spec)
 from repro_torch.core.transfer import (approx_best_diff, select_best,
                                        shortlist_pairs, try_transfer)
-from repro_torch.kernels.ccm_scorer.launch import resolve_device
+from repro_torch.kernels.ccm_scorer.launch import SPEC_MODES, resolve_device
 
 
 @dataclasses.dataclass
@@ -106,6 +109,10 @@ class CCMLBResult:
     # r_to); replaying it onto the initial assignment reproduces
     # ``assignment`` exactly
     transfer_log: Optional[list] = None
+    # speculative-scan observability (zero/None off the spec driver)
+    spec_rollbacks: int = 0        # window events rolled back + re-queued
+    spec_windows: int = 0          # windows (launches when any row scored)
+    spec_trace: Optional[list] = None   # (window, kind, r, p) commit trace
     engine: Optional[PhaseEngine] = None
     # quiescence observability (core/quiesce.py): per-iteration transfer
     # counts, optional per-iteration stage timing dicts (``profile=True``),
@@ -137,6 +144,9 @@ class ProtocolStats:
     grant_chains: int = 0
     max_grant_chain: int = 0
     transfers: int = 0
+    # speculative-scan counters (core/spec.py; zero on the other drivers)
+    spec_rollbacks: int = 0
+    spec_windows: int = 0
     # failed-evaluation memo (core/quiesce.py): (r, p) -> the
     # ``state.version`` at which the pair's exact evaluation last failed.
     # A hit at the CURRENT version proves nothing has mutated since, so
@@ -292,7 +302,8 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
            use_engine: bool = True, device=None,
            dtype: torch.dtype = torch.float64,
            batch_lock_events: int = 1, incremental: bool = True,
-           spec_window: int = 1,
+           spec_window: int = 1, spec_mode: str = "scan",
+           spec_fill: str = "disjoint", spec_trace: bool = False,
            quiesce_after: Optional[int] = None,
            profile: bool = False, replicate: bool = False) -> CCMLBResult:
     """Run CCM-LB on ``phase`` from ``assignment``.
@@ -329,25 +340,45 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
     ``batch_lock_events > 1``, which can only score the engine's cluster
     vocabulary.
 
-    ``spec_window > 1`` (the JAX package's speculative-scan driver) is not
-    ported yet and raises ``NotImplementedError``.
+    ``spec_window > 1`` routes stage 2 through the speculative-scan driver
+    (core/spec.py): windows of up to ``spec_window`` lock events score in
+    one launch of the window kernel (``spec_mode`` "scan" or "vmap", which
+    launch the same kernel), with host-side rollback of invalidated
+    speculations; float64 only.  Trajectory-identity tier: the same
+    assignment and transfer log as the host engine, asserted empirically.
+    ``spec_fill`` picks the speculation policy — ``"disjoint"`` (default)
+    takes only rank-disjoint event prefixes per window, making rollback
+    structurally impossible; ``"greedy"`` fills blindly and rolls back
+    invalidated speculations (``core.spec.run_spec``).
+    ``spec_trace=True`` records the per-event commit/rollback trace in
+    ``CCMLBResult.spec_trace``.
     """
-    if spec_window < 1:
-        raise ValueError("spec_window must be >= 1")
-    if spec_window > 1:
-        raise NotImplementedError(
-            "spec_window > 1 (the speculative-scan driver, core/spec.py and "
-            "the kind='spec' scorer body) is not ported yet: ROADMAP.md, "
-            "queue 1 item 6")
     if batch_lock_events < 1:
         raise ValueError("batch_lock_events must be >= 1")
     if batch_lock_events > 1 and not use_engine:
         raise ValueError("batch_lock_events > 1 requires use_engine=True")
+    if spec_window < 1:
+        raise ValueError("spec_window must be >= 1")
+    if spec_window > 1 and not use_engine:
+        raise ValueError("spec_window > 1 requires use_engine=True")
+    if spec_window > 1 and batch_lock_events > 1:
+        raise ValueError("spec_window and batch_lock_events are mutually "
+                         "exclusive stage-2 drivers")
+    if spec_window > 1 and dtype != torch.float64:
+        raise ValueError("spec_window > 1 scores in float64 only (the "
+                         f"window kernel has no {dtype} form)")
+    if spec_mode not in SPEC_MODES:
+        raise ValueError(f"unknown spec mode: {spec_mode!r}")
+    if spec_fill not in SPEC_FILLS:
+        raise ValueError("spec_fill must be 'disjoint' or 'greedy'")
     if quiesce_after is not None and quiesce_after < 1:
         raise ValueError("quiesce_after must be >= 1 (or None)")
     if replicate and batch_lock_events > 1:
         raise ValueError("replicate requires the scalar stage-2 loop — "
                          "incompatible with batch_lock_events > 1")
+    if replicate and spec_window > 1:
+        raise ValueError("replicate requires the scalar stage-2 loop — "
+                         "incompatible with spec_window > 1")
     device = resolve_device(device)
     state = CCMState.build(phase, assignment, params)
     engine = (PhaseEngine(state, device=device, dtype=dtype,
@@ -369,6 +400,7 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
     trace_imb = [state.imbalance()]
     stats = ProtocolStats()
     stats.memo = tracker.memo if tracker.caching else None
+    strace: Optional[list] = [] if spec_trace else None
     stage_timings: Optional[List[dict]] = [] if profile else None
     iter_transfers: List[int] = []
     quiet = 0
@@ -399,7 +431,11 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
         before = stats.transfers
 
         # stage 2: lock/transfer event loop
-        if batch_lock_events > 1:
+        if spec_window > 1:
+            _stage2_spec(phase, state, clusters, work_lists, engine,
+                         max_candidates, max_clusters_per_rank, spec_window,
+                         spec_mode, spec_fill, stats, strace)
+        elif batch_lock_events > 1:
             _stage2_batched(phase, state, clusters, work_lists, engine,
                             max_candidates, max_clusters_per_rank,
                             batch_lock_events, stats)
@@ -426,7 +462,10 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
                        engine_used=engine is not None, yields=stats.yields,
                        grant_chains=stats.grant_chains,
                        max_grant_chain=stats.max_grant_chain,
-                       transfer_log=transfer_log, engine=engine,
+                       transfer_log=transfer_log,
+                       spec_rollbacks=stats.spec_rollbacks,
+                       spec_windows=stats.spec_windows,
+                       spec_trace=strace, engine=engine,
                        iter_transfers=iter_transfers,
                        stage_timings=stage_timings,
                        quiesce_counters=tracker.iter_counters,
@@ -434,6 +473,25 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
                        gossip_noop_merges=tracker.counters.get(
                            "gossip_noop_merges", 0),
                        tracker=tracker)
+
+
+def _stage2_spec(phase, state, clusters, work_lists, engine, max_candidates,
+                 max_clusters_per_rank, window, mode, fill,
+                 stats: ProtocolStats, trace: Optional[list]) -> None:
+    """Stage 2 through the speculative-scan driver: derive the reference
+    event sequence up front (deterministic on this driver — see
+    core/spec.py), then drain it through windowed launches with
+    strict-prefix commit/rollback."""
+    seq = event_sequence(phase.num_ranks, work_lists)
+    if not seq:
+        return
+    inst = SpecInstance(
+        state=state, engine=engine, clusters=clusters, stats=stats,
+        rebuild=lambda r, p: _rebuild_local(state, clusters, engine,
+                                            max_clusters_per_rank, r, p),
+        queue=deque(seq), max_candidates=max_candidates, trace=trace)
+    run_spec([inst], window=window, mode=mode, fill=fill,
+             timings=stats.timings)
 
 
 def _rebuild_local(state, clusters, engine, max_clusters_per_rank, r, p):

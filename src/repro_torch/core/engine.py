@@ -12,7 +12,11 @@ work components of each shortlisted pair, the affine work combine and
 eq. 9's feasibility, and only (w_a, w_b, feasible) per pair comes back; on
 the CPU the plain torch version of the same function does
 (``ref.score_pairs_packed``).  The host combines ``ops.combine_work*``
-are the oracle both are held to.
+are the oracle both are held to.  The speculative driver (core/spec.py)
+takes a shorter way: :meth:`PhaseEngine.spec_raw` gathers one float64 row
+per event (the flow matrix's edge list in a fixed label layout, the host
+feature rows and scalars), and the window kernel builds the flow matrix,
+the features, the scores, the combine and the selection on the card.
 
 Incremental state
 -----------------
@@ -150,6 +154,12 @@ class PhaseEngine:
         self.incremental = incremental
         self._glab = np.zeros(self.phase.num_tasks, np.int64)
         self._elab = np.full(self.phase.num_tasks, -1, np.int64)
+        # spec_raw's label scratch: stamp-validated (a task's group label
+        # only counts when its stamp equals the current call's tick), so
+        # per-call resets are unnecessary — stale labels are masked out
+        self._sp_g = np.zeros(self.phase.num_tasks, np.int64)
+        self._sp_stamp = np.zeros(self.phase.num_tasks, np.int64)
+        self._sp_tick = 0
         # rank -> (cluster list reference, aggregates, limit); holding the
         # list reference both validates the cache (ccm_lb installs a NEW
         # list when a rank's clusters are rebuilt) and pins its id.
@@ -574,6 +584,121 @@ class PhaseEngine:
                         if off_home_b:
                             pm[3, i + 1, j + 1] += size
         return pm
+
+    # -------------------------------------------- speculative window rows
+    def spec_raw(self, e: ExchangeEvent, a_lanes: int, b_lanes: int,
+                 p_n: int) -> Tuple[np.ndarray, int]:
+        """One complete float64 window row for the speculative scorer
+        (``launch.score_spec``): everything the window kernel needs to
+        assemble the event's flow matrix and score its shortlist on the
+        card, gathered from the CURRENT (speculative) state.
+
+        Unlike :meth:`_flow_matrices`' per-event group space, the label
+        layout is FIXED by the lane buckets (``layout.spec_groups``), so
+        every row of a run shares one layout: group 0 = other ranks, 1 =
+        stays on a, 2 = stays on b, a-candidate i at ``3 + (i-1)``,
+        b-candidate j at ``3 + (a_lanes-1) + (j-1)``.  Unused candidate
+        groups receive no edges, so their slice sums are exact zeros.
+
+        Returns ``(row, eb)``: ``row`` in the ``layout.spec_offsets(eb,
+        a_lanes, b_lanes, p_n)`` layout ``[bins | w | avh | bvh | pmh | sch
+        | iaf | ibf | misc]``, with the incident edges' bins and volumes in
+        ascending edge-id order (pad edges in bin 0 with volume 0), the
+        params columns, the memory caps pre-scaled by ``effective_mem_cap``
+        (``inf`` when the constraint is off) and the shortlist's pair count
+        baked in; ``eb`` is its edge bucket.  The driver fills only
+        ``row[-2]`` (the pre-exchange work bound).  The row equals the JAX
+        package's ``PhaseEngine.spec_raw`` row bit for bit.
+        """
+        st, ph = self.state, self.phase
+        r_a, r_b = e.r_a, e.r_b
+        agg_a, agg_b = e.agg_a, e.agg_b
+        na, nb = len(e.cand_a) - 1, len(e.cand_b) - 1
+        if na >= a_lanes or nb >= b_lanes:
+            raise ValueError("candidate count exceeds the spec lane bucket")
+        sa, sb, g_n = L.spec_groups(a_lanes, b_lanes)
+        g, stamp = self._sp_g, self._sp_stamp
+        tick = self._sp_tick = self._sp_tick + 1
+        both, n_a, src, dst, vol = self._incident(r_a, r_b)
+        cl = list(e.cand_a[1:]) + list(e.cand_b[1:])
+        if cl:
+            cflat = np.concatenate(cl)
+            cg = np.repeat(
+                np.concatenate([np.arange(sa, sa + na, dtype=np.int64),
+                                np.arange(sb, sb + nb, dtype=np.int64)]),
+                [len(c) for c in cl])
+        else:
+            cflat = cg = np.zeros(0, np.int64)
+        g[both[:n_a]] = 1
+        g[both[n_a:]] = 2
+        stamp[both] = tick
+        g[cflat] = cg           # duplicate ids: LAST write wins, matching
+        stamp[cflat] = tick     # the per-cluster loop order
+        # stale labels from earlier calls fail the stamp test, so no reset
+        # scatters are needed between events
+        gs = np.where(stamp[src] == tick, g[src], 0)
+        gd = np.where(stamp[dst] == tick, g[dst], 0)
+
+        ne = src.shape[0]
+        eb = L.bucket_edges(ne)
+        (o_w, o_av, o_bv, o_pm, o_sc, o_ia, o_ib, o_ms,
+         row_len) = L.spec_offsets(eb, a_lanes, b_lanes, p_n)
+        row = np.zeros(row_len)
+        row[:ne] = gs * g_n + gd            # pad edges land in bin (0, 0),
+        row[o_w:o_w + ne] = vol             # which no feature reads
+
+        avh = row[o_av:o_bv].reshape(7, a_lanes)
+        avh[0, 1:na + 1] = agg_a.loads[:na]
+        avh[1, 1:na + 1] = agg_a.mems[:na]
+        avh[2, 1:na + 1] = agg_a.overheads[:na]
+        avh[3:7, :na + 1] = self._block_terms(agg_a, na, r_a, r_b)
+        bvh = row[o_bv:o_pm].reshape(7, b_lanes)
+        bvh[0, 1:nb + 1] = agg_b.loads[:nb]
+        bvh[1, 1:nb + 1] = agg_b.mems[:nb]
+        bvh[2, 1:nb + 1] = agg_b.overheads[:nb]
+        bvh[3:7, :nb + 1] = self._block_terms(agg_b, nb, r_b, r_a)
+
+        pr = np.asarray(e.pairs, np.int64).reshape(-1, 2)
+        p = pr.shape[0]
+        if p > p_n:
+            raise ValueError("shortlist exceeds the spec pair bucket")
+        ia, ib = pr[:, 0], pr[:, 1]
+        row[o_pm:o_sc].reshape(4, p_n)[:, :p] = \
+            self._pm_corrections(e, na, nb)[:, ia, ib]
+
+        params = st.params
+        mc = params.memory_constraint
+        vol_aa, vol_bb = st.vol[r_a, r_a], st.vol[r_b, r_b]
+        row_a, col_a = self._vol_sums(r_a)
+        row_b, col_b = self._vol_sums(r_b)
+        # the scalar row: the 8 f_* flow slots stay zero (derived on the
+        # card)
+        row[o_sc + L.SC.base_sent_a:o_ia] = (
+            row_a - vol_aa, col_a - vol_aa,        # base_sent/recv_a
+            row_b - vol_bb, col_b - vol_bb,        # base_sent/recv_b
+            vol_aa, vol_bb,
+            st.load[r_a], st.load[r_b],
+            st.shared_cache[r_a], st.shared_cache[r_b],
+            st.hom_cache[r_a], st.hom_cache[r_b],
+            ph.rank_mem_base[r_a], st.mem_task[r_a],
+            st.mem_overhead_max[r_a],
+            ph.rank_mem_base[r_b], st.mem_task[r_b],
+            st.mem_overhead_max[r_b],
+            float(na), float(nb),
+            ph.rank_speed[r_a], ph.rank_speed[r_b],
+            effective_mem_cap(ph.rank_mem_cap[r_a], params)
+            if mc else np.inf,                         # mem_cap_a
+            effective_mem_cap(ph.rank_mem_cap[r_b], params)
+            if mc else np.inf,                         # mem_cap_b
+        )
+        row[o_ia:o_ia + p] = ia             # pad pair slots read pair
+        row[o_ib:o_ib + p] = ib             # (0, 0); p_count masks them
+        row[o_ms + 0] = params.alpha
+        row[o_ms + 1] = params.beta
+        row[o_ms + 2] = params.gamma
+        row[o_ms + 3] = params.delta
+        row[o_ms + 5] = p                   # row[o_ms + 4] = driver's
+        return row, eb                      # w_before
 
     def _vol_sums(self, r: int) -> Tuple[float, float]:
         """(row sum, column sum) of the vol matrix for rank ``r``, cached

@@ -1,13 +1,17 @@
 // CCM stage-2 exchange scorer: the ten work components of candidate cluster
-// pairs of a batch of lock events, and (the fused entry) the CCM work
-// combine and eq. 9's memory feasibility of each shortlisted pair.
+// pairs of a batch of lock events, (the fused entry) the CCM work combine
+// and eq. 9's memory feasibility of each shortlisted pair, and (the window
+// entry, ccm_scorer_spec_f64, described above its kernel below) a whole
+// speculative lock event a row: flow matrix, features, scores, combine and
+// selection.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ccm_scorer/kernel.py:35
-// (_scorer_kernel, launched by score_tiles_fwd with grid=(E,)).  Both
-// entries evaluate repro_torch/kernels/ccm_scorer/ref.py::score_planes term
-// for term, through one __device__ function (score_lane), so the
-// expression tree, its association, nan_max and the masked tail are written
-// once.
+// (_scorer_kernel, launched by score_tiles_fwd with grid=(E,)) and the
+// XLA-compiled kind="spec" body (repro/kernels/ccm_scorer/jit.py:253).
+// All three kernels evaluate repro_torch/kernels/ccm_scorer/ref.py::
+// score_planes term for term, through one __device__ function
+// (score_lane), so the expression tree, its association, nan_max and the
+// masked tail are written once.
 //
 // Layout (repro_torch/kernels/ccm_scorer/layout.py), all contiguous:
 //   av (E, N_AV, A), bv (E, N_AV, B), pm (E, N_PM, A, B), sc (E, N_SC)
@@ -86,7 +90,7 @@ enum { SC_F_AB = 0, SC_F_BA, SC_F_AA, SC_F_BB, SC_F_AO, SC_F_OA, SC_F_BO,
        SC_BASE_RECV_B, SC_VOL_AA, SC_VOL_BB, SC_LOAD_A, SC_LOAD_B,
        SC_SHARED_A, SC_SHARED_B, SC_HOM_A, SC_HOM_B, SC_MEM_BASE_A,
        SC_MEM_TASK_A, SC_OVH_A, SC_MEM_BASE_B, SC_MEM_TASK_B, SC_OVH_B,
-       SC_NA, SC_NB };
+       SC_NA, SC_NB, SC_SPEED_A, SC_SPEED_B, SC_MEM_CAP_A, SC_MEM_CAP_B };
 // layout.OUT
 enum { OUT_LOAD_A = 0, OUT_LOAD_B, OUT_OFF_A, OUT_OFF_B, OUT_ON_A, OUT_ON_B,
        OUT_HOM_A, OUT_HOM_B, OUT_MEM_A, OUT_MEM_B };
@@ -280,6 +284,300 @@ ccm_scorer_pairs_kernel(const T* __restrict__ av, const T* __restrict__ bv,
   }
 }
 
+// ---------------------------------------------------------------------------
+// ccm_scorer_spec_f64, the speculative window: one block per window row
+// (one captured lock event), the whole event on the card.  It computes what
+// the JAX package's kind="spec" body computes per row
+// (repro/kernels/ccm_scorer/jit.py:271-358, XLA-compiled there, no Pallas
+// kernel), in the summation order its plain version fixes
+// (repro_torch/kernels/ccm_scorer/ref.py::score_spec_rows), bit for bit:
+//
+//   1. the row's tail (host feature rows, scalars, combine coefficients)
+//      into shared memory;
+//   2. the G x G flow matrix F (G = 3 + (A-1) + (B-1), layout.spec_groups)
+//      from the row's (bin, volume) edge list, without atomics: the edges
+//      are staged in chunks of SPEC_CHUNK, and thread t owns the bins b
+//      with b % SPEC_THREADS == t and walks every edge in order, adding
+//      those that land in its bins, so each bin sums its edges in edge
+//      order, as np.bincount does (the host's F, bit for bit).  F lives in
+//      shared memory where it fits (A = B = 64 at most) and in a global
+//      slab of the block's own (f_global, W x G x G) beyond: the same
+//      arithmetic either way;
+//   3. the slice sums row_to_a/b, col_from_a/b, one thread a group, each a
+//      sequential sum in ascending index added to its direct entry
+//      (F[g, 1] + (F[g, sa] + ... )); the seven flow-derived feature rows
+//      of each side and the eight flow scalars f_ab .. f_ob, likewise;
+//   4. one thread a shortlist slot: gather the pair's a- and b-columns,
+//      its six pairwise entries (x_ab, x_ba from F, zero off the candidate
+//      grid, and the four host corrections) as a local array of stride 1,
+//      and evaluate score_lane -- the one expression tree of all three
+//      kernels -- then combine_work (_rn intrinsics) and feasibility as
+//      mem <= cap (caps pre-scaled, +inf when the constraint is off);
+//   5. select: a slot counts when it is below the row's pair count, is
+//      feasible and improves by more than 1e-12 (diff = w_before -
+//      max(w_a, w_b)); else its score is -inf (infeasible slots hold NaN
+//      diffs, inf - inf, which this masks); one thread walks the slots in
+//      order and keeps the first maximum;
+//   -> out (W, 4) float64: [slot, score, w_a, w_b] of the winner.
+//
+// What bounds it: at the balancer's sizes (W = 1..64 rows, eb = 32..512
+// edges, A = B = 16, P = 32) a row is some 8 KB, so neither bytes nor
+// operations do; one launch and the row's dependent passes (scatter, slice
+// sums, features, pairs, selection, five barriers) do.  The design spends
+// one launch a window and returns four numbers a row.  The scatter walk is
+// O(eb) a thread; a faster scatter (a sorted segment per bin) is later
+// work.
+constexpr int SPEC_THREADS = 256;   // a power of two: bin ownership mask
+constexpr int SPEC_CHUNK = 256;     // edges staged in shared memory at once
+constexpr int N_MISC = 6;           // alpha, beta, gamma, delta, w_before, p
+constexpr int MAX_SMEM = 232448;    // one block's opt-in limit on sm_90
+constexpr int DEFAULT_SMEM = 48 * 1024;
+
+struct SpecGeom {
+  int sa, sb, g_n;
+  long long o_w, o_av, o_bv, o_pm, o_sc, o_ia, o_ib, o_ms, row_len;
+};
+
+// layout.spec_offsets and layout.spec_groups
+__host__ __device__ inline SpecGeom spec_geom(int eb, int a_n, int b_n,
+                                              int p_n) {
+  SpecGeom g;
+  g.sa = 3;
+  g.sb = 3 + (a_n - 1);
+  g.g_n = g.sb + (b_n - 1);
+  g.o_w = eb;
+  g.o_av = g.o_w + eb;
+  g.o_bv = g.o_av + 7LL * a_n;
+  g.o_pm = g.o_bv + 7LL * b_n;
+  g.o_sc = g.o_pm + 4LL * p_n;
+  g.o_ia = g.o_sc + N_SC;
+  g.o_ib = g.o_ia + p_n;
+  g.o_ms = g.o_ib + p_n;
+  g.row_len = g.o_ms + N_MISC;
+  return g;
+}
+
+// Dynamic shared memory of one block, in bytes (kernel.spec_smem_bytes).
+inline long long spec_smem_bytes(int a_n, int b_n, int p_n, bool f_in_smem) {
+  const long long g_n = 3LL + (a_n - 1) + (b_n - 1);
+  const long long doubles = (f_in_smem ? g_n * g_n : 0)
+                            + (long long)N_AV * (a_n + b_n) + 4 * g_n + N_SC
+                            + N_CF + SPEC_CHUNK + 3LL * p_n;
+  return 8 * doubles + 4LL * SPEC_CHUNK;
+}
+
+// s + x[0] + x[stride] + ... (n terms), one rounding each, in order.
+__device__ __forceinline__ double seq_sum(double s, const double* x,
+                                          long long stride, int n) {
+  double acc = 0.0;
+  for (int k = 0; k < n; ++k) acc = __dadd_rn(acc, x[k * stride]);
+  return __dadd_rn(s, acc);
+}
+
+__global__ void __launch_bounds__(SPEC_THREADS)
+ccm_scorer_spec_kernel(const double* __restrict__ buf,
+                       double* __restrict__ out,
+                       double* __restrict__ f_global, int eb, int a_n,
+                       int b_n, int p_n) {
+  extern __shared__ double smem[];
+  const SpecGeom g = spec_geom(eb, a_n, b_n, p_n);
+  const int G = g.g_n, sa = g.sa, sb = g.sb;
+  const long long GG = (long long)G * G;
+  const double* row = buf + (long long)blockIdx.x * g.row_len;
+  const int t = threadIdx.x;
+
+  double* sp = smem;
+  double* F;
+  if (f_global != nullptr) {
+    F = f_global + (long long)blockIdx.x * GG;
+  } else {
+    F = sp;
+    sp += GG;
+  }
+  double* av = sp;  sp += N_AV * a_n;   // av[i * a_n + c], layout.AV rows
+  double* bv = sp;  sp += N_AV * b_n;
+  double* rta = sp; sp += G;            // row_to_a[g]: v(g -> rank a)
+  double* rtb = sp; sp += G;
+  double* cfa = sp; sp += G;            // col_from_a[g]: v(rank a -> g)
+  double* cfb = sp; sp += G;
+  double* sc = sp;  sp += N_SC;
+  double* cf = sp;  sp += N_CF;         // layout.CF order
+  double* sw = sp;  sp += SPEC_CHUNK;
+  double* s_score = sp; sp += p_n;
+  double* s_wa = sp; sp += p_n;
+  double* s_wb = sp; sp += p_n;
+  int* sbin = reinterpret_cast<int*>(sp);
+
+  // 1. zero F (thread t its own bins), the tail into shared memory
+  for (long long i = t; i < GG; i += SPEC_THREADS) F[i] = 0.0;
+  for (int i = t; i < 7 * a_n; i += SPEC_THREADS) {
+    av[7 * a_n + i] = row[g.o_av + i];
+  }
+  for (int i = t; i < 7 * b_n; i += SPEC_THREADS) {
+    bv[7 * b_n + i] = row[g.o_bv + i];
+  }
+  if (t < N_SC) sc[t] = row[g.o_sc + t];
+  if (t < 4) {
+    cf[CF_ALPHA + t] = row[g.o_ms + t];
+  } else if (t < N_CF) {      // speed_a, speed_b, mem_cap_a, mem_cap_b
+    cf[t] = row[g.o_sc + SC_SPEED_A + (t - CF_SPEED_A)];
+  }
+
+  // 2. the scatter, edge order kept per bin
+  for (int e0 = 0; e0 < eb; e0 += SPEC_CHUNK) {
+    const int n = min(SPEC_CHUNK, eb - e0);
+    __syncthreads();                  // the previous chunk is consumed
+    for (int i = t; i < n; i += SPEC_THREADS) {
+      sbin[i] = (int)row[e0 + i];
+      sw[i] = row[g.o_w + e0 + i];
+    }
+    __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      const int b = sbin[i];
+      if ((b & (SPEC_THREADS - 1)) == t && b >= 0 && b < GG) {
+        F[b] = __dadd_rn(F[b], sw[i]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. slice sums, one thread a group
+  for (int r = t; r < G; r += SPEC_THREADS) {
+    const double* fr = F + (long long)r * G;
+    rta[r] = seq_sum(fr[1], fr + sa, 1, sb - sa);
+    rtb[r] = seq_sum(fr[2], fr + sb, 1, G - sb);
+    cfa[r] = seq_sum(F[G + r], F + (long long)sa * G + r, G, sb - sa);
+    cfb[r] = seq_sum(F[2LL * G + r], F + (long long)sb * G + r, G, G - sb);
+  }
+  __syncthreads();
+
+  // the flow-derived feature rows (AV.intra .. AV.in_other; lane 0 is the
+  // empty candidate) and the eight flow scalars
+  for (int c = t; c < a_n; c += SPEC_THREADS) {
+    const int q = sa + c - 1;
+    const bool on = c > 0;
+    av[AV_INTRA * a_n + c] = on ? F[(long long)q * G + q] : 0.0;
+    av[AV_OUT_OWN * a_n + c] = on ? rta[q] : 0.0;
+    av[AV_IN_OWN * a_n + c] = on ? cfa[q] : 0.0;
+    av[AV_OUT_PEER * a_n + c] = on ? rtb[q] : 0.0;
+    av[AV_IN_PEER * a_n + c] = on ? cfb[q] : 0.0;
+    av[AV_OUT_OTHER * a_n + c] = on ? F[(long long)q * G] : 0.0;
+    av[AV_IN_OTHER * a_n + c] = on ? F[q] : 0.0;
+  }
+  for (int c = t; c < b_n; c += SPEC_THREADS) {
+    const int q = sb + c - 1;
+    const bool on = c > 0;
+    bv[AV_INTRA * b_n + c] = on ? F[(long long)q * G + q] : 0.0;
+    bv[AV_OUT_OWN * b_n + c] = on ? rtb[q] : 0.0;
+    bv[AV_IN_OWN * b_n + c] = on ? cfb[q] : 0.0;
+    bv[AV_OUT_PEER * b_n + c] = on ? rta[q] : 0.0;
+    bv[AV_IN_PEER * b_n + c] = on ? cfa[q] : 0.0;
+    bv[AV_OUT_OTHER * b_n + c] = on ? F[(long long)q * G] : 0.0;
+    bv[AV_IN_OTHER * b_n + c] = on ? F[q] : 0.0;
+  }
+  if (t < 8) {
+    double f;
+    switch (t) {
+      case SC_F_AB: f = seq_sum(rtb[1], rtb + sa, 1, sb - sa); break;
+      case SC_F_BA: f = seq_sum(rta[2], rta + sb, 1, G - sb); break;
+      case SC_F_AA: f = seq_sum(rta[1], rta + sa, 1, sb - sa); break;
+      case SC_F_BB: f = seq_sum(rtb[2], rtb + sb, 1, G - sb); break;
+      case SC_F_AO: f = seq_sum(F[G], F + (long long)sa * G, G, sb - sa);
+                    break;
+      case SC_F_OA: f = seq_sum(F[1], F + sa, 1, sb - sa); break;
+      case SC_F_BO: f = seq_sum(F[2LL * G], F + (long long)sb * G, G, G - sb);
+                    break;
+      default:      f = seq_sum(F[2], F + sb, 1, G - sb); break;  // f_ob
+    }
+    sc[t] = f;
+  }
+  __syncthreads();
+
+  // 4. one thread a shortlist slot
+  const double w_before = row[g.o_ms + 4];
+  const double p_count = row[g.o_ms + 5];
+  for (int p = t; p < p_n; p += SPEC_THREADS) {
+    const int ia = (int)row[g.o_ia + p];
+    const int ib = (int)row[g.o_ib + p];
+    const bool on = ia >= 1 && ib >= 1;
+    const long long fa = sa - 1 + ia, fb = sb - 1 + ib;
+    double pe[N_PM];
+    pe[PM_X_AB] = on ? F[fa * G + fb] : 0.0;
+    pe[PM_X_BA] = on ? F[fb * G + fa] : 0.0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) pe[PM_CS_A + k] = row[g.o_pm + k * p_n + p];
+    double o[N_OUT];
+    score_lane<double>(av + ia, a_n, bv + ib, b_n, pe, 1, sc, ia, ib, o);
+    const bool feasible = o[OUT_MEM_A] <= cf[CF_MEM_CAP_A]
+                          && o[OUT_MEM_B] <= cf[CF_MEM_CAP_B];
+    const double w_a = combine_work(cf, o[OUT_LOAD_A], cf[CF_SPEED_A],
+                                    o[OUT_OFF_A], o[OUT_ON_A], o[OUT_HOM_A]);
+    const double w_b = combine_work(cf, o[OUT_LOAD_B], cf[CF_SPEED_B],
+                                    o[OUT_OFF_B], o[OUT_ON_B], o[OUT_HOM_B]);
+    const double diff = __dsub_rn(w_before, nan_max(w_a, w_b));
+    const bool valid = (double)p < p_count;
+    s_score[p] = (valid && feasible && diff > 1e-12) ? diff : -(double)INFINITY;
+    s_wa[p] = w_a;
+    s_wb[p] = w_b;
+  }
+  __syncthreads();
+
+  // 5. the first maximum
+  if (t == 0) {
+    int j = 0;
+    double best = s_score[0];
+    for (int k = 1; k < p_n; ++k) {
+      if (s_score[k] > best) {
+        best = s_score[k];
+        j = k;
+      }
+    }
+    double* o = out + 4LL * blockIdx.x;
+    o[0] = (double)j;
+    o[1] = best;
+    o[2] = s_wa[j];
+    o[3] = s_wb[j];
+  }
+}
+
+// Returned for an index off its tile (a bin outside F, a pair outside the
+// lanes); no CUDA error code is negative.
+constexpr int BAD_INDEX = -1;
+
+int launch_spec(const double* buf, double* out, double* f_global, int w_n,
+                int eb, int a_n, int b_n, int p_n, const double* host_buf,
+                cudaStream_t stream) {
+  const SpecGeom g = spec_geom(eb, a_n, b_n, p_n);
+  const double gg = (double)g.g_n * g.g_n;
+  // the launcher's host copy of the rows, checked here: a bin or a pair
+  // off its tile would write or read outside F and the lanes
+  if (host_buf != nullptr) {
+    for (int w = 0; w < w_n; ++w) {
+      const double* row = host_buf + (long long)w * g.row_len;
+      for (int e = 0; e < eb; ++e) {
+        if (!(row[e] >= 0.0 && row[e] < gg)) return BAD_INDEX;
+      }
+      for (int p = 0; p < p_n; ++p) {
+        const double ia = row[g.o_ia + p], ib = row[g.o_ib + p];
+        if (!(ia >= 0.0 && ia < a_n && ib >= 0.0 && ib < b_n)) {
+          return BAD_INDEX;
+        }
+      }
+    }
+  }
+  const long long smem = spec_smem_bytes(a_n, b_n, p_n, f_global == nullptr);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > DEFAULT_SMEM) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        ccm_scorer_spec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  ccm_scorer_spec_kernel<<<(unsigned)w_n, SPEC_THREADS, (size_t)smem,
+                           stream>>>(buf, out, f_global, eb, a_n, b_n, p_n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const T* av, const T* bv, const T* pm, const T* sc, T* out,
            int e_n, int a_n, int b_n, cudaStream_t stream) {
@@ -290,8 +588,7 @@ int launch(const T* av, const T* bv, const T* pm, const T* sc, T* out,
   return (int)cudaGetLastError();
 }
 
-// Returned for a pair off its tile (no CUDA error code is negative).
-constexpr int BAD_PAIR = -1;
+constexpr int BAD_PAIR = BAD_INDEX;   // a pair off its tile
 
 template <typename T>
 int launch_pairs(const T* av, const T* bv, const T* pm, const T* sc,
@@ -318,7 +615,7 @@ int launch_pairs(const T* av, const T* bv, const T* pm, const T* sc,
 }  // namespace
 
 // Plain C interface for ctypes.  Each returns the cudaError_t of the launch
-// (0 on success) or BAD_PAIR; the caller checks the shapes (e_n, a_n, b_n
+// (0 on success) or BAD_PAIR / BAD_INDEX; the caller checks the shapes (e_n, a_n, b_n
 // >= 1; pairs 8-byte aligned) and, unless it passes host_pairs, that every
 // pair lies inside its padded tile.
 extern "C" int ccm_scorer_f64(const double* av, const double* bv,
@@ -357,6 +654,20 @@ extern "C" int ccm_scorer_pairs_f32(const float* av, const float* bv,
   return launch_pairs<float>(av, bv, pm, sc, cf, offs, pairs, out, e_n, a_n,
                              b_n, p_total, mem_constraint, host_pairs,
                              (cudaStream_t)stream);
+}
+
+// The speculative window: buf (W, row_len) float64 rows in the
+// layout.spec_offsets(eb, a_n, b_n, p_n) layout, out (W, 4) float64,
+// f_global a (W, G, G) float64 scratch slab or null (F in shared memory).
+// The caller checks the shapes (W, eb, a_n, b_n, p_n >= 1; a_n, b_n <=
+// 65536) and, unless it passes host_buf (a host copy of buf, checked here
+// before the launch), that every bin and pair lies inside its tile.
+extern "C" int ccm_scorer_spec_f64(const double* buf, double* out,
+                                   double* f_global, int w_n, int eb, int a_n,
+                                   int b_n, int p_n, const double* host_buf,
+                                   void* stream) {
+  return launch_spec(buf, out, f_global, w_n, eb, a_n, b_n, p_n, host_buf,
+                     (cudaStream_t)stream);
 }
 
 // The launcher's copies and its wait, on its stream: one copy of the

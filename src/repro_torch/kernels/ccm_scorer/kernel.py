@@ -19,18 +19,30 @@ tiles plus float64 combine rows, int32 pair offsets and pairs, returning
 kernel (:func:`launch_pairs`), counted in :data:`PAIR_LAUNCHES`.  The
 launcher calls :func:`launch_pairs` directly on device pointers into its
 staging buffer, having checked the shapes on the integers it packed.
+
+:func:`score_spec_rows` is the speculative window scorer (it replaces the
+JAX package's XLA-compiled ``kind="spec"`` body,
+``repro/kernels/ccm_scorer/jit.py:253``): (W, row_len) float64 window rows
+(``PhaseEngine.spec_raw``) in, (W, 4) float64 ``[slot, score, w_a, w_b]``
+out; on CPU tensors the plain version (:func:`ref.score_spec_rows`), on
+CUDA tensors one launch of ``ccm_scorer_spec_f64`` (:func:`launch_spec`,
+one block a row), counted in :data:`SPEC_LAUNCHES`.  The flow matrix
+lives in shared memory where it fits (:func:`spec_f_in_smem`) and in a
+global scratch slab beyond; float64 only.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ccm_scorer import ref
 from repro_torch.kernels.ccm_scorer.layout import (N_AV, N_CF, N_OUT, N_PM,
-                                                   N_SC)
+                                                   N_SC, spec_edge_bucket,
+                                                   spec_groups, spec_offsets)
 
 SOURCE = _build.CSRC / "ccm_scorer.cu"
 
@@ -39,15 +51,21 @@ SOURCE = _build.CSRC / "ccm_scorer.cu"
 LAUNCHES = {"float64": 0, "float32": 0}
 #: pair kernel launches per dtype, counted where the kernel is launched only
 PAIR_LAUNCHES = {"float64": 0, "float32": 0}
+#: window kernel launches (float64 only), counted where the kernel is
+#: launched only
+SPEC_LAUNCHES = {"float64": 0}
 
 _DTYPES = {torch.float64: "float64", torch.float32: "float32"}
 _MAX_EVENTS = 65535         # grid.y
-_BAD_PAIR = -1              # the pair launch's code for a pair off its tile
+_BAD_PAIR = -1              # the C launches' code for an index off its tile
+#: the window kernel's block and its edge staging chunk (csrc/ccm_scorer.cu)
+SPEC_THREADS = 256
+SPEC_CHUNK = 256
 _lib = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PAIR_LAUNCHES):
+    for counts in (LAUNCHES, PAIR_LAUNCHES, SPEC_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -70,6 +88,9 @@ def build(verbose: bool = False) -> Path:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
+    lib.ccm_scorer_spec_f64.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    lib.ccm_scorer_spec_f64.restype = ctypes.c_int
     lib.ccm_scorer_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_longlong, ctypes.c_void_p]
     lib.ccm_scorer_copy.restype = ctypes.c_int
@@ -240,4 +261,113 @@ def score_pairs(av: torch.Tensor, bv: torch.Tensor, pm: torch.Tensor,
                      pairs.data_ptr(), out.data_ptr(), e_n, a_n, b_n,
                      p_total, memory_constraint,
                      torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+# ------------------------------------------------- the speculative window
+def spec_smem_bytes(a_n: int, b_n: int, p_n: int, f_in_smem: bool) -> int:
+    """Dynamic shared memory of one window-kernel block, in bytes: the flow
+    matrix (when it lives there), both sides' feature rows, the four slice
+    sums, the scalar and combine rows, an edge chunk (weights and int32
+    bins) and the slots' scores and works (``spec_smem_bytes`` in
+    csrc/ccm_scorer.cu)."""
+    g_n = spec_groups(a_n, b_n)[2]
+    doubles = ((g_n * g_n if f_in_smem else 0) + N_AV * (a_n + b_n)
+               + 4 * g_n + N_SC + N_CF + SPEC_CHUNK + 3 * p_n)
+    return 8 * doubles + 4 * SPEC_CHUNK
+
+
+def spec_f_in_smem(a_n: int, b_n: int, p_n: int) -> bool:
+    """Whether the window kernel keeps the flow matrix in shared memory (up
+    to A = B = 64) rather than in a global scratch slab."""
+    return spec_smem_bytes(a_n, b_n, p_n, True) <= _build.MAX_SMEM_BYTES
+
+
+def check_spec_shapes(w_n: int, eb: int, a_n: int, b_n: int, p_n: int,
+                      f_in_smem: bool) -> None:
+    """The window kernel's limits: at least one row, edge slot, lane and
+    pair slot; int indexing; one block's shared memory."""
+    if min(w_n, eb, a_n, b_n, p_n) < 1:
+        raise ValueError(f"ccm_scorer spec: empty window (W={w_n}, eb={eb}, "
+                         f"A={a_n}, B={b_n}, P={p_n})")
+    g_n = spec_groups(a_n, b_n)[2]
+    if (w_n >= 2 ** 31 or g_n * g_n >= 2 ** 31
+            or spec_offsets(eb, a_n, b_n, p_n)[-1] >= 2 ** 31):
+        raise ValueError(f"ccm_scorer spec: too large (W={w_n}, eb={eb}, "
+                         f"A={a_n}, B={b_n}, P={p_n})")
+    smem = spec_smem_bytes(a_n, b_n, p_n, f_in_smem)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"ccm_scorer spec: {smem} bytes of shared memory a "
+                         f"block (A={a_n}, B={b_n}, P={p_n}, F in shared "
+                         f"memory: {f_in_smem}) exceed the card's "
+                         f"{_build.MAX_SMEM_BYTES}")
+
+
+def launch_spec(buf: int, out: int, scratch: int, w_n: int, eb: int,
+                a_n: int, b_n: int, p_n: int, stream: int,
+                host_buf: int = 0) -> None:
+    """One launch of the window kernel on device pointers (ints): ``buf``
+    (W, row_len) float64 rows, ``out`` (W, 4) float64, ``scratch`` a
+    (W, G, G) float64 slab for the flow matrices or 0 (in shared memory),
+    on ``stream``; counted in :data:`SPEC_LAUNCHES`.  The caller has
+    checked the shapes (:func:`check_spec_shapes`) and, unless it passes
+    ``host_buf`` (a host copy of the rows, which the C side then checks
+    before it launches), every bin and pair; an index off its tile raises
+    IndexError, a refused launch RuntimeError."""
+    if _lib is None:
+        build()
+    rc = _lib.ccm_scorer_spec_f64(buf, out, scratch, w_n, eb, a_n, b_n, p_n,
+                                  host_buf, stream)
+    if rc == _BAD_PAIR:
+        raise IndexError(f"ccm_scorer spec: a bin or pair lies outside its "
+                         f"tile (A={a_n}, B={b_n})")
+    if rc != 0:
+        _raise(rc, "window kernel launch")
+    SPEC_LAUNCHES["float64"] += 1
+
+
+def _check_spec_indices(buf: torch.Tensor, eb: int, a_n: int, b_n: int,
+                        p_n: int) -> None:
+    o_ia, o_ib, o_ms = spec_offsets(eb, a_n, b_n, p_n)[5:8]
+    g_n = spec_groups(a_n, b_n)[2]
+    bins, ia, ib = buf[:, :eb], buf[:, o_ia:o_ib], buf[:, o_ib:o_ms]
+    if not bool(((bins >= 0).all() & (bins < g_n * g_n).all()
+                 & (ia >= 0).all() & (ia < a_n).all()
+                 & (ib >= 0).all() & (ib < b_n).all()).item()):
+        raise IndexError(f"ccm_scorer spec: a bin or pair lies outside its "
+                         f"tile (A={a_n}, B={b_n})")
+
+
+def score_spec_rows(buf: torch.Tensor, a_lanes: int, b_lanes: int,
+                    p_n: int, f_global: Optional[bool] = None
+                    ) -> torch.Tensor:
+    """(W, 4) float64 ``[slot, score, w_a, w_b]`` of the window rows
+    ``buf`` (W, row_len) float64: the plain torch version on a CPU tensor,
+    the CUDA window kernel on a CUDA tensor.  ``f_global`` places the flow
+    matrices in a global scratch slab (True) or in shared memory (False);
+    None (default) picks shared memory where it fits."""
+    if buf.dim() != 2 or buf.dtype != torch.float64:
+        raise ValueError("ccm_scorer spec: expected (W, row_len) float64 "
+                         f"rows (got {tuple(buf.shape)} {buf.dtype})")
+    w_n, row_len = buf.shape
+    eb = spec_edge_bucket(row_len, a_lanes, b_lanes, p_n)
+    _check_spec_indices(buf, eb, a_lanes, b_lanes, p_n)
+    if buf.device.type == "cpu":
+        return ref.score_spec_rows(buf, a_lanes, b_lanes, p_n)
+    if buf.device.type != "cuda" or not buf.is_contiguous():
+        raise ValueError("ccm_scorer spec: rows must be a contiguous CPU or "
+                         "CUDA tensor")
+    in_smem = (spec_f_in_smem(a_lanes, b_lanes, p_n) if f_global is None
+               else not f_global)
+    check_spec_shapes(w_n, eb, a_lanes, b_lanes, p_n, in_smem)
+    out = torch.empty((w_n, 4), dtype=torch.float64, device=buf.device)
+    g_n = spec_groups(a_lanes, b_lanes)[2]
+    scratch = (None if in_smem else
+               torch.empty(w_n * g_n * g_n, dtype=torch.float64,
+                           device=buf.device))
+    with torch.cuda.device(buf.device):
+        launch_spec(buf.data_ptr(), out.data_ptr(),
+                    0 if scratch is None else scratch.data_ptr(), w_n, eb,
+                    a_lanes, b_lanes, p_n,
+                    torch.cuda.current_stream(buf.device).cuda_stream)
     return out

@@ -31,6 +31,14 @@ into ONE flat byte buffer (:func:`pack`).  Where the work combine runs:
 The host's float64 combines (``ops.combine_work*``) are the oracle both
 are held to.  :data:`STATS` counts the calls, their host seconds and how
 those split over the steps, and the launched shapes.
+
+:func:`score_spec` is the speculative driver's launcher (``core/spec.py``;
+the counterpart of ``jit.py``'s ``score_spec``): a window of captured lock
+events, each one float64 row built by ``PhaseEngine.spec_raw``, stacked
+into the same reused staging buffer and scored in ONE launch of the window
+kernel (``kernel.launch_spec``: flow matrix, features, scores, combine and
+selection on the card), with (W, 4) copied back; on the CPU the same rows
+go through ``ref.score_spec_rows``.  ``STATS["spec"]`` counts its calls.
 """
 from __future__ import annotations
 
@@ -43,21 +51,43 @@ import torch
 
 from repro_torch.kernels.ccm_scorer import kernel
 from repro_torch.kernels.ccm_scorer.layout import (CF, CF_FROM_SC, N_AV,
-                                                   N_CF, N_PM, N_SC)
+                                                   N_CF, N_PM, N_SC, SC,
+                                                   bucket_events, spec_groups,
+                                                   spec_offsets)
 
-__all__ = ["resolve_device", "check_dtype", "score_events", "STATS",
-           "reset_stats", "pack", "Packed", "Staging", "staging"]
+__all__ = ["resolve_device", "check_dtype", "score_events", "score_spec",
+           "stack_spec", "STATS", "reset_stats", "pack", "Packed", "Staging",
+           "staging", "SPEC_MODES"]
+
+
+def _spec_record() -> dict:
+    """A fresh ``STATS["spec"]``, the window scorer's: calls, events
+    scored (rows before padding), host seconds, their split (``pack`` =
+    stacking the rows into the staging buffer, then as above; on the CPU
+    the plain version's work is in ``launch``) and a histogram of the
+    launched (W, eb) shapes."""
+    return {"calls": 0, "rows": 0, "seconds": 0.0,
+            "split": dict.fromkeys(("pack", "h2d", "launch", "d2h"), 0.0),
+            "shapes": Counter()}
+
 
 #: scorer calls; their host seconds (the sum of the split); the split by
 #: step: ``pack`` (into the staging buffer), ``h2d`` (queue the copy in),
 #: ``launch``, ``d2h`` (queue the copy out and wait for it, the kernel
 #: included) and ``combine`` (the per-event results out of the (3, P)
 #: block; on the CPU the plain version's work is in ``launch``); a
-#: histogram of the launched (E, A, B) shapes, and of (E, A, B, P)
+#: histogram of the launched (E, A, B) shapes, and of (E, A, B, P);
+#: ``spec``, the window scorer's record (:func:`_spec_record`)
 STATS = {"calls": 0, "seconds": 0.0, "shapes": Counter(),
          "pair_shapes": Counter(),
          "split": dict.fromkeys(("pack", "h2d", "launch", "d2h", "combine"),
-                                0.0)}
+                                0.0),
+         "spec": _spec_record()}
+#: the window scorer's modes: the JAX package's ``lax.scan`` and
+#: ``jax.vmap`` wrappers of one per-row body.  Its rows are independent
+#: (the scan carries a dummy state), so one launch with a block a row
+#: computes both
+SPEC_MODES = ("scan", "vmap")
 
 _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
 _ALIGN = 16                 # bytes, the start of every packed region
@@ -72,6 +102,7 @@ def reset_stats() -> None:
     STATS["shapes"] = Counter()
     STATS["pair_shapes"] = Counter()
     STATS["split"] = dict.fromkeys(STATS["split"], 0.0)
+    STATS["spec"] = _spec_record()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -186,7 +217,7 @@ class Staging:
         self.device, self.dtype = device, dtype
         self.itemsize = _NP_DTYPES[dtype]().itemsize
         self.pin = device.type == "cuda"
-        self.host_in = self.host_out = None
+        self.host_in = self.host_out = self.dev_scratch = None
         self._layouts: Dict[tuple, tuple] = {}
         if self.pin:
             kernel.build()
@@ -228,6 +259,24 @@ class Staging:
             self.dev_in = torch.empty(size, dtype=torch.uint8,
                                       device=self.index)
             self.dev_in_ptr = self.dev_in.data_ptr()
+
+    def window(self, w_n: int, row_len: int) -> np.ndarray:
+        """A (w_n, row_len) float64 view of the host input buffer (grown
+        to hold it), for a window of spec rows."""
+        nbytes = 8 * w_n * row_len
+        self._input(nbytes)
+        return self.host_in_np[:nbytes].view(np.float64).reshape(w_n,
+                                                                 row_len)
+
+    def scratch(self, n: int) -> int:
+        """The address of a device scratch buffer of at least ``n`` float64
+        values (the window kernel's flow matrices in global memory)."""
+        have = self.dev_scratch
+        if have is None or have.numel() < n:
+            self.dev_scratch = torch.empty(self._size(have, n),
+                                           dtype=torch.float64,
+                                           device=self.index)
+        return self.dev_scratch.data_ptr()
 
     def output(self, n: int) -> None:
         if self.host_out is None or self.host_out.numel() < n:
@@ -338,3 +387,111 @@ def score_events(feats: Sequence[Tuple], pairs_list: Sequence[np.ndarray],
     STATS["pair_shapes"][(packed.e_n, packed.a_n, packed.b_n,
                           packed.p_total)] += 1
     return results
+
+
+# ------------------------------------------------- the speculative window
+def stack_spec(raws: Sequence[Tuple[np.ndarray, int]], buf: np.ndarray,
+               eb: int, o_sc: int) -> None:
+    """Stack ``raws`` (``(row, eb_k)`` from ``PhaseEngine.spec_raw``) into
+    ``buf`` (w_n, row_len), a window whose edge bucket ``eb`` is the largest
+    of theirs: a row of that bucket lands verbatim, a smaller one with its
+    ``bins``, ``w`` and eb-independent tail copied into place and its
+    remaining edge slots zero (bin 0, volume 0).  Rows past the events are
+    pad rows: zero, with unit speeds (``o_sc`` is the row's scalar offset)
+    so the combine cannot divide 0 by 0; their pair count 0 masks every
+    slot."""
+    n = len(raws)
+    for k, (row, e_k) in enumerate(raws):
+        if e_k == eb:
+            buf[k] = row
+        else:
+            buf[k, :2 * eb] = 0.0
+            buf[k, :e_k] = row[:e_k]
+            buf[k, eb:eb + e_k] = row[e_k:2 * e_k]
+            buf[k, 2 * eb:] = row[2 * e_k:]
+    buf[n:] = 0.0
+    buf[n:, o_sc + SC.speed_a] = 1.0
+    buf[n:, o_sc + SC.speed_b] = 1.0
+
+
+def score_spec(raws: Sequence[Tuple[np.ndarray, int]], *, a_lanes: int,
+               b_lanes: int, p_n: int, mode: str = "scan",
+               device=None) -> np.ndarray:
+    """Score a window of speculative lock events in ONE launch.
+
+    ``raws``: per-event ``(row, eb)`` as ``PhaseEngine.spec_raw`` builds
+    them (``w_before`` baked in), all of lanes ``(a_lanes, b_lanes)`` and
+    pair bucket ``p_n``.  The window is padded to the next power of two of
+    rows (``layout.bucket_events``) with pad rows, and its edge bucket is
+    the largest of the rows' (:func:`stack_spec`).  Returns ``(len(raws),
+    4)`` float64 ``[slot, score, w_a, w_b]`` (``ref.score_spec_rows``).
+
+    On the card the rows are stacked into the pinned staging buffer of
+    (device, float64), copied in, scored by one launch of the window kernel
+    and (W, 4) copied back, each step one C call on the current stream; on
+    the CPU the same buffer goes through the plain version.  ``mode`` is
+    ``"scan"`` or ``"vmap"`` (:data:`SPEC_MODES`), which run the same
+    kernel.  ``device`` None means CUDA."""
+    if mode not in SPEC_MODES:
+        raise ValueError(f"unknown spec mode: {mode!r} (expected one of "
+                         f"{SPEC_MODES})")
+    n = len(raws)
+    if n == 0:
+        return np.zeros((0, 4))
+    dev = resolve_device(device)
+    rec = STATS["spec"]
+    split = rec["split"]
+    t0 = perf_counter()
+    w_n = bucket_events(n)
+    eb = max(r[1] for r in raws)
+    offs = spec_offsets(eb, a_lanes, b_lanes, p_n)
+    st = staging(dev, torch.float64)
+    buf = st.window(w_n, offs[-1])
+    stack_spec(raws, buf, eb, offs[4])
+    t1 = perf_counter()
+    split["pack"] += t1 - t0
+    if st.pin:
+        out = _score_spec_cuda(st, w_n, eb, offs[-1], a_lanes, b_lanes, p_n,
+                               split)
+    else:
+        out = kernel.score_spec_rows(torch.from_numpy(buf), a_lanes, b_lanes,
+                                     p_n).numpy()
+        split["launch"] += perf_counter() - t1
+    res = out[:n].copy()
+    rec["calls"] += 1
+    rec["rows"] += n
+    rec["seconds"] += perf_counter() - t0
+    rec["shapes"][(w_n, eb)] += 1
+    return res
+
+
+def _score_spec_cuda(st: Staging, w_n: int, eb: int, row_len: int,
+                     a_n: int, b_n: int, p_n: int,
+                     split: dict) -> np.ndarray:
+    """Copy the stacked window in, launch the window kernel, copy (W, 4)
+    out and wait, each one C call on the current stream (the staging reuse
+    is safe for the reason :func:`_score_cuda` gives)."""
+    if torch.cuda.current_device() != st.index:
+        with torch.cuda.device(st.index):
+            return _score_spec_cuda(st, w_n, eb, row_len, a_n, b_n, p_n,
+                                    split)
+    t0 = perf_counter()
+    in_smem = kernel.spec_f_in_smem(a_n, b_n, p_n)
+    kernel.check_spec_shapes(w_n, eb, a_n, b_n, p_n, in_smem)
+    g_n = spec_groups(a_n, b_n)[2]
+    scratch = 0 if in_smem else st.scratch(w_n * g_n * g_n)
+    nbytes = 8 * w_n * row_len
+    st.output(4 * w_n)
+    stream = torch._C._cuda_getCurrentRawStream(st.index)
+    kernel.copy_async(st.dev_in_ptr, st.host_in_ptr, nbytes, stream)
+    t1 = perf_counter()
+    kernel.launch_spec(st.dev_in_ptr, st.dev_out_ptr, scratch, w_n, eb, a_n,
+                       b_n, p_n, stream, host_buf=st.host_in_ptr)
+    t2 = perf_counter()
+    kernel.copy_async(st.host_out_ptr, st.dev_out_ptr, 8 * 4 * w_n, stream)
+    kernel.synchronize(stream)
+    t3 = perf_counter()
+    split["h2d"] += t1 - t0
+    split["launch"] += t2 - t1
+    split["d2h"] += t3 - t2
+    return st.host_out_np[:4 * w_n].reshape(w_n, 4)

@@ -128,3 +128,90 @@ class CF:
 N_CF = 8
 #: the SC slots a CF row copies, in CF order from ``CF.speed_a`` on
 CF_FROM_SC = (SC.speed_a, SC.speed_b, SC.mem_cap_a, SC.mem_cap_b)
+
+
+# ------------------------------------------ the speculative window's rows
+# The port's copies of the JAX package's bucket grid
+# (``repro/kernels/ccm_scorer/jit.py:110-143``) and spec row layout
+# (``jit.py:183-202``).  Nothing in the port compiles per shape: the grid
+# fixes the window rows' layout (the lane buckets fix the flow matrix's
+# group labels, the edge bucket the length of its scatter inputs), and it
+# keeps the set of launched (W, eb) shapes small.
+LANE_CAP = 128      # lane buckets stop doubling here
+LANE_FLOOR = 8      # the smallest lane bucket
+
+
+def bucket_lanes(n: int, *, floor: int = LANE_FLOOR,
+                 cap: int = LANE_CAP) -> int:
+    """Round a lane count up to the bucket grid: powers of two in
+    [floor, cap], multiples of ``cap`` beyond it."""
+    n = max(int(n), 1)
+    if n <= floor:
+        return floor
+    if n >= cap:
+        return -(-n // cap) * cap
+    return 1 << (n - 1).bit_length()
+
+
+def bucket_events(e: int) -> int:
+    """Event (window-row) bucket: the next power of two."""
+    e = max(int(e), 1)
+    return 1 << (e - 1).bit_length()
+
+
+def bucket_pairs(p: int) -> int:
+    """Shortlist bucket: powers of two with a floor of 32 (the default
+    shortlist cap)."""
+    p = max(int(p), 1)
+    return max(32, 1 << (p - 1).bit_length())
+
+
+def bucket_edges(n: int) -> int:
+    """Edge bucket of a window row: powers of two with a floor of 32."""
+    n = max(int(n), 1)
+    return max(32, 1 << (n - 1).bit_length())
+
+
+#: per-row scalars after the pair indices: alpha, beta, gamma, delta,
+#: w_before, p_count
+N_MISC = 6
+
+
+def spec_offsets(eb: int, a_n: int, b_n: int, p_n: int) -> tuple:
+    """Cumulative offsets of
+    ``[bins | w | avh | bvh | pmh | sch | iaf | ibf | misc]`` in one flat
+    float64 window row: ``(o_w, o_av, o_bv, o_pm, o_sc, o_ia, o_ib, o_ms,
+    row_len)``.  ``bins``/``w`` are the flow-matrix scatter inputs (``eb``
+    edge slots each), ``avh``/``bvh`` the seven host-side candidate feature
+    rows (``AV.load`` .. ``AV.h_add_peer``, a_n and b_n lanes), ``pmh`` the
+    four host-side pairwise correction planes at the shortlist (``p_n``
+    slots), ``sch`` the scalar row with the eight flow slots left zero,
+    ``iaf``/``ibf`` the pair indices and ``misc`` the ``N_MISC`` scalars."""
+    o_w = eb
+    o_av = o_w + eb
+    o_bv = o_av + 7 * a_n
+    o_pm = o_bv + 7 * b_n
+    o_sc = o_pm + 4 * p_n
+    o_ia = o_sc + N_SC
+    o_ib = o_ia + p_n
+    o_ms = o_ib + p_n
+    return o_w, o_av, o_bv, o_pm, o_sc, o_ia, o_ib, o_ms, o_ms + N_MISC
+
+
+def spec_groups(a_n: int, b_n: int) -> tuple:
+    """The window row's fixed group-label layout: ``(sa, sb, g_n)`` — group
+    0 = other ranks, 1 = stays on a, 2 = stays on b, a-candidate i (1-based)
+    at ``sa + i - 1``, b-candidate j at ``sb + j - 1``; ``g_n`` groups."""
+    sa = 3
+    sb = sa + (a_n - 1)
+    return sa, sb, sb + (b_n - 1)
+
+
+def spec_edge_bucket(row_len: int, a_n: int, b_n: int, p_n: int) -> int:
+    """The edge bucket ``eb`` of a window row of ``row_len`` values."""
+    tail = spec_offsets(0, a_n, b_n, p_n)[-1]
+    eb, odd = divmod(row_len - tail, 2)
+    if odd or eb < 0:
+        raise ValueError(f"a window row of {row_len} values does not fit "
+                         f"the layout of lanes ({a_n}, {b_n}), pairs {p_n}")
+    return eb

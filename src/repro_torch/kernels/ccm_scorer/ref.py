@@ -29,8 +29,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ccm_scorer.layout import (AV, CF, N_OUT, OUT, PM,
-                                                   SC)
+from repro_torch.kernels.ccm_scorer.layout import (AV, CF, N_AV, N_OUT, OUT,
+                                                   PM, SC, spec_edge_bucket,
+                                                   spec_groups, spec_offsets)
 
 
 def score_planes(col, row, scal, pmp):
@@ -216,3 +217,120 @@ def score_pairs_packed(av: torch.Tensor, bv: torch.Tensor, pm: torch.Tensor,
                       pm[ev, :, ia, ib][:, :, None], sc[ev],
                       ia.to(av.dtype)[:, None], ib.to(av.dtype)[:, None])
     return combine_pairs(out[:, :, 0].T, cf[ev], memory_constraint)
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis one addition at a time, in ascending index,
+    from 0.0: the order the window kernel repeats."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def score_spec_rows(buf: torch.Tensor, a_lanes: int, b_lanes: int,
+                    p_n: int) -> torch.Tensor:
+    """The plain version of the window scorer: ``buf`` (W, row_len) float64
+    window rows in the ``layout.spec_offsets(eb, a_lanes, b_lanes, p_n)``
+    layout (``PhaseEngine.spec_raw``).  Returns (W, 4) float64 ``[slot,
+    score, w_a, w_b]`` per row: the shortlist slot of the selected pair,
+    its work improvement (``-inf`` when no valid, feasible pair improves by
+    more than 1e-12: a no-op event; slot 0 then), and its works after the
+    exchange.
+
+    Computes what the JAX package's ``kind="spec"`` body computes per row
+    (``repro/kernels/ccm_scorer/jit.py:271-358``), in one fixed order that
+    the CUDA kernel repeats bit for bit:
+
+    - the flow matrix F: each bin sums its edges in edge order from 0.0,
+      as ``np.bincount`` does (one edge slot of every row per step;
+      distinct rows never share an index, so the step is exact on any
+      device);
+    - slice sums sequential in ascending index, added to the direct entry
+      (``F[:, 1] + (F[:, sa] + F[:, sa+1] + ...)``), for the feature rows
+      and the eight flow scalars alike;
+    - the scorer tree and the tail mask of :func:`score_pairs`, and the
+      combine rounded step by step (``ops.combine_work_pairs``);
+    - feasibility ``mem <= cap`` (caps pre-scaled, ``inf`` when the memory
+      constraint is off), slots past the row's pair count invalid, the
+      first maximum of the masked diffs.
+
+    A pad row (zeros with unit speeds, pair count 0) selects slot 0 with
+    score ``-inf``.
+    """
+    w_n, row_len = buf.shape
+    eb = spec_edge_bucket(row_len, a_lanes, b_lanes, p_n)
+    o_w, o_av, o_bv, o_pm, o_sc, o_ia, o_ib, o_ms, _ = spec_offsets(
+        eb, a_lanes, b_lanes, p_n)
+    sa, sb, g_n = spec_groups(a_lanes, b_lanes)
+    dt, dev = buf.dtype, buf.device
+    rows = torch.arange(w_n, device=dev)
+    bins = buf[:, :o_w].to(torch.int64)
+    wgt = buf[:, o_w:o_av]
+    flat = torch.zeros((w_n, g_n * g_n), dtype=dt, device=dev)
+    for k in range(eb):
+        idx = bins[:, k]
+        flat[rows, idx] = flat[rows, idx] + wgt[:, k]
+    F = flat.view(w_n, g_n, g_n)
+
+    row_to_a = F[:, :, 1] + _seq_sum(F[:, :, sa:sb])        # v(g -> a)
+    row_to_b = F[:, :, 2] + _seq_sum(F[:, :, sb:])
+    col_from_a = F[:, 1, :] + _seq_sum(F[:, sa:sb, :].transpose(1, 2))
+    col_from_b = F[:, 2, :] + _seq_sum(F[:, sb:, :].transpose(1, 2))
+
+    def side(n, lo, hi, own_row, own_col, peer_row, peer_col, host):
+        g = torch.arange(lo, hi, device=dev)
+        v = torch.zeros((w_n, N_AV, n), dtype=dt, device=dev)
+        v[:, AV.intra, 1:] = F[:, g, g]
+        v[:, AV.out_own, 1:] = own_row[:, lo:hi]
+        v[:, AV.in_own, 1:] = own_col[:, lo:hi]
+        v[:, AV.out_peer, 1:] = peer_row[:, lo:hi]
+        v[:, AV.in_peer, 1:] = peer_col[:, lo:hi]
+        v[:, AV.out_other, 1:] = F[:, lo:hi, 0]
+        v[:, AV.in_other, 1:] = F[:, 0, lo:hi]
+        v[:, AV.load:] = host.reshape(w_n, 7, n)
+        return v
+
+    av = side(a_lanes, sa, sb, row_to_a, col_from_a, row_to_b, col_from_b,
+              buf[:, o_av:o_bv])
+    bv = side(b_lanes, sb, g_n, row_to_b, col_from_b, row_to_a, col_from_a,
+              buf[:, o_bv:o_pm])
+    sc = buf[:, o_sc:o_ia].clone()
+    sc[:, SC.f_ab] = row_to_b[:, 1] + _seq_sum(row_to_b[:, sa:sb])
+    sc[:, SC.f_ba] = row_to_a[:, 2] + _seq_sum(row_to_a[:, sb:])
+    sc[:, SC.f_aa] = row_to_a[:, 1] + _seq_sum(row_to_a[:, sa:sb])
+    sc[:, SC.f_bb] = row_to_b[:, 2] + _seq_sum(row_to_b[:, sb:])
+    sc[:, SC.f_ao] = F[:, 1, 0] + _seq_sum(F[:, sa:sb, 0])
+    sc[:, SC.f_oa] = F[:, 0, 1] + _seq_sum(F[:, 0, sa:sb])
+    sc[:, SC.f_bo] = F[:, 2, 0] + _seq_sum(F[:, sb:, 0])
+    sc[:, SC.f_ob] = F[:, 0, 2] + _seq_sum(F[:, 0, sb:])
+
+    ia = buf[:, o_ia:o_ib].to(torch.int64)
+    ib = buf[:, o_ib:o_ms].to(torch.int64)
+    avp = torch.gather(av, 2, ia[:, None, :].expand(-1, N_AV, -1))
+    bvp = torch.gather(bv, 2, ib[:, None, :].expand(-1, N_AV, -1))
+    on = (ia >= 1) & (ib >= 1)
+    fa, fb = sa - 1 + ia, sb - 1 + ib
+    x_ab = torch.where(on, flat.gather(1, fa * g_n + fb), 0.0)
+    x_ba = torch.where(on, flat.gather(1, fb * g_n + fa), 0.0)
+    pmp = torch.cat([torch.stack([x_ab, x_ba], 1),
+                     buf[:, o_pm:o_sc].reshape(w_n, 4, p_n)], 1)
+    out = score_pairs(avp, bvp, pmp, sc, ia.to(dt), ib.to(dt))
+
+    ms = buf[:, o_ms:]
+    al, be, ga, de = (ms[:, k, None] for k in range(4))
+    w_a = (al * out[:, OUT.load_a] / sc[:, SC.speed_a, None]
+           + be * out[:, OUT.off_a] + ga * out[:, OUT.on_a]
+           + de * out[:, OUT.hom_a])
+    w_b = (al * out[:, OUT.load_b] / sc[:, SC.speed_b, None]
+           + be * out[:, OUT.off_b] + ga * out[:, OUT.on_b]
+           + de * out[:, OUT.hom_b])
+    feas = ((out[:, OUT.mem_a] <= sc[:, SC.mem_cap_a, None])
+            & (out[:, OUT.mem_b] <= sc[:, SC.mem_cap_b, None]))
+    valid = torch.arange(p_n, dtype=dt, device=dev) < ms[:, 5, None]
+    diff = ms[:, 4, None] - torch.maximum(w_a, w_b)
+    score = torch.where(valid & feas & (diff > 1e-12), diff,
+                        float("-inf"))
+    j = torch.argmax(score, dim=1, keepdim=True)    # the first maximum
+    return torch.cat([j.to(dt), score.gather(1, j), w_a.gather(1, j),
+                      w_b.gather(1, j)], 1)

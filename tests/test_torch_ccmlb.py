@@ -138,8 +138,12 @@ def test_ccm_lb_entry_point_checks():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ccm_lb(ph, a0, CCMParams())         # default device is cuda
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ccm_lb(ph, a0, CCMParams(), device="cpu", spec_window=4)
+    spec = ccm_lb(ph, a0, CCMParams(), device="cpu", spec_window=4)
+    _assert_same_run(spec, ccm_lb(ph, a0, CCMParams(), device="cpu"))
+    assert spec.spec_windows > 0
+    with pytest.raises(ValueError, match="float64"):
+        ccm_lb(ph, a0, CCMParams(), device="cpu", spec_window=4,
+               dtype=torch.float32)
     with pytest.raises(ValueError):
         ccm_lb(ph, a0, CCMParams(), device="cpu", batch_lock_events=4,
                replicate=True)
