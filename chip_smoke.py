@@ -31,7 +31,12 @@ line):
    windows of 1 to 64 rows, mixed edge buckets, a pair count of 0, every
    pair infeasible, a tied maximum (the first wins), ``max_candidates=40``
    (lanes 64: F in shared memory past 48 KB) and ``max_candidates=70``
-   (lanes 128: global scratch only).
+   (lanes 128: global scratch only); the scatter's adversarial rows
+   (``spec_cases.scatter_cases``: one bin, distinct bins, a bin across
+   the 32- and 256-edge borders, eb 512, 1024 and 2048, all pads,
+   volumes whose order matters); random rows of an odd length (lanes 5 and 8, also
+   through the launcher's padded staging stride) and of 64 and 300 pair
+   slots.
 4. Drive the main path, ``ccm_lb`` with ``n_iter=4, k_rounds=2,
    fanout=4`` on ``device="cuda"``: ``scaling_phase(256)`` (256 ranks, 6400
    tasks, 12,799 comm edges) in float64 solo, float64 with
@@ -156,8 +161,9 @@ line):
    the floor under every ``device_ms``.  Flash and the expert GEMM
    are held to their plain versions at every shape the serve paths
    launched, at the tolerances of phase 6, before they are timed.  The
-   window kernel at the (W, eb) the spec runs launched most, with the
-   launcher's host time a call.  Then profile one float64 solo main-path
+   window kernel at the (W, eb) the spec runs launched most, and at the
+   one spec32 and the fleet each launched most, with the launcher's host
+   time a call.  Then profile one float64 solo main-path
    run and one ``spec_window=8`` run with ``torch.profiler``: device time
    by kernel and copy, and the device's idle share of the run's wall
    time.
@@ -713,14 +719,16 @@ def spec_capture(phase, params, max_candidates: int, n_events: int):
     return raws, lanes, p_n
 
 
-def spec_buffer(torch, launch, raws, lanes: int, p_n: int):
+def spec_buffer(torch, launch, raws, lanes: int, p_n: int, b_lanes=None):
     """The window of ``raws`` as ``launch.score_spec`` stacks it (padded to
-    a power of two of rows), on the card."""
+    a power of two of rows), on the card, contiguous; ``b_lanes`` defaults
+    to ``lanes``."""
     import numpy as np
     from repro_torch.kernels.ccm_scorer.layout import (bucket_events,
                                                        spec_offsets)
     eb = max(e for _, e in raws)
-    offs = spec_offsets(eb, lanes, lanes, p_n)
+    offs = spec_offsets(eb, lanes, lanes if b_lanes is None else b_lanes,
+                        p_n)
     buf = np.zeros((bucket_events(len(raws)), offs[-1]))
     launch.stack_spec(raws, buf, eb, offs[4])
     return torch.from_numpy(buf).cuda()
@@ -742,12 +750,19 @@ def check_spec_kernel(torch, kernel, launch, ref) -> tuple:
     maximum is tied (the first must win); and ``max_candidates=70`` rows
     (lanes 128, G = 257: F only fits global scratch), and
     ``max_candidates=40`` (lanes 64: F in shared memory past the default
-    48 KB, opted in).  The plain version on
-    the card is also held to the plain version on the CPU (the tests'
-    oracle), bit for bit.  Returns (the worst absolute difference, the
-    captured 256-rank rows, their lanes and pair bucket)."""
+    48 KB, opted in); the fleet's first 64 rows (one window, eb 1024); the
+    scatter's adversarial rows (``spec_cases.scatter_cases``, each case a
+    window of two rows, and all of them in one); random rows of an odd
+    length (lanes 5 and 8: the wrapper copies them to an even stride, and
+    the launcher's card route, whose pinned staging pads the stride, is
+    held to the plain version too) and of 64 and 300 pair slots (the
+    warps' winners meet in shared memory).  The plain version on the card
+    is also held to the plain version on the CPU (the tests' oracle), bit
+    for bit.  Returns (the worst absolute difference, the captured 256-rank
+    rows, the fleet's rows, their lanes and pair bucket)."""
     import numpy as np
     from repro_torch.core import CCMParams, random_phase, scaling_phase
+    from repro_torch.kernels.ccm_scorer import spec_cases
     from repro_torch.kernels.ccm_scorer.layout import SC, spec_offsets
     params = CCMParams()
     big, lanes, p_n = spec_capture(scaling_phase(256), params, 12, 96)
@@ -756,6 +771,8 @@ def check_spec_kernel(torch, kernel, launch, ref) -> tuple:
                      num_comms=1280, mem_cap=1e12), params, 12, 24)
     mid, m_lanes, m_p = spec_capture(scaling_phase(256), params, 40, 8)
     wide, w_lanes, w_p = spec_capture(scaling_phase(256), params, 70, 24)
+    fleet, _, _ = spec_capture(random_phase(1000, **FLEET_PHASE),
+                               CCMParams(delta=1e-9), 12, FLEET_N)
     if len(big) < 96 or {e for _, e in small} == {e for _, e in big}:
         fail(f"spec capture: {len(big)} rows, edge buckets "
              f"{sorted({e for _, e in small})} / "
@@ -776,24 +793,45 @@ def check_spec_kernel(torch, kernel, launch, ref) -> tuple:
     infeasible[offs[4] + SC.mem_cap_a] = -1.0
     edge = [(tie, eb), (none, eb), (infeasible, eb), (row, eb)]
     mixed = [x for pair in zip(small, big) for x in pair]
-    cases = [("W=1", big[:1], lanes, p_n), ("W=8", big[:8], lanes, p_n),
-             ("W=32", big[8:40], lanes, p_n), ("W=64", big[32:96], lanes,
-                                                p_n),
-             ("mixed edge buckets", mixed, lanes, p_n),
-             ("edge rows", edge, lanes, p_n),
-             ("max_candidates=40", mid, m_lanes, m_p),
-             ("max_candidates=70", wide[:8], w_lanes, w_p),
-             ("max_candidates=70, W=24", wide, w_lanes, w_p)]
+    rng = np.random.default_rng(0)
+    scatter = spec_cases.scatter_cases(big[:2], lanes, lanes, p_n)
+    cases = [("W=1", big[:1], lanes, lanes, p_n),
+             ("W=8", big[:8], lanes, lanes, p_n),
+             ("W=32", big[8:40], lanes, lanes, p_n),
+             ("W=64", big[32:96], lanes, lanes, p_n),
+             ("mixed edge buckets", mixed, lanes, lanes, p_n),
+             ("edge rows", edge, lanes, lanes, p_n),
+             ("max_candidates=40", mid, m_lanes, m_lanes, m_p),
+             ("max_candidates=70", wide[:8], w_lanes, w_lanes, w_p),
+             ("max_candidates=70, W=24", wide, w_lanes, w_lanes, w_p),
+             ("fleet, W=64", fleet, lanes, lanes, p_n)]
+    cases += [(f"scatter: {label}", raws, lanes, lanes, p_n)
+              for label, raws in scatter]
+    cases += [("scatter: every case", [r for _, rows in scatter
+                                       for r in rows], lanes, lanes, p_n),
+              ("odd row length", spec_cases.random_rows(rng, 5, 64, 5, 8,
+                                                        32), 5, 8, 32),
+              ("P=64", spec_cases.random_rows(rng, 4, 96, 16, 16, 64), 16,
+               16, 64),
+              ("P=300", spec_cases.random_rows(rng, 2, 32, 8, 8, 300), 8, 8,
+               300)]
     worst, n_cases = 0.0, 0
-    for label, raws, a_n, p in cases:
-        buf = spec_buffer(torch, launch, raws, a_n, p)
-        want = ref.score_spec_rows(buf, a_n, a_n, p)
+    for label, raws, a_n, b_n, p in cases:
+        buf = spec_buffer(torch, launch, raws, a_n, p, b_n)
+        want = ref.score_spec_rows(buf, a_n, b_n, p)
         if not same_bits(torch, want.cpu(),
-                         ref.score_spec_rows(buf.cpu(), a_n, a_n, p)):
+                         ref.score_spec_rows(buf.cpu(), a_n, b_n, p)):
             fail(f"spec plain version: card != cpu at {label}")
-        in_smem = kernel.spec_f_in_smem(a_n, a_n, p)
+        if label == "odd row length":
+            card = launch.score_spec(raws, a_lanes=a_n, b_lanes=b_n, p_n=p,
+                                     device=torch.device("cuda"))
+            if buf.shape[1] % 2 == 0 or not same_bits(
+                    torch, torch.from_numpy(card), want.cpu()[:len(raws)]):
+                fail("window launcher (padded staging stride) != plain "
+                     f"version at {label}")
+        in_smem = kernel.spec_f_in_smem(a_n, b_n, p)
         for f_global in ((False, True) if in_smem else (True,)):
-            got = kernel.score_spec_rows(buf, a_n, a_n, p, f_global=f_global)
+            got = kernel.score_spec_rows(buf, a_n, b_n, p, f_global=f_global)
             torch.cuda.synchronize()
             if not same_bits(torch, got, want):
                 bad = (got != want).any(1).nonzero()[:4].flatten().tolist()
@@ -821,8 +859,10 @@ def check_spec_kernel(torch, kernel, launch, ref) -> tuple:
     print(f"window kernel == plain version on {n_cases} cases (bit for bit; "
           f"F in shared memory and in global scratch; 256-rank rows, W 1 to "
           f"64, mixed edge buckets, pair count 0, all infeasible, a tie, "
-          f"lanes 64 and 128); max_abs_err {worst}", flush=True)
-    return worst, big, lanes, p_n
+          f"lanes 64 and 128, the fleet's rows, {len(scatter)} adversarial "
+          f"scatter cases, an odd row length, 64 and 300 pair slots); "
+          f"max_abs_err {worst}", flush=True)
+    return worst, big, fleet, lanes, p_n
 
 
 def spec_path(torch, kernel, launch, want) -> dict:
@@ -2092,15 +2132,18 @@ def spec_bound(buf, lanes: int, p_n: int):
             else "operations", nbytes, ops)
 
 
-def time_spec(torch, kernel, ref, launch, shapes, raws, lanes: int,
-              p_n: int) -> dict:
-    """The window kernel at the (W, eb) the spec runs launched most, on
-    real 256-rank rows of that edge bucket: the launch between events
-    (``ms``), queued behind a sleep (``device_ms``, and the host's time to
-    queue one launch), the launcher's host time a call (``score_spec``:
-    stacking, copies, launch, wait; with its split), the plain version and
-    the bound.  The launch is held to the plain version first."""
-    (w_n, eb), n_main = shapes.most_common(1)[0]
+def time_spec(torch, kernel, ref, launch, shape, n_main: int, raws,
+              lanes: int, p_n: int) -> dict:
+    """The window kernel at ``shape`` (W, eb), which a main path launched
+    ``n_main`` times, on real rows: those of that edge bucket where
+    ``raws`` has them (the 256-rank spec runs), else ``raws`` as captured
+    (the fleet's rows, mixed buckets padded to eb as in its windows).  The
+    launch between events (``ms``), queued behind a sleep (``device_ms``,
+    and the host's time to queue one launch), the launcher's host time a
+    call (``score_spec``: stacking, copies, launch, wait; with its split),
+    the plain version and the bound.  The launch is held to the plain
+    version first."""
+    w_n, eb = shape
     same = [r for r in raws if r[1] == eb] or raws
     rows = [same[i % len(same)] for i in range(w_n)]
     buf = spec_buffer(torch, launch, rows, lanes, p_n)
@@ -2111,7 +2154,7 @@ def time_spec(torch, kernel, ref, launch, shapes, raws, lanes: int,
 
     def launch_one():
         kernel.launch_spec(buf.data_ptr(), out.data_ptr(), 0, w_n, eb,
-                           lanes, lanes, p_n,
+                           lanes, lanes, p_n, buf.stride(0),
                            torch.cuda.current_stream().cuda_stream)
 
     launch_one()
@@ -2576,8 +2619,8 @@ def main() -> None:
     rng = np.random.default_rng(0)
     worst = check_kernel(torch, kernel, ref, rng)
     pair_worst = check_pair_kernel(torch, kernel, launch, ref, rng)
-    spec_worst, spec_rows, spec_lanes, spec_p = check_spec_kernel(
-        torch, kernel, launch, ref)
+    spec_worst, spec_rows, fleet_rows, spec_lanes, spec_p = \
+        check_spec_kernel(torch, kernel, launch, ref)
     # 4. the main path (launch counts zeroed inside, per run), then through
     # the speculative driver, and the fleet
     mp = main_path(torch, kernel, launch)
@@ -2608,8 +2651,18 @@ def main() -> None:
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
     pair_times = time_pairs(torch, kernel, ref, launch, rng,
                             mp["pair_shapes"])
-    spec_times = time_spec(torch, kernel, ref, launch, sp["shapes"],
-                           spec_rows, spec_lanes, spec_p)
+    # the window kernel at the shape the spec runs launched most, and at
+    # spec32's and the fleet's most launched
+    spec_at = [sp["shapes"].most_common(1)[0] + (spec_rows,)]
+    for top, raws in ((sp["runs"]["spec32 scan/disjoint"]["top_shapes"],
+                       spec_rows), (fleet["top_shapes"], fleet_rows)):
+        spec_at.append((tuple(top[0][0]), top[0][1], raws))
+    spec_by_shape = {}
+    for shape, n_main, raws in spec_at:
+        t = time_spec(torch, kernel, ref, launch, shape, n_main, raws,
+                      spec_lanes, spec_p)
+        spec_by_shape.setdefault(t["shape"], t)
+    spec_times = next(iter(spec_by_shape.values()))
     floor = launch_floor(torch)
     asm_times = time_assembly_kernel(torch, asm_ops, asm_ref, asm)
     serve_times = time_serve_kernels(torch, flash_kernel, flash_ref,
@@ -2677,7 +2730,7 @@ def main() -> None:
         "bound_ms": spec_times["bound_ms"],
         "bound_by": spec_times["bound_by"], "library_ms": None,
         "library_note": "no PyTorch call scores a CCM window",
-        "shape": spec_times["shape"], "timing": spec_times,
+        "shape": spec_times["shape"], "by_shape": spec_by_shape,
     })
     key = max(asm_times, key=lambda k: asm_times[k]["quad_order_launches"])
     m = asm_times[key]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the assembly tile's, WKV6's and the CCM scorer call's time goes
-on one GPU.
+"""Where the assembly tile's, WKV6's, the CCM scorer call's and the window
+kernel's time goes on one GPU.
 
-    python3 kernel_probe.py [--parent DIR]
+    python3 kernel_probe.py [--parent DIR] [--steps STEP ...]
 
 from the root of a checkout, on a host with one CUDA card (what
 ``chip_smoke.py`` needs).  It imports nothing of JAX or of ``repro``.
@@ -32,9 +32,23 @@ application's 16 x 16 tiles, WKV6 at (4, 512, 64, 64) in bf16.
 3. WKV6 with each phase of its group loop left out (staging, conversion,
    token walk, combine), built from ``csrc/wkv6.cu`` with those lines cut:
    timing only, the results are wrong.
-4. The card's cost of one empty launch.
+4. The window kernel (``ccm_scorer_spec_f64``) whole and with each of
+   its phases left out (``SPEC_CUTS``: the row staging, the scatter, the
+   slice sums and features, the pairs, the selection, and all of them;
+   for the redesigned kernel also the scatter's runs alone),
+   built from each checkout's ``csrc/ccm_scorer.cu`` with those lines
+   cut, at the (W, eb) that spec8, spec32 and the fleet launch most
+   (``SPEC_SHAPES``; real rows of ``scaling_phase(256)`` and of the
+   fleet's first phase), each variant's ``device_ms``.  With ``--parent``
+   the parent's variants and this checkout's are timed in turns (parent,
+   this, this, parent) in one process; the whole kernels are first held
+   to this checkout's plain version, bit for bit.  The cut variants are
+   for timing only: their results are wrong.
+5. The card's cost of one empty launch.
 
-Prints one JSON line of results, then the card's name and power limit.
+``--steps`` runs only the named steps (``turns`` for step 1, ``tile``,
+``wkv6``, ``spec``, ``floor``); all by default.  Prints one JSON line of
+results, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -69,6 +83,76 @@ WKV_CUTS = {
                 "    for (int e = tid; false; e += THREADS) {\n"
                 "      const int tt = e / HD;"),
 }
+
+#: the window kernel's launch shapes, (label, W, eb): the (W, eb) that
+#: spec8, spec32 and the fleet launched most (lanes 16, P 32)
+SPEC_SHAPES = (("spec8", 8, 256), ("spec32", 16, 512), ("fleet", 64, 1024))
+# (name -> (what the source says, what it is replaced by), ...) for each
+# phase of the window kernel that a variant leaves out: of the kernel
+# before its redesign ("parent") and after it ("this"); a source is told
+# apart by its C entry's arguments
+SPEC_CUTS = {
+    "parent": {
+        "staging": (
+            ("  for (int i = t; i < 7 * a_n; i += SPEC_THREADS) {",
+             "  for (int i = t; false; i += SPEC_THREADS) {"),
+            ("  for (int i = t; i < 7 * b_n; i += SPEC_THREADS) {",
+             "  for (int i = t; false; i += SPEC_THREADS) {"),
+            ("  if (t < N_SC) sc[t] = row[g.o_sc + t];",
+             "  if (false) sc[t] = row[g.o_sc + t];"),
+            ("  if (t < 4) {\n    cf[CF_ALPHA + t]",
+             "  if (false) {\n    cf[CF_ALPHA + t]"),
+            ("  } else if (t < N_CF) {", "  } else if (false) {")),
+        "scatter": (
+            ("  for (int e0 = 0; e0 < eb; e0 += SPEC_CHUNK) {",
+             "  for (int e0 = 0; false; e0 += SPEC_CHUNK) {"),),
+        "slice sums and features": (
+            ("  for (int r = t; r < G; r += SPEC_THREADS) {",
+             "  for (int r = t; false; r += SPEC_THREADS) {"),
+            ("  for (int c = t; c < a_n; c += SPEC_THREADS) {",
+             "  for (int c = t; false; c += SPEC_THREADS) {"),
+            ("  for (int c = t; c < b_n; c += SPEC_THREADS) {",
+             "  for (int c = t; false; c += SPEC_THREADS) {"),
+            ("  if (t < 8) {\n    double f;",
+             "  if (false) {\n    double f;")),
+        "pairs": (
+            ("  for (int p = t; p < p_n; p += SPEC_THREADS) {",
+             "  for (int p = t; false; p += SPEC_THREADS) {"),),
+        "selection": (
+            ("    for (int k = 1; k < p_n; ++k) {",
+             "    for (int k = 1; false; ++k) {"),),
+    },
+    "this": {
+        "staging": (
+            ("    hopper::mbar_expect_tx(&bars[0], bytes);\n"
+             "    hopper::bulk_load(tail, row + g.o_av, bytes, &bars[0]);",
+             "    hopper::mbar_arrive(&bars[0]);"),
+            ("  hopper::mbar_expect_tx(&bars[1 + s], 2 * bytes);\n"
+             "  hopper::bulk_load(dst, row + e0, bytes, &bars[1 + s]);\n"
+             "  hopper::bulk_load(dst + SPEC_CHUNK, row + eb + e0, bytes, "
+             "&bars[1 + s]);",
+             "  hopper::mbar_arrive(&bars[1 + s]);")),
+        "scatter": (
+            ("    if (owner < SPEC_WARPS) {\n      const int at",
+             "    if (false) {\n      const int at"),
+            ("    for (int j0 = 0; j0 < cnt; j0 += 32) {",
+             "    for (int j0 = 0; false; j0 += 32) {")),
+        "scatter's runs": (
+            ("    for (int j0 = 0; j0 < cnt; j0 += 32) {",
+             "    for (int j0 = 0; false; j0 += 32) {"),),
+        "slice sums and features": (
+            ("  for (int k = t; k < 4 * gp; k += SPEC_THREADS) {",
+             "  for (int k = t; false; k += SPEC_THREADS) {"),
+            ("  if (t < 4) {    // f_ab", "  if (false) {    // f_ab")),
+        "pairs": (
+            ("  for (int p = t; p < p_n; p += SPEC_THREADS) {",
+             "  for (int p = t; false; p += SPEC_THREADS) {"),),
+        "selection": (
+            ("  for (int off = 16; off > 0; off >>= 1) {",
+             "  for (int off = 16; false; off >>= 1) {"),),
+    },
+}
+
 
 # the timed part, run in a process of its own for each checkout
 ENTRY_TIMES = r'''
@@ -274,11 +358,127 @@ def wkv6_phases(torch, cs, rng) -> dict:
     return out
 
 
+def cut_variants(source: Path, cuts: dict, tag: str) -> dict:
+    """``source`` whole and with each of ``cuts`` applied, each written
+    under ``build/kernels/probe/`` (local includes made absolute):
+    ``{"whole": path, "without <name>": path, ..., "without all": path}``.
+    Exits if a cut's text is not in the source exactly once."""
+    from repro_torch.kernels import _build
+    text = source.read_text()
+    probe_dir = _build.BUILD_DIR / "probe"
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    for name in {n.decode() for n in _build._LOCAL_INCLUDE.findall(
+            text.encode())}:
+        text = text.replace(f'#include "{name}"',
+                            f'#include "{(source.parent / name).resolve()}"')
+    variants, every = {}, []
+    for name, pairs in list(cuts.items()) + [("all", None)]:
+        pairs = every if pairs is None else pairs
+        every = every + list(pairs)
+        cut = text
+        for was, now in pairs:
+            if text.count(was) != 1:
+                sys.exit(f"kernel_probe: {source} no longer has the {name} "
+                         f"lines this probe cuts: {was!r}")
+            cut = cut.replace(was, now)
+        variants[f"without {name}"] = cut
+    out = {}
+    for name, body in [("whole", text)] + list(variants.items()):
+        stem = "".join(ch if ch.isalnum() else "_" for ch in name)
+        path = probe_dir / f"{source.stem}_{tag}_{stem}.cu"
+        path.write_text(body)
+        out[name] = path
+    return out
+
+
+def spec_rows(torch, cs, launch) -> dict:
+    """Window buffers on the card at each of ``SPEC_SHAPES``: rows of that
+    edge bucket from ``scaling_phase(256)``'s first lock events for spec8
+    and spec32, the fleet's first phase's first 64 rows (mixed buckets,
+    padded to eb as its windows are) for the fleet.  Returns ``{label:
+    (buf, eb, lanes, p_n)}``."""
+    import numpy as np
+    from repro_torch.core import CCMParams, random_phase, scaling_phase
+    from repro_torch.kernels.ccm_scorer.layout import spec_offsets
+    big, lanes, p_n = cs.spec_capture(scaling_phase(256), CCMParams(), 12,
+                                      96)
+    fleet, _, _ = cs.spec_capture(random_phase(1000, **cs.FLEET_PHASE),
+                                  CCMParams(delta=1e-9), 12, 64)
+    out = {}
+    for label, w_n, eb in SPEC_SHAPES:
+        pool = fleet if label == "fleet" else [r for r in big if r[1] == eb]
+        if not pool or max(e for _, e in pool) != eb:
+            sys.exit(f"kernel_probe: no captured row of edge bucket {eb}")
+        rows = [pool[i % len(pool)] for i in range(w_n)]
+        offs = spec_offsets(eb, lanes, lanes, p_n)
+        buf = np.zeros((w_n, offs[-1]))
+        launch.stack_spec(rows, buf, eb, offs[4])
+        out[label] = (torch.from_numpy(buf).cuda(), eb, lanes, p_n)
+    return out
+
+
+def spec_phases(torch, cs, parent) -> dict:
+    """The window kernel whole and without each phase, at ``SPEC_SHAPES``,
+    of this checkout and (in turns) ``parent``'s."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ccm_scorer import launch, ref
+    checkouts = [("this", ROOT)] if parent is None else [
+        ("parent", parent), ("this", ROOT), ("this", ROOT),
+        ("parent", parent)]
+    libs = {}
+    for name, path in dict(checkouts).items():
+        source = path / "src" / "repro_torch" / "csrc" / "ccm_scorer.cu"
+        kind = ("this" if "int p_n, int stride" in source.read_text()
+                else "parent")
+        libs[name] = (kind, cut_variants(source, SPEC_CUTS[kind], name))
+    _build.compile_sources([p for _, v in libs.values() for p in v.values()])
+    fns = {}
+    for name, (kind, variants) in libs.items():
+        for variant, path in variants.items():
+            fn = _build.load(path).ccm_scorer_spec_f64
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
+                6 if kind == "this" else 5) + [ctypes.c_void_p] * 2
+            fns[name, variant] = (kind, fn)
+    res = {}
+    for label, (buf, eb, lanes, p_n) in spec_rows(torch, cs,
+                                                 launch).items():
+        w_n, row_len = buf.shape
+        out = torch.empty((w_n, 4), dtype=torch.float64, device="cuda")
+        want = ref.score_spec_rows(buf, lanes, lanes, p_n)
+
+        def call(key):
+            kind, fn = fns[key]
+            extra = (row_len,) if kind == "this" else ()
+            rc = fn(buf.data_ptr(), out.data_ptr(), 0, w_n, eb, lanes, lanes,
+                    p_n, *extra, 0, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                sys.exit(f"kernel_probe: window kernel {key} failed ({rc})")
+        for name in dict(checkouts):
+            call((name, "whole"))
+            torch.cuda.synchronize()
+            if not cs.same_bits(torch, out, want):
+                sys.exit(f"kernel_probe: {name}'s window kernel != the plain "
+                         f"version at {label}")
+        res[label] = []
+        for name, _ in checkouts:
+            turn = {"checkout": name}
+            for variant in libs[name][1]:
+                turn[variant] = cs.device_ms(
+                    torch, lambda: call((name, variant)), 50)
+            res[label].append(turn)
+    return res
+
+
+STEPS = ("turns", "tile", "wkv6", "spec", "floor")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
                         help="another checkout whose kernels to time in "
                         "turns with this one's")
+    parser.add_argument("--steps", nargs="+", choices=STEPS, default=STEPS,
+                        help="the steps to run (all by default)")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -290,8 +490,8 @@ def main() -> None:
     import chip_smoke as cs
     rng = np.random.default_rng(0)
     res = {}
-    if args.parent is not None:
-        parent = args.parent.resolve()
+    parent = None if args.parent is None else args.parent.resolve()
+    if parent is not None and "turns" in args.steps:
         runs = [("parent", parent), ("this", ROOT), ("this", ROOT),
                 ("parent", parent)]
         res["in_turns"] = [dict(checkout=name, **run_in(path, ENTRY_TIMES))
@@ -305,10 +505,15 @@ def main() -> None:
         if len({r["digest"] for r in res["scorer_in_turns"]}) != 1:
             sys.exit("kernel_probe: the checkouts' scorers disagree on the "
                      "recorded events")
-    res["tile_lanes"] = tile_lanes(torch, cs, rng)
-    res["wkv6_phases"] = wkv6_phases(torch, cs, rng)
-    res["empty_launch_device_ms"] = cs.device_ms(
-        torch, lambda: torch.cuda._sleep(0), reps=200)
+    if "tile" in args.steps:
+        res["tile_lanes"] = tile_lanes(torch, cs, rng)
+    if "wkv6" in args.steps:
+        res["wkv6_phases"] = wkv6_phases(torch, cs, rng)
+    if "spec" in args.steps:
+        res["spec_phases"] = spec_phases(torch, cs, parent)
+    if "floor" in args.steps:
+        res["empty_launch_device_ms"] = cs.device_ms(
+            torch, lambda: torch.cuda._sleep(0), reps=200)
     print(json.dumps(res), flush=True)
     print(f"card: {cs.card_line()}", flush=True)
 

@@ -3,7 +3,7 @@
 // and eq. 9's memory feasibility of each shortlisted pair, and (the window
 // entry, ccm_scorer_spec_f64, described above its kernel below) a whole
 // speculative lock event a row: flow matrix, features, scores, combine and
-// selection.
+// selection, the row staged by bulk copies (TMA, hopper.cuh).
 //
 // Replaces the Pallas TPU kernel repro/kernels/ccm_scorer/kernel.py:35
 // (_scorer_kernel, launched by score_tiles_fwd with grid=(E,)) and the
@@ -66,7 +66,11 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -286,52 +290,95 @@ ccm_scorer_pairs_kernel(const T* __restrict__ av, const T* __restrict__ bv,
 
 // ---------------------------------------------------------------------------
 // ccm_scorer_spec_f64, the speculative window: one block per window row
-// (one captured lock event), the whole event on the card.  It computes what
-// the JAX package's kind="spec" body computes per row
-// (repro/kernels/ccm_scorer/jit.py:271-358, XLA-compiled there, no Pallas
-// kernel), in the summation order its plain version fixes
-// (repro_torch/kernels/ccm_scorer/ref.py::score_spec_rows), bit for bit:
+// (one captured lock event), the whole event on the card.  It replaces the
+// JAX package's XLA-compiled kind="spec" body
+// (repro/kernels/ccm_scorer/jit.py:253-375, per row :271-358; no Pallas
+// kernel there) and computes it in the summation order its plain version
+// fixes (repro_torch/kernels/ccm_scorer/ref.py::score_spec_rows), bit for
+// bit:
 //
-//   1. the row's tail (host feature rows, scalars, combine coefficients)
-//      into shared memory;
-//   2. the G x G flow matrix F (G = 3 + (A-1) + (B-1), layout.spec_groups)
-//      from the row's (bin, volume) edge list, without atomics: the edges
-//      are staged in chunks of SPEC_CHUNK, and thread t owns the bins b
-//      with b % SPEC_THREADS == t and walks every edge in order, adding
-//      those that land in its bins, so each bin sums its edges in edge
-//      order, as np.bincount does (the host's F, bit for bit).  F lives in
+//   1. staging: thread 0 starts one bulk copy (TMA, 1-D, completing on an
+//      mbarrier) of the row's tail (host feature rows, pair corrections,
+//      scalars, pair indices, coefficients) and two of each of the first
+//      SPEC_STAGES edge chunks (bins, volumes; SPEC_CHUNK edges a chunk, a
+//      ring of SPEC_STAGES buffers, refilled as chunks are consumed);
+//      meanwhile the block zeroes the G x G flow matrix F (G = 3 + (A-1) +
+//      (B-1), layout.spec_groups);
+//   2. the scatter, F[bin] += volume over the edges, without float
+//      atomics and in edge order.  Warp w owns the bins b with
+//      b % SPEC_WARPS == w (a hash, so that the bins of one source group,
+//      which real rows fill unevenly, spread over the warps).  The block
+//      splits each chunk, one edge a thread, into its owner warps' lists
+//      in edge order: a ballot per owner gives each edge its place among
+//      the warp's edges of that owner, the warps' counts an exclusive
+//      prefix per owner (integers only).  Each warp then takes its list
+//      32 edges at a time: __match_any_sync groups the lanes by bin, the
+//      runs of one bin are laid end to end in lane (= edge) order in a
+//      buffer of 32 (an exclusive scan of their lengths over the runs'
+//      leaders), and the lowest lane of each run adds them to F[bin] one by
+//      one, the loads independent of the sum.  So each bin sums its edges
+//      in edge order from 0.0, as np.bincount does (the host's F, bit for
+//      bit), distinct bins go in parallel, and the chain is about the
+//      row's longest bin, which no order-keeping scatter avoids (real rows
+//      put many edges into few bins).  Bin 0,
+//      F[0, 0] (other ranks to other ranks), is skipped: no slice sum,
+//      feature or pair reads it (the slices start at column and row 1,
+//      the features at group sa = 3, the pair entries at fa, fb >= sa),
+//      and no real edge lands there (every edge of a row has an end on
+//      rank a or b), only the pad edges (bin 0, volume 0).  F lives in
 //      shared memory where it fits (A = B = 64 at most) and in a global
 //      slab of the block's own (f_global, W x G x G) beyond: the same
 //      arithmetic either way;
-//   3. the slice sums row_to_a/b, col_from_a/b, one thread a group, each a
-//      sequential sum in ascending index added to its direct entry
-//      (F[g, 1] + (F[g, sa] + ... )); the seven flow-derived feature rows
-//      of each side and the eight flow scalars f_ab .. f_ob, likewise;
-//   4. one thread a shortlist slot: gather the pair's a- and b-columns,
-//      its six pairwise entries (x_ab, x_ba from F, zero off the candidate
-//      grid, and the four host corrections) as a local array of stride 1,
-//      and evaluate score_lane -- the one expression tree of all three
-//      kernels -- then combine_work (_rn intrinsics) and feasibility as
+//   3. the slice sums row_to_a/b, col_from_a/b (4 G chains) and the four
+//      flow scalars read off F (f_ao, f_oa, f_bo, f_ob), one thread a
+//      chain, each a sequential sum in ascending index added to its direct
+//      entry (F[g, 1] + (F[g, sa] + ... )); then the four flow scalars
+//      over the slice sums (f_ab, f_ba, f_aa, f_bb) on warp 0; the scalars
+//      land in the staged tail's scalar row;
+//   4. one thread a shortlist slot: the pair's a- and b-columns (the seven
+//      flow-derived rows from F and the slices, the seven host rows from
+//      the tail) and its six pairwise entries (x_ab, x_ba from F, zero off
+//      the candidate grid, and the four host corrections) as local arrays
+//      of stride 1, then score_lane -- the one expression tree of all
+//      three kernels -- combine_work (_rn intrinsics) and feasibility as
 //      mem <= cap (caps pre-scaled, +inf when the constraint is off);
 //   5. select: a slot counts when it is below the row's pair count, is
 //      feasible and improves by more than 1e-12 (diff = w_before -
 //      max(w_a, w_b)); else its score is -inf (infeasible slots hold NaN
-//      diffs, inf - inf, which this masks); one thread walks the slots in
-//      order and keeps the first maximum;
+//      diffs, inf - inf, which this masks, so no score is NaN).  Each
+//      thread keeps its slots' first maximum, then a butterfly of warp
+//      shuffles keeps the larger score, the lower slot on a tie: the first
+//      maximum.  With P <= 32 warp 0 alone scores and selects (the other
+//      warps leave after step 3); above, the warps' winners meet in shared
+//      memory;
 //   -> out (W, 4) float64: [slot, score, w_a, w_b] of the winner.
 //
-// What bounds it: at the balancer's sizes (W = 1..64 rows, eb = 32..512
-// edges, A = B = 16, P = 32) a row is some 8 KB, so neither bytes nor
-// operations do; one launch and the row's dependent passes (scatter, slice
-// sums, features, pairs, selection, five barriers) do.  The design spends
-// one launch a window and returns four numbers a row.  The scatter walk is
-// O(eb) a thread; a faster scatter (a sorted segment per bin) is later
-// work.
-constexpr int SPEC_THREADS = 256;   // a power of two: bin ownership mask
-constexpr int SPEC_CHUNK = 256;     // edges staged in shared memory at once
+// What bounds it: at the balancer's sizes (W = 1..64 rows, eb = 32..1024
+// edges, A = B = 16, P = 32) a row is some 8-20 KB, so neither bytes nor
+// operations do (the bound is some 2e-5 ms at W 8, eb 256): latency does,
+// one launch and the chain of dependent steps: the staging round trip,
+// the split (three block barriers a chunk), the longest run of one bin,
+// one slice sum and one flow scalar over them, one slot's tree and
+// quotients, and a log2(32)-step shuffle.  The design spends one launch a
+// window and one round trip for the row (eb <= SPEC_STAGES * SPEC_CHUNK;
+// beyond, a chunk is copied as soon as the split has consumed its
+// buffer), keeps every thread of the block busy in the split and the
+// slice sums, and returns four numbers a row.
+// The bulk copies move 16-byte granules: rows start 16-byte aligned (the
+// row stride is even, the buffer aligned), eb is even, and the tail's copy
+// may read the one pad value of an odd row length (stride >= row_len + 1).
+constexpr int SPEC_THREADS = 256;
+constexpr int SPEC_WARPS = SPEC_THREADS / 32;   // a power of two
+constexpr int SPEC_CHUNK = 256;     // edges in a staging buffer
+constexpr int SPEC_STAGES = 4;      // staging buffers of edges
+static_assert(SPEC_CHUNK == SPEC_THREADS, "the split takes a chunk's edges "
+              "one a thread");
 constexpr int N_MISC = 6;           // alpha, beta, gamma, delta, w_before, p
 constexpr int MAX_SMEM = 232448;    // one block's opt-in limit on sm_90
 constexpr int DEFAULT_SMEM = 48 * 1024;
+// the tail's and the staging buffers' mbarriers, in whole 16-byte granules
+constexpr int SPEC_BARS_BYTES = (8 * (1 + SPEC_STAGES) + 15) / 16 * 16;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct SpecGeom {
   int sa, sb, g_n;
@@ -357,36 +404,109 @@ __host__ __device__ inline SpecGeom spec_geom(int eb, int a_n, int b_n,
   return g;
 }
 
-// Dynamic shared memory of one block, in bytes (kernel.spec_smem_bytes).
-inline long long spec_smem_bytes(int a_n, int b_n, int p_n, bool f_in_smem) {
-  const long long g_n = 3LL + (a_n - 1) + (b_n - 1);
-  const long long doubles = (f_in_smem ? g_n * g_n : 0)
-                            + (long long)N_AV * (a_n + b_n) + 4 * g_n + N_SC
-                            + N_CF + SPEC_CHUNK + 3LL * p_n;
-  return 8 * doubles + 4LL * SPEC_CHUNK;
+// The staged tail (o_av .. row_len) in doubles, rounded up to whole
+// 16-byte granules.
+__host__ __device__ inline long long spec_tail(const SpecGeom& g) {
+  const long long n = g.row_len - g.o_av;
+  return n + (n & 1);
 }
 
-// s + x[0] + x[stride] + ... (n terms), one rounding each, in order.
-__device__ __forceinline__ double seq_sum(double s, const double* x,
-                                          long long stride, int n) {
+// Dynamic shared memory of one block, in bytes (kernel.spec_smem_bytes):
+// the mbarriers, the tail, the edge buffers, F (when it lives there), the
+// four slice sums, the warps' winners, each warp's edge list (volumes, int
+// bins) and run buffer, and the split's counts.
+inline long long spec_smem_bytes(int a_n, int b_n, int p_n, bool f_in_smem) {
+  const SpecGeom g = spec_geom(0, a_n, b_n, p_n);
+  const long long g_n = g.g_n;
+  const long long doubles = spec_tail(g) + 2LL * SPEC_STAGES * SPEC_CHUNK
+                            + (f_in_smem ? g_n * g_n : 0) + 4 * g_n
+                            + 4 * SPEC_WARPS + SPEC_WARPS * (SPEC_CHUNK + 32);
+  return SPEC_BARS_BYTES + 8 * doubles
+         + 4LL * SPEC_WARPS * (SPEC_CHUNK + SPEC_WARPS + 1);
+}
+
+// s + (x[0] + x[stride] + ... ) (n terms from 0.0), one rounding each, in
+// order; the terms loaded four at a time, so that only the additions chain.
+__device__ __forceinline__ double seq_sum(double s,
+                                          const double* __restrict__ x,
+                                          int stride, int n) {
   double acc = 0.0;
-  for (int k = 0; k < n; ++k) acc = __dadd_rn(acc, x[k * stride]);
+  for (int k = 0; k < n; k += 4) {
+    double v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = k + u < n ? x[(k + u) * stride] : 0.0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (k + u < n) acc = __dadd_rn(acc, v[u]);
+    }
+  }
   return __dadd_rn(s, acc);
+}
+
+// Copy edge chunk c (its bins and its volumes) into staging buffer
+// c % SPEC_STAGES; completes on that buffer's mbarrier.
+__device__ __forceinline__ void spec_stage_chunk(double* edges,
+                                                 const double* row, int eb,
+                                                 int c, uint64_t* bars) {
+  const int s = c % SPEC_STAGES;
+  const int e0 = c * SPEC_CHUNK;
+  const unsigned bytes = 8u * (unsigned)min(SPEC_CHUNK, eb - e0);
+  double* dst = edges + 2 * SPEC_CHUNK * s;
+  hopper::mbar_expect_tx(&bars[1 + s], 2 * bytes);
+  hopper::bulk_load(dst, row + e0, bytes, &bars[1 + s]);
+  hopper::bulk_load(dst + SPEC_CHUNK, row + eb + e0, bytes, &bars[1 + s]);
+}
+
+// The seven flow-derived feature rows (layout.AV intra .. in_other) of the
+// candidate at group q, from F and its side's (own) and the other side's
+// (peer) slice sums; zero for lane 0, the empty candidate.
+__device__ __forceinline__ void spec_flow_rows(
+    double* v, const double* F, int G, int q, bool on, const double* own_row,
+    const double* own_col, const double* peer_row, const double* peer_col) {
+  v[AV_INTRA] = on ? F[q * G + q] : 0.0;
+  v[AV_OUT_OWN] = on ? own_row[q] : 0.0;
+  v[AV_IN_OWN] = on ? own_col[q] : 0.0;
+  v[AV_OUT_PEER] = on ? peer_row[q] : 0.0;
+  v[AV_IN_PEER] = on ? peer_col[q] : 0.0;
+  v[AV_OUT_OTHER] = on ? F[q * G] : 0.0;
+  v[AV_IN_OTHER] = on ? F[q] : 0.0;
+}
+
+// The first maximum over a warp's (score, slot) candidates: the larger
+// score, the lower slot on a tie (scores are never NaN); every lane ends
+// with the winner and its works.
+__device__ __forceinline__ void warp_first_max(double& s, int& j, double& wa,
+                                               double& wb) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const double os = __shfl_xor_sync(FULL_MASK, s, off);
+    const int oj = __shfl_xor_sync(FULL_MASK, j, off);
+    const double oa = __shfl_xor_sync(FULL_MASK, wa, off);
+    const double ob = __shfl_xor_sync(FULL_MASK, wb, off);
+    if (os > s || (os == s && oj < j)) {
+      s = os;
+      j = oj;
+      wa = oa;
+      wb = ob;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(SPEC_THREADS)
 ccm_scorer_spec_kernel(const double* __restrict__ buf,
                        double* __restrict__ out,
                        double* __restrict__ f_global, int eb, int a_n,
-                       int b_n, int p_n) {
-  extern __shared__ double smem[];
+                       int b_n, int p_n, int stride) {
+  extern __shared__ __align__(16) unsigned char spec_smem[];
   const SpecGeom g = spec_geom(eb, a_n, b_n, p_n);
-  const int G = g.g_n, sa = g.sa, sb = g.sb;
-  const long long GG = (long long)G * G;
-  const double* row = buf + (long long)blockIdx.x * g.row_len;
-  const int t = threadIdx.x;
+  const int G = g.g_n, sa = g.sa, sb = g.sb, GG = G * G;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const double* row = buf + (long long)blockIdx.x * stride;
+  const int n_chunks = (eb + SPEC_CHUNK - 1) / SPEC_CHUNK;
 
-  double* sp = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(spec_smem);  // tail, stages
+  double* tail = reinterpret_cast<double*>(spec_smem + SPEC_BARS_BYTES);
+  double* edges = tail + spec_tail(g);   // stage s: bins, then volumes
+  double* sp = edges + 2 * SPEC_STAGES * SPEC_CHUNK;
   double* F;
   if (f_global != nullptr) {
     F = f_global + (long long)blockIdx.x * GG;
@@ -394,149 +514,238 @@ ccm_scorer_spec_kernel(const double* __restrict__ buf,
     F = sp;
     sp += GG;
   }
-  double* av = sp;  sp += N_AV * a_n;   // av[i * a_n + c], layout.AV rows
-  double* bv = sp;  sp += N_AV * b_n;
-  double* rta = sp; sp += G;            // row_to_a[g]: v(g -> rank a)
-  double* rtb = sp; sp += G;
-  double* cfa = sp; sp += G;            // col_from_a[g]: v(rank a -> g)
-  double* cfb = sp; sp += G;
-  double* sc = sp;  sp += N_SC;
-  double* cf = sp;  sp += N_CF;         // layout.CF order
-  double* sw = sp;  sp += SPEC_CHUNK;
-  double* s_score = sp; sp += p_n;
-  double* s_wa = sp; sp += p_n;
-  double* s_wb = sp; sp += p_n;
-  int* sbin = reinterpret_cast<int*>(sp);
+  double* slices = sp;  sp += 4 * G;   // row_to_a, row_to_b, col_from_a/b
+  double* best = sp;  sp += 4 * SPEC_WARPS;   // (score, slot, w_a, w_b)
+  double* cvol = sp;  sp += SPEC_WARPS * SPEC_CHUNK;  // the warps' lists
+  double* crun = sp;  sp += SPEC_WARPS * 32;
+  int* cbin = reinterpret_cast<int*>(sp);    // then the split counts
+  int* split = cbin + SPEC_WARPS * SPEC_CHUNK;
+  double* sc = tail + (g.o_sc - g.o_av);
+  const double* ms = tail + (g.o_ms - g.o_av);
 
-  // 1. zero F (thread t its own bins), the tail into shared memory
-  for (long long i = t; i < GG; i += SPEC_THREADS) F[i] = 0.0;
-  for (int i = t; i < 7 * a_n; i += SPEC_THREADS) {
-    av[7 * a_n + i] = row[g.o_av + i];
+  // 1. staging under zeroing F
+  if (t == 0) {
+    for (int i = 0; i <= SPEC_STAGES; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::fence_barrier_init();
   }
-  for (int i = t; i < 7 * b_n; i += SPEC_THREADS) {
-    bv[7 * b_n + i] = row[g.o_bv + i];
+  __syncthreads();
+  if (t == 0) {
+    const unsigned bytes = 8u * (unsigned)spec_tail(g);
+    hopper::mbar_expect_tx(&bars[0], bytes);
+    hopper::bulk_load(tail, row + g.o_av, bytes, &bars[0]);
+    for (int c = 0; c < min(n_chunks, SPEC_STAGES); ++c) {
+      spec_stage_chunk(edges, row, eb, c, bars);
+    }
   }
-  if (t < N_SC) sc[t] = row[g.o_sc + t];
-  if (t < 4) {
-    cf[CF_ALPHA + t] = row[g.o_ms + t];
-  } else if (t < N_CF) {      // speed_a, speed_b, mem_cap_a, mem_cap_b
-    cf[t] = row[g.o_sc + SC_SPEED_A + (t - CF_SPEED_A)];
-  }
+  for (int i = t; i < GG; i += SPEC_THREADS) F[i] = 0.0;
+  __syncthreads();
 
-  // 2. the scatter, edge order kept per bin
-  for (int e0 = 0; e0 < eb; e0 += SPEC_CHUNK) {
-    const int n = min(SPEC_CHUNK, eb - e0);
-    __syncthreads();                  // the previous chunk is consumed
-    for (int i = t; i < n; i += SPEC_THREADS) {
-      sbin[i] = (int)row[e0 + i];
-      sw[i] = row[g.o_w + e0 + i];
+  // 2. the scatter, edge order kept per bin: the block splits each chunk,
+  // one edge a thread, into its owner warps' lists, in edge order; each
+  // warp then takes its list 32 edges at a time: each bin's edges laid end
+  // to end in order, its leader adds them up
+  int* wbin = cbin + warp * SPEC_CHUNK;      // this warp's list
+  double* wvol = cvol + warp * SPEC_CHUNK;
+  double* wrun = crun + warp * 32;           // a group's runs of one bin
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s = c % SPEC_STAGES;
+    hopper::mbar_wait(&bars[1 + s], (c / SPEC_STAGES) & 1);
+    const double* sbin = edges + 2 * SPEC_CHUNK * s;
+    const double* svol = sbin + SPEC_CHUNK;
+    const int n = min(SPEC_CHUNK, eb - c * SPEC_CHUNK);
+    // this thread's edge: its owner warp (none: SPEC_WARPS), its place
+    // among the warp's edges of that owner, and each owner's count
+    const int b = t < n ? (int)sbin[t] : 0;
+    const int owner = b > 0 && b < GG ? b & (SPEC_WARPS - 1) : SPEC_WARPS;
+    unsigned peers = 0u;
+    int count = 0;
+#pragma unroll
+    for (int o = 0; o < SPEC_WARPS; ++o) {
+      const unsigned mask = __ballot_sync(FULL_MASK, owner == o);
+      if (owner == o) peers = mask;
+      if (lane == o) count = __popc(mask);
+    }
+    if (lane < SPEC_WARPS) split[warp * SPEC_WARPS + lane] = count;
+    __syncthreads();
+    if (t < SPEC_WARPS) {     // owner t's list: offsets over the warps
+      int k[SPEC_WARPS];
+#pragma unroll
+      for (int w = 0; w < SPEC_WARPS; ++w) k[w] = split[w * SPEC_WARPS + t];
+      int at = 0;
+#pragma unroll
+      for (int w = 0; w < SPEC_WARPS; ++w) {
+        split[w * SPEC_WARPS + t] = at;
+        at += k[w];
+      }
+      split[SPEC_WARPS * SPEC_WARPS + t] = at;
     }
     __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const int b = sbin[i];
-      if ((b & (SPEC_THREADS - 1)) == t && b >= 0 && b < GG) {
-        F[b] = __dadd_rn(F[b], sw[i]);
+    if (owner < SPEC_WARPS) {
+      const int at = split[warp * SPEC_WARPS + owner]
+                     + __popc(peers & ((1u << lane) - 1));
+      cbin[owner * SPEC_CHUNK + at] = b;
+      cvol[owner * SPEC_CHUNK + at] = svol[t];
+    }
+    __syncthreads();                    // buffer s is consumed
+    if (t == 0 && c + SPEC_STAGES < n_chunks) {
+      spec_stage_chunk(edges, row, eb, c + SPEC_STAGES, bars);
+    }
+    const int cnt = split[SPEC_WARPS * SPEC_WARPS + warp];
+    for (int j0 = 0; j0 < cnt; j0 += 32) {
+      const bool in = j0 + lane < cnt;
+      const int bin = in ? wbin[j0 + lane] : -1;
+      const double v = in ? wvol[j0 + lane] : 0.0;
+      const unsigned same = __match_any_sync(FULL_MASK, bin);
+      const unsigned before = same & ((1u << lane) - 1);
+      const bool leads = in && before == 0;
+      const int len = __popc(same);
+      // the runs end to end in their leaders' lane order: an exclusive
+      // scan of the run lengths over the leaders
+      int end_at = leads ? len : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(FULL_MASK, end_at, d);
+        if (lane >= d) end_at += y;
       }
+      const int run_at = __shfl_sync(FULL_MASK, end_at - (leads ? len : 0),
+                                     __ffs(same) - 1);
+      if (in) wrun[run_at + __popc(before)] = v;
+      __syncwarp();
+      if (leads) {
+        double acc = F[bin];
+#pragma unroll 4
+        for (int r = 0; r < len; ++r) acc = __dadd_rn(acc, wrun[run_at + r]);
+        F[bin] = acc;
+      }
+      __syncwarp();
     }
   }
+  hopper::mbar_wait(&bars[0], 0);      // the tail has landed
   __syncthreads();
 
-  // 3. slice sums, one thread a group
-  for (int r = t; r < G; r += SPEC_THREADS) {
-    const double* fr = F + (long long)r * G;
-    rta[r] = seq_sum(fr[1], fr + sa, 1, sb - sa);
-    rtb[r] = seq_sum(fr[2], fr + sb, 1, G - sb);
-    cfa[r] = seq_sum(F[G + r], F + (long long)sa * G + r, G, sb - sa);
-    cfb[r] = seq_sum(F[2LL * G + r], F + (long long)sb * G + r, G, G - sb);
-  }
-  __syncthreads();
-
-  // the flow-derived feature rows (AV.intra .. AV.in_other; lane 0 is the
-  // empty candidate) and the eight flow scalars
-  for (int c = t; c < a_n; c += SPEC_THREADS) {
-    const int q = sa + c - 1;
-    const bool on = c > 0;
-    av[AV_INTRA * a_n + c] = on ? F[(long long)q * G + q] : 0.0;
-    av[AV_OUT_OWN * a_n + c] = on ? rta[q] : 0.0;
-    av[AV_IN_OWN * a_n + c] = on ? cfa[q] : 0.0;
-    av[AV_OUT_PEER * a_n + c] = on ? rtb[q] : 0.0;
-    av[AV_IN_PEER * a_n + c] = on ? cfb[q] : 0.0;
-    av[AV_OUT_OTHER * a_n + c] = on ? F[(long long)q * G] : 0.0;
-    av[AV_IN_OTHER * a_n + c] = on ? F[q] : 0.0;
-  }
-  for (int c = t; c < b_n; c += SPEC_THREADS) {
-    const int q = sb + c - 1;
-    const bool on = c > 0;
-    bv[AV_INTRA * b_n + c] = on ? F[(long long)q * G + q] : 0.0;
-    bv[AV_OUT_OWN * b_n + c] = on ? rtb[q] : 0.0;
-    bv[AV_IN_OWN * b_n + c] = on ? cfb[q] : 0.0;
-    bv[AV_OUT_PEER * b_n + c] = on ? rta[q] : 0.0;
-    bv[AV_IN_PEER * b_n + c] = on ? cfa[q] : 0.0;
-    bv[AV_OUT_OTHER * b_n + c] = on ? F[(long long)q * G] : 0.0;
-    bv[AV_IN_OTHER * b_n + c] = on ? F[q] : 0.0;
-  }
-  if (t < 8) {
-    double f;
-    switch (t) {
-      case SC_F_AB: f = seq_sum(rtb[1], rtb + sa, 1, sb - sa); break;
-      case SC_F_BA: f = seq_sum(rta[2], rta + sb, 1, G - sb); break;
-      case SC_F_AA: f = seq_sum(rta[1], rta + sa, 1, sb - sa); break;
-      case SC_F_BB: f = seq_sum(rtb[2], rtb + sb, 1, G - sb); break;
-      case SC_F_AO: f = seq_sum(F[G], F + (long long)sa * G, G, sb - sa);
-                    break;
-      case SC_F_OA: f = seq_sum(F[1], F + sa, 1, sb - sa); break;
-      case SC_F_BO: f = seq_sum(F[2LL * G], F + (long long)sb * G, G, G - sb);
-                    break;
-      default:      f = seq_sum(F[2], F + sb, 1, G - sb); break;  // f_ob
+  // 3. the slice sums and the flow scalars read off F: chain k of each
+  // block of gp (>= G + 4, whole warps) is a group's slice sum, its last
+  // ones (block 0) the four scalars; one loop, so a warp does not diverge
+  const int gp = (G + 4 + 31) & ~31;
+  for (int k = t; k < 4 * gp; k += SPEC_THREADS) {
+    const int which = k / gp, r = k - which * gp;
+    double s0 = 0.0;
+    const double* x = F;
+    int xs = 1, n = 0;
+    double* dst = nullptr;
+    if (r < G) {
+      const bool to_a = (which & 1) == 0;   // rows into a / cols out of a
+      const int lo = to_a ? sa : sb, len = to_a ? sb - sa : G - sb;
+      if (which < 2) {                  // row_to_a / row_to_b of group r
+        s0 = F[r * G + 1 + which];
+        x = F + r * G + lo;
+      } else {                          // col_from_a / col_from_b
+        s0 = F[(which - 1) * G + r];
+        x = F + lo * G + r;
+        xs = G;
+      }
+      n = len;
+      dst = slices + which * G + r;
+    } else if (which == 0 && r < G + 4) {
+      const int f = r - G;              // f_ao, f_oa, f_bo, f_ob
+      const bool a_side = f < 2, col = (f & 1) == 0;
+      const int lo = a_side ? sa : sb;
+      n = a_side ? sb - sa : G - sb;
+      s0 = col ? F[(a_side ? 1 : 2) * G] : F[a_side ? 1 : 2];
+      x = col ? F + lo * G : F + lo;
+      xs = col ? G : 1;
+      dst = sc + SC_F_AO + f;
     }
-    sc[t] = f;
+    if (dst != nullptr) *dst = seq_sum(s0, x, xs, n);
   }
   __syncthreads();
+  const double* rta = slices;
+  const double* rtb = slices + G;
+  const double* cfa = slices + 2 * G;
+  const double* cfb = slices + 3 * G;
+  if (t < 4) {    // f_ab, f_ba, f_aa, f_bb over the slice sums
+    const double* x = (t == 0 || t == 3) ? rtb : rta;
+    const bool a_cols = (t & 1) == 0;   // f_ab, f_aa sum over the a groups
+    sc[SC_F_AB + t] = seq_sum(x[a_cols ? 1 : 2], x + (a_cols ? sa : sb), 1,
+                              a_cols ? sb - sa : G - sb);
+  }
+  if (p_n > 32) {
+    __syncthreads();
+  } else {
+    if (warp != 0) return;
+    __syncwarp();
+  }
 
-  // 4. one thread a shortlist slot
-  const double w_before = row[g.o_ms + 4];
-  const double p_count = row[g.o_ms + 5];
+  // 4. one thread a shortlist slot, each thread's first maximum
+  const double* hav = tail;                          // host rows of a
+  const double* hbv = tail + 7 * a_n;
+  const double* pmh = tail + (g.o_pm - g.o_av);
+  const double* iaf = tail + (g.o_ia - g.o_av);
+  const double* ibf = tail + (g.o_ib - g.o_av);
+  const double w_before = ms[4];
+  const double p_count = ms[5];
+  double best_s = -(double)INFINITY, best_a = 0.0, best_b = 0.0;
+  int best_j = INT_MAX;
   for (int p = t; p < p_n; p += SPEC_THREADS) {
-    const int ia = (int)row[g.o_ia + p];
-    const int ib = (int)row[g.o_ib + p];
+    const int ia = (int)iaf[p];
+    const int ib = (int)ibf[p];
+    double av[N_AV], bv[N_AV], pe[N_PM], o[N_OUT];
+    spec_flow_rows(av, F, G, sa - 1 + ia, ia > 0, rta, cfa, rtb, cfb);
+    spec_flow_rows(bv, F, G, sb - 1 + ib, ib > 0, rtb, cfb, rta, cfa);
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      av[AV_LOAD + k] = hav[k * a_n + ia];
+      bv[AV_LOAD + k] = hbv[k * b_n + ib];
+    }
     const bool on = ia >= 1 && ib >= 1;
-    const long long fa = sa - 1 + ia, fb = sb - 1 + ib;
-    double pe[N_PM];
+    const int fa = sa - 1 + ia, fb = sb - 1 + ib;
     pe[PM_X_AB] = on ? F[fa * G + fb] : 0.0;
     pe[PM_X_BA] = on ? F[fb * G + fa] : 0.0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) pe[PM_CS_A + k] = row[g.o_pm + k * p_n + p];
-    double o[N_OUT];
-    score_lane<double>(av + ia, a_n, bv + ib, b_n, pe, 1, sc, ia, ib, o);
-    const bool feasible = o[OUT_MEM_A] <= cf[CF_MEM_CAP_A]
-                          && o[OUT_MEM_B] <= cf[CF_MEM_CAP_B];
-    const double w_a = combine_work(cf, o[OUT_LOAD_A], cf[CF_SPEED_A],
+    for (int k = 0; k < 4; ++k) pe[PM_CS_A + k] = pmh[k * p_n + p];
+    score_lane<double>(av, 1, bv, 1, pe, 1, sc, ia, ib, o);
+    const bool feasible = o[OUT_MEM_A] <= sc[SC_MEM_CAP_A]
+                          && o[OUT_MEM_B] <= sc[SC_MEM_CAP_B];
+    const double w_a = combine_work(ms, o[OUT_LOAD_A], sc[SC_SPEED_A],
                                     o[OUT_OFF_A], o[OUT_ON_A], o[OUT_HOM_A]);
-    const double w_b = combine_work(cf, o[OUT_LOAD_B], cf[CF_SPEED_B],
+    const double w_b = combine_work(ms, o[OUT_LOAD_B], sc[SC_SPEED_B],
                                     o[OUT_OFF_B], o[OUT_ON_B], o[OUT_HOM_B]);
     const double diff = __dsub_rn(w_before, nan_max(w_a, w_b));
     const bool valid = (double)p < p_count;
-    s_score[p] = (valid && feasible && diff > 1e-12) ? diff : -(double)INFINITY;
-    s_wa[p] = w_a;
-    s_wb[p] = w_b;
-  }
-  __syncthreads();
-
-  // 5. the first maximum
-  if (t == 0) {
-    int j = 0;
-    double best = s_score[0];
-    for (int k = 1; k < p_n; ++k) {
-      if (s_score[k] > best) {
-        best = s_score[k];
-        j = k;
-      }
+    const double score = (valid && feasible && diff > 1e-12)
+                         ? diff : -(double)INFINITY;
+    if (best_j == INT_MAX || score > best_s) {
+      best_s = score;
+      best_j = p;
+      best_a = w_a;
+      best_b = w_b;
     }
+  }
+
+  // 5. the first maximum: within the warp, then across the warps
+  warp_first_max(best_s, best_j, best_a, best_b);
+  if (p_n > 32) {
+    if (lane == 0) {
+      best[4 * warp] = best_s;
+      best[4 * warp + 1] = (double)best_j;
+      best[4 * warp + 2] = best_a;
+      best[4 * warp + 3] = best_b;
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    const bool has = lane < SPEC_WARPS;
+    best_s = has ? best[4 * lane] : -(double)INFINITY;
+    best_j = has ? (int)best[4 * lane + 1] : INT_MAX;
+    best_a = has ? best[4 * lane + 2] : 0.0;
+    best_b = has ? best[4 * lane + 3] : 0.0;
+    warp_first_max(best_s, best_j, best_a, best_b);
+  }
+  if (t == 0) {
     double* o = out + 4LL * blockIdx.x;
-    o[0] = (double)j;
-    o[1] = best;
-    o[2] = s_wa[j];
-    o[3] = s_wb[j];
+    o[0] = (double)best_j;
+    o[1] = best_s;
+    o[2] = best_a;
+    o[3] = best_b;
   }
 }
 
@@ -545,15 +754,21 @@ ccm_scorer_spec_kernel(const double* __restrict__ buf,
 constexpr int BAD_INDEX = -1;
 
 int launch_spec(const double* buf, double* out, double* f_global, int w_n,
-                int eb, int a_n, int b_n, int p_n, const double* host_buf,
-                cudaStream_t stream) {
+                int eb, int a_n, int b_n, int p_n, int stride,
+                const double* host_buf, cudaStream_t stream) {
   const SpecGeom g = spec_geom(eb, a_n, b_n, p_n);
+  // the bulk copies' 16-byte granules: an even eb and row stride, room for
+  // the tail's rounded copy, an aligned buffer
+  if (eb % 2 != 0 || stride % 2 != 0 || stride < g.o_av + spec_tail(g)
+      || reinterpret_cast<uintptr_t>(buf) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const double gg = (double)g.g_n * g.g_n;
   // the launcher's host copy of the rows, checked here: a bin or a pair
   // off its tile would write or read outside F and the lanes
   if (host_buf != nullptr) {
     for (int w = 0; w < w_n; ++w) {
-      const double* row = host_buf + (long long)w * g.row_len;
+      const double* row = host_buf + (long long)w * stride;
       for (int e = 0; e < eb; ++e) {
         if (!(row[e] >= 0.0 && row[e] < gg)) return BAD_INDEX;
       }
@@ -574,7 +789,8 @@ int launch_spec(const double* buf, double* out, double* f_global, int w_n,
     if (rc != cudaSuccess) return (int)rc;
   }
   ccm_scorer_spec_kernel<<<(unsigned)w_n, SPEC_THREADS, (size_t)smem,
-                           stream>>>(buf, out, f_global, eb, a_n, b_n, p_n);
+                           stream>>>(buf, out, f_global, eb, a_n, b_n, p_n,
+                                     stride);
   return (int)cudaGetLastError();
 }
 
@@ -656,18 +872,21 @@ extern "C" int ccm_scorer_pairs_f32(const float* av, const float* bv,
                              (cudaStream_t)stream);
 }
 
-// The speculative window: buf (W, row_len) float64 rows in the
-// layout.spec_offsets(eb, a_n, b_n, p_n) layout, out (W, 4) float64,
-// f_global a (W, G, G) float64 scratch slab or null (F in shared memory).
-// The caller checks the shapes (W, eb, a_n, b_n, p_n >= 1; a_n, b_n <=
-// 65536) and, unless it passes host_buf (a host copy of buf, checked here
-// before the launch), that every bin and pair lies inside its tile.
+// The speculative window: buf (W, stride) float64 rows in the
+// layout.spec_offsets(eb, a_n, b_n, p_n) layout (row_len values, then
+// padding up to stride), out (W, 4) float64, f_global a (W, G, G) float64
+// scratch slab or null (F in shared memory).  Refused (cudaErrorInvalidValue)
+// unless eb and stride are even, stride >= row_len rounded up to even and
+// buf is 16-byte aligned.  The caller checks the shapes (W, eb, a_n, b_n,
+// p_n >= 1; G * G < 2^31) and, unless it passes host_buf (a host copy of
+// buf, checked here before the launch), that every bin and pair lies
+// inside its tile.
 extern "C" int ccm_scorer_spec_f64(const double* buf, double* out,
                                    double* f_global, int w_n, int eb, int a_n,
-                                   int b_n, int p_n, const double* host_buf,
-                                   void* stream) {
-  return launch_spec(buf, out, f_global, w_n, eb, a_n, b_n, p_n, host_buf,
-                     (cudaStream_t)stream);
+                                   int b_n, int p_n, int stride,
+                                   const double* host_buf, void* stream) {
+  return launch_spec(buf, out, f_global, w_n, eb, a_n, b_n, p_n, stride,
+                     host_buf, (cudaStream_t)stream);
 }
 
 // The launcher's copies and its wait, on its stream: one copy of the

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's bf16 tensor-core
-// kernels (flash_attention.cu, moe_gemm.cu): shared-memory barriers
-// (mbarrier), TMA tile loads (cp.async.bulk.tensor) and the tensor maps that
-// describe them, warpgroup register hand-off (setmaxnreg), and warpgroup
-// matrix products (wgmma.mma_async) on 128-byte-swizzled shared tiles.
+// kernels (flash_attention.cu, moe_gemm.cu) and the CCM window kernel
+// (ccm_scorer.cu): shared-memory barriers (mbarrier), TMA tile loads
+// (cp.async.bulk.tensor) and the tensor maps that describe them, 1-D bulk
+// copies (cp.async.bulk), warpgroup register hand-off (setmaxnreg), and
+// warpgroup matrix products (wgmma.mma_async) on 128-byte-swizzled shared
+// tiles.
 //
 // Tile layout.  Every operand tile is loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B and a box whose inner extent is 64 bf16 (128
@@ -94,6 +96,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous memory from global `src` to
+// shared `dst`, both 16-byte aligned, by one bulk copy (no tensor map);
+// completes `bytes` on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

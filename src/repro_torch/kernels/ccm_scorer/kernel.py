@@ -26,9 +26,12 @@ JAX package's XLA-compiled ``kind="spec"`` body,
 (``PhaseEngine.spec_raw``) in, (W, 4) float64 ``[slot, score, w_a, w_b]``
 out; on CPU tensors the plain version (:func:`ref.score_spec_rows`), on
 CUDA tensors one launch of ``ccm_scorer_spec_f64`` (:func:`launch_spec`,
-one block a row), counted in :data:`SPEC_LAUNCHES`.  The flow matrix
-lives in shared memory where it fits (:func:`spec_f_in_smem`) and in a
-global scratch slab beyond; float64 only.
+one block a row, the row staged by bulk copies), counted in
+:data:`SPEC_LAUNCHES`.  The flow matrix lives in shared memory where it
+fits (:func:`spec_f_in_smem`) and in a global scratch slab beyond;
+float64 only.  The bulk copies move 16-byte granules, so the kernel takes
+rows at an even stride (:func:`spec_stride`), from a 16-byte aligned
+buffer, with an even edge bucket.
 """
 from __future__ import annotations
 
@@ -58,9 +61,14 @@ SPEC_LAUNCHES = {"float64": 0}
 _DTYPES = {torch.float64: "float64", torch.float32: "float32"}
 _MAX_EVENTS = 65535         # grid.y
 _BAD_PAIR = -1              # the C launches' code for an index off its tile
-#: the window kernel's block and its edge staging chunk (csrc/ccm_scorer.cu)
+#: the window kernel's block, its edge staging chunk and ring of staging
+#: buffers (csrc/ccm_scorer.cu)
 SPEC_THREADS = 256
+SPEC_WARPS = SPEC_THREADS // 32
 SPEC_CHUNK = 256
+SPEC_STAGES = 4
+#: the kernel's mbarriers (the tail's and one a staging buffer), in bytes
+_SPEC_BARS_BYTES = -(-8 * (1 + SPEC_STAGES) // 16) * 16
 _lib = None
 
 
@@ -89,7 +97,7 @@ def build(verbose: bool = False) -> Path:
             + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     lib.ccm_scorer_spec_f64.argtypes = [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     lib.ccm_scorer_spec_f64.restype = ctypes.c_int
     lib.ccm_scorer_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_longlong, ctypes.c_void_p]
@@ -265,16 +273,27 @@ def score_pairs(av: torch.Tensor, bv: torch.Tensor, pm: torch.Tensor,
 
 
 # ------------------------------------------------- the speculative window
+def spec_stride(row_len: int) -> int:
+    """The row stride (float64 values) the window kernel takes for rows of
+    ``row_len``: rounded up to even, so that every row starts on a 16-byte
+    granule and the rounded copy of its tail stays inside it."""
+    return row_len + (row_len & 1)
+
+
 def spec_smem_bytes(a_n: int, b_n: int, p_n: int, f_in_smem: bool) -> int:
-    """Dynamic shared memory of one window-kernel block, in bytes: the flow
-    matrix (when it lives there), both sides' feature rows, the four slice
-    sums, the scalar and combine rows, an edge chunk (weights and int32
-    bins) and the slots' scores and works (``spec_smem_bytes`` in
-    csrc/ccm_scorer.cu)."""
+    """Dynamic shared memory of one window-kernel block, in bytes: its
+    mbarriers, the row's tail (everything after the edges, rounded up to
+    even), the ring of edge staging buffers (bins and volumes), the flow
+    matrix (when it lives there), the four slice sums, the warps' winners,
+    each warp's list of its edges (volumes, int bins) and run buffer, and
+    the split's counts (``spec_smem_bytes`` in csrc/ccm_scorer.cu)."""
     g_n = spec_groups(a_n, b_n)[2]
-    doubles = ((g_n * g_n if f_in_smem else 0) + N_AV * (a_n + b_n)
-               + 4 * g_n + N_SC + N_CF + SPEC_CHUNK + 3 * p_n)
-    return 8 * doubles + 4 * SPEC_CHUNK
+    tail = spec_stride(spec_offsets(0, a_n, b_n, p_n)[-1])
+    doubles = (tail + 2 * SPEC_STAGES * SPEC_CHUNK
+               + (g_n * g_n if f_in_smem else 0) + 4 * g_n + 4 * SPEC_WARPS
+               + SPEC_WARPS * (SPEC_CHUNK + 32))
+    return (_SPEC_BARS_BYTES + 8 * doubles
+            + 4 * SPEC_WARPS * (SPEC_CHUNK + SPEC_WARPS + 1))
 
 
 def spec_f_in_smem(a_n: int, b_n: int, p_n: int) -> bool:
@@ -286,10 +305,13 @@ def spec_f_in_smem(a_n: int, b_n: int, p_n: int) -> bool:
 def check_spec_shapes(w_n: int, eb: int, a_n: int, b_n: int, p_n: int,
                       f_in_smem: bool) -> None:
     """The window kernel's limits: at least one row, edge slot, lane and
-    pair slot; int indexing; one block's shared memory."""
+    pair slot; an even edge bucket (the edge regions are copied in 16-byte
+    granules); int indexing; one block's shared memory."""
     if min(w_n, eb, a_n, b_n, p_n) < 1:
         raise ValueError(f"ccm_scorer spec: empty window (W={w_n}, eb={eb}, "
                          f"A={a_n}, B={b_n}, P={p_n})")
+    if eb % 2:
+        raise ValueError(f"ccm_scorer spec: odd edge bucket {eb}")
     g_n = spec_groups(a_n, b_n)[2]
     if (w_n >= 2 ** 31 or g_n * g_n >= 2 ** 31
             or spec_offsets(eb, a_n, b_n, p_n)[-1] >= 2 ** 31):
@@ -304,20 +326,23 @@ def check_spec_shapes(w_n: int, eb: int, a_n: int, b_n: int, p_n: int,
 
 
 def launch_spec(buf: int, out: int, scratch: int, w_n: int, eb: int,
-                a_n: int, b_n: int, p_n: int, stream: int,
+                a_n: int, b_n: int, p_n: int, stride: int, stream: int,
                 host_buf: int = 0) -> None:
     """One launch of the window kernel on device pointers (ints): ``buf``
-    (W, row_len) float64 rows, ``out`` (W, 4) float64, ``scratch`` a
-    (W, G, G) float64 slab for the flow matrices or 0 (in shared memory),
-    on ``stream``; counted in :data:`SPEC_LAUNCHES`.  The caller has
-    checked the shapes (:func:`check_spec_shapes`) and, unless it passes
-    ``host_buf`` (a host copy of the rows, which the C side then checks
+    (W, stride) float64 rows (each ``row_len`` values, then padding), 16-
+    byte aligned, ``stride`` even and at least ``spec_stride(row_len)``,
+    ``out`` (W, 4) float64, ``scratch`` a (W, G, G) float64 slab for the
+    flow matrices or 0 (in shared memory), on ``stream``; counted in
+    :data:`SPEC_LAUNCHES`.  The caller has checked the shapes
+    (:func:`check_spec_shapes`) and, unless it passes ``host_buf`` (a host
+    copy of the rows at the same stride, which the C side then checks
     before it launches), every bin and pair; an index off its tile raises
-    IndexError, a refused launch RuntimeError."""
+    IndexError, a refused launch (the C side also refuses a stride or
+    alignment the bulk copies cannot take) RuntimeError."""
     if _lib is None:
         build()
     rc = _lib.ccm_scorer_spec_f64(buf, out, scratch, w_n, eb, a_n, b_n, p_n,
-                                  host_buf, stream)
+                                  stride, host_buf, stream)
     if rc == _BAD_PAIR:
         raise IndexError(f"ccm_scorer spec: a bin or pair lies outside its "
                          f"tile (A={a_n}, B={b_n})")
@@ -345,7 +370,9 @@ def score_spec_rows(buf: torch.Tensor, a_lanes: int, b_lanes: int,
     ``buf`` (W, row_len) float64: the plain torch version on a CPU tensor,
     the CUDA window kernel on a CUDA tensor.  ``f_global`` places the flow
     matrices in a global scratch slab (True) or in shared memory (False);
-    None (default) picks shared memory where it fits."""
+    None (default) picks shared memory where it fits.  Rows the kernel
+    cannot take as they lie (an odd length or stride, an unaligned start)
+    are first copied to a fresh buffer at :func:`spec_stride`."""
     if buf.dim() != 2 or buf.dtype != torch.float64:
         raise ValueError("ccm_scorer spec: expected (W, row_len) float64 "
                          f"rows (got {tuple(buf.shape)} {buf.dtype})")
@@ -354,12 +381,19 @@ def score_spec_rows(buf: torch.Tensor, a_lanes: int, b_lanes: int,
     _check_spec_indices(buf, eb, a_lanes, b_lanes, p_n)
     if buf.device.type == "cpu":
         return ref.score_spec_rows(buf, a_lanes, b_lanes, p_n)
-    if buf.device.type != "cuda" or not buf.is_contiguous():
-        raise ValueError("ccm_scorer spec: rows must be a contiguous CPU or "
-                         "CUDA tensor")
+    if buf.device.type != "cuda":
+        raise ValueError("ccm_scorer spec: rows must be a CPU or CUDA tensor")
     in_smem = (spec_f_in_smem(a_lanes, b_lanes, p_n) if f_global is None
                else not f_global)
     check_spec_shapes(w_n, eb, a_lanes, b_lanes, p_n, in_smem)
+    stride = buf.stride(0)
+    if (buf.stride(1) != 1 or stride % 2 or row_len % 2 or stride < row_len
+            or buf.data_ptr() % 16):
+        stride = spec_stride(row_len)
+        padded = torch.zeros((w_n, stride), dtype=buf.dtype,
+                             device=buf.device)
+        padded[:, :row_len] = buf
+        buf = padded
     out = torch.empty((w_n, 4), dtype=torch.float64, device=buf.device)
     g_n = spec_groups(a_lanes, b_lanes)[2]
     scratch = (None if in_smem else
@@ -368,6 +402,6 @@ def score_spec_rows(buf: torch.Tensor, a_lanes: int, b_lanes: int,
     with torch.cuda.device(buf.device):
         launch_spec(buf.data_ptr(), out.data_ptr(),
                     0 if scratch is None else scratch.data_ptr(), w_n, eb,
-                    a_lanes, b_lanes, p_n,
+                    a_lanes, b_lanes, p_n, stride,
                     torch.cuda.current_stream(buf.device).cuda_stream)
     return out

@@ -262,11 +262,14 @@ class Staging:
 
     def window(self, w_n: int, row_len: int) -> np.ndarray:
         """A (w_n, row_len) float64 view of the host input buffer (grown
-        to hold it), for a window of spec rows."""
-        nbytes = 8 * w_n * row_len
+        to hold it), for a window of spec rows, at the window kernel's row
+        stride (``kernel.spec_stride``: row_len rounded up to even, so each
+        row starts on a 16-byte granule; a pad value is never used)."""
+        stride = kernel.spec_stride(row_len)
+        nbytes = 8 * w_n * stride
         self._input(nbytes)
-        return self.host_in_np[:nbytes].view(np.float64).reshape(w_n,
-                                                                 row_len)
+        return self.host_in_np[:nbytes].view(np.float64).reshape(
+            w_n, stride)[:, :row_len]
 
     def scratch(self, n: int) -> int:
         """The address of a device scratch buffer of at least ``n`` float64
@@ -427,9 +430,10 @@ def score_spec(raws: Sequence[Tuple[np.ndarray, int]], *, a_lanes: int,
     4)`` float64 ``[slot, score, w_a, w_b]`` (``ref.score_spec_rows``).
 
     On the card the rows are stacked into the pinned staging buffer of
-    (device, float64), copied in, scored by one launch of the window kernel
-    and (W, 4) copied back, each step one C call on the current stream; on
-    the CPU the same buffer goes through the plain version.  ``mode`` is
+    (device, float64) at the kernel's even row stride, copied in, scored
+    by one launch of the window kernel and (W, 4) copied back, each step
+    one C call on the current stream; on the CPU the same buffer (the same
+    stride) goes through the plain version.  ``mode`` is
     ``"scan"`` or ``"vmap"`` (:data:`SPEC_MODES`), which run the same
     kernel.  ``device`` None means CUDA."""
     if mode not in SPEC_MODES:
@@ -480,13 +484,14 @@ def _score_spec_cuda(st: Staging, w_n: int, eb: int, row_len: int,
     kernel.check_spec_shapes(w_n, eb, a_n, b_n, p_n, in_smem)
     g_n = spec_groups(a_n, b_n)[2]
     scratch = 0 if in_smem else st.scratch(w_n * g_n * g_n)
-    nbytes = 8 * w_n * row_len
+    stride = kernel.spec_stride(row_len)
+    nbytes = 8 * w_n * stride
     st.output(4 * w_n)
     stream = torch._C._cuda_getCurrentRawStream(st.index)
     kernel.copy_async(st.dev_in_ptr, st.host_in_ptr, nbytes, stream)
     t1 = perf_counter()
     kernel.launch_spec(st.dev_in_ptr, st.dev_out_ptr, scratch, w_n, eb, a_n,
-                       b_n, p_n, stream, host_buf=st.host_in_ptr)
+                       b_n, p_n, stride, stream, host_buf=st.host_in_ptr)
     t2 = perf_counter()
     kernel.copy_async(st.host_out_ptr, st.dev_out_ptr, 8 * 4 * w_n, stream)
     kernel.synchronize(stream)

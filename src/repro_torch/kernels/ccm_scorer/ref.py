@@ -228,6 +228,25 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def spec_flow(buf: torch.Tensor, a_lanes: int, b_lanes: int,
+              p_n: int) -> torch.Tensor:
+    """The (W, G, G) flow matrices of window rows ``buf`` (W, row_len):
+    each bin sums its edges in edge order from 0.0, as ``np.bincount``
+    does (one edge slot of every row per step; distinct rows never share
+    an index, so the step is exact on any device)."""
+    w_n, row_len = buf.shape
+    eb = spec_edge_bucket(row_len, a_lanes, b_lanes, p_n)
+    g_n = spec_groups(a_lanes, b_lanes)[2]
+    rows = torch.arange(w_n, device=buf.device)
+    bins = buf[:, :eb].to(torch.int64)
+    wgt = buf[:, eb:2 * eb]
+    flat = torch.zeros((w_n, g_n * g_n), dtype=buf.dtype, device=buf.device)
+    for k in range(eb):
+        idx = bins[:, k]
+        flat[rows, idx] = flat[rows, idx] + wgt[:, k]
+    return flat.view(w_n, g_n, g_n)
+
+
 def score_spec_rows(buf: torch.Tensor, a_lanes: int, b_lanes: int,
                     p_n: int) -> torch.Tensor:
     """The plain version of the window scorer: ``buf`` (W, row_len) float64
@@ -242,10 +261,8 @@ def score_spec_rows(buf: torch.Tensor, a_lanes: int, b_lanes: int,
     (``repro/kernels/ccm_scorer/jit.py:271-358``), in one fixed order that
     the CUDA kernel repeats bit for bit:
 
-    - the flow matrix F: each bin sums its edges in edge order from 0.0,
-      as ``np.bincount`` does (one edge slot of every row per step;
-      distinct rows never share an index, so the step is exact on any
-      device);
+    - the flow matrix F (:func:`spec_flow`): each bin sums its edges in
+      edge order from 0.0, as ``np.bincount`` does;
     - slice sums sequential in ascending index, added to the direct entry
       (``F[:, 1] + (F[:, sa] + F[:, sa+1] + ...)``), for the feature rows
       and the eight flow scalars alike;
@@ -260,18 +277,12 @@ def score_spec_rows(buf: torch.Tensor, a_lanes: int, b_lanes: int,
     """
     w_n, row_len = buf.shape
     eb = spec_edge_bucket(row_len, a_lanes, b_lanes, p_n)
-    o_w, o_av, o_bv, o_pm, o_sc, o_ia, o_ib, o_ms, _ = spec_offsets(
+    _, o_av, o_bv, o_pm, o_sc, o_ia, o_ib, o_ms, _ = spec_offsets(
         eb, a_lanes, b_lanes, p_n)
     sa, sb, g_n = spec_groups(a_lanes, b_lanes)
     dt, dev = buf.dtype, buf.device
-    rows = torch.arange(w_n, device=dev)
-    bins = buf[:, :o_w].to(torch.int64)
-    wgt = buf[:, o_w:o_av]
-    flat = torch.zeros((w_n, g_n * g_n), dtype=dt, device=dev)
-    for k in range(eb):
-        idx = bins[:, k]
-        flat[rows, idx] = flat[rows, idx] + wgt[:, k]
-    F = flat.view(w_n, g_n, g_n)
+    F = spec_flow(buf, a_lanes, b_lanes, p_n)
+    flat = F.view(w_n, g_n * g_n)
 
     row_to_a = F[:, :, 1] + _seq_sum(F[:, :, sa:sb])        # v(g -> a)
     row_to_b = F[:, :, 2] + _seq_sum(F[:, :, sb:])

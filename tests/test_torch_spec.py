@@ -40,7 +40,8 @@ from repro_torch.convert import from_reference
 from repro_torch.core import (CCMParams, ccm_lb, ccm_lb_many,
                               initial_assignment, random_phase)
 from repro_torch.core import spec as t_spec
-from repro_torch.kernels.ccm_scorer import kernel, launch, layout, ref
+from repro_torch.kernels.ccm_scorer import (kernel, launch, layout, ref,
+                                            spec_cases)
 
 R_PARAMS = RParams(delta=1e-9)
 KW = dict(n_iter=3, k_rounds=2, fanout=4, seed=0, use_engine=True)
@@ -146,14 +147,27 @@ def _lanes(max_candidates):
     return a_n, p_n
 
 
-def _stacked(raws, a_n, p_n):
+def _stacked(raws, a_n, p_n, b_n=None):
     """The port's window buffer of ``raws``, as ``launch.score_spec``
-    stacks it."""
+    stacks it (contiguous); ``b_n`` defaults to ``a_n``."""
     eb = max(e for _, e in raws)
-    offs = layout.spec_offsets(eb, a_n, a_n, p_n)
+    offs = layout.spec_offsets(eb, a_n, a_n if b_n is None else b_n, p_n)
     buf = np.zeros((layout.bucket_events(len(raws)), offs[-1]))
     launch.stack_spec(raws, buf, eb, offs[4])
     return buf
+
+
+def _scatter_cases():
+    """The adversarial scatter rows of ``spec_cases`` built from two real
+    rows of the phase11 capture: ``{label: raws}``."""
+    a_n, p_n = _lanes(12)
+    _, _, _, t_windows = _spec_runs(*CAPTURE_CASES["phase11"])
+    rows = [raw for raws in t_windows for raw in raws]
+    return dict(spec_cases.scatter_cases(rows[:2], a_n, a_n, p_n))
+
+
+SCATTER_CASES = ("one bin", "distinct bins", "straddle", "eb 512",
+                 "eb 1024", "eb 2048", "all pads", "order")
 
 
 # ----------------------------------------------------------- (a) layout
@@ -276,6 +290,52 @@ def test_score_spec_rows_selection_rule():
     assert out[0, 0] == 0 and out[0, 1] == base[1]
     for r in (1, 2):
         assert out[r, 0] == 0 and torch.isneginf(out[r, 1])
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_spec_flow_equals_bincount_on_scatter_cases(case):
+    """The plain version's flow matrix on the adversarial scatter rows
+    equals ``np.bincount`` (each bin summed in edge order from 0.0) bit for
+    bit, every row of the window alike."""
+    a_n, p_n = _lanes(12)
+    raws = _scatter_cases()[case]
+    assert len(raws) == 2
+    g_n = layout.spec_groups(a_n, a_n)[2]
+    buf = _stacked(raws, a_n, p_n)
+    eb = layout.spec_edge_bucket(buf.shape[1], a_n, a_n, p_n)
+    flow = ref.spec_flow(torch.from_numpy(buf), a_n, a_n, p_n).numpy()
+    for k in range(buf.shape[0]):
+        want = np.bincount(buf[k, :eb].astype(np.int64),
+                           weights=buf[k, eb:2 * eb], minlength=g_n * g_n)
+        np.testing.assert_array_equal(
+            flow[k].reshape(-1).view(np.int64), want.view(np.int64))
+    if case == "order":         # the two bins differ only by the order
+        x_ab, x_ba = (int(b) for b in raws[0][0][raws[0][1] - 6::3][:2])
+        f = flow[0].reshape(-1)
+        assert f[x_ab] != f[x_ba]
+    assert eb == {"eb 512": 512, "eb 1024": 1024, "eb 2048": 2048,
+                  "straddle": 512}.get(case, raws[0][1])
+
+
+def test_score_spec_through_the_padded_staging_stride():
+    """Rows of an odd length (lanes 5 and 8) land in the launcher's staging
+    buffer at an even stride; the window scored through it equals the plain
+    version on the same rows laid out contiguously."""
+    rng = np.random.default_rng(7)
+    raws = spec_cases.random_rows(rng, 5, 64, 5, 8, 32)
+    row_len = raws[0][0].size
+    assert row_len % 2 == 1
+    view = launch.staging(torch.device("cpu"), torch.float64).window(
+        8, row_len)
+    assert view.shape == (8, row_len)
+    assert view.strides[0] == 8 * kernel.spec_stride(row_len) \
+        == 8 * (row_len + 1)
+    got = launch.score_spec(raws, a_lanes=5, b_lanes=8, p_n=32,
+                            device="cpu")
+    want = ref.score_spec_rows(torch.from_numpy(_stacked(raws, 5, 32, 8)),
+                               5, 8, 32).numpy()[:len(raws)]
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
+    assert np.isfinite(got[:, 2:]).all()
 
 
 # ------------------------------------------------- (d) trajectories
@@ -454,8 +514,12 @@ def test_spec_knob_validation():
 
 
 def test_window_kernel_geometry():
-    """Where the window kernel keeps its flow matrix, and the limits its
-    wrapper checks before a launch (the C side refuses the same)."""
+    """Where the window kernel keeps its flow matrix, its shared memory
+    (five mbarriers in 48 bytes, the row's tail rounded to even, four
+    staging buffers of 256 edges' bins and volumes, F where it fits, the
+    slice sums, the warps' winners, each warp's list of 256 edges, run
+    buffer of 32 and counts), its row stride, and the limits its wrapper
+    checks before a launch (the C side refuses the same)."""
     for lanes, in_smem in ((8, True), (16, True), (32, True), (64, True),
                            (128, False), (256, False)):
         assert kernel.spec_f_in_smem(lanes, lanes, 32) is in_smem
@@ -463,10 +527,26 @@ def test_window_kernel_geometry():
     g_n = layout.spec_groups(16, 16)[2]
     assert kernel.spec_smem_bytes(16, 16, 32, True) \
         - kernel.spec_smem_bytes(16, 16, 32, False) == 8 * g_n * g_n
+    tail = layout.spec_offsets(0, 16, 16, 32)[-1]
+    assert tail == 454
+    # per warp: its list and run buffer, and a row of the split's counts
+    lists = 8 * 8 * (256 + 32) + 4 * 8 * (256 + 8 + 1)
+    assert kernel.spec_smem_bytes(16, 16, 32, True) == 48 + 8 * (
+        454 + 2 * 4 * 256 + g_n * g_n + 4 * g_n + 4 * 8) + lists == 57000
+    assert layout.spec_offsets(0, 5, 8, 32)[-1] == 321     # odd: + 1
+    assert kernel.spec_smem_bytes(5, 8, 32, False) == 48 + 8 * (
+        322 + 2048 + 4 * layout.spec_groups(5, 8)[2] + 32) + lists
+    # lanes 64 opt in past the default 48 KB and fit the card's 227 KB
+    assert 48 * 1024 < kernel.spec_smem_bytes(64, 64, 32, True) \
+        <= kernel._build.MAX_SMEM_BYTES
+    assert [kernel.spec_stride(n) for n in (453, 454, 455)] == [454, 454,
+                                                                456]
     with pytest.raises(ValueError, match="shared memory"):
         kernel.check_spec_shapes(8, 256, 128, 128, 32, True)
     with pytest.raises(ValueError, match="empty"):
         kernel.check_spec_shapes(0, 256, 16, 16, 32, True)
+    with pytest.raises(ValueError, match="odd edge bucket"):
+        kernel.check_spec_shapes(8, 255, 16, 16, 32, True)
     buf = torch.zeros((2, layout.spec_offsets(32, 8, 8, 32)[-1]),
                       dtype=torch.float64)
     buf[0, 0] = layout.spec_groups(8, 8)[2] ** 2    # a bin off F
@@ -481,22 +561,27 @@ def test_window_kernel_geometry():
 def test_cuda_window_kernel_equals_plain_version_on_the_card():
     """Runs only where there is a card (``chip_smoke.py`` runs the full
     check): the window kernel against its plain version bit for bit, with
-    the flow matrix in shared memory and in global scratch, and the
-    launcher's card route against its CPU route."""
+    the flow matrix in shared memory and in global scratch, on captured
+    windows, the adversarial scatter rows and rows of an odd length, and
+    the launcher's card route against its CPU route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     a_n, p_n = _lanes(12)
     _, _, _, t_windows = _spec_runs(*CAPTURE_CASES["phase11"])
-    for raws in t_windows[:20]:
-        buf = torch.from_numpy(_stacked(raws, a_n, p_n))
-        want = ref.score_spec_rows(buf, a_n, a_n, p_n)
+    windows = [(raws, a_n, a_n, p_n) for raws in t_windows[:20]]
+    windows += [(raws, a_n, a_n, p_n) for raws in _scatter_cases().values()]
+    windows.append((spec_cases.random_rows(np.random.default_rng(7), 5, 64,
+                                           5, 8, 32), 5, 8, 32))
+    for raws, a_n, b_n, p_n in windows:
+        buf = torch.from_numpy(_stacked(raws, a_n, p_n, b_n))
+        want = ref.score_spec_rows(buf, a_n, b_n, p_n)
         for f_global in (False, True):
             before = kernel.SPEC_LAUNCHES["float64"]
-            got = kernel.score_spec_rows(buf.cuda(), a_n, a_n, p_n,
+            got = kernel.score_spec_rows(buf.cuda(), a_n, b_n, p_n,
                                          f_global=f_global).cpu()
             assert kernel.SPEC_LAUNCHES["float64"] == before + 1
             assert torch.equal(got.view(torch.int64),
                                want.view(torch.int64))
-        card = launch.score_spec(raws, a_lanes=a_n, b_lanes=a_n, p_n=p_n,
+        card = launch.score_spec(raws, a_lanes=a_n, b_lanes=b_n, p_n=p_n,
                                  device="cuda")
         np.testing.assert_array_equal(card, want.numpy()[:len(raws)])
