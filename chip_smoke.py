@@ -57,7 +57,21 @@ line):
    ``ccm_lb_many`` of the JAX package's fleet benchmark (64 instances of a
    16-rank, 400-task phase, window 64, vmap), each instance identical to
    its solo run on the card's host engine.  Wall and stage seconds,
-   windows, rollbacks and the window launcher's split are printed.
+   windows, rollbacks and the window launcher's split are printed.  Then
+   ``ccm_lb_pipeline`` over the JAX package's pipeline benchmark (256
+   ranks, 6 phases of drifting loads, batch 8) on the CPU and on the card
+   with ``reuse_csr``, with ``carry_engine``, and with ``carry_engine``
+   and ``spec_window=8``: each card run equal to the CPU's phase by phase,
+   CSR reuse, warm starts and engine carry on phases 1 to 5, the pair (or
+   window) kernel launched in every phase; per-phase seconds, transfers,
+   launches and ``score``/``commit`` seconds are printed.  Last, the
+   async balancer ``ccm_lb_async`` on ``scaling_phase(256)`` at latency 0
+   (equal to the sync card run), 0.5 and uniform(0.5, 1.5) (equal to the
+   CPU's run, event trace included; the last profiled for the device's
+   idle share), and the fault benchmark's 64-rank ``crash`` and
+   ``crash_then_join`` (equal to the CPU's), each launching the pair
+   kernel once a scorer call; walls, transfers, launches and
+   ``FaultStats`` are printed.
 5. The paper's assembly application (section VI) on the card.  Hold the
    assembly-tile kernel (``src/repro_torch/csrc/assembly_tile.cu``) against
    its plain torch version: quad orders 4, 16, 64, 192; shapes (1, 1),
@@ -169,7 +183,8 @@ line):
    time.
 9. Import every module of ``repro_torch``, check that no module of JAX or
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
-   serve, per-run and assembly numbers, the launch floor, the card line,
+   serve, per-run, pipeline and async, and assembly numbers, the launch
+   floor, the card line,
    one JSON line of per-kernel numbers (the scorer's pair kernel and its
    full-tile kernel, each in float64 and float32, its window kernel, the
    assembly tile,
@@ -229,6 +244,17 @@ FLEET_KW = dict(n_iter=8, k_rounds=2, fanout=8, max_candidates=12)
 # per shortlist slot past the scorer tree and the combine: the diff, the
 # max of the works, two feasibility compares and the selection compare
 SPEC_SLOT_OPS = 5
+# the JAX package's benchmarks/ccmlb_pipeline.py full configuration (256
+# ranks, 6 phases, loads drifting by a lognormal sigma of 0.08 a phase)
+PIPE_PHASE = dict(num_ranks=256, num_tasks=6400, num_blocks=768,
+                  num_comms=12800, mem_cap=1e12)
+PIPE_N, PIPE_DRIFT = 6, 0.08
+PIPE_KW = dict(n_iter=4, k_rounds=2, fanout=4, seed=0, batch_lock_events=8)
+# benchmarks/ccmlb_async.py (256 ranks) and ccmlb_fault.py at its largest
+# size (64 ranks)
+ASYNC_LATENCIES = (0.0, 0.5, ("uniform", 0.5, 1.5))
+FAULT_LAT = ("uniform", 0.5, 1.5)
+FAULT_RANKS = 64
 ASM_SOURCE = "src/repro_torch/csrc/assembly_tile.cu"
 ASM_REPLACES = "src/repro/kernels/assembly/kernel.py:25"
 # operations per coupled entry and quadrature step, as the JAX package's
@@ -645,7 +671,7 @@ def main_path(torch, kernel, launch) -> dict:
                      f"(ranks over the cap {over}, max_work {mw[[0, -1]]})")
         if phase is scaling and name == "float64" and batch == 1:
             f64_assignment = gpu.assignment
-            f64_cpu_run = cpu
+            f64_cpu_run, f64_cuda_run = cpu, gpu
         if name == "float32" and not np.array_equal(gpu.assignment,
                                                     f64_assignment):
             fail(f"{label}: float32 assignment differs from float64")
@@ -678,7 +704,8 @@ def main_path(torch, kernel, launch) -> dict:
               f"calls {launch.STATS['seconds']!r} s, split "
               f"{launch.STATS['split']}", flush=True)
     return dict(launches=launches, shapes=shapes, pair_shapes=pair_shapes,
-                runs=runs, f64_cpu_run=f64_cpu_run)
+                runs=runs, f64_cpu_run=f64_cpu_run,
+                f64_cuda_run=f64_cuda_run)
 
 
 # -------------------------------------------- 3b / 4b. the speculative window
@@ -974,6 +1001,252 @@ def fleet_path(torch, kernel, launch) -> dict:
           f"{solo_launches} pair launches); score_spec {rec['seconds']!r} s, "
           f"split {rec['split']}", flush=True)
     return out
+
+
+# ------------------------------------------ 4c. the multi-phase pipeline
+def pipeline_phases():
+    """The JAX package's ``benchmarks/ccmlb_pipeline.py`` ``make_phases(1,
+    256)``: ``PIPE_N`` phases sharing one topology, task loads drifting by a
+    lognormal ``PIPE_DRIFT`` a phase."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import random_phase
+    phases = [random_phase(1, **PIPE_PHASE)]
+    rng = np.random.default_rng(2)
+    for _ in range(PIPE_N - 1):
+        prev = phases[-1]
+        phases.append(dataclasses.replace(
+            prev, task_load=prev.task_load
+            * rng.lognormal(0.0, PIPE_DRIFT, prev.num_tasks)))
+    return phases
+
+
+def counted_pipeline(counts: dict, **kw) -> tuple:
+    """``ccm_lb_pipeline(**kw)`` with the float64 launch count ``counts``
+    (``kernel.PAIR_LAUNCHES`` or ``kernel.SPEC_LAUNCHES``) read before and
+    after each phase's ``ccm_lb`` call (the pipeline module's own
+    reference to it is wrapped for the run and restored after)."""
+    from repro_torch.core import pipeline
+    per_phase = []
+    inner = pipeline.ccm_lb
+
+    def counted(*args, **lb):
+        n0 = counts["float64"]
+        res = inner(*args, **lb)
+        per_phase.append(counts["float64"] - n0)
+        return res
+
+    pipeline.ccm_lb = counted
+    try:
+        res = pipeline.ccm_lb_pipeline(**kw)
+    finally:
+        pipeline.ccm_lb = inner
+    return res, per_phase
+
+
+def pipeline_path(torch, kernel, launch) -> dict:
+    """``ccm_lb_pipeline`` over ``pipeline_phases()`` with
+    ``CCMParams(delta=1e-9)`` and ``PIPE_KW``, warm-started: on the CPU,
+    then on the card with ``reuse_csr``, again with ``carry_engine``, and
+    with ``carry_engine`` and ``spec_window=8`` in place of the batch;
+    each card run equals the CPU's phase by phase (assignment, transfer
+    log, count, max_work) with the CSR reused, the warm start carried and,
+    with carry, the engine carried on phases 1 to 5.  Launches, counted
+    from zero just before each card run and read just after, must be more
+    than zero in every phase and equal the scorer calls (pair kernel) or
+    the windows that scored (window kernel), with no full-tile launch and
+    none of the other kernel."""
+    from repro_torch.core import CCMParams, ccm_lb_pipeline
+    phases = pipeline_phases()
+    params = CCMParams(delta=1e-9)
+    t0 = time.perf_counter()
+    cpu = ccm_lb_pipeline(phases, params, device="cpu", **PIPE_KW)
+    cpu_s = time.perf_counter() - t0
+    out = dict(phases=PIPE_N, ranks=phases[0].num_ranks,
+               tasks=phases[0].num_tasks, cpu_s=cpu_s,
+               cpu_phase_s=[r.seconds for r in cpu.runs])
+    spec_kw = {k: v for k, v in PIPE_KW.items() if k != "batch_lock_events"}
+    for label, carry, kw in (
+            ("warm, reuse_csr", False, PIPE_KW),
+            ("warm, carry_engine", True, PIPE_KW),
+            ("warm, carry_engine, spec_window=8", True,
+             dict(spec_kw, spec_window=8))):
+        spec = "spec_window" in kw
+        counts = kernel.SPEC_LAUNCHES if spec else kernel.PAIR_LAUNCHES
+        other = kernel.PAIR_LAUNCHES if spec else kernel.SPEC_LAUNCHES
+        kernel.reset_launches()
+        launch.reset_stats()
+        t0 = time.perf_counter()
+        gpu, per_phase = counted_pipeline(
+            counts, phases=phases, params=params, device="cuda",
+            profile=True, carry_engine=carry, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts["float64"]
+        calls = (launch.STATS["spec"]["calls"] if spec
+                 else launch.STATS["calls"])
+        bad = [k for k in range(PIPE_N)
+               if not same_run(gpu.runs[k].result, cpu.runs[k].result)]
+        if bad:
+            fail(f"pipeline {label}: phases {bad} differ from the cpu run")
+        want = [False] + [True] * (PIPE_N - 1)
+        flags = dict(csr_reused=[r.csr_reused for r in gpu.runs],
+                     warm_started=[r.warm_started for r in gpu.runs],
+                     engine_carried=[r.engine_carried for r in gpu.runs])
+        if (flags["csr_reused"] != want or flags["warm_started"] != want
+                or flags["engine_carried"] != (want if carry
+                                               else [False] * PIPE_N)):
+            fail(f"pipeline {label}: flags {flags}")
+        if (n == 0 or n != calls or min(per_phase) == 0
+                or sum(kernel.LAUNCHES.values()) or sum(other.values())):
+            fail(f"pipeline {label}: launches {n} ({per_phase}) vs calls "
+                 f"{calls}, full-tile {kernel.LAUNCHES}, pair "
+                 f"{kernel.PAIR_LAUNCHES}, window {kernel.SPEC_LAUNCHES}")
+        stages = [{k: sum(t[k] for t in r.result.stage_timings)
+                   for k in ("score", "commit")} for r in gpu.runs]
+        out[label] = dict(
+            cuda_s=wall, kernel="window" if spec else "pair", launches=n,
+            calls=calls, scorer_s=(launch.STATS["spec"]["seconds"] if spec
+                                   else launch.STATS["seconds"]),
+            flags=flags,
+            phase_s=[r.seconds for r in gpu.runs],
+            phase_transfers=[r.result.transfers for r in gpu.runs],
+            phase_launches=per_phase, phase_stage_s=stages,
+            max_work=[[float(r.result.max_work[0]),
+                       float(r.result.max_work[-1])] for r in gpu.runs])
+        print(f"pipeline {label}: {PIPE_N} phases identical to cpu; "
+              f"transfers {out[label]['phase_transfers']}, "
+              f"{out[label]['kernel']} launches {per_phase} (= {n} calls); "
+              f"phase seconds "
+              f"{out[label]['phase_s']}; score/commit {stages}; wall cuda "
+              f"{wall!r} s, cpu {cpu_s!r} s", flush=True)
+    return out
+
+
+# ----------------------------------------- 4d. the asynchronous balancer
+def same_async(a, b) -> bool:
+    """``same_run`` plus the event trace, the message and protocol
+    counters and everything the fault harness records."""
+    import dataclasses
+    fs = [None if r.fault_stats is None
+          else dataclasses.asdict(r.fault_stats) for r in (a, b)]
+    return (same_run(a, b) and a.events == b.events
+            and fs[0] == fs[1] and all(
+                getattr(a, f) == getattr(b, f)
+                for f in ("messages", "sim_time", "lock_conflicts",
+                          "yields", "grant_chains", "timeouts",
+                          "retries_exhausted", "recovery_log",
+                          "dead_ranks", "joined_ranks")))
+
+
+def async_path(torch, kernel, launch, sync_run) -> dict:
+    """``ccm_lb_async`` of the JAX package's ``benchmarks/ccmlb_async.py``
+    instance ``scaling_phase(256)`` (``CCMParams(delta=1e-9)``,
+    ``MAIN_KW``) on the card at each of ``ASYNC_LATENCIES``: at zero
+    latency equal to the sync ``ccm_lb`` card run of the same phase,
+    params and knobs (``sync_run``, main_path's f64 solo, whose knobs are
+    these), otherwise equal to the CPU's run, event trace and counters
+    included; the uniform run is the profiled one.  Then
+    ``benchmarks/ccmlb_fault.py``'s ``crash`` and ``crash_then_join`` at
+    ``FAULT_RANKS`` ranks under ``FAULT_LAT``, each equal to the CPU's.
+    Pair launches, counted from zero just before each card run and read
+    just after, must equal its scorer calls and be more than zero, with no
+    full-tile or window launch."""
+    import dataclasses
+
+    from repro_torch.core import (CCMParams, FaultSpec, RankJoin,
+                                  ccm_lb_async, initial_assignment,
+                                  scaling_phase)
+    params = CCMParams(delta=1e-9)
+    if params != sync_run.state.params:
+        fail("async_path: main_path's f64 solo run has other params")
+    big = scaling_phase(256)
+    small = scaling_phase(FAULT_RANKS)
+    runs = {}
+    cases = [(f"256 ranks, latency {lat!r}", big, dict(latency=lat))
+             for lat in ASYNC_LATENCIES]
+    cases += [(f"{FAULT_RANKS} ranks, crash", small, dict(
+                  latency=FAULT_LAT, fault=FaultSpec(kill=((3, 1, 0.5),),
+                                                     seed=19))),
+              (f"{FAULT_RANKS} ranks, crash_then_join", small, dict(
+                  latency=FAULT_LAT, fault=FaultSpec(kill=((3, 1, 0.5),),
+                                                     seed=31),
+                  membership=(RankJoin(iteration=2, count=1),)))]
+    for label, phase, kw in cases:
+        a0 = initial_assignment(phase)
+        kw = dict(MAIN_KW, seed=0, collect_trace=True, **kw)
+        zero = kw["latency"] == 0.0
+        cpu_s = None
+        if not zero:
+            t0 = time.perf_counter()
+            want = ccm_lb_async(phase, a0, params, device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+        got = []
+
+        def run():
+            got.append(ccm_lb_async(phase, a0, params, device="cuda", **kw))
+
+        kernel.reset_launches()
+        launch.reset_stats()
+        prof = None
+        if kw["latency"] == ASYNC_LATENCIES[-1] and phase is big:
+            prof = profiled_run(torch, run)
+            wall = prof["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        gpu = got[0]
+        n = kernel.PAIR_LAUNCHES["float64"]
+        n_spec = sum(kernel.SPEC_LAUNCHES.values())
+        if zero:
+            if not (same_run(gpu, sync_run)
+                    and gpu.lock_conflicts == gpu.yields == 0):
+                fail(f"async {label}: differs from the sync card run")
+        elif not same_async(gpu, want):
+            fail(f"async {label}: cuda run differs from the cpu run")
+        if (n == 0 or n != launch.STATS["calls"]
+                or sum(kernel.LAUNCHES.values()) or n_spec):
+            fail(f"async {label}: pair launches {n} vs scorer calls "
+                 f"{launch.STATS['calls']}, full-tile {kernel.LAUNCHES}, "
+                 f"window {kernel.SPEC_LAUNCHES}")
+        fs = (None if gpu.fault_stats is None
+              else {k: v for k, v in dataclasses.asdict(
+                  gpu.fault_stats).items() if v})
+        if "fault" in kw and (gpu.dead_ranks != [3]
+                              or (gpu.assignment == 3).any()
+                              or not fs.get("recovered_tasks")):
+            fail(f"async {label}: dead {gpu.dead_ranks}, fault stats {fs}")
+        if "membership" in kw and (gpu.joined_ranks != [FAULT_RANKS] or not
+                                   (gpu.assignment == FAULT_RANKS).any()):
+            fail(f"async {label}: joined {gpu.joined_ranks}")
+        runs[label] = dict(
+            ranks=phase.num_ranks, cuda_s=wall, cpu_s=cpu_s,
+            profiled=prof is not None, transfers=gpu.transfers,
+            launches=n, spec_launches=n_spec,
+            score_events_s=launch.STATS["seconds"],
+            events=len(gpu.events), messages=gpu.messages,
+            sim_time=gpu.sim_time, lock_conflicts=gpu.lock_conflicts,
+            yields=gpu.yields, timeouts=gpu.timeouts, fault_stats=fs,
+            dead_ranks=gpu.dead_ranks, joined_ranks=gpu.joined_ranks,
+            max_work=[float(gpu.max_work[0]), float(gpu.max_work[-1])])
+        if prof is not None:
+            runs[label].update(
+                device_idle_share=prof["device_idle_share"],
+                device_idle_share_bounds=prof["device_idle_share_bounds"],
+                device_busy_ms=prof["device_busy_ms"])
+        print(f"async {label}: identical to "
+              f"{'the sync card run' if zero else 'cpu'}; "
+              f"{gpu.transfers} transfers, {n} pair launches, "
+              f"{len(gpu.events)} events, {gpu.lock_conflicts} conflicts; "
+              f"wall cuda {wall!r} s{' (profiled)' if prof else ''}, cpu "
+              f"{cpu_s!r} s; fault stats {fs}"
+              + (f"; device idle {prof['device_idle_share']!r} "
+                 f"(bounds {prof['device_idle_share_bounds']})"
+                 if prof else ""), flush=True)
+    return runs
 
 
 # ----------------------------------------------------------- 5. assembly
@@ -2626,6 +2899,9 @@ def main() -> None:
     mp = main_path(torch, kernel, launch)
     sp = spec_path(torch, kernel, launch, mp.pop("f64_cpu_run"))
     fleet = fleet_path(torch, kernel, launch)
+    # 4c / 4d. the pipeline and the async balancer (counts zeroed inside)
+    pipe = pipeline_path(torch, kernel, launch)
+    asy = async_path(torch, kernel, launch, mp.pop("f64_cuda_run"))
     # 5. the assembly application (launch counts zeroed inside, per run)
     asm_worst = check_assembly_kernel(torch, asm_ops, asm_ref, rng)
     asm = assembly_path(torch, asm_kernel, asm_ref, kernel, launch)
@@ -2690,6 +2966,12 @@ def main() -> None:
         by_path = {"ccm_lb_256": mp["launches"][name],
                    "assembly": asm["scorer_launches"]
                    if name == "float64" else 0}
+        if name == "float64":
+            by_path.update({f"pipeline_256 {k}": v["launches"]
+                            for k, v in pipe.items()
+                            if isinstance(v, dict) and v["kernel"] == "pair"})
+            by_path.update({f"async {k}": v["launches"]
+                            for k, v in asy.items()})
         kernels.append({
             "name": f"ccm_scorer_pairs_{short}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -2719,7 +3001,11 @@ def main() -> None:
             "library_ms": None, "shape": key, "by_shape": times[name],
         })
     spec_by_path = {"ccm_lb_256_spec": sp["launches"],
-                    f"fleet_{FLEET_N}": fleet["launches"]}
+                    f"fleet_{FLEET_N}": fleet["launches"],
+                    "async": sum(v["spec_launches"] for v in asy.values())}
+    spec_by_path.update({f"pipeline_256 {k}": v["launches"]
+                         for k, v in pipe.items()
+                         if isinstance(v, dict) and v["kernel"] == "window"})
     kernels.append({
         "name": "ccm_scorer_spec_f64", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": SPEC_REPLACES,
@@ -2810,6 +3096,8 @@ def main() -> None:
                           "device_idle_share"],
                       "spec_device_idle_share_bounds": prof_spec[
                           "device_idle_share_bounds"]}), flush=True)
+    print(json.dumps({"pipeline_path": pipe, "async_path": asy}),
+          flush=True)
     print(json.dumps({"assembly": {
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
         flush=True)

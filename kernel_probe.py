@@ -45,9 +45,20 @@ application's 16 x 16 tiles, WKV6 at (4, 512, 64, 64) in bf16.
    to this checkout's plain version, bit for bit.  The cut variants are
    for timing only: their results are wrong.
 5. The card's cost of one empty launch.
+6. ``chip_smoke.py``'s pipeline (``pipeline_phases()``, ``PIPE_KW``,
+   ``CCMParams(delta=1e-9)``, warm with ``reuse_csr``) on the card in
+   three variants taken in turns, ABC CBA ABC, after one untimed
+   two-phase run: fresh state a phase, ``carry_engine``, and
+   ``carry_engine`` with the carried engine's stale version-keyed
+   entries (``_blk_cache``, ``_vol_cache``) dropped before each phase.
+   Each run reports its wall, phase seconds, ``score``/``commit``
+   seconds, the scorer calls' seconds, the collector's seconds and
+   full collections (``gc.callbacks``), the live objects the collector
+   tracks, and the last engine's ``_blk_cache`` entries; every run must
+   equal the first, phase by phase.
 
 ``--steps`` runs only the named steps (``turns`` for step 1, ``tile``,
-``wkv6``, ``spec``, ``floor``); all by default.  Prints one JSON line of
+``wkv6``, ``spec``, ``floor``, ``pipeline``); all by default.  Prints one JSON line of
 results, then the card's name and power limit.
 """
 from __future__ import annotations
@@ -469,7 +480,80 @@ def spec_phases(torch, cs, parent) -> dict:
     return res
 
 
-STEPS = ("turns", "tile", "wkv6", "spec", "floor")
+def pipeline_turns(torch, cs) -> dict:
+    """Step 6: the smoke's pipeline in three variants, in turns."""
+    import gc
+    import time
+
+    from repro_torch.core import CCMParams, pipeline
+    from repro_torch.kernels.ccm_scorer import launch
+    phases = cs.pipeline_phases()
+    params = CCMParams(delta=1e-9)
+    inner = pipeline.ccm_lb
+    variant = {"drop": False}
+
+    def dropping(*args, **lb):
+        carry = lb.get("carry")
+        if variant["drop"] and carry is not None and carry.engine:
+            carry.engine._blk_cache.clear()
+            carry.engine._vol_cache.clear()
+        return inner(*args, **lb)
+
+    gc_acc = {"s": 0.0, "full": 0, "t0": 0.0}
+
+    def on_gc(ph, info):
+        if ph == "start":
+            gc_acc["t0"] = time.perf_counter()
+        else:
+            gc_acc["s"] += time.perf_counter() - gc_acc["t0"]
+            gc_acc["full"] += info["generation"] == 2
+
+    variants = {"fresh": (False, False), "carry": (True, False),
+                "carry, stale dropped": (True, True)}
+    order = ["fresh", "carry", "carry, stale dropped"]
+    order = order + order[::-1] + order
+    pipeline.ccm_lb = dropping
+    gc.callbacks.append(on_gc)
+    out, first = [], None
+    try:
+        pipeline.ccm_lb_pipeline(phases[:2], params, device="cuda",
+                                 **cs.PIPE_KW)
+        for name in order:
+            carry, variant["drop"] = variants[name]
+            launch.reset_stats()
+            gc_acc.update(s=0.0, full=0)
+            t0 = time.perf_counter()
+            res = pipeline.ccm_lb_pipeline(phases, params, device="cuda",
+                                           profile=True, carry_engine=carry,
+                                           **cs.PIPE_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if first is None:
+                first = res
+            elif not all(cs.same_run(a.result, b.result)
+                         for a, b in zip(res.runs, first.runs)):
+                sys.exit(f"kernel_probe: pipeline {name} differs")
+            out.append(dict(
+                variant=name, wall_s=wall,
+                phase_s=[r.seconds for r in res.runs],
+                score_s=sum(t["score"] for r in res.runs
+                            for t in r.result.stage_timings),
+                commit_s=sum(t["commit"] for r in res.runs
+                             for t in r.result.stage_timings),
+                scorer_calls=launch.STATS["calls"],
+                scorer_s=launch.STATS["seconds"],
+                gc_s=gc_acc["s"], gc_full=gc_acc["full"],
+                gc_objects=len(gc.get_objects()),
+                blk_entries=len(res.runs[-1].result.engine._blk_cache)))
+            print(f"pipeline {name}: {out[-1]}", flush=True)
+            del res
+    finally:
+        pipeline.ccm_lb = inner
+        gc.callbacks.remove(on_gc)
+    return {"runs": out}
+
+
+STEPS = ("turns", "tile", "wkv6", "spec", "floor", "pipeline")
 
 
 def main() -> None:
@@ -514,6 +598,8 @@ def main() -> None:
     if "floor" in args.steps:
         res["empty_launch_device_ms"] = cs.device_ms(
             torch, lambda: torch.cuda._sleep(0), reps=200)
+    if "pipeline" in args.steps:
+        res["pipeline_turns"] = pipeline_turns(torch, cs)
     print(json.dumps(res), flush=True)
     print(f"card: {cs.card_line()}", flush=True)
 

@@ -18,8 +18,7 @@ scores all candidates of a lock event in one pass over the CSR phase view
 (``self.csr``, built once per state).
 
 The port's own copy of ``repro/core/ccm.py`` (host numpy, identical
-arithmetic), minus the multi-phase ``retarget`` that only the JAX package's
-pipeline driver uses.
+arithmetic).
 """
 from __future__ import annotations
 
@@ -81,8 +80,13 @@ class CCMState:
 
     # ------------------------------------------------------------------ build
     @staticmethod
-    def build(phase: Phase, assignment: np.ndarray,
-              params: CCMParams) -> "CCMState":
+    def build(phase: Phase, assignment: np.ndarray, params: CCMParams,
+              csr: Optional[PhaseCSR] = None) -> "CCMState":
+        """``csr``: a prebuilt :class:`PhaseCSR` for this phase's topology
+        (task->edge / block->task adjacency).  Multi-phase pipelines pass the
+        previous phase's bundle when the topology is unchanged, amortizing
+        the build (see core/pipeline.py); the content is identical to a
+        fresh build, so results cannot differ."""
         i_n = phase.num_ranks
         assignment = np.asarray(assignment, np.int64).copy()
         load = np.bincount(assignment, weights=phase.task_load, minlength=i_n)
@@ -104,16 +108,16 @@ class CCMState:
                 mem_overhead_max[r] = phase.task_overhead[sel].max()
         st = CCMState(phase, params, assignment, load, vol, block_count,
                       mem_task, mem_overhead_max)
-        st._build_caches()
+        st._build_caches(csr)
         return st
 
-    def _build_caches(self):
+    def _build_caches(self, csr: Optional[PhaseCSR] = None):
         """CSR phase view + per-rank homing/shared caches (exchange_eval hot
         path: O(all edges + all blocks) per call -> O(touched edges +
         blocks)).  The CSR bundle is phase-static and shared with the
         vectorized engine."""
         ph = self.phase
-        self.csr = PhaseCSR.from_phase(ph)
+        self.csr = csr if csr is not None else PhaseCSR.from_phase(ph)
         # monotonically increasing mutation counter: bumped by every
         # apply_transfer, so derived-value caches (engine block terms, vol
         # row sums, incident-edge sets, per-rank work) can validate with
@@ -152,6 +156,73 @@ class CCMState:
             self._transfer_listeners.append(weakref.WeakMethod(cb))
         else:
             self._transfer_listeners.append(lambda _cb=cb: _cb)
+
+    def remove_transfer_listener(self, cb: TransferListener) -> None:
+        """Detach a listener previously registered with
+        :meth:`add_transfer_listener`, matched by equality through the
+        resolver entries.  Equality (not identity) because accessing a
+        bound method creates a fresh object each time — ``obj.m is obj.m``
+        is False while ``obj.m == obj.m`` compares the underlying
+        (receiver, function) pair; plain functions compare by identity
+        either way.  Unknown callbacks are a no-op; already-collected
+        entries are pruned on the way through."""
+        self._transfer_listeners = [
+            e for e in self._transfer_listeners
+            if e() is not None and e() != cb]
+
+    def retarget(self, phase: Phase, params: CCMParams) -> None:
+        """Re-bind this state to a NEW phase with the same adjacency
+        topology (the ``same_topology`` predicate: identical comm endpoints
+        and task->block map — callers check it; this method only asserts
+        the counts), keeping the assignment.
+
+        Multi-phase pipelines use this to carry a state+engine across
+        phases whose loads/volumes/memory drift while the topology holds:
+        the value-derived arrays (load, vol, mem_task, overhead maxima,
+        homing/shared caches) are recomputed with the SAME operations a
+        fresh ``build`` runs — bitwise-identical results, asserted by
+        tests/test_torch_pipeline.py — while the topology-derived
+        structures are carried: the frozen CSR bundle (the expensive part),
+        the integer block counters (incrementally exact for the unchanged
+        assignment), and the registered transfer listeners (a carried
+        engine's segments depend only on the assignment, which is
+        unchanged).  Bumps ``version`` so every version-validated
+        downstream cache re-derives."""
+        if (phase.num_tasks != self.phase.num_tasks
+                or phase.num_ranks != self.phase.num_ranks
+                or phase.num_blocks != self.phase.num_blocks):
+            raise ValueError("retarget requires matching task/rank/block "
+                             "counts (same_topology phases)")
+        i_n = phase.num_ranks
+        a = self.assignment
+        self.phase = phase
+        self.params = params
+        self.version += 1
+        self._work_cache.clear()
+        # the heavy-edge threshold cache is keyed on quantile but derived
+        # from phase.comm_vol — a drifted phase must not reuse it
+        if getattr(self, "_quantile_cache", None) is not None:
+            self._quantile_cache.clear()
+        load = np.bincount(a, weights=phase.task_load, minlength=i_n)
+        if phase.rank_speed is not None:
+            load = load / 1.0  # mirror build(): speed applied at W() time
+        self.load = load
+        vol = np.zeros((i_n, i_n), np.float64)
+        np.add.at(vol, (a[phase.comm_src], a[phase.comm_dst]),
+                  phase.comm_vol)
+        self.vol = vol
+        self.mem_task = np.bincount(a, weights=phase.task_mem,
+                                    minlength=i_n)
+        self.mem_overhead_max = np.zeros(i_n, np.float64)
+        for r in range(i_n):
+            sel = a == r
+            if sel.any():
+                self.mem_overhead_max[r] = phase.task_overhead[sel].max()
+        present = self.block_count > 0
+        off_home = present.copy()
+        off_home[phase.block_home, np.arange(phase.num_blocks)] = False
+        self.hom_cache = (off_home * phase.block_size[None, :]).sum(1)
+        self.shared_cache = (present * phase.block_size[None, :]).sum(1)
 
     def _touched_edges(self, tasks: np.ndarray) -> np.ndarray:
         """Unique ids of comm edges incident to ``tasks`` (CSR gather)."""

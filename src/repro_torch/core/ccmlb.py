@@ -25,8 +25,8 @@ exchanges could in principle diverge the paths).
 The port's counterpart of ``repro/core/ccmlb.py``: the same host control
 flow and the same §IV-B protocol handlers.  ``spec_window > 1`` routes
 stage 2 through the speculative-scan driver (core/spec.py): a window of
-lock events a launch of the window kernel.  Not ported yet: the async
-driver and multi-phase carry-over (see ROADMAP.md).
+lock events a launch of the window kernel.  ``carry=`` hands a previous
+phase's state, engine and tracker to the next phase (core/pipeline.py).
 
 Batched lock events: ``batch_lock_events=k`` defers the scoring of up to
 ``k`` executable lock events whose rank pairs are pairwise disjoint, then
@@ -53,13 +53,20 @@ window could in principle flip the selected exchange.
 The parity tests assert identical trajectories empirically (they hold on
 every tested instance).
 
+Two drivers, one protocol
+-------------------------
 The §IV-B lock/grant handlers (:func:`lock_request`, :func:`note_yield`,
 :func:`lock_release`, :func:`execute_transfer`) are the only code paths
-that touch the lock manager or execute a transfer.  On this synchronous
-round-robin driver every lock is requested, used and released within the
-turn that took it, so lock conflicts, deadlock-avoidance yields and grant
-chains are structurally unreachable (``CCMLBResult.lock_conflicts`` is zero
-by construction); the JAX package's asynchronous driver reaches them.
+that touch the lock manager or execute a transfer, and two drivers share
+them: this module's synchronous round-robin loops, where every lock is
+requested, used and released within the turn that took it, so lock
+conflicts, deadlock-avoidance yields and grant chains are structurally
+unreachable (``CCMLBResult.lock_conflicts`` is zero by construction); and
+the asynchronous discrete-event simulator
+(:func:`repro_torch.core.async_sim.ccm_lb_async`), where requests, grants,
+yields and releases travel as messages with latency and reach them.  With
+zero latency the async event loop serializes into this module's
+round-robin turn order and the two trajectories are bitwise-identical.
 
 Returns the improved assignment plus a trace (max work, imbalance, transfers
 per iteration) used by tests and benchmarks.
@@ -80,8 +87,8 @@ from repro_torch.core.clusters import (build_clusters, summarize_clusters,
 from repro_torch.core.engine import (ExchangeEvent, PhaseEngine,
                                      batch_peer_diffs, build_summary_tables)
 from repro_torch.core.locks import LockManager
-from repro_torch.core.problem import CCMParams, Phase
-from repro_torch.core.quiesce import QuiesceTracker
+from repro_torch.core.problem import CCMParams, Phase, same_topology
+from repro_torch.core.quiesce import QuiesceTracker, phase_values_equal
 from repro_torch.core.spec import (SPEC_FILLS, SpecInstance, event_sequence,
                                    run_spec)
 from repro_torch.core.transfer import (approx_best_diff, select_best,
@@ -100,23 +107,43 @@ class CCMLBResult:
     lock_conflicts: int
     engine_used: bool = True
     # §IV-B protocol counters (uniform accounting via ProtocolStats; all of
-    # them — lock_conflicts included — are structurally zero on this
-    # synchronous driver)
+    # them — lock_conflicts included — are structurally zero on the
+    # synchronous drivers and only become meaningful under the async
+    # event-loop driver, core/async_sim.py)
     yields: int = 0
     grant_chains: int = 0
     max_grant_chain: int = 0
+    # async-only observability (zero / None on the synchronous drivers)
+    messages: int = 0              # protocol + gossip messages delivered
+    sim_time: float = 0.0          # final simulated clock
+    gossip_dropped: int = 0        # deliveries past the gossip deadline
+    events: Optional[list] = None  # (time, seq, kind, src, dst) event trace
     # every state mutation in execution order: (task-id tuple, r_from,
     # r_to); replaying it onto the initial assignment reproduces
     # ``assignment`` exactly
     transfer_log: Optional[list] = None
+    # fault-injection observability (async driver with an active FaultSpec
+    # only; zero / empty everywhere else — see core/async_sim.py)
+    timeouts: int = 0              # lock-request timeouts fired
+    retries_exhausted: int = 0     # work items dropped at the retry cap
+    fault_stats: Optional[object] = None    # FaultStats when fault active
+    recovery_log: Optional[list] = None     # crash-recovery migrations
+    dead_ranks: Optional[list] = None       # ranks killed mid-run
+    joined_ranks: Optional[list] = None     # ranks joined mid-run
+    # (membership events; ``state.phase`` is the final, expanded phase)
     # speculative-scan observability (zero/None off the spec driver)
     spec_rollbacks: int = 0        # window events rolled back + re-queued
     spec_windows: int = 0          # windows (launches when any row scored)
     spec_trace: Optional[list] = None   # (window, kind, r, p) commit trace
+    # the live engine + whether it was carried in from a previous phase's
+    # result (ccm_lb_pipeline carry_engine=True) instead of built fresh
     engine: Optional[PhaseEngine] = None
+    engine_carried: bool = False
     # quiescence observability (core/quiesce.py): per-iteration transfer
     # counts, optional per-iteration stage timing dicts (``profile=True``),
     # cumulative tracker-counter snapshots, and the live tracker itself
+    # (carried alongside the engine by ``ccm_lb(carry=...)`` so quiet
+    # phases stay amortized)
     iter_transfers: Optional[List[int]] = None
     stage_timings: Optional[List[dict]] = None
     quiesce_counters: Optional[List[dict]] = None
@@ -127,12 +154,13 @@ class CCMLBResult:
 
 @dataclasses.dataclass
 class ProtocolStats:
-    """Uniform accounting of the §IV-B lock protocol.
+    """Uniform accounting of the §IV-B lock protocol, shared by the
+    synchronous round-robin drivers and the async event-loop driver.
 
-    On this synchronous driver every lock is released within the turn that
+    On the synchronous drivers every lock is released within the turn that
     took it, so ``conflicts`` / ``yields`` / chain counters can only ever be
-    zero here — by construction (the JAX package's async driver reaches
-    them).  ``conflicts`` counts both queued lock requests and
+    zero there — by construction (the async driver reaches them).
+    ``conflicts`` counts both queued lock requests and
     deadlock-avoidance yields; ``yields`` separates the Fig. 1 line 45
     releases.  A *grant chain* is a maximal run of queue handoffs on one
     target (release -> grant to next queued requester);
@@ -144,6 +172,11 @@ class ProtocolStats:
     grant_chains: int = 0
     max_grant_chain: int = 0
     transfers: int = 0
+    # fault-injection counters (async driver under an active FaultSpec;
+    # ``retries_exhausted`` also counts the fault-free async driver's
+    # yield-retry cap drops — no silent caps)
+    timeouts: int = 0
+    retries_exhausted: int = 0
     # speculative-scan counters (core/spec.py; zero on the other drivers)
     spec_rollbacks: int = 0
     spec_windows: int = 0
@@ -171,11 +204,13 @@ class ProtocolStats:
 # drivers cannot drift apart in semantics or accounting.
 
 def lock_request(locks: LockManager, stats: ProtocolStats, r: int,
-                 p: int) -> bool:
+                 p: int, req_id: Optional[int] = None) -> bool:
     """Fig. 1 line 42: rank ``r`` requests ``p``'s lock.  A busy target
     queues the request FIFO (granted later through a release handoff) and
-    counts one conflict."""
-    granted = locks.request(r, p)
+    counts one conflict.  ``req_id`` is the grant token the async driver
+    threads through under fault injection (see core/locks.py); the
+    synchronous drivers never pass one."""
+    granted = locks.request(r, p, req_id)
     if not granted:
         stats.conflicts += 1
     return granted
@@ -302,9 +337,9 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
            use_engine: bool = True, device=None,
            dtype: torch.dtype = torch.float64,
            batch_lock_events: int = 1, incremental: bool = True,
-           spec_window: int = 1, spec_mode: str = "scan",
+           csr=None, spec_window: int = 1, spec_mode: str = "scan",
            spec_fill: str = "disjoint", spec_trace: bool = False,
-           quiesce_after: Optional[int] = None,
+           carry=None, quiesce_after: Optional[int] = None,
            profile: bool = False, replicate: bool = False) -> CCMLBResult:
     """Run CCM-LB on ``phase`` from ``assignment``.
 
@@ -317,7 +352,9 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
 
     ``incremental`` keeps the engine's per-rank segments current via the
     transfer hook (default; ``False`` re-gathers per event — the rebuild
-    reference) and enables the quiescence caches (core/quiesce.py):
+    reference).  ``csr`` is an optional prebuilt ``PhaseCSR`` for this
+    phase's topology (multi-phase pipelines amortize it).  ``incremental``
+    also enables the quiescence caches (core/quiesce.py):
     dirty-rank gossip replay, patched cluster/rank summaries and summary
     tables, cached sorted work lists, and the failed-evaluation memo —
     bitwise-identical trajectories to the ``incremental=False`` rebuild
@@ -352,6 +389,15 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
     invalidated speculations (``core.spec.run_spec``).
     ``spec_trace=True`` records the per-event commit/rollback trace in
     ``CCMLBResult.spec_trace``.
+
+    ``carry``: a previous phase's ``CCMLBResult`` whose state/engine should
+    be reused.  Accepted only when the phases share topology
+    (``same_topology``), rank count, device/dtype/incremental knobs AND the
+    start assignment equals the carried final assignment — then the state
+    is :meth:`CCMState.retarget`-ed in place (bitwise-equal to a fresh
+    build) and the engine's caches revalidate via the version bump;
+    otherwise a fresh state is built silently (``engine_carried`` reports
+    which happened).
     """
     if batch_lock_events < 1:
         raise ValueError("batch_lock_events must be >= 1")
@@ -380,14 +426,50 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
         raise ValueError("replicate requires the scalar stage-2 loop — "
                          "incompatible with spec_window > 1")
     device = resolve_device(device)
-    state = CCMState.build(phase, assignment, params)
-    engine = (PhaseEngine(state, device=device, dtype=dtype,
-                          incremental=incremental)
-              if use_engine else None)
-    tracker = QuiesceTracker(state, engine, params, seed=seed,
-                             k_rounds=k_rounds, fanout=fanout,
-                             max_clusters_per_rank=max_clusters_per_rank,
-                             caching=incremental, replicate=replicate)
+    state = engine = tracker = None
+    engine_carried = False
+    if carry is not None:
+        cstate = getattr(carry, "state", None)
+        cengine = getattr(carry, "engine", None)
+        if (use_engine and cstate is not None and cengine is not None
+                and cengine.device == device and cengine.dtype == dtype
+                and cengine.incremental == incremental
+                and cstate.phase.num_ranks == phase.num_ranks
+                and np.array_equal(cstate.assignment,
+                                   np.asarray(assignment, np.int64))
+                and same_topology(cstate.phase, phase)):
+            old_phase, old_params = cstate.phase, cstate.params
+            cstate.retarget(phase, params)
+            state, engine, engine_carried = cstate, cengine, True
+            ctracker = getattr(carry, "tracker", None)
+            if (ctracker is not None and ctracker.state is state
+                    and ctracker.engine is engine
+                    and ctracker.k_rounds == k_rounds
+                    and ctracker.fanout == fanout
+                    and ctracker.mcpr == max_clusters_per_rank
+                    and ctracker.caching == bool(incremental)
+                    and ctracker.replicate == bool(replicate)):
+                # caches stay bitwise-valid only when the new phase's
+                # value arrays and params equal the old ones (then the
+                # carried summaries/reach sets are exactly what a fresh
+                # build computes); otherwise the rebind resets to
+                # all-dirty.  Epochs restart at 0 either way — identical
+                # to a fresh run, which is the pipeline parity contract.
+                ctracker.rebind(seed=seed, params=params,
+                                keep=(old_params == params
+                                      and phase_values_equal(old_phase,
+                                                             phase)))
+                tracker = ctracker
+    if state is None:
+        state = CCMState.build(phase, assignment, params, csr=csr)
+        engine = (PhaseEngine(state, device=device, dtype=dtype,
+                              incremental=incremental)
+                  if use_engine else None)
+    if tracker is None:
+        tracker = QuiesceTracker(state, engine, params, seed=seed,
+                                 k_rounds=k_rounds, fanout=fanout,
+                                 max_clusters_per_rank=max_clusters_per_rank,
+                                 caching=incremental, replicate=replicate)
     transfer_log: list = []
 
     def _log_cb(t, a, b):
@@ -405,57 +487,66 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
     iter_transfers: List[int] = []
     quiet = 0
 
-    for it in range(n_iter):
-        tm = ({"clusters": 0.0, "gossip": 0.0, "work_lists": 0.0,
-               "score": 0.0, "commit": 0.0} if profile else None)
-        stats.timings = tm
-        tracker.begin_iteration(it)
-        t0 = perf_counter() if profile else 0.0
-        clusters, summaries = tracker.update_summaries()
-        if profile:
-            t1 = perf_counter()
-            tm["clusters"] = t1 - t0
-            t0 = t1
-        info = tracker.update_gossip()
-        if profile:
-            t1 = perf_counter()
-            tm["gossip"] = t1 - t0
-            t0 = t1
-        if tracker.caching:
-            work_lists = tracker.update_work_lists(info)
-        else:
-            work_lists = build_work_lists(phase, summaries, info, params,
-                                          engine)
-        if profile:
-            tm["work_lists"] = perf_counter() - t0
-        before = stats.transfers
+    try:
+        for it in range(n_iter):
+            tm = ({"clusters": 0.0, "gossip": 0.0, "work_lists": 0.0,
+                   "score": 0.0, "commit": 0.0} if profile else None)
+            stats.timings = tm
+            tracker.begin_iteration(it)
+            t0 = perf_counter() if profile else 0.0
+            clusters, summaries = tracker.update_summaries()
+            if profile:
+                t1 = perf_counter()
+                tm["clusters"] = t1 - t0
+                t0 = t1
+            info = tracker.update_gossip()
+            if profile:
+                t1 = perf_counter()
+                tm["gossip"] = t1 - t0
+                t0 = t1
+            if tracker.caching:
+                work_lists = tracker.update_work_lists(info)
+            else:
+                work_lists = build_work_lists(phase, summaries, info, params,
+                                              engine)
+            if profile:
+                tm["work_lists"] = perf_counter() - t0
+            before = stats.transfers
 
-        # stage 2: lock/transfer event loop
-        if spec_window > 1:
-            _stage2_spec(phase, state, clusters, work_lists, engine,
-                         max_candidates, max_clusters_per_rank, spec_window,
-                         spec_mode, spec_fill, stats, strace)
-        elif batch_lock_events > 1:
-            _stage2_batched(phase, state, clusters, work_lists, engine,
-                            max_candidates, max_clusters_per_rank,
-                            batch_lock_events, stats)
-        else:
-            _stage2(phase, state, clusters, work_lists, engine,
-                    max_candidates, max_clusters_per_rank, stats,
-                    replicate=replicate)
+            # stage 2: lock/transfer event loop
+            if spec_window > 1:
+                _stage2_spec(phase, state, clusters, work_lists, engine,
+                             max_candidates, max_clusters_per_rank,
+                             spec_window, spec_mode, spec_fill, stats,
+                             strace)
+            elif batch_lock_events > 1:
+                _stage2_batched(phase, state, clusters, work_lists, engine,
+                                max_candidates, max_clusters_per_rank,
+                                batch_lock_events, stats)
+            else:
+                _stage2(phase, state, clusters, work_lists, engine,
+                        max_candidates, max_clusters_per_rank, stats,
+                        replicate=replicate)
 
-        delta = stats.transfers - before
-        iter_transfers.append(delta)
-        tracker.end_iteration()
-        trace_max.append(state.max_work())
-        trace_tot.append(state.total_work())
-        trace_imb.append(state.imbalance())
-        if profile:
-            stage_timings.append(tm)
-        if quiesce_after is not None:
-            quiet = quiet + 1 if delta == 0 else 0
-            if quiet >= quiesce_after:
-                break
+            delta = stats.transfers - before
+            iter_transfers.append(delta)
+            tracker.end_iteration()
+            trace_max.append(state.max_work())
+            trace_tot.append(state.total_work())
+            trace_imb.append(state.imbalance())
+            if profile:
+                stage_timings.append(tm)
+            if quiesce_after is not None:
+                quiet = quiet + 1 if delta == 0 else 0
+                if quiet >= quiesce_after:
+                    break
+    finally:
+        # a carried state outlives this run — the log listener must not
+        # keep appending into a dead list on the next phase's transfers,
+        # and the tracker must not double-fire once the next phase
+        # re-registers it (ccm_lb(carry=...) re-adds the carried one)
+        state.remove_transfer_listener(_log_cb)
+        state.remove_transfer_listener(tracker.note_transfer)
 
     return CCMLBResult(state.assignment.copy(), state, trace_max, trace_tot,
                        trace_imb, stats.transfers, stats.conflicts,
@@ -466,6 +557,7 @@ def ccm_lb(phase: Phase, assignment: np.ndarray, params: CCMParams, *,
                        spec_rollbacks=stats.spec_rollbacks,
                        spec_windows=stats.spec_windows,
                        spec_trace=strace, engine=engine,
+                       engine_carried=engine_carried,
                        iter_transfers=iter_transfers,
                        stage_timings=stage_timings,
                        quiesce_counters=tracker.iter_counters,

@@ -176,8 +176,9 @@ class PhaseEngine:
         # hook).  _incident entries are validated against the touch stamps
         # of THEIR two ranks instead of the global version, so transfers
         # between other ranks do not invalidate them.  _touch_seen detects
-        # version bumps the hook never saw (non-incremental engines, where
-        # the hook is not registered): those invalidate every rank.
+        # version bumps the hook never saw (retarget, or non-incremental
+        # engines, where the hook is not registered): those invalidate
+        # every rank.
         self._rank_touch = np.full(self.phase.num_ranks, state.version,
                                    np.int64)
         self._touch_seen = state.version
@@ -192,7 +193,11 @@ class PhaseEngine:
 
     @property
     def phase(self):
-        """The phase of the wrapped state."""
+        """The CURRENT phase of the wrapped state — read through on every
+        access, so an engine carried across ``CCMState.retarget`` (pipeline
+        phase carry-over) follows the new phase's value arrays instead of
+        pinning the build-time ones.  The retarget also bumps the state
+        version, which invalidates every version-validated cache below."""
         return self.state.phase
 
     # ------------------------------------------------- incremental segments
@@ -210,8 +215,8 @@ class PhaseEngine:
         # the hook runs after apply_transfer's version bump (one bump per
         # transfer), so when every bump since the last stamp was a hooked
         # transfer, stamping the two ranks marks exactly this transfer;
-        # a gap in the version sequence means unobserved bumps happened in
-        # between — then every rank may have changed
+        # a gap in the version sequence means unobserved bumps (retarget)
+        # happened in between — then every rank may have changed
         v = self.state.version
         if self._touch_seen == v - 1:
             self._rank_touch[r_from] = self._rank_touch[r_to] = v
@@ -352,8 +357,9 @@ class PhaseEngine:
         not mutate the returned arrays."""
         st = self.state
         if st.version != self._touch_seen:
-            # version bumps the transfer hook never saw (a non-incremental
-            # engine has no hook at all): every rank may have changed
+            # version bumps the transfer hook never saw (retarget, or a
+            # non-incremental engine with no hook at all): every rank may
+            # have changed, and the phase value arrays may differ too
             self._rank_touch[:] = st.version
             self._touch_seen = st.version
             self._eids_cache.clear()

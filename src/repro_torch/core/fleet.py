@@ -108,6 +108,7 @@ def ccm_lb_many(phases: Sequence[Phase],
     engines: List[PhaseEngine] = []
     trackers: List[QuiesceTracker] = []
     logs: List[list] = []
+    cbs: List[object] = []
     stats: List[ProtocolStats] = []
     straces: List[Optional[list]] = []
     # speculative captures are keyed (r, p, state.version): any mutation
@@ -129,37 +130,43 @@ def ccm_lb_many(phases: Sequence[Phase],
         st.add_transfer_listener(cb)
         st.add_transfer_listener(trackers[i].note_transfer)
         logs.append(log)
+        cbs.append(cb)
         stats.append(ProtocolStats())
         straces.append([] if spec_trace else None)
         t_max.append([st.max_work()])
         t_tot.append([st.total_work()])
         t_imb.append([st.imbalance()])
 
-    for it in range(n_iter):
-        insts: List[SpecInstance] = []
+    try:
+        for it in range(n_iter):
+            insts: List[SpecInstance] = []
+            for i in range(n):
+                st = states[i]
+                tr = trackers[i]
+                tr.begin_iteration(it)
+                clusters, _summaries = tr.update_summaries()
+                info = tr.update_gossip()
+                work_lists = tr.update_work_lists(info)
+                seq = event_sequence(phases[i].num_ranks, work_lists)
+                if seq:
+                    insts.append(SpecInstance(
+                        state=st, engine=engines[i], clusters=clusters,
+                        stats=stats[i],
+                        rebuild=_mk_rebuild(st, clusters, engines[i],
+                                            max_clusters_per_rank),
+                        queue=deque(seq), max_candidates=max_candidates,
+                        trace=straces[i], cache=caches[i]))
+            if insts:
+                run_spec(insts, window=win, mode=mode)
+            for i in range(n):
+                trackers[i].end_iteration()
+                t_max[i].append(states[i].max_work())
+                t_tot[i].append(states[i].total_work())
+                t_imb[i].append(states[i].imbalance())
+    finally:
         for i in range(n):
-            st = states[i]
-            tr = trackers[i]
-            tr.begin_iteration(it)
-            clusters, _summaries = tr.update_summaries()
-            info = tr.update_gossip()
-            work_lists = tr.update_work_lists(info)
-            seq = event_sequence(phases[i].num_ranks, work_lists)
-            if seq:
-                insts.append(SpecInstance(
-                    state=st, engine=engines[i], clusters=clusters,
-                    stats=stats[i],
-                    rebuild=_mk_rebuild(st, clusters, engines[i],
-                                        max_clusters_per_rank),
-                    queue=deque(seq), max_candidates=max_candidates,
-                    trace=straces[i], cache=caches[i]))
-        if insts:
-            run_spec(insts, window=win, mode=mode)
-        for i in range(n):
-            trackers[i].end_iteration()
-            t_max[i].append(states[i].max_work())
-            t_tot[i].append(states[i].total_work())
-            t_imb[i].append(states[i].imbalance())
+            states[i].remove_transfer_listener(cbs[i])
+            states[i].remove_transfer_listener(trackers[i].note_transfer)
 
     return [CCMLBResult(states[i].assignment.copy(), states[i], t_max[i],
                         t_tot[i], t_imb[i], stats[i].transfers,

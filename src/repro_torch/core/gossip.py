@@ -28,8 +28,10 @@ different orders; downstream work-list scoring canonicalizes by sorting
 on ``(-diff, peer)``.
 
 This is a deterministic discrete-event simulation of R ranks: messages
-sent in round k are delivered at round k+1.  The port's copy of
-``repro/core/gossip.py``, without the async driver's fault hooks.
+sent in round k are delivered at round k+1.  core/async_sim.py delivers
+the SAME messages through a latency-aware event queue and degenerates to
+this per-root order at zero latency.  The port's copy of
+``repro/core/gossip.py``.
 """
 from __future__ import annotations
 
@@ -49,8 +51,10 @@ def gossip_seed(seed: int, it: int) -> list:
     entropy-pool style — distinct ``(seed, it)`` pairs give distinct
     streams, unlike the old ``seed * 1000 + it`` arithmetic where e.g.
     ``(seed=1, it=1000)`` and ``(seed=2, it=0)`` collided.  Every driver
-    derives its per-iteration gossip stream through this one helper (the
-    JAX package's drivers too), so the parity bars stay aligned.
+    (sync ``ccm_lb``, async ``ccm_lb_async``, the fleet ``ccm_lb_many``,
+    and the JAX package's drivers) derives its per-iteration gossip
+    stream through this one helper so the cross-driver bitwise parity
+    bars stay aligned.
     """
     return [int(seed), int(it)]
 
@@ -60,6 +64,48 @@ def gossip_root_key(seed, root: int) -> list:
     ``gossip_seed(seed, it)`` pair) extended with the root rank."""
     base = list(seed) if isinstance(seed, (list, tuple)) else [int(seed)]
     return base + [int(root)]
+
+
+def summary_checksum(s: RankSummary) -> int:
+    """Deterministic integer checksum over a summary's numeric content.
+
+    Covers every field the work-list scorer reads (rank scalars plus the
+    per-cluster summary scalars), so any in-flight mutation the fault
+    harness can make (core/async_sim.py, ``FaultSpec.corrupt``)
+    changes the value.  Built on ``hash()`` of int/float tuples, which is
+    deterministic across processes (only str/bytes hashing is seeded) —
+    the receiver recomputes it over the delivered payload and quarantines
+    on mismatch.
+    """
+    clusters = tuple(
+        (c.rank, c.local_id, c.load, c.mem, c.overhead, c.block_bytes,
+         c.vol_intra, c.vol_ext, c.size) for c in s.clusters)
+    return hash((s.rank, s.load, s.vol_on, s.vol_off, s.homing,
+                 s.mem_used, s.mem_cap, s.speed, clusters))
+
+
+def gossip_deliver(known: Dict[int, RankSummary],
+                   payload: Dict[int, RankSummary],
+                   stats: Optional[dict] = None) -> bool:
+    """Deliver one gossip payload into a rank's ``info_known`` map.
+
+    Returns False when the payload carries nothing new (the dedupe rule:
+    no merge, and the caller must not forward); True after merging at
+    least one new summary.  No-op merges never allocate — the payload
+    object is shared, read-only, and simply dropped — and are counted in
+    ``stats['gossip_noop_merges']`` when a stats dict is supplied.
+    The async event-loop driver's merge step (core/async_sim.py); the
+    synchronous :func:`root_epidemic` flood applies the same dedupe rule
+    to its reach set.
+    """
+    if payload.keys() <= known.keys():
+        if stats is not None:
+            stats["gossip_noop_merges"] = \
+                stats.get("gossip_noop_merges", 0) + 1
+        return False
+    for k, v in payload.items():
+        known.setdefault(k, v)
+    return True
 
 
 def root_epidemic(n: int, root: int, *, k_rounds: int, fanout: int,

@@ -105,6 +105,23 @@ class CCMParams:
     mem_headroom: float = 0.0
 
 
+def same_topology(a: Phase, b: Phase) -> bool:
+    """True iff the two phases share the adjacency structure a
+    :class:`PhaseCSR` encodes — same task/block counts, same comm edge
+    endpoints, same task->block map.  Loads, volumes, memory sizes and rank
+    parameters may differ freely (none of them enter the CSR).  Both the
+    pipeline's CSR sharing and ``CCMState.retarget`` engine carry-over are
+    gated on this predicate."""
+    if a is b:
+        return True
+    if (a.num_tasks != b.num_tasks or a.num_blocks != b.num_blocks
+            or a.num_comms != b.num_comms):
+        return False
+    return (np.array_equal(a.comm_src, b.comm_src)
+            and np.array_equal(a.comm_dst, b.comm_dst)
+            and np.array_equal(a.task_block, b.task_block))
+
+
 def random_phase(key: int, *, num_ranks: int, num_tasks: int, num_blocks: int,
                  num_comms: int, mem_cap: float = 1e9,
                  load_imbalance: float = 2.0) -> Phase:

@@ -1,9 +1,8 @@
 """Quiescence tracking: make quiet CCM-LB iterations nearly free.
 
-The port's copy of ``repro/core/quiesce.py`` (host numpy), without the
-hooks only the JAX package's async and multi-phase drivers use.  The
-paper's algorithm converges in a handful of iterations and then mostly
-*confirms* quiescence; most of a converged iteration is host work — gossip
+The port's copy of ``repro/core/quiesce.py`` (host numpy).  The paper's
+algorithm converges in a handful of iterations and then mostly *confirms*
+quiescence; most of a converged iteration is host work — gossip
 network construction, work-list assembly, cluster/summary rebuilds and
 commit bookkeeping.  :class:`QuiesceTracker` makes all four cost centers
 incremental in the number of **dirty ranks**, with bitwise-identical
@@ -29,7 +28,7 @@ the iteration at which rank ``r`` last became value-dirty, and root
 ``r``'s epidemic draws from ``gossip_root_key(gossip_seed(seed,
 epoch[r]), r)``.  Epochs are ALGORITHM state, not cache state: the
 tracker runs (and folds epochs) in every configuration — incremental or
-not — so the full-rebuild reference re-draws each root
+not, sync or async — so the full-rebuild reference re-draws each root
 from exactly the key whose cached reach the amortized path replays.
 That is the whole bitwise-equality argument: both paths evaluate the
 same pure function of the same key; one of them just remembers the
@@ -62,7 +61,21 @@ from repro_torch.core.engine import batch_peer_diffs, build_summary_tables
 from repro_torch.core.gossip import (build_peer_networks, gossip_root_key,
                                      gossip_seed, update_peer_networks)
 
-__all__ = ["QuiesceTracker"]
+__all__ = ["QuiesceTracker", "phase_values_equal"]
+
+_VALUE_ARRAYS = ("task_load", "task_mem", "task_overhead", "comm_vol",
+                 "block_size", "rank_speed", "rank_mem_base",
+                 "rank_mem_cap")
+
+
+def phase_values_equal(a, b) -> bool:
+    """True when two same-topology phases carry identical value arrays —
+    the condition under which a carried tracker's caches (clusters,
+    summaries, gossip reach sets) remain bitwise-valid for the new
+    phase."""
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in _VALUE_ARRAYS)
+
 
 class QuiesceTracker:
     """Per-run activity tracker + amortized-iteration cache (module
@@ -72,10 +85,15 @@ class QuiesceTracker:
 
         tracker.begin_iteration(it)            # fold dirty -> epochs
         clusters, summaries = tracker.update_summaries()
-        info = tracker.update_gossip()
+        info = tracker.update_gossip()         # sync/fleet drivers only
         work_lists = tracker.update_work_lists(info)   # caching only
         ... stage 2 ...
         tracker.end_iteration()
+
+    The async driver skips :meth:`update_gossip`/:meth:`update_work_lists`
+    (its info maps are latency-dependent) but still folds epochs and asks
+    :meth:`root_key` for the per-root gossip streams, which is what keeps
+    the zero-latency parity bar aligned with the sync driver.
     """
 
     def __init__(self, state, engine, params, *, seed: int, k_rounds: int,
@@ -95,6 +113,7 @@ class QuiesceTracker:
         self.n = int(state.phase.num_ranks)
         # caching needs the engine's incrementally-maintained rank
         # segments (cluster rebuild scope) and flat summary tables
+        self._want_caching = bool(caching)
         self.caching = bool(caching and engine is not None
                             and getattr(engine, "incremental", False))
         self.counters: Dict[str, int] = {}
@@ -122,10 +141,89 @@ class QuiesceTracker:
             for x in np.unique(a[ph.comm_dst[eids]]):
                 vd.add(int(x))
 
+    def force_dirty(self, ranks) -> None:
+        """Mark ``ranks`` cluster- AND value-dirty for the next epoch fold
+        regardless of transfer activity.  The fault/membership paths use
+        this for state changes that do not flow through a transfer —
+        deaths, partitions healing, joins — so quiescence stays absorbing:
+        an externally-perturbed rank re-keys its gossip epoch and re-scores
+        exactly once instead of replaying stale cached state forever."""
+        for r in ranks:
+            r = int(r)
+            self.cluster_dirty.add(r)
+            self.value_dirty.add(r)
+
+    def purge_ranks(self, ranks) -> None:
+        """Evict dead ranks from every cache family so no stale entry of
+        theirs can ever be served again:
+
+          * **clusters / summaries** — the dead ranks' cached cluster lists
+            are emptied (crash recovery just migrated their tasks away;
+            they are also force-marked dirty, so the next iteration
+            rebuilds them from the now-empty task sets);
+          * **gossip reach** — the dead roots' cached epidemics are
+            dropped and their summaries spliced out of every rank's info
+            map (a dead rank's summary must never re-enter a work list);
+          * **work-list score tables** — the dead ranks' own candidate
+            lists are cleared and they are removed from every other
+            rank's scored candidates;
+          * **commit memo** — every memoized failed evaluation touching a
+            dead rank is deleted.
+
+        Ranks that had heard a dead root are force-marked dirty too, so
+        their work lists re-score on the caching (sync-driver) path.
+        """
+        dead = {int(r) for r in ranks}
+        if not dead:
+            return
+        self.force_dirty(dead)
+        for k in [k for k in self.memo if k[0] in dead or k[1] in dead]:
+            del self.memo[k]
+        affected: Set[int] = set()
+        for d in dead:
+            old = self.reach.pop(d, ())
+            self.reach_key.pop(d, None)
+            if self.info is not None:
+                for dst in old:
+                    if dst in self.info and self.info[dst].pop(d, None) \
+                            is not None:
+                        affected.add(dst)
+                self.info[d] = {}
+        if self.clusters is not None:
+            for d in dead:
+                self.clusters[d] = []
+                self.csum[d] = []
+        if self.scores is not None:
+            for r in list(self.scores):
+                if r in dead:
+                    self.scores[r] = []
+                else:
+                    kept = [(s, p) for (s, p) in self.scores[r]
+                            if p not in dead]
+                    if len(kept) != len(self.scores[r]):
+                        self.scores[r] = kept
+        self.force_dirty(affected - dead)
+
+    def regrow(self, state, engine) -> None:
+        """Re-target the tracker at a WIDER mesh after a membership join
+        (``ccm_lb_async(membership=...)`` rebuilt the state/engine on the
+        expanded phase).  Every cache is dropped and every rank marked
+        dirty — peer candidate sets are a function of the rank count, so
+        no cached reach, score list or memo entry survives a join — but
+        the cumulative counters and per-iteration snapshots are kept, so
+        accounting stays continuous across the membership change."""
+        self.state = state
+        self.engine = engine
+        self.n = int(state.phase.num_ranks)
+        self.caching = bool(self._want_caching and engine is not None
+                            and getattr(engine, "incremental", False))
+        self.reset()
+
     # ---- lifecycle --------------------------------------------------------
 
     def reset(self) -> None:
-        """Drop every cache and mark everything dirty (fresh run)."""
+        """Drop every cache and mark everything dirty (fresh run, or a
+        carry whose phase values/params changed)."""
         n = self.n
         self.cluster_dirty: Set[int] = set(range(n))
         self.value_dirty: Set[int] = set(range(n))
@@ -142,6 +240,25 @@ class QuiesceTracker:
         self._cd: List[int] = []
         self._vd: List[int] = []
         self._affected: Optional[Set[int]] = None
+
+    def rebind(self, *, seed: int, params, keep: bool) -> None:
+        """Re-target a carried tracker at a new phase (the caller already
+        retargeted the state and checked ``same_topology``).  ``keep``
+        asserts the new phase's value arrays AND params equal the old
+        ones, so every cache remains bitwise-valid; epochs reset to 0 —
+        exactly what a fresh run starts with — and the new seed makes
+        every cached reach key mismatch when it differs, forcing the same
+        full gossip redraw a fresh run performs.  Pending dirty ranks
+        from the previous phase's tail are carried and folded at
+        iteration 0, which recomputes their summaries against the final
+        (carried) assignment just as a fresh build would."""
+        self.seed = int(seed)
+        self.params = params
+        if keep and self.caching and self.clusters is not None:
+            self.epoch[:] = 0
+            self.memo.clear()
+        else:
+            self.reset()
 
     def begin_iteration(self, it: int) -> None:
         """Fold the pending dirty sets: value-dirty ranks stamp their
@@ -219,14 +336,15 @@ class QuiesceTracker:
 
     def root_key(self, r: int) -> list:
         """Root ``r``'s epidemic stream key for the current epoch —
-        shared verbatim by the full rebuild and the cached replay."""
+        shared verbatim by the full rebuild, the cached replay and the
+        async event-loop flood."""
         return gossip_root_key(gossip_seed(self.seed, int(self.epoch[r])), r)
 
     def update_gossip(self):
         """Returns this iteration's per-rank info maps.  Rebuild path:
         every root re-drawn from its epoch key.  Caching path: re-draw
         only roots whose key changed (value-dirty ranks bumped their
-        epoch), splicing old reach out and new
+        epoch; a carry swapped the seed), splicing old reach out and new
         reach in — content-identical to the rebuild because clean roots'
         epidemics are pure functions of their unchanged keys."""
         n = self.n

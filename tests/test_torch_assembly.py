@@ -118,9 +118,9 @@ def test_tile_matches_reference(case, q):
     pallas = r_assembly_tile(jnp.asarray(pr), jnp.asarray(pc),
                              jnp.asarray(couple), quad_order=q, block_r=32,
                              block_c=64, interpret=True)
-    for want in (app, pallas):
+    for name, want in (("execute.tile_kernel", app), ("pallas", pallas)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                                   atol=1e-4)
+                                   atol=1e-4, err_msg=name)
     assert (got.numpy()[~couple] == 0).all()
 
 
