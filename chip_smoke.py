@@ -71,7 +71,25 @@ line):
    idle share), and the fault benchmark's 64-rank ``crash`` and
    ``crash_then_join`` (equal to the CPU's), each launching the pair
    kernel once a scorer call; walls, transfers, launches and
-   ``FaultStats`` are printed.
+   ``FaultStats`` are printed.  Then the paper's Fig. 4a
+   (``benchmarks/milp_vs_ccmlb.py``: ``random_phase(7, 4 ranks, 14 tasks,
+   4 blocks, 16 comms)``, delta 1e-9, 1e-10, 1e-11 and 0): 12 CCM-LB seeds
+   a delta on the card, each equal to the CPU's run, and the reduced FWMP
+   solved by branch and bound (host numpy, a 100-node limit, a clock limit
+   no solve reaches) without and with the card's best W_max as incumbent;
+   a solve must end by optimality or the node limit, and a certified
+   optimum must not lie above CCM-LB's best (status, objective, LP bound,
+   nodes, seconds, CCM-LB's gap and increase are printed).  Last, the
+   three planners on the card, each plan equal to the CPU's (the card's
+   memory as the HBM budget): expert placement of
+   ``benchmarks/expert_placement.py``'s qwen3-moe and llama4-scout at
+   published width (zipf(1.4) counts over (4, E), 16 devices), one device
+   at half speed, qwen with ``shards_per_expert=2, replicate=True``, a
+   4-window drifting sequence synchronously and with ``spec_window=8``
+   (window kernel, held to the synchronous plan), stage plans of three
+   archs and one stage schedule (contiguous; they make no lock event, so
+   no launch), and sequence packing of 256 costs on 8 ranks with and
+   without a half-speed rank; pair launches per plan.
 5. The paper's assembly application (section VI) on the card.  Hold the
    assembly-tile kernel (``src/repro_torch/csrc/assembly_tile.cu``) against
    its plain torch version: quad orders 4, 16, 64, 192; shapes (1, 1),
@@ -133,6 +151,24 @@ line):
    token's logit change, a pinned log-prob beyond the contract's
    tolerance, or a pinned argmax that differs where the CPU's top two
    logits lie further apart than twice the step's largest logit error.
+   Then the expert re-placement loop on the served weights (the JAX
+   package's ``launch/train.py::rebalance_experts``): one prefill of the
+   served prompts through ``run_stack`` gives the router counts (8, 128),
+   ``plan_expert_placement`` on 16 devices runs on the card (pair kernel),
+   ``apply_expert_permutation`` moves every MoE layer's experts on the
+   card, and the same prefill runs again, then once more with its
+   routing pinned to the first run's: exactly 8 flash and 24 expert GEMM
+   launches each, counts permuted (exactly on the first layer; on the
+   others exactly or with every moved top-k selection at a near tie: the
+   card's ``index_add_`` sums a token's expert outputs in another order
+   once the slots move, so this check cannot catch a wrongly permuted
+   later layer), the pinned run's logits within the serving contract
+   against the first prefill's (an argmax may differ only at a near tie;
+   this is what holds the permuted weights of layers 1 to 7), and the
+   unpinned run's too unless selections moved; the unpermuted prefill
+   repeated shows the card's own spread; imbalance before and after,
+   transfers, the plan's seconds and the launches summed over the four
+   prefills are printed.
 7. Serving the recurrent LMs on the card.  Hold the WKV6 kernel
    (``csrc/wkv6.cu``) against its plain versions in float32 and bf16 (r,
    k, v; log_w and u float32): y against the sequential oracle and the
@@ -183,8 +219,8 @@ line):
    time.
 9. Import every module of ``repro_torch``, check that no module of JAX or
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
-   serve, per-run, pipeline and async, and assembly numbers, the launch
-   floor, the card line,
+   serve, per-run, pipeline and async, MILP and planner, and assembly
+   numbers, the launch floor, the card line,
    one JSON line of per-kernel numbers (the scorer's pair kernel and its
    full-tile kernel, each in float64 and float32, its window kernel, the
    assembly tile,
@@ -255,6 +291,22 @@ PIPE_KW = dict(n_iter=4, k_rounds=2, fanout=4, seed=0, batch_lock_events=8)
 ASYNC_LATENCIES = (0.0, 0.5, ("uniform", 0.5, 1.5))
 FAULT_LAT = ("uniform", 0.5, 1.5)
 FAULT_RANKS = 64
+# the JAX package's benchmarks/milp_vs_ccmlb.py (paper Fig. 4a): the
+# instance, the delta sweep, 12 CCM-LB seeds a delta; the MILP's node limit
+# lets every solve end well inside the smoke, and its wall-clock limit is
+# one no solve reaches (a solve cut by the clock is not reproducible)
+MILP_PHASE = dict(num_ranks=4, num_tasks=14, num_blocks=4, num_comms=16,
+                  mem_cap=5e8)
+MILP_DELTAS = (1e-9, 1e-10, 1e-11, 0.0)
+MILP_SEEDS = 12
+MILP_KW = dict(n_iter=4, fanout=3)
+MILP_NODES = 100
+MILP_NO_CLOCK = 3600.0
+# the planners: benchmarks/expert_placement.py's router counts drifting by a
+# lognormal sigma a window; tests/test_balance.py's stage-plan archs
+PLAN_WINDOWS, PLAN_DRIFT = 4, 0.15
+STAGE_ARCHS = ("recurrentgemma-9b", "gemma2-27b", "qwen3-moe-30b-a3b")
+STAGE_SCHEDULE = (2048, 4096, 8192, 4096)
 ASM_SOURCE = "src/repro_torch/csrc/assembly_tile.cu"
 ASM_REPLACES = "src/repro/kernels/assembly/kernel.py:25"
 # operations per coupled entry and quadrature step, as the JAX package's
@@ -1249,6 +1301,298 @@ def async_path(torch, kernel, launch, sync_run) -> dict:
     return runs
 
 
+# ------------------------------------- 4e. the MILP certification (Fig. 4a)
+def milp_path(torch, kernel, launch) -> dict:
+    """The paper's Fig. 4a on the card, as the JAX package's
+    ``benchmarks/milp_vs_ccmlb.py`` runs it: ``random_phase(7, 4 ranks,
+    14 tasks, 4 blocks, 16 comms, mem_cap=5e8)`` from ``initial_assignment``
+    at each delta of ``MILP_DELTAS``.  ``MILP_SEEDS`` CCM-LB runs
+    (``MILP_KW``) on the card, each equal to the port's CPU run
+    (assignment, transfer log and count, max-work trace), their pair
+    launches counted from zero just before the card runs and read just
+    after (more than zero, equal to the scorer calls, no full-tile or
+    window launch).  Then ``solve_milp(build_fwmp_reduced(...))`` (host
+    numpy) with ``max_nodes=MILP_NODES`` and a wall-clock limit no solve
+    reaches, without and with the card runs' best W_max as
+    ``incumbent_obj``; each solve must end by optimality or at the node
+    limit, and a certified optimum must not lie above CCM-LB's best."""
+    import numpy as np
+
+    from repro_torch.core import (CCMParams, ccm_lb, initial_assignment,
+                                  random_phase)
+    from repro_torch.core.milp import build_fwmp_reduced, solve_milp
+    phase = random_phase(7, **MILP_PHASE)
+    a0 = initial_assignment(phase)
+    out = {}
+    for delta in MILP_DELTAS:
+        params = CCMParams(alpha=1.0, beta=1e-9, gamma=1e-11, delta=delta)
+        t0 = time.perf_counter()
+        cpu = [ccm_lb(phase, a0, params, device="cpu", seed=s, **MILP_KW)
+               for s in range(MILP_SEEDS)]
+        cpu_s = time.perf_counter() - t0
+        kernel.reset_launches()
+        launch.reset_stats()
+        t0 = time.perf_counter()
+        gpu = [ccm_lb(phase, a0, params, device="cuda", seed=s, **MILP_KW)
+               for s in range(MILP_SEEDS)]
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        n = kernel.PAIR_LAUNCHES["float64"]
+        bad = [s for s in range(MILP_SEEDS) if not same_run(gpu[s], cpu[s])]
+        if bad:
+            fail(f"milp delta {delta!r}: card runs of seeds {bad} differ "
+                 "from the cpu runs")
+        if (n == 0 or n != launch.STATS["calls"]
+                or sum(kernel.LAUNCHES.values())
+                or sum(kernel.SPEC_LAUNCHES.values())):
+            fail(f"milp delta {delta!r}: pair launches {n} vs scorer calls "
+                 f"{launch.STATS['calls']}, full-tile {kernel.LAUNCHES}, "
+                 f"window {kernel.SPEC_LAUNCHES}")
+        works = [float(r.max_work[-1]) for r in gpu]
+        best = min(works)
+        milp = build_fwmp_reduced(phase, params)
+        solves = {}
+        for label, inc in (("no incumbent", np.inf),
+                           ("ccm-lb incumbent", best)):
+            t0 = time.perf_counter()
+            res = solve_milp(milp, incumbent_obj=inc, max_nodes=MILP_NODES,
+                             time_limit_s=MILP_NO_CLOCK)
+            solve_s = time.perf_counter() - t0
+            if res.status != "optimal" and res.nodes < MILP_NODES:
+                fail(f"milp delta {delta!r}, {label}: ended {res.status} "
+                     f"after {res.nodes} of {MILP_NODES} nodes")
+            if res.status == "optimal" and \
+                    res.objective > best * (1 + 1e-9):
+                fail(f"milp delta {delta!r}, {label}: certified optimum "
+                     f"{res.objective!r} above CCM-LB's best {best!r}")
+            solves[label] = dict(
+                status=res.status, objective=float(res.objective),
+                lp_bound=float(res.lp_bound),
+                best_bound=float(res.best_bound), nodes=res.nodes,
+                seconds=solve_s)
+        opt = [s["objective"] for s in solves.values()
+               if s["status"] == "optimal"]
+        if len(set(opt)) > 1:
+            fail(f"milp delta {delta!r}: the two solves' optima differ "
+                 f"{opt}")
+        lp = solves["no incumbent"]["lp_bound"]
+        gaps = [(w - lp) / lp for w in works]
+        incr = [(w - opt[0]) / opt[0] for w in works] if opt else None
+        out[f"{delta:g}"] = dict(
+            ccmlb_runs=MILP_SEEDS, cuda_s=gpu_s, cpu_s=cpu_s,
+            pair_launches=n, transfers=[r.transfers for r in gpu],
+            ccmlb_best=best, ccmlb_worst=max(works),
+            ccmlb_gap_to_lp=[min(gaps), max(gaps)],
+            ccmlb_increase_over_optimum=(None if incr is None
+                                         else [min(incr), max(incr)]),
+            milp=solves)
+        print(f"milp delta {delta:g}: {MILP_SEEDS} card CCM-LB runs "
+              f"identical to cpu ({n} pair launches; wall cuda {gpu_s!r} s, "
+              f"cpu {cpu_s!r} s), W_max {best!r}..{max(works)!r}, gap to "
+              f"the LP bound {min(gaps):.3e}..{max(gaps):.3e}, increase over "
+              f"the MILP optimum "
+              + ("not certified" if incr is None
+                 else f"{100 * min(incr):.2f}%..{100 * max(incr):.2f}%")
+              + "; MILP "
+              + "; ".join(f"{k}: {v['status']} W={v['objective']!r} "
+                          f"LP bound {v['lp_bound']!r} nodes {v['nodes']} "
+                          f"{v['seconds']:.2f} s host"
+                          for k, v in solves.items()), flush=True)
+    return out
+
+
+# ---------------------------------------------- 4f. the three planners
+def zipf_counts(rng, e_n, l_n=4, tokens=32768):
+    """Router counts as the JAX package's ``benchmarks/expert_placement.py``
+    draws them: zipf(1.4) over (l_n, e_n), each layer scaled to ``tokens``."""
+    import numpy as np
+    counts = rng.zipf(1.4, (l_n, e_n)).astype(np.float64)
+    return counts / counts.sum(1, keepdims=True) * tokens
+
+
+def same_expert_plan(a, b) -> bool:
+    """Two placement plans: assignment, permutations, imbalances, max work,
+    the transfer log and every ``ServingPlan`` array."""
+    import numpy as np
+    sa, sb = a.serving, b.serving
+    return (np.array_equal(a.assignment, b.assignment)
+            and np.array_equal(a.permutations, b.permutations)
+            and a.imbalance_before == b.imbalance_before
+            and a.imbalance_after == b.imbalance_after
+            and a.max_work_before == b.max_work_before
+            and a.max_work_after == b.max_work_after
+            and a.replicated_blocks == b.replicated_blocks
+            and a.lb_result.transfer_log == b.lb_result.transfer_log
+            and np.array_equal(sa.replicas, sb.replicas)
+            and np.array_equal(sa.routing_shares, sb.routing_shares)
+            and np.array_equal(sa.hbm_bytes, sb.hbm_bytes)
+            and sa.replicated_experts == sb.replicated_experts)
+
+
+def same_stage_plan(a, b) -> bool:
+    import numpy as np
+    return (np.array_equal(a.assignment, b.assignment)
+            and np.array_equal(a.stage_flops, b.stage_flops)
+            and a.imbalance == b.imbalance and a.cut_bytes == b.cut_bytes
+            and a.contiguous == b.contiguous)
+
+
+def same_pack(a, b) -> bool:
+    import numpy as np
+    return (np.array_equal(a.assignment, b.assignment)
+            and a.makespan_before == b.makespan_before
+            and a.makespan_after == b.makespan_after
+            and a.imbalance_after == b.imbalance_after)
+
+
+def planner_path(torch, kernel, launch) -> dict:
+    """The three planners on the card, each plan equal to the port's CPU
+    plan, with the card's own memory as the HBM budget: expert placement
+    of ``benchmarks/expert_placement.py``'s configurations (qwen3-moe and
+    llama4-scout at published width, zipf(1.4) counts over (4, E), 16
+    devices; one device at half speed), qwen with ``shards_per_expert=2,
+    replicate=True``, ``plan_expert_placement_sequence`` over
+    ``PLAN_WINDOWS`` drifting windows synchronously and with
+    ``spec_window=8`` (held to the synchronous plan; the window kernel),
+    stage plans of ``STAGE_ARCHS`` on 4 stages (each contiguous) and one
+    stage schedule, and ``rebalance_sequences`` of 256 lognormal(0, 1.2)
+    costs over 8 ranks, with and without a half-speed rank.  Each card
+    plan's launches are counted from zero just before it and read just
+    after: pair launches (window launches on the spec run) equal to the
+    scorer calls and, but for the stage plans (whose stage 1 finds no move
+    worth a lock), more than zero; no full-tile launch, none of the other
+    kernel."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.balance import (plan_expert_placement,
+                                     plan_expert_placement_sequence,
+                                     plan_pipeline_stages,
+                                     plan_pipeline_stages_schedule,
+                                     rebalance_sequences)
+    hbm = float(torch.cuda.get_device_properties(0).total_memory)
+    rng = np.random.default_rng(0)
+    qwen = configs.get_config(SERVE_ARCH)
+    scout = configs.get_config("llama4-scout-17b-a16e")
+    qwen_counts = zipf_counts(rng, qwen.num_experts)
+    scout_counts = zipf_counts(rng, scout.num_experts)
+    straggler_counts = zipf_counts(rng, qwen.num_experts)
+    speed = np.ones(16)
+    speed[0] = 0.5
+    seq = [qwen_counts]
+    for _ in range(PLAN_WINDOWS - 1):
+        nxt = seq[-1] * rng.lognormal(0.0, PLAN_DRIFT, qwen_counts.shape)
+        seq.append(nxt / nxt.sum(1, keepdims=True)
+                   * qwen_counts.sum(1)[:, None])
+    costs = np.random.default_rng(0).lognormal(0, 1.2, 256)
+    seq_speed = np.ones(8)
+    seq_speed[0] = 0.5
+    expert_kw = dict(hbm_budget_bytes=hbm, seed=0)
+    cases = [
+        ("experts qwen3-moe-30b-a3b", "placement", lambda **d:
+         plan_expert_placement(qwen_counts, qwen, 16, **expert_kw, **d)),
+        ("experts llama4-scout-17b-a16e", "placement", lambda **d:
+         plan_expert_placement(scout_counts, scout, 16, **expert_kw, **d)),
+        ("experts straggler", "placement", lambda **d:
+         plan_expert_placement(straggler_counts, qwen, 16, rank_speed=speed,
+                               **expert_kw, **d)),
+        ("experts qwen replicated", "placement", lambda **d:
+         plan_expert_placement(qwen_counts, qwen, 16, shards_per_expert=2,
+                               replicate=True, **expert_kw, **d)),
+        (f"experts sequence x{PLAN_WINDOWS}", "sequence", lambda **d:
+         plan_expert_placement_sequence(seq, qwen, 16, **expert_kw, **d)),
+        (f"experts sequence x{PLAN_WINDOWS}, spec_window=8", "sequence",
+         lambda **d: plan_expert_placement_sequence(
+             seq, qwen, 16, spec_window=8, **expert_kw, **d)),
+    ]
+    for arch in STAGE_ARCHS:
+        cfg = configs.get_config(arch)
+        cases.append((f"stages {arch}", "stages", lambda cfg=cfg, **d:
+                      plan_pipeline_stages(cfg, 4, hbm_budget_bytes=hbm,
+                                           **d)))
+    cases += [
+        (f"stage schedule {SERVE_ARCH} {STAGE_SCHEDULE}", "schedule",
+         lambda **d: plan_pipeline_stages_schedule(
+             qwen, 4, STAGE_SCHEDULE, hbm_budget_bytes=hbm, **d)),
+        ("seqpack 256 on 8", "seqpack", lambda **d:
+         rebalance_sequences(costs, 8, seed=0, **d)),
+        ("seqpack 256 on 8, rank 0 at half speed", "seqpack", lambda **d:
+         rebalance_sequences(costs, 8, rank_speed=seq_speed, seed=0, **d)),
+    ]
+    same = {"placement": same_expert_plan, "stages": same_stage_plan,
+            "seqpack": same_pack,
+            "sequence": lambda a, b: len(a) == len(b) and all(
+                map(same_expert_plan, a, b)),
+            "schedule": lambda a, b: len(a) == len(b) and all(
+                map(same_stage_plan, a, b))}
+    out, cpu_plans = {}, {}
+    for label, kind, plan in cases:
+        spec = "spec_window" in label
+        t0 = time.perf_counter()
+        # the spec run is held to the synchronous sequence's cpu plan
+        want = (cpu_plans[label.split(",")[0]] if spec
+                else plan(device="cpu"))
+        cpu_s = None if spec else time.perf_counter() - t0
+        cpu_plans[label] = want
+        kernel.reset_launches()
+        launch.reset_stats()
+        t0 = time.perf_counter()
+        got = plan(device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, other = ((kernel.SPEC_LAUNCHES, kernel.PAIR_LAUNCHES) if spec
+                         else (kernel.PAIR_LAUNCHES, kernel.SPEC_LAUNCHES))
+        n = counts["float64"]
+        calls = (launch.STATS["spec"]["calls"] if spec
+                 else launch.STATS["calls"])
+        if not same[kind](got, want):
+            fail(f"planner {label}: card plan differs from the cpu plan")
+        # a stage plan makes no lock event: its stage 1 finds no move
+        # worth a lock (the reference's too; ROADMAP queue 3)
+        if ((n == 0 and kind not in ("stages", "schedule")) or n != calls
+                or sum(kernel.LAUNCHES.values()) or sum(other.values())):
+            fail(f"planner {label}: launches {n} vs calls {calls}, "
+                 f"full-tile {kernel.LAUNCHES}, pair {kernel.PAIR_LAUNCHES},"
+                 f" window {kernel.SPEC_LAUNCHES}")
+        plans = got if isinstance(got, list) else [got]
+        if kind in ("stages", "schedule") and not all(p.contiguous
+                                                      for p in plans):
+            fail(f"planner {label}: a stage plan is not contiguous "
+                 f"{[p.assignment.tolist() for p in plans]}")
+        if kind in ("placement", "sequence") and any(
+                sorted(perm.tolist()) != list(range(perm.shape[0]))
+                for p in plans for perm in p.permutations):
+            fail(f"planner {label}: a slot permutation is not one")
+        rec = dict(cuda_s=wall, cpu_s=cpu_s,
+                   kernel="window" if spec else "pair", launches=n,
+                   transfers=[p.lb_result.transfers for p in plans]
+                   if kind in ("placement", "sequence") else None)
+        if kind in ("placement", "sequence"):
+            rec.update(
+                imbalance=[[p.imbalance_before, p.imbalance_after]
+                           for p in plans],
+                max_work=[[p.max_work_before, p.max_work_after]
+                          for p in plans],
+                replicated_blocks=[p.replicated_blocks for p in plans],
+                hbm_within_budget=all(p.serving.within_budget()
+                                      for p in plans))
+        elif kind == "seqpack":
+            rec.update(makespan=[got.makespan_before, got.makespan_after],
+                       imbalance=[got.imbalance_before, got.imbalance_after])
+        else:
+            rec.update(assignment=[p.assignment.tolist() for p in plans],
+                       imbalance=[p.imbalance for p in plans],
+                       cut_bytes=[p.cut_bytes for p in plans])
+        out[label] = rec
+        print(f"planner {label}: card plan identical to cpu; "
+              f"{rec['kernel']} launches {n}; imbalance {rec['imbalance']}"
+              f"; wall cuda {wall!r} s, cpu {cpu_s!r} s", flush=True)
+    if not sum(r["launches"] for r in out.values()):
+        fail("planner_path: no plan launched the pair kernel")
+    out["hbm_budget_bytes"] = hbm
+    return out
+
+
 # ----------------------------------------------------------- 5. assembly
 def tile_inputs(torch, rng, nr, nc, coincident=False):
     pr = rng.uniform(0.0, 2.0, (nr, 3))
@@ -1947,6 +2291,164 @@ def serve_path(torch, mods) -> dict:
     if not f32["contract_met"]:
         fail(f"card vs cpu, float32: serving contract missed: {f32}")
     out["card_vs_cpu"] = {"bfloat16": bf, "float32": f32}
+    # the expert re-placement loop on the served weights, before they go
+    out["replacement"] = replacement_loop(torch, cfg, model, params, mods)
+    return out
+
+
+def prefill_stats(torch, cfg, params, tokens):
+    """One prefill of ``tokens`` through ``transformer.run_stack`` that
+    keeps its router statistics (``lm_prefill`` drops them): the
+    last-position logits (B, V) float32 and the expert counts (one row per
+    period of the block pattern, E), both on the CPU."""
+    from repro_torch.models import transformer as tf
+    with torch.inference_mode():
+        x, positions = tf.lm_inputs(params, {"tokens": tokens}, cfg)
+        x, stats, _ = tf.run_stack(params, x, positions, cfg)
+        x = tf.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = tf.unembed(params, x[:, -1:], cfg)[:, 0]
+    return logits.float().cpu(), stats["expert_counts"].cpu()
+
+
+def rows_contract(torch, got, want) -> dict:
+    """``compare_steps`` with each row of (B, V) logits as a step."""
+    return compare_steps(torch, list(got.split(1)), list(want.split(1)))
+
+
+def replacement_loop(torch, cfg, model, params, mods) -> dict:
+    """The JAX package's ``launch/train.py::rebalance_experts`` flow on the
+    weights ``serve_path`` has just served: one prefill of the served
+    prompts through ``run_stack`` (router counts, one row per layer), an
+    expert placement of those counts on 16 devices planned on the card
+    (the card's memory as the HBM budget), the plan's slot permutations
+    applied to every MoE layer on the card, and the same prefill again.
+
+    Only the order in which the card's ``index_add_`` sums a token's expert
+    outputs moves with the slots (the per-expert GEMMs are the same), and
+    in bf16 that can move a later layer's near-tied top-k selection; the
+    same prefill of the unpermuted weights, repeated, shows how much of it
+    the card's unordered sums give anyway (reported, not held).  Held: the
+    second run's counts are the first's permuted, exactly on the first
+    layer (its router sees the same input) and on later layers unless
+    every top-k selection that moved sits at a near tie (``route_flips``).
+    That check of layers 1 to 7 cannot catch a wrongly permuted layer: a
+    wrong permutation moves the router logits far, and ``route_flips``
+    then calls every moved selection a near tie.  The permuted weights of
+    those layers are held by the logits alone: a third prefill of the
+    permuted weights, its routing pinned to the first run's selections in
+    slot numbering, always runs, and its last-position logits must meet
+    the serving contract against the first's (``rows_contract``: an
+    argmax may differ only at a near tie); a token sent to a wrong expert
+    would miss it.  The second run's logits must meet it too, unless a
+    selection moved.  Each prefill launches exactly ``SERVE_LAYERS`` flash
+    kernels and three expert GEMMs a layer, in bf16, and the plan the pair
+    kernel; ``launches`` sums the counts read after every prefill the loop
+    ran."""
+    import numpy as np
+
+    from repro_torch.balance import (apply_expert_permutation,
+                                     plan_expert_placement)
+    from repro_torch.configs.base import BLOCK_MOE
+    from repro_torch.kernels.ccm_scorer import kernel as scorer
+    from repro_torch.models import moe
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))   # serve_on_card's
+    tokens = torch.as_tensor(prompts, device=model.device)
+    want = {"flash": SERVE_LAYERS, "gemm": 3 * SERVE_LAYERS}
+    ran = {k: 0 for k in want}     # launches read after each prefill, summed
+    prefills = []
+
+    def counted_prefill(p, label, replay=None):
+        for mod in mods.values():
+            mod.reset_launches()
+        with RouteLog(moe) as routes:
+            routes.replay = replay
+            logits, counts = prefill_stats(torch, cfg, p, tokens)
+        torch.cuda.synchronize()
+        got = {k: dict(mods[k].LAUNCHES) for k in want}
+        if any(got[k] != {"bfloat16": n, "float32": 0}
+               for k, n in want.items()) or any(
+                sum(mods[k].LAUNCHES.values()) for k in mods
+                if k not in want):
+            fail(f"re-placement {label} prefill: launches {got}, expected "
+                 f"{want} in bf16 and nothing else")
+        for k in want:
+            ran[k] += got[k]["bfloat16"]
+        prefills.append(label)
+        return logits, counts, routes.calls
+
+    logits0, counts0, calls0 = counted_prefill(params, "first")
+    if counts0.shape != (SERVE_LAYERS, cfg.num_experts) or \
+            not torch.isfinite(logits0).all():
+        fail(f"re-placement: counts {tuple(counts0.shape)}, logits finite "
+             f"{bool(torch.isfinite(logits0).all())}")
+    logits_r, counts_r, calls_r = counted_prefill(params, "repeated")
+    repeat = dict(counts_equal=bool(torch.equal(counts_r, counts0)),
+                  router_flips=route_flips(calls_r, calls0, cfg.top_k)[0],
+                  **rows_contract(torch, logits_r, logits0))
+    counts = counts0.numpy().astype(np.float64)
+    hbm = float(torch.cuda.get_device_properties(0).total_memory)
+    scorer.reset_launches()
+    t0 = time.perf_counter()
+    plan = plan_expert_placement(counts, cfg, 16, hbm_budget_bytes=hbm,
+                                 device="cuda")
+    plan_s = time.perf_counter() - t0
+    n_pair = scorer.PAIR_LAUNCHES["float64"]
+    if n_pair == 0 or sum(scorer.LAUNCHES.values()) \
+            or sum(scorer.SPEC_LAUNCHES.values()):
+        fail(f"re-placement plan: pair launches {scorer.PAIR_LAUNCHES}, "
+             f"full-tile {scorer.LAUNCHES}, window {scorer.SPEC_LAUNCHES}")
+    perms = [torch.as_tensor(p) for p in plan.permutations]
+    period = cfg.pattern_period
+    placed = dict(params, blocks=[
+        dict(b, moe=apply_expert_permutation(b["moe"], perms[i // period]))
+        if kind == BLOCK_MOE else b
+        for i, (b, kind) in enumerate(zip(params["blocks"],
+                                          cfg.layer_kinds()))])
+    logits1, counts1, calls1 = counted_prefill(placed, "second")
+    exact = [bool(torch.equal(counts1[r], counts0[r][p]))
+             for r, p in enumerate(perms)]
+    # the second run's routings in the first run's expert numbering
+    mapped = [(lg[:, torch.argsort(p)], vals, p[idx])
+              for (lg, vals, idx), p in zip(calls1, perms, strict=True)]
+    flips, unexplained = route_flips(mapped, calls0, cfg.top_k)
+    if not exact[0] or (not all(exact) and unexplained):
+        fail(f"re-placement: counts not permuted (exact per layer {exact};"
+             f" {flips} top-k selections moved, {unexplained} not at a "
+             "near tie)")
+    contract = rows_contract(torch, logits1, logits0)
+    # the first run's selections, in slot numbering
+    inv = [torch.argsort(p) for p in perms]
+    replay = [(vals, q[idx]) for (_, vals, idx), q
+              in zip(calls0, inv, strict=True)]
+    logits_p, _, _ = counted_prefill(placed, "pinned", replay)
+    pinned = rows_contract(torch, logits_p, logits0)
+    missed = contract["max_excess"] > 0 or contract["argmax_unexplained"]
+    if (missed and not flips) or pinned["max_excess"] > 0 \
+            or pinned["argmax_unexplained"]:
+        fail(f"re-placement: logits outside the serving contract against "
+             f"the first prefill ({contract}; {flips} top-k selections "
+             f"moved) or with the routing pinned ({pinned})")
+    del placed
+    torch.cuda.empty_cache()
+    out = dict(counts_shape=list(counts0.shape), counts_exact=exact,
+               router_flips=flips, router_flips_unexplained=unexplained,
+               imbalance=[plan.imbalance_before, plan.imbalance_after],
+               max_work=[plan.max_work_before, plan.max_work_after],
+               transfers=plan.lb_result.transfers,
+               replicated_blocks=plan.replicated_blocks, plan_s=plan_s,
+               pair_launches=n_pair, prefills=prefills, launches=ran,
+               contract=contract, pinned=pinned, repeat=repeat)
+    print(f"re-placement: counts {tuple(counts0.shape)} from the served "
+          f"weights; plan on the card {plan_s!r} s, {n_pair} pair launches, "
+          f"{plan.lb_result.transfers} transfers, imbalance "
+          f"{plan.imbalance_before!r} -> {plan.imbalance_after!r}; second "
+          f"prefill's counts permuted exactly per layer {exact} ({flips} "
+          f"top-k selections moved, {unexplained} not at a near tie); "
+          f"logits against the first prefill's {contract}; with the "
+          f"routing pinned {pinned}; the unpermuted prefill repeated: "
+          f"{repeat}; {len(prefills)} prefills {prefills} launched {ran} "
+          f"({want} each)", flush=True)
     return out
 
 
@@ -2902,6 +3404,16 @@ def main() -> None:
     # 4c / 4d. the pipeline and the async balancer (counts zeroed inside)
     pipe = pipeline_path(torch, kernel, launch)
     asy = async_path(torch, kernel, launch, mp.pop("f64_cuda_run"))
+    # 4e / 4f. the MILP certification and the three planners (counts
+    # zeroed inside, per run and per plan)
+    t0 = time.perf_counter()
+    milp = milp_path(torch, kernel, launch)
+    milp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planners = planner_path(torch, kernel, launch)
+    planner_s = time.perf_counter() - t0
+    print(f"milp_path {milp_s:.1f} s, planner_path {planner_s:.1f} s",
+          flush=True)
     # 5. the assembly application (launch counts zeroed inside, per run)
     asm_worst = check_assembly_kernel(torch, asm_ops, asm_ref, rng)
     asm = assembly_path(torch, asm_kernel, asm_ref, kernel, launch)
@@ -2972,6 +3484,13 @@ def main() -> None:
                             if isinstance(v, dict) and v["kernel"] == "pair"})
             by_path.update({f"async {k}": v["launches"]
                             for k, v in asy.items()})
+            by_path.update({f"milp delta {k}": v["pair_launches"]
+                            for k, v in milp.items()})
+            by_path.update({f"planner {k}": v["launches"]
+                            for k, v in planners.items()
+                            if isinstance(v, dict) and v["kernel"] == "pair"})
+            by_path["re-placement plan"] = serve["replacement"][
+                "pair_launches"]
         kernels.append({
             "name": f"ccm_scorer_pairs_{short}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -3006,6 +3525,9 @@ def main() -> None:
     spec_by_path.update({f"pipeline_256 {k}": v["launches"]
                          for k, v in pipe.items()
                          if isinstance(v, dict) and v["kernel"] == "window"})
+    spec_by_path.update({f"planner {k}": v["launches"]
+                         for k, v in planners.items()
+                         if isinstance(v, dict) and v["kernel"] == "window"})
     kernels.append({
         "name": "ccm_scorer_spec_f64", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": SPEC_REPLACES,
@@ -3032,13 +3554,15 @@ def main() -> None:
     serve_times["flash"].update(rec_times["flash"])
     flash_by_path = {f"serve_{SERVE_ARCH}": serve["launches"]["flash"][
         "bfloat16"], f"serve_{RG_ARCH}": rec[RG_ARCH]["launches"]["flash"][
-        "bfloat16"]}
+        "bfloat16"], f"re-placement_{SERVE_ARCH}": serve["replacement"][
+            "launches"]["flash"]}
     for name, key, worst_err, source, replaces, by_path in (
             ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
              FLASH_REPLACES, flash_by_path),
             ("expert_gemm_bf16", "gemm", gemm_worst, GEMM_SOURCE,
              GEMM_REPLACES, {f"serve_{SERVE_ARCH}": serve["launches"][
-                 "gemm"]["bfloat16"]})):
+                 "gemm"]["bfloat16"], f"re-placement_{SERVE_ARCH}":
+                 serve["replacement"]["launches"]["gemm"]})):
         by_shape = serve_times[key]
         shape = max(by_shape, key=lambda k: by_shape[k]["launches"])
         m = by_shape[shape]
@@ -3098,6 +3622,9 @@ def main() -> None:
                           "device_idle_share_bounds"]}), flush=True)
     print(json.dumps({"pipeline_path": pipe, "async_path": asy}),
           flush=True)
+    print(json.dumps({"milp_path": milp, "milp_path_s": milp_s,
+                      "planner_path": planners,
+                      "planner_path_s": planner_s}), flush=True)
     print(json.dumps({"assembly": {
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
         flush=True)

@@ -177,8 +177,10 @@ def launch_pairs(dtype: torch.dtype, av: int, bv: int, pm: int, sc: int,
         build()
     fn = (_lib.ccm_scorer_pairs_f64 if dtype == torch.float64
           else _lib.ccm_scorer_pairs_f32)
+    # bool(): the params may hold a numpy bool (seqpack's np.isfinite),
+    # which ctypes does not take as an int
     rc = fn(av, bv, pm, sc, cf, offs, pairs, out, e_n, a_n, b_n, p_total,
-            memory_constraint, host_pairs, stream)
+            bool(memory_constraint), host_pairs, stream)
     if rc == _BAD_PAIR:
         synchronize(stream)
         raise IndexError(f"ccm_scorer: a shortlisted pair lies outside its "
