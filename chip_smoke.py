@@ -10,11 +10,11 @@ line):
 
 1. Print the python, torch and CUDA versions, the card, and the card's name
    and power limit as nvidia-smi reports them.
-2. Build the six kernels (``src/repro_torch/csrc/``: the scorer, the
-   assembly tile, flash attention, the expert GEMM, WKV6 and the RG-LRU
-   scan) from the checkout's sources into ``build/``, one nvcc each, in
-   parallel, and print the build seconds and ptxas's report; fail if ptxas
-   spills registers in any kernel.
+2. Build the seven kernel sources (``src/repro_torch/csrc/``: the scorer,
+   the assembly tile, flash attention and its backward, the expert GEMM,
+   WKV6 and the RG-LRU scan) from the checkout's sources into ``build/``,
+   one nvcc each, in parallel, and print the build seconds and ptxas's
+   report; fail if ptxas spills registers in any kernel.
 3. Hold the scorer's two kernels against their plain torch versions on
    the card.  The full tile: float64 and float32, E in {1, 8, 64}, A, B in
    {1, 13, 16, 128}, random masks, exact equality (``torch.equal``), the
@@ -198,6 +198,35 @@ line):
    CPU).  The serving contract must hold in float32 and in bf16, where an
    argmax may differ only at a near tie (the CPU's top two logits closer
    than twice the step's largest logit error).
+7b. Training ``qwen3-moe-30b-a3b`` on the card.  Hold the flash backward
+   kernel (``csrc/flash_attention_bwd.cu``, through ``ops.flash_attention``'s
+   autograd function) against autograd through the plain version at every
+   ``FLASH_CASES`` shape in float32 and bf16 (dq, dk, dv within 1e-4 and
+   2e-2 of their largest |value|), and the expert GEMM's backward (dX and
+   dW, two launches of its kernel on transposed copies) against the plain
+   autograd at the training shapes and the ragged ones (the forward's
+   tolerances).  Then the same float32 weights of qwen cut to 2 layers on
+   the card and the CPU: the loss and every gradient leaf of a 2 x 64-token
+   batch (rtol 1e-4; gradients within 1e-3 of each leaf's largest
+   |value|), and three AdamW steps' losses (rtol 1e-3).  Then ``launch.train.train_loop`` at
+   the published width, 4 of 48 layers (3.11 G parameters), 10 steps of 4
+   x 512 tokens at lr 3e-4, a CCM-LB expert re-placement every 5 steps on
+   16 expert ranks (the pair kernel in the plan; the experts and AdamW's
+   moments permuted on the card).  Launches, counted from zero just before the run,
+   must be 8 flash forward (forward and remat), 4 flash backward, 24
+   expert GEMMs in the forward and 24 in the backward every step, all
+   bf16, and some pair launches; the losses finite and the last below the
+   first.  One more step runs under ``torch.profiler`` (device idle
+   share).  Then the restart pair at 1 of 48 layers (a 4-layer checkpoint
+   is 31.1 GB, and the card hosts this script runs on end a run that
+   writes more than 45 GiB to their disk): the run uninterrupted, then with a checkpoint every 5 steps into
+   a temporary directory, failing at step 7 under ``run_with_restarts``:
+   it must restore step 5's checkpoint and its losses from there agree
+   with the uninterrupted run's within 1e-3 relative.  Prints the losses, seconds a step (median, min, max),
+   tokens/s, peak memory, launches a step, each re-placement's imbalance
+   and pair launches; then times both backwards at the training shapes
+   against their plain versions' autograd, SDPA's and ``torch.bmm``'s
+   backward (timed only) and their bounds.
 8. Time the kernels, their plain versions and their bounds at the shapes
    the main paths launched most (the pair kernel also at E = 64, A = B =
    128, P = 32 an event, with the launcher's host time a call and its
@@ -221,10 +250,12 @@ line):
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
    serve, per-run, pipeline and async, MILP and planner, and assembly
    numbers, the launch floor, the card line,
+   the training numbers,
    one JSON line of per-kernel numbers (the scorer's pair kernel and its
    full-tile kernel, each in float64 and float32, its window kernel, the
    assembly tile,
-   flash, the expert GEMM, wkv6 and rglru) and, as the last line,
+   flash, the expert GEMM, wkv6, rglru, the flash backward and the expert
+   GEMM's backward) and, as the last line,
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or when the
@@ -383,6 +414,52 @@ GEMM_SHAPES = ((128, 168, 2048, 768), (128, 168, 768, 2048),
                (128, 4, 2048, 768), (128, 4, 768, 2048), (3, 37, 100, 70),
                (5, 16, 64, 130), (8, 1, 2048, 768), (8, 13, 2048, 768),
                (8, 300, 2048, 768))
+
+# the training path (phase 7b): qwen3-moe-30b-a3b at its published width,
+# depth cut to 4 of 48 layers (3.11 G parameters: 37.4 GB of bf16 weights,
+# bf16 gradients and float32 AdamW moments before activations); 10 steps of
+# 4 x 512 tokens at lr 3e-4, a re-placement every 5 steps on 16 expert ranks
+# (the production mesh's model axis).  The restart check writes a
+# checkpoint every 5 steps, and a checkpoint of those 4 layers is 31.1 GB
+# (bf16 params, float32 m and v): two of them pass the 45 GiB that the card
+# hosts this script runs on let one run write to their disk, deleted files
+# included.  So the restart pair (the run
+# uninterrupted, then failing at step 7 and restarted from step 5's
+# checkpoint) runs at TRAIN_RESTART_LAYERS, whose checkpoint is 12.45 GB,
+# and the 4-layer run keeps no checkpoint
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_RESTART_LAYERS = "qwen3-moe-30b-a3b", 4, 1
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 512, 4, 10, 3e-4
+TRAIN_REBALANCE, TRAIN_RANKS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 16, 5, 7
+# the restarted run's losses against the uninterrupted run's: the card's
+# index_add_ sums in no set order, and the restarted run resumes before the
+# step-5 re-placement (a function-preserving permutation) that the
+# uninterrupted run applied, so its expert sums run in another order
+TRAIN_RESTART_RTOL = 1e-3
+# card vs cpu: the same float32 weights of qwen cut to 2 layers, a batch of
+# 2 x 64 tokens: the loss within rtol 1e-4 and each gradient leaf within
+# 1e-3 of its largest |value| (float32 on both sides, TF32 off; sums in
+# other orders); the three steps' losses within TRAIN_RESTART_RTOL, for the
+# restart check's reason: AdamW moves an element by about lr whatever its
+# gradient's size, so where a gradient is near 0 the two sides' rounding
+# decides the step (on an H100, 7e-5 after three steps with the first loss
+# equal bit for bit)
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
+TRAIN_CHECK_STEPS = 3
+TRAIN_CHECK_RTOL, TRAIN_CHECK_GRAD = 1e-4, 1e-3
+# the flash backward against the plain version's autograd (float32) at every
+# FLASH_CASES shape: each of dq, dk, dv within this share of its largest
+# |value| (float32 inputs: sums in another order; bf16 inputs: the forward's
+# output, whose p was rounded to bf16, enters D = rowsum(dO o O), and the
+# gradients are rounded once to bf16)
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_REPLACES = "src/repro/models/attention.py:98"
+GEMM_BWD_REPLACES = "src/repro/models/moe.py:68"
+# the expert GEMM's backward: the training shapes (C = 168; gate/up and
+# down), then the ragged ones of GEMM_SHAPES
+GEMM_BWD_SHAPES = ((128, 168, 2048, 768), (128, 168, 768, 2048),
+                   (3, 37, 100, 70), (5, 16, 64, 130), (8, 1, 2048, 768),
+                   (8, 13, 2048, 768), (8, 300, 2048, 768))
 
 # the recurrent serving paths, at their published widths and full depths:
 # rwkv6-7b (32 rwkv6 layers: 32 wkv6 launches in prefill) and
@@ -2550,6 +2627,409 @@ def tree_leaves(tree):
     return [tree]
 
 
+# ------------------------------------------------------- 7b. the training path
+def rel_err(torch, got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def check_flash_bwd(torch, flash_kernel, flash_ops, flash_ref) -> dict:
+    """The flash backward kernel (through ``ops.flash_attention``'s
+    autograd function: the forward kernel, then one backward launch)
+    against autograd through the plain version in float32, on the same
+    inputs (standard normal, drawn on the card from a seeded generator), at
+    every ``FLASH_CASES`` shape in float32 and bf16: dq, dk, dv each within
+    ``FLASH_BWD_TOL`` of its largest |value|.  Returns the largest absolute
+    and relative errors per dtype."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        worst[name] = {"abs": 0.0, "rel": 0.0}
+        for case in FLASH_CASES:
+            b, sq, skv, hq, hkv, hd, causal, window, cap = case
+            t = [torch.randn(shape, generator=gen, device="cuda")
+                 .to(dtype).requires_grad_()
+                 for shape in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                               (b, skv, hkv, hd))]
+            d_out = torch.randn((b, sq, hq, hd), generator=gen,
+                                device="cuda").to(dtype)
+            n0 = flash_kernel.BWD_LAUNCHES[name]
+            got = torch.autograd.grad(flash_ops.flash_attention(
+                *t, causal=causal, window=window, softcap=cap), t, d_out)
+            torch.cuda.synchronize()
+            if flash_kernel.BWD_LAUNCHES[name] != n0 + 1:
+                fail(f"flash backward {name} {case}: "
+                     f"{flash_kernel.BWD_LAUNCHES[name] - n0} launches")
+            fold = [fold_heads(x.detach().float(), h).requires_grad_()
+                    for x, h in zip(t, (hq, hkv, hkv))]
+            out = flash_ref.reference_attention(
+                *fold, causal=causal, window=window, softcap=cap)
+            want = torch.autograd.grad(out, fold,
+                                       fold_heads(d_out.float(), hq))
+            del out
+            for g, w, h, what in zip(got, want, (hq, hkv, hkv), "qkv"):
+                w = w.reshape(b, h, -1, hd).transpose(1, 2)
+                if g.shape != w.shape or g.dtype != dtype \
+                        or not torch.isfinite(g).all():
+                    fail(f"flash backward {name} {case}: d{what} "
+                         f"{tuple(g.shape)} {g.dtype}")
+                err = rel_err(torch, g, w)
+                if err > FLASH_BWD_TOL[name]:
+                    fail(f"flash backward {name} {case}: d{what} off by "
+                         f"{err} of its largest |value| (tolerance "
+                         f"{FLASH_BWD_TOL[name]})")
+                worst[name]["rel"] = max(worst[name]["rel"], err)
+                worst[name]["abs"] = max(
+                    worst[name]["abs"],
+                    (g.float() - w).abs().max().item())
+            del got, want, fold, t
+            torch.cuda.empty_cache()
+    print(f"flash backward kernel == plain version's autograd on "
+          f"{2 * len(FLASH_CASES)} cases (dq, dk, dv within "
+          f"{FLASH_BWD_TOL} of their largest |value|); worst {worst}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def check_gemm_bwd(torch, gemm_kernel, gemm_ops, gemm_ref) -> dict:
+    """The expert GEMM's backward (``ops.expert_gemm``'s autograd
+    function: dX and dW, one launch of the kernel each) against autograd
+    through the plain version on the same inputs (normal, drawn on the
+    card from a seeded generator; w scaled by 1 / sqrt(d)), at
+    ``GEMM_BWD_SHAPES`` in float32 and bf16, at the forward's ``GEMM_TOL``
+    (rtol tol, atol 10 tol).  Returns the largest absolute error per
+    dtype."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        worst[name] = 0.0
+        tol = GEMM_TOL[name]
+        for e, c, d, f in GEMM_BWD_SHAPES:
+            x, w, dy = (torch.randn(shape, generator=gen, device="cuda")
+                        for shape in ((e, c, d), (e, d, f), (e, c, f)))
+            x, w, dy = x.to(dtype), (w / d ** 0.5).to(dtype), dy.to(dtype)
+            n0 = gemm_kernel.BWD_LAUNCHES[name]
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            got = torch.autograd.grad(gemm_ops.expert_gemm(xg, wg),
+                                      (xg, wg), dy)
+            torch.cuda.synchronize()
+            if gemm_kernel.BWD_LAUNCHES[name] != n0 + 2:
+                fail(f"expert_gemm backward {name} ({e}, {c}, {d}, {f}): "
+                     f"{gemm_kernel.BWD_LAUNCHES[name] - n0} launches")
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            want = torch.autograd.grad(gemm_ref.reference_expert_gemm(xr, wr),
+                                       (xr, wr), dy)
+            for g, wt, what in zip(got, want, ("dX", "dW")):
+                try:
+                    torch.testing.assert_close(g.float(), wt.float(),
+                                               rtol=tol, atol=tol * 10)
+                except AssertionError as err:
+                    fail(f"expert_gemm backward {name} ({e}, {c}, {d}, "
+                         f"{f}): {what} != plain autograd: {err}")
+                worst[name] = max(worst[name],
+                                  (g.float() - wt.float()).abs().max().item())
+    print(f"expert_gemm backward == plain autograd on "
+          f"{2 * len(GEMM_BWD_SHAPES)} cases (dX and dW at rtol tol, atol 10 "
+          f"tol, tol {GEMM_TOL}); max_abs_err {worst}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
+                       gemm_ref, per_step) -> dict:
+    """The two backwards at the training shapes, bf16: kernel (CUDA events
+    and ``device_ms``), plain version's autograd, one PyTorch call's
+    backward (SDPA with K and V repeated to the q heads; ``torch.bmm``),
+    timed only, and the bound: the larger of the bytes (q, k, v, o, dO
+    read once, dq, dk, dv written once; x, w, dY read, dX, dW written)
+    over the HBM rate and the operations (flash: five products over the
+    visible pairs; the GEMM: two) over the bf16 tensor-core peak.
+    ``per_step`` is the main path's launches a step (a GEMM backward is two
+    launches; gate/up and down share it)."""
+    import torch.nn.functional as F
+    out = {}
+    cfg_b, hq, hkv, hd = TRAIN_BATCH, 32, 4, 128
+    sq = TRAIN_SEQ
+    q = torch.randn((cfg_b * hq, sq, hd), dtype=torch.bfloat16, device="cuda")
+    k = torch.randn((cfg_b * hkv, sq, hd), dtype=torch.bfloat16,
+                    device="cuda")
+    v = torch.randn_like(k)
+    o = flash_kernel.flash_attention_fwd(q, k, v)
+    d_out = torch.randn_like(q)
+    qf, kf, vf = (t.detach().requires_grad_() for t in (q, k, v))
+    plain = flash_ref.reference_attention(qf, kf, vf)
+    group = hq // hkv
+    q4 = q.reshape(cfg_b, hq, sq, hd).detach().requires_grad_()
+    k4, v4 = (t.reshape(cfg_b, hkv, sq, hd).repeat_interleave(group, dim=1)
+              .detach().requires_grad_() for t in (k, v))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = d_out.reshape(cfg_b, hq, sq, hd)
+
+    def launch_one():
+        flash_kernel.flash_attention_bwd(q, k, v, o, d_out)
+
+    k_ms = time_ms(torch, launch_one, 10)
+    k_dev, k_host = queued_ms(torch, launch_one, 10)
+    p_ms = time_ms(torch, lambda: torch.autograd.grad(
+        plain, (qf, kf, vf), d_out, retain_graph=True), 2)
+    l_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa, (q4, k4, v4), do4, retain_graph=True), 10)
+    pairs = cfg_b * hq * sq * (sq + 1) // 2
+    ops = 5 * 2 * pairs * hd
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel())
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
+    key = f"q={list(q.shape)},kv={list(k.shape)},causal"
+    out["flash_bwd"] = {key: dict(
+        ms=k_ms, device_ms=k_dev, host_ms=k_host, plain_ms=p_ms,
+        library_ms=l_ms, bound_ms=max(t_b, t_o),
+        bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
+        operations=ops, launches_per_step=per_step["flash_bwd"])}
+    print(f"time flash backward {key}: kernel {k_ms!r} ms (device "
+          f"{k_dev!r} ms), plain autograd {p_ms!r} ms, sdpa backward "
+          f"{l_ms!r} ms, bound {max(t_b, t_o)!r} ms ({nbytes} B, {ops} "
+          f"operations)", flush=True)
+    del plain, sdpa, q4, k4, v4
+    out["gemm_bwd"] = {}
+    for e, c, d, f in GEMM_BWD_SHAPES[:2]:
+        x = torch.randn((e, c, d), dtype=torch.bfloat16, device="cuda")
+        w = torch.randn((e, d, f), dtype=torch.bfloat16, device="cuda") \
+            / d ** 0.5
+        dy = torch.randn((e, c, f), dtype=torch.bfloat16, device="cuda")
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        plain = gemm_ref.reference_expert_gemm(xr, wr)
+        xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+        lib = torch.bmm(xb, wb)
+
+        def launch_one():
+            gemm_kernel.expert_gemm_bwd(x, w, dy)
+
+        k_ms = time_ms(torch, launch_one, 10)
+        k_dev, k_host = queued_ms(torch, launch_one, 10)
+        p_ms = time_ms(torch, lambda: torch.autograd.grad(
+            plain, (xr, wr), dy, retain_graph=True), 5)
+        l_ms = time_ms(torch, lambda: torch.autograd.grad(
+            lib, (xb, wb), dy, retain_graph=True), 10)
+        ops = 2 * 2 * e * c * d * f
+        nbytes = 2 * 2 * (e * c * d + e * d * f) + 2 * e * c * f
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
+        key = f"x={[e, c, d]},w={[e, d, f]}"
+        out["gemm_bwd"][key] = dict(
+            ms=k_ms, device_ms=k_dev, host_ms=k_host, plain_ms=p_ms,
+            library_ms=l_ms, bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
+            operations=ops, launches_per_step=per_step["gemm_bwd"] // 2)
+        print(f"time expert_gemm backward {key}: kernel {k_ms!r} ms "
+              f"(device {k_dev!r} ms, with the two transposed copies), "
+              f"plain autograd {p_ms!r} ms, bmm backward {l_ms!r} ms, bound "
+              f"{max(t_b, t_o)!r} ms ({nbytes} B, {ops} operations)",
+              flush=True)
+    return out
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """``TRAIN_ARCH`` cut to ``TRAIN_CHECK_LAYERS`` layers in float32, the
+    same weights on the card and the CPU (drawn on the card, copied to the
+    CPU): the loss and every gradient leaf of one batch at the
+    ``TRAIN_CHECK_*`` tolerances, then ``TRAIN_CHECK_STEPS`` train steps'
+    losses within ``TRAIN_RESTART_RTOL``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import tree_leaves as leaves
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import (make_optimizer, make_train_step,
+                                          to_device)
+    from repro_torch.models.model import build_model
+    import numpy as np
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_CHECK_LAYERS)
+    batches = [make_batch(cfg, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH, i)
+               for i in range(TRAIN_CHECK_STEPS)]
+    t0 = time.perf_counter()
+    card_model = build_model(cfg, device="cuda", dtype=torch.float32)
+    card_params = card_model.init(torch.Generator(device="cuda")
+                                  .manual_seed(1))
+    cpu_model = build_model(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = tree_map(lambda t: t.cpu(), card_params)
+    runs = {}
+    for where, model, params in (("cuda", card_model, card_params),
+                                 ("cpu", cpu_model, cpu_params)):
+        opt = make_optimizer(params, lr=TRAIN_LR, warmup_steps=1,
+                             total_steps=TRAIN_CHECK_STEPS)
+        loss, _ = model.loss_fn(params, to_device(batches[0], model.device))
+        loss.backward()
+        runs[where] = {"loss": loss.item(), "opt": opt,
+                       "step": make_train_step(model), "params": params}
+    worst_grad = 0.0
+    for g_card, g_cpu in zip(leaves(card_params), leaves(cpu_params),
+                             strict=True):
+        err = rel_err(torch, g_card.grad.cpu(), g_cpu.grad)
+        worst_grad = max(worst_grad, err)
+        if not err <= TRAIN_CHECK_GRAD:
+            fail(f"train card vs cpu: a gradient leaf {tuple(g_cpu.shape)} "
+                 f"off by {err} of its largest |value|")
+    losses = {where: [] for where in runs}
+    for batch in batches:
+        for where, r in runs.items():
+            losses[where].append(float(r["step"](r["params"], r["opt"],
+                                                 batch)["loss"]))
+    cpu_s = time.perf_counter() - t0
+    out = dict(layers=TRAIN_CHECK_LAYERS, tokens=TRAIN_CHECK_BATCH
+               * TRAIN_CHECK_SEQ, loss_card=runs["cuda"]["loss"],
+               loss_cpu=runs["cpu"]["loss"], grad_rel_err=worst_grad,
+               step_losses=losses, seconds=cpu_s)
+    lc, lp = np.array(losses["cuda"]), np.array(losses["cpu"])
+    if not (abs(out["loss_card"] - out["loss_cpu"])
+            <= TRAIN_CHECK_RTOL * abs(out["loss_cpu"])
+            and np.allclose(lc, lp, rtol=TRAIN_RESTART_RTOL, atol=0)):
+        fail(f"train card vs cpu: losses differ: {out}")
+    print(f"train card vs cpu ({cfg.name}, {TRAIN_CHECK_LAYERS} layers, "
+          f"float32, {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ} tokens): loss "
+          f"{out['loss_card']!r} vs {out['loss_cpu']!r}; gradient leaves "
+          f"within {worst_grad} of their largest |value|; "
+          f"{TRAIN_CHECK_STEPS} steps' losses {losses}; {cpu_s:.1f} s",
+          flush=True)
+    return out
+
+
+def train_path(torch, mods) -> dict:
+    """The trainer on the card: ``train_loop`` on ``TRAIN_ARCH`` at its
+    published width, ``TRAIN_LAYERS`` of 48 layers (the ``TRAIN_*``
+    settings), launch counts zeroed just before and read just after; every
+    step must launch flash forward twice a layer (forward and the remat's
+    recompute) and its backward once, the expert GEMM six times a layer in
+    the forward and six in the backward, all bf16, and each re-placement
+    plan the pair kernel.  One more step profiled for the device's idle
+    share.  Then the restart pair at ``TRAIN_RESTART_LAYERS``: the run
+    uninterrupted, and failing at ``TRAIN_FAIL_AT`` under
+    ``run_with_restarts`` with a checkpoint every ``TRAIN_CKPT_EVERY``
+    steps; it must restore step 5 and its losses from there agree with the
+    uninterrupted run's within ``TRAIN_RESTART_RTOL``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.ccm_scorer import kernel as scorer
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainLog, train_loop
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.fault import FaultInjector, run_with_restarts
+    full = configs.get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    common = dict(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                  global_batch=TRAIN_BATCH, rebalance_every=TRAIN_REBALANCE,
+                  lr=TRAIN_LR, expert_ranks=TRAIN_RANKS, log_every=1,
+                  device="cuda")
+    for mod in mods.values():
+        mod.reset_launches()
+    scorer.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    log = TrainLog()
+    t0 = time.perf_counter()
+    params, opt, losses = train_loop(cfg, log=log, **common)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {k: dict(mods[k].LAUNCHES) for k in ("flash", "gemm")}
+    counts.update({f"{k}_bwd": dict(mods[k].BWD_LAUNCHES)
+                   for k in ("flash", "gemm")})
+    pair = scorer.PAIR_LAUNCHES["float64"]
+    others = {k: sum(mods[k].LAUNCHES.values()) for k in mods
+              if k not in ("flash", "gemm")}
+    n = TRAIN_LAYERS
+    want_step = {"flash_fwd": 2 * n, "flash_bwd": n, "gemm_fwd": 6 * n,
+                 "gemm_bwd": 6 * n}
+    if any(rec != want_step for rec in log.launches) or any(
+            c["float32"] for c in counts.values()) or any(
+            others.values()) or pair == 0 or len(log.replacements) != 2:
+        fail(f"train: launches a step {log.launches} (expected "
+             f"{want_step}), totals {counts}, others {others}, pair "
+             f"{pair}, re-placements {log.replacements}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"train: losses {losses}")
+    batch = make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS)
+    step = make_train_step(build_model(cfg, device="cuda"))
+    prof = profiled_run(torch, lambda: step(params, opt, batch))
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the restart pair: uninterrupted, then failing at TRAIN_FAIL_AT
+    cut = dataclasses.replace(full, num_layers=TRAIN_RESTART_LAYERS)
+    _, _, ref_losses = train_loop(cut, **common)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    inj = FaultInjector(fail_at_steps=(TRAIN_FAIL_AT,))
+    flog = TrainLog()
+    parts = []
+
+    def once():
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts.append(train_loop(cut, ckpt_dir=str(tmp),
+                                ckpt_every=TRAIN_CKPT_EVERY, fault=inj,
+                                log=flog, **common)[2])
+
+    try:
+        print(f"train: checkpoints under {tmp} (free "
+              f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB)", flush=True)
+        t0 = time.perf_counter()
+        stats = run_with_restarts(once)
+        fault_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = TRAIN_CKPT_EVERY
+    resumed = parts[-1] if parts else []
+    agree = len(resumed) == TRAIN_STEPS - first and np.allclose(
+        resumed, ref_losses[first:], rtol=TRAIN_RESTART_RTOL, atol=0)
+    if not (stats.completed and stats.restarts == 1
+            and flog.restored_from == [first] and agree):
+        fail(f"train restart: {stats}, restored from {flog.restored_from}, "
+             f"losses {resumed} against {ref_losses[first:]}")
+    step_s = sorted(log.step_s)
+    med = step_s[len(step_s) // 2]
+    out = dict(
+        layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        steps=TRAIN_STEPS, losses=losses, step_s=log.step_s,
+        step_s_median=med, step_s_min=step_s[0], step_s_max=step_s[-1],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med, peak_gb=peak_gb,
+        wall_s=wall, launches_per_step=log.launches[0], launches=counts,
+        replacements=log.replacements, pair_launches=pair,
+        device_idle_share=prof["device_idle_share"],
+        device_idle_share_bounds=prof["device_idle_share_bounds"],
+        profiled_step_s=prof["wall_s"],
+        restart=dict(layers=TRAIN_RESTART_LAYERS, restarts=stats.restarts,
+                     restored_from=flog.restored_from, losses=resumed,
+                     uninterrupted=ref_losses, wall_s=fault_wall,
+                     step_s=flog.step_s,
+                     checkpoint_and_restore_s=fault_wall - sum(flog.step_s)))
+    print(f"train {cfg.name} ({TRAIN_LAYERS} of 48 layers, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens): losses {losses}; step s median {med!r} "
+          f"(min {step_s[0]!r}, max {step_s[-1]!r}); {out['tokens_per_s']!r} "
+          f"tokens/s; peak {peak_gb!r} GB; run {wall:.1f} s; launches a "
+          f"step {log.launches[0]}; re-placements {log.replacements}; "
+          f"device idle {prof['device_idle_share']} "
+          f"({prof['device_idle_share_bounds']}); restart at "
+          f"{TRAIN_RESTART_LAYERS} layer(s) from {flog.restored_from} agrees "
+          f"within {TRAIN_RESTART_RTOL} ({resumed} against "
+          f"{ref_losses[first:]}), {fault_wall:.1f} s of which "
+          f"{out['restart']['checkpoint_and_restore_s']:.1f} s not in steps",
+          flush=True)
+    return out
+
+
 # ------------------------------------------------ 7. serving the recurrent LMs
 def wkv6_inputs(torch, rng, b, s, h, hd, log_w, dtype):
     """tests/test_kernels.py's distributions: r, k at 0.5, v standard,
@@ -3374,11 +3854,12 @@ def main() -> None:
           f"{torch.cuda.get_device_capability(0)}", flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
-    # 2. build the six kernels, one nvcc each, in parallel
+    # 2. build the seven kernel sources, one nvcc each, in parallel
     t0 = time.perf_counter()
     kernel_mods = (kernel, asm_kernel, flash_kernel, gemm_kernel, wkv_kernel,
                    rglru_kernel)
-    reports = _build.compile_sources([m.SOURCE for m in kernel_mods],
+    reports = _build.compile_sources([m.SOURCE for m in kernel_mods]
+                                     + [flash_kernel.BWD_SOURCE],
                                      verbose=True)
     libs = [m.build() for m in kernel_mods]
     for source, report in reports.items():
@@ -3435,6 +3916,22 @@ def main() -> None:
                                     check_lens, serve_mods)
         gc.collect()
         torch.cuda.empty_cache()
+    # 7b. training qwen3-moe-30b-a3b (launch counts zeroed inside)
+    t0 = time.perf_counter()
+    flash_bwd_worst = check_flash_bwd(torch, flash_kernel, flash_ops,
+                                      flash_ref)
+    gemm_bwd_worst = check_gemm_bwd(torch, gemm_kernel, gemm_ops, gemm_ref)
+    train_check = train_card_vs_cpu(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_path(torch, serve_mods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_times = time_train_kernels(torch, flash_kernel, flash_ref,
+                                     gemm_kernel, gemm_ref,
+                                     train["launches_per_step"])
+    train_s = time.perf_counter() - t0
+    print(f"train phase {train_s:.1f} s", flush=True)
     # 8. times at the main paths' shapes, and where the time goes
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
     pair_times = time_pairs(torch, kernel, ref, launch, rng,
@@ -3555,14 +4052,17 @@ def main() -> None:
     flash_by_path = {f"serve_{SERVE_ARCH}": serve["launches"]["flash"][
         "bfloat16"], f"serve_{RG_ARCH}": rec[RG_ARCH]["launches"]["flash"][
         "bfloat16"], f"re-placement_{SERVE_ARCH}": serve["replacement"][
-            "launches"]["flash"]}
+            "launches"]["flash"], f"train_{TRAIN_ARCH}": train["launches"][
+                "flash"]["bfloat16"]}
     for name, key, worst_err, source, replaces, by_path in (
             ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
              FLASH_REPLACES, flash_by_path),
             ("expert_gemm_bf16", "gemm", gemm_worst, GEMM_SOURCE,
              GEMM_REPLACES, {f"serve_{SERVE_ARCH}": serve["launches"][
                  "gemm"]["bfloat16"], f"re-placement_{SERVE_ARCH}":
-                 serve["replacement"]["launches"]["gemm"]})):
+                 serve["replacement"]["launches"]["gemm"],
+                 f"train_{TRAIN_ARCH}": train["launches"]["gemm"][
+                     "bfloat16"]})):
         by_shape = serve_times[key]
         shape = max(by_shape, key=lambda k: by_shape[k]["launches"])
         m = by_shape[shape]
@@ -3607,6 +4107,34 @@ def main() -> None:
         })
     kernels[-2]["max_abs_err_state"] = {k: v["state"]
                                         for k, v in wkv_worst.items()}
+    for name, key, source, replaces, note, worst_bf16, worst_f32 in (
+            ("flash_attention_bwd_bf16", "flash_bwd", FLASH_BWD_SOURCE,
+             FLASH_BWD_REPLACES, "no TPU kernel: the JAX package "
+             "differentiates its jnp attention (_sdpa); this is the "
+             "gradient of the forward kernel (row 5)",
+             flash_bwd_worst["bfloat16"]["abs"],
+             flash_bwd_worst["float32"]["abs"]),
+            ("expert_gemm_bwd_bf16", "gemm_bwd", GEMM_SOURCE,
+             GEMM_BWD_REPLACES, "no TPU kernel: the JAX package "
+             "differentiates its per-expert jnp products; dX and dW are two "
+             "launches of the forward kernel (row 4) on transposed copies",
+             gemm_bwd_worst["bfloat16"], gemm_bwd_worst["float32"])):
+        by_shape = train_times[key]
+        shape = next(iter(by_shape))
+        m = by_shape[shape]
+        n = train["launches"][key]["bfloat16"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "replaces_note": note, "launches": n,
+            "launches_by_path": {f"train_{TRAIN_ARCH}": n},
+            "max_abs_err": worst_bf16, "max_abs_err_float32": worst_f32,
+            "ms": m["ms"], "device_ms": m["device_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "shape": shape, "by_shape": by_shape,
+        })
+    kernels[-2]["max_rel_err"] = {k: v["rel"]
+                                  for k, v in flash_bwd_worst.items()}
     print(json.dumps({"serve": {k: v for k, v in serve.items()
                                 if k != "log_shapes"}}), flush=True)
     print(json.dumps({"serve_recurrent": {
@@ -3625,6 +4153,8 @@ def main() -> None:
     print(json.dumps({"milp_path": milp, "milp_path_s": milp_s,
                       "planner_path": planners,
                       "planner_path_s": planner_s}), flush=True)
+    print(json.dumps({"train": train, "train_card_vs_cpu": train_check,
+                      "train_phase_s": train_s}), flush=True)
     print(json.dumps({"assembly": {
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
         flush=True)

@@ -68,3 +68,47 @@ def reference_attention_bf16_p(q: torch.Tensor, k: torch.Tensor,
     out = torch.einsum("bqk,bkd->bqd", p.to(torch.bfloat16).to(torch.float32),
                        v.to(torch.float32))
     return out / torch.where(l == 0.0, 1.0, l)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, d_out: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  softcap: float = 0.0):
+    """The backward kernel's arithmetic in plain torch (a model of
+    ``csrc/flash_attention_bwd.cu``, not autograd): D = rowsum(dO o out),
+    P = exp(s - lse) where visible, lse the row log-sum-exp over the visible
+    keys (the kernel: exp(s - m) / l, m the row max and l the sum of
+    exp(s - m)), dS = P o (dP - D) (times 1 - (s / cap)^2 under the soft-cap),
+    dq = dS . k / sqrt(hd), dk = dS^T . q / sqrt(hd) summed over each kv
+    head's q heads, dv = P^T . dO likewise.  Same layout as
+    :func:`reference_attention`; returns (dq, dk, dv) in q's dtype, computed
+    in float32.  For tests; no path of the port calls it."""
+    bhq, sq, hd = q.shape
+    bhkv, skv, _ = k.shape
+    group = bhq // bhkv
+    qf, of, dof = (t.to(torch.float32) for t in (q, out, d_out))
+    kf = torch.repeat_interleave(k.to(torch.float32), group, dim=0)
+    vf = torch.repeat_interleave(v.to(torch.float32), group, dim=0)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    lse = torch.logsumexp(torch.where(mask[None], s, -math.inf), dim=-1)
+    p = torch.where(mask[None], torch.exp(s - lse[..., None]), 0.0)
+    d = (dof * of).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bqd,bkd->bqk", dof, vf) - d)
+    if softcap > 0.0:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dk = dk.reshape(bhkv, group, skv, hd).sum(1)
+    dv = dv.reshape(bhkv, group, skv, hd).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

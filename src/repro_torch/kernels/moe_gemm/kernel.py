@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/moe_gemm/kernel.py:40``
 other kernels (``kernels/_build.py``); a failed build or launch raises,
 nothing falls back.  :func:`expert_gemm_fwd` launches it on CUDA tensors
 only, on the current stream, and counts the launch in :data:`LAUNCHES`;
-``ops.expert_gemm`` is the entry point that also takes CPU tensors.
+:func:`expert_gemm_bwd` launches the same kernel for the two products of
+the gradient and counts them in :data:`BWD_LAUNCHES`; ``ops.expert_gemm`` is
+the entry point that also takes CPU tensors.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ SOURCE = _build.CSRC / "moe_gemm.cu"
 
 #: kernel launches per dtype, counted where the kernel is launched only
 LAUNCHES = {"bfloat16": 0, "float32": 0}
+#: launches for the gradient's products (dX and dW), per dtype
+BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 
 _DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 _MIN_C_TILE = 16            # the smallest C tile (grid.y = ceil(C / tile))
@@ -28,8 +32,9 @@ _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def build(verbose: bool = False) -> Path:
@@ -78,6 +83,35 @@ def expert_gemm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     float32), contiguous on one CUDA device -> (E, C, f) in x's dtype.  In
     bfloat16 the kernel is chosen by the shape: the TMA / wgmma design where
     d and f are multiples of 8 (16-byte rows), the wmma one otherwise."""
+    out = _launch(x, w)
+    LAUNCHES[_DTYPES[x.dtype]] += 1
+    return out
+
+
+def expert_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                    need_dx: bool = True, need_dw: bool = True):
+    """The gradient of ``y = expert_gemm_fwd(x, w)`` for ``dy`` (E, C, f):
+    dX = dY . W^T and dW = X^T . dY, each one launch of the same kernel on
+    operands copied into the layout it reads (W^T (E, f, d) and X^T
+    (E, d, C), contiguous).  Returns (dX or None, dW or None)."""
+    if dy.shape != (x.shape[0], x.shape[1], w.shape[2]) \
+            or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError("expert_gemm_bwd: dy must be (E, C, f) "
+                         f"{(x.shape[0], x.shape[1], w.shape[2])} in "
+                         f"{x.dtype}, contiguous; got {tuple(dy.shape)} "
+                         f"{dy.dtype}")
+    dx = dw = None
+    if need_dx:
+        dx = _launch(dy, w.transpose(1, 2).contiguous())
+        BWD_LAUNCHES[_DTYPES[x.dtype]] += 1
+    if need_dw:
+        dw = _launch(x.transpose(1, 2).contiguous(), dy)
+        BWD_LAUNCHES[_DTYPES[x.dtype]] += 1
+    return dx, dw
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel, uncounted (the callers count it)."""
     _check(x, w)
     e, c, d = x.shape
     f = w.shape[2]
@@ -98,5 +132,4 @@ def expert_gemm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"expert_gemm kernel launch failed ({rc}): "
                            + _lib.expert_gemm_error_string(rc).decode())
-    LAUNCHES[_DTYPES[x.dtype]] += 1
     return out

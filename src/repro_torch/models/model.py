@@ -1,8 +1,8 @@
 """Uniform model API, after the JAX package's ``models/model.py``.
 
-``build_model(cfg)`` returns a ``Model`` with init / prefill / decode
-closures for the decoder LMs the port runs (attention, MoE, ``rwkv6`` and
-``rglru`` blocks).  There is no mesh: one device holds the model.  The
+``build_model(cfg)`` returns a ``Model`` with init / loss / prefill /
+decode closures for the decoder LMs the port runs (attention, MoE,
+``rwkv6`` and ``rglru`` blocks).  There is no mesh: one device holds the model.  The
 reference's ``input_specs`` / ``cache_specs`` serve its dry-run and are not
 ported.
 """
@@ -23,6 +23,7 @@ class Model:
     device: torch.device
     dtype: torch.dtype
     init: Callable            # torch.Generator -> params
+    loss_fn: Callable         # (params, batch) -> (loss, metrics)
     prefill_fn: Callable      # (params, batch) -> (caches, logits)
     decode_fn: Callable       # (params, caches, token, pos) -> (caches, logits)
 
@@ -44,6 +45,7 @@ def build_model(cfg: ModelConfig, device="cuda",
 
     return Model(
         cfg, device, dtype, init=init,
+        loss_fn=lambda p, b: tf_lib.lm_loss(p, b, cfg),
         prefill_fn=lambda p, b: tf_lib.lm_prefill(p, b, cfg),
         decode_fn=lambda p, c, t, pos: tf_lib.lm_decode(p, c, t, pos, cfg),
     )

@@ -12,15 +12,18 @@ and MoE blocks, ``{"wkv", "tm_shift", "cm_shift"}`` for ``rwkv6`` (the
 "conv"}`` for ``rglru`` (the recurrence's h and the conv tail).
 
 Ported here: the ``attn``, ``local_attn``, ``moe``, ``rwkv6`` and
-``rglru`` blocks, prefill and decode.  Not yet: the encoder-decoder and the
-vision front end, the ring KV cache and the training loss (ROADMAP queue
-1, item 11).
+``rglru`` blocks, the training loss (:func:`lm_loss`, with ``cfg.remat``
+around each period of the block pattern), prefill and decode.  Not yet: the
+ring KV cache (ROADMAP queue 1, item 7.1), the encoder-decoder and the
+vision front end (item 7.5).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_MOE,
                                       BLOCK_REC, BLOCK_RWKV, ModelConfig)
@@ -45,15 +48,15 @@ def check_config(cfg: ModelConfig) -> None:
     if cfg.arch_type == "encdec":
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP "
-            "queue 1, item 11)")
+            "queue 1, item 7.5)")
     if cfg.frontend == "vision":
         raise NotImplementedError(
             f"{cfg.name}: the vision front end is not ported yet (ROADMAP "
-            "queue 1, item 11)")
+            "queue 1, item 7.5)")
     if cfg.window_kv_cache:
         raise NotImplementedError(
             f"{cfg.name}: the ring KV cache (window_kv_cache) is not ported "
-            "yet (ROADMAP queue 1, item 11)")
+            "yet (ROADMAP queue 1, item 7.1)")
     for kind in set(cfg.layer_kinds()):
         _check_kind(kind)
 
@@ -176,30 +179,73 @@ def _merge_stats(stats_list):
     return out
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of matrix products without
+    batch dimensions (as ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable`` keeps dot_generals), recompute the
+    rest."""
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` as the reference's ``_remat`` wraps a period: recomputed in the
+    backward pass (``cfg.remat``, policy ``"full"``), with the matrix
+    products kept (``"dots"``), or stored whole (``"none"`` or
+    ``remat=False``).  Every policy gives the same values and gradients."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    kw = dict(use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}")
+    return lambda *args: torch_checkpoint.checkpoint(fn, *args, **kw)
+
+
 def run_stack(params, x, positions, cfg: ModelConfig,
               collect_cache: bool = False):
     """All blocks in order.  Returns (x, stats, caches).
 
     Stats as the reference's scan gives them: the aux loss summed over
     layers, the expert counts one row per period of the block pattern
-    (summed over the period's blocks), the tail's added to every row."""
+    (summed over the period's blocks), the tail's added to every row.
+    Under autograd (and not collecting caches) each period runs through
+    :func:`_remat`, as the reference's scan body does; the tail does not."""
     kinds = cfg.layer_kinds()
     period = cfg.pattern_period
     n_periods = len(kinds) // period
+    blocks = params["blocks"]
     caches: List[Dict[str, torch.Tensor]] = []
-    per_period, tail_stats = [], []
-    for i, (p, kind) in enumerate(zip(params["blocks"], kinds)):
-        x, st, cache = block_train(p, kind, x, positions, cfg,
+
+    def period_fn(x, i):
+        sts = []
+        for j in range(i * period, (i + 1) * period):
+            x, st, cache = block_train(blocks[j], kinds[j], x, positions, cfg,
+                                       return_kv=collect_cache)
+            sts.append(st)
+            if collect_cache:
+                caches.append(cache)
+        return x, _merge_stats(sts)
+
+    body = period_fn
+    if torch.is_grad_enabled() and not collect_cache:
+        body = _remat(period_fn, cfg)
+    merged = []
+    for i in range(n_periods):
+        x, st = body(x, i)
+        merged.append(st)
+    tail_stats = []
+    for j in range(n_periods * period, len(kinds)):
+        x, st, cache = block_train(blocks[j], kinds[j], x, positions, cfg,
                                    return_kv=collect_cache)
-        if i < n_periods * period:
-            if i % period == 0:
-                per_period.append([])
-            per_period[-1].append(st)
-        else:
-            tail_stats.append(st)
+        tail_stats.append(st)
         if collect_cache:
             caches.append(cache)
-    merged = [_merge_stats(sts) for sts in per_period]
     stats: Dict[str, Any] = {}
     if merged and "aux_loss" in merged[0]:
         stats = {"aux_loss": torch.stack([m["aux_loss"] for m in merged]).sum(),
@@ -232,6 +278,59 @@ def lm_inputs(params, batch, cfg: ModelConfig):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     return x, positions
+
+
+# -------------------------------------------------------------------- losses
+def _ce_piece(x, targets, table, cfg: ModelConfig):
+    """(nll_sum, token_count) over one sequence piece; the label logit is a
+    gather of the head's columns, no one-hot."""
+    logits = torch.einsum("bsd,dv->bsv", x, table).to(torch.float32)
+    logits = softcap(logits, cfg.final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)                    # (B, S)
+    mask = targets >= 0
+    lbl_w = table[:, torch.clamp_min(targets, 0)]            # (d, B, S)
+    lbl_logit = torch.einsum("bsd,dbs->bs", x, lbl_w).to(torch.float32)
+    lbl_logit = softcap(lbl_logit, cfg.final_softcap)
+    nll = (lse - lbl_logit) * mask
+    return nll.sum(), mask.sum()
+
+
+def masked_cross_entropy(params, x, targets, cfg: ModelConfig):
+    """CE over the vocab without a one-hot: logsumexp - label logit, over
+    the tokens whose target is >= 0.  Returns (mean nll, token count).
+
+    With cfg.ce_chunk > 0 the sequence is processed in chunks, so the f32
+    (B, chunk, V) logits tile replaces the full (B, S, V) one."""
+    table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    s = x.shape[1]
+    if cfg.ce_chunk and s > cfg.ce_chunk:
+        pieces = [_ce_piece(x[:, lo:lo + cfg.ce_chunk],
+                            targets[:, lo:lo + cfg.ce_chunk], table, cfg)
+                  for lo in range(0, s, cfg.ce_chunk)]
+        nll = functools.reduce(torch.add, (p[0] for p in pieces))
+        cnt = functools.reduce(torch.add, (p[1] for p in pieces))
+    else:
+        nll, cnt = _ce_piece(x, targets, table, cfg)
+    denom = torch.clamp_min(cnt, 1)
+    return nll / denom, denom
+
+
+def lm_loss(params, batch, cfg: ModelConfig):
+    """The training loss: (loss, metrics), metrics ``ce_loss``, ``tokens``
+    and, for MoE, ``moe_aux_loss`` and ``expert_counts`` (periods, E); the
+    loss adds 0.01 of the aux loss to the cross-entropy, as the reference.
+    ``batch``: ``tokens`` and ``targets`` (B, S) integer tensors on the
+    params' device."""
+    x, positions = lm_inputs(params, batch, cfg)
+    x, stats, _ = run_stack(params, x, positions, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss, denom = masked_cross_entropy(params, x, batch["targets"], cfg)
+    metrics = {"ce_loss": loss, "tokens": denom}
+    if "aux_loss" in stats:
+        metrics["moe_aux_loss"] = stats["aux_loss"]
+        metrics["expert_counts"] = stats["expert_counts"]
+        loss = loss + 0.01 * stats["aux_loss"]
+    return loss, metrics
 
 
 # ------------------------------------------------------------------- serving

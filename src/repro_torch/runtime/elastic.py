@@ -11,18 +11,47 @@ smaller rank count and warm-started via
 :func:`expand_phase` / :class:`RankJoin` are the join/expand
 counterpart: fresh ranks appended to a phase's rank set mid-stream (a pod
 joins), defaulting to the median capacity/speed of the existing ranks so
-a join never manufactures an outlier.  Restoring a model checkpoint onto
-another mesh (the reference's ``resume_on_mesh``) needs the checkpoint and
-model-building modules, which the port does not have yet.
+a join never manufactures an outlier.  :func:`resume_on_mesh` restores a
+trainer's checkpoint onto a device (one card holds the model, so the
+device takes the mesh's place); its imports are deferred so that the
+async simulator imports this module without the model stack.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.problem import Phase
+
+
+def resume_on_mesh(cfg, device, ckpt_dir, with_opt: bool = True) -> Tuple:
+    """Returns (model, params, opt_state_or_None, step) on ``device``, from
+    the latest checkpoint in ``ckpt_dir``: ``(params, opt_state)`` as
+    ``launch.train`` saves it, or params alone when ``with_opt`` is false.
+    ``opt_state`` is ``AdamW.state_leaves``' list (``load_state_leaves``
+    takes it).  The model is ``build_model``'s (bf16 weights, as the
+    trainer's); a checkpoint of another structure or dtype raises."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import init_lm
+
+    model = build_model(cfg, device=device)
+    params_like = init_lm(None, cfg, dtype=model.dtype, device="meta")
+    mgr = CheckpointManager(ckpt_dir)
+    if with_opt:
+        leaves = tree_leaves(params_like)
+        opt_like = ([torch.zeros((), dtype=torch.int32, device="meta")]
+                    + [torch.empty(t.shape, dtype=torch.float32,
+                                   device="meta") for t in leaves] * 2)
+        (params, opt_state), step = mgr.restore((params_like, opt_like),
+                                                model.device)
+        return model, params, opt_state, step
+    params, step = mgr.restore(params_like, model.device)
+    return model, params, None, step
 
 
 @dataclasses.dataclass(frozen=True)

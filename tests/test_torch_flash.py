@@ -12,8 +12,13 @@ bf16 ulp apart at most).  The bf16 CUDA kernel rounds p to bf16 before
 p . v; ``ref.reference_attention_bf16_p``, the plain model of that, is held
 to the reference's oracle at the bf16 tolerance on cut served shapes.  The
 CUDA kernel is held against the plain version on the card by the
-``cuda``-marked test, which skips without a card.
+``cuda``-marked test, which skips without a card.  The gradient: on the
+CPU autograd through the plain version against ``jax.grad`` of the
+reference's jnp attention (what the JAX package differentiates when it
+trains), and the backward kernel's plain model beside it; on the card the
+backward kernel against the plain version's autograd (``cuda`` marker).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -178,3 +183,106 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
             for bq, bk in ((32, 32), (64, 17), (64, 64))]
     for o in outs[1:]:
         torch.testing.assert_close(o, outs[0], atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------------ gradient
+# (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap): CASES with the reference
+# _sdpa's masks (a window is causal there, "local"), and causal Sq != Skv
+GRAD_CASES = CASES + [(1, 96, 160, 2, 2, 64, True, 0, 0.0)]
+
+
+def _sdpa_grads(q, k, v, d_out, causal, window, cap):
+    """jax.grad of the reference's jnp attention (``models/attention.py``
+    ``_sdpa`` with its ``_mask_bias``, positions from 0), the function the
+    JAX package differentiates when it trains, in float32."""
+    from repro.models.attention import _mask_bias, _sdpa
+    sq, skv = q.shape[1], k.shape[1]
+    kind = "local" if window else ("causal" if causal else "none")
+    bias = _mask_bias(jnp.arange(sq)[None], jnp.arange(skv)[None], kind,
+                      window)[:, None]
+
+    def f(q, k, v):
+        return jnp.sum(_sdpa(q, k, v, bias, cap) * d_out)
+
+    return jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                            for a in (q, k, v)))
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,causal,window,cap", GRAD_CASES)
+def test_flash_gradient_matches_jax_grad_of_sdpa(b, sq, skv, hq, hkv, hd,
+                                                 causal, window, cap):
+    """On the CPU, autograd through ``ops.flash_attention`` (the plain
+    version) against ``jax.grad`` of the reference's ``_sdpa`` (GQA, a
+    window, the soft-cap, Sq != Skv), float32: dq, dk, dv within 1e-5 of
+    each one's largest |value| (the same float32 arithmetic, summed in
+    another order); and the backward kernel's plain model
+    (``ref.attention_bwd``, its LSE / D / dS formula) against the same."""
+    q, k, v = _inputs(b, sq, skv, hq, hkv, hd)
+    d_out = np.random.default_rng(9).standard_normal(q.shape).astype(
+        np.float32)
+    want = [np.asarray(g) for g in _sdpa_grads(q, k, v, d_out, causal,
+                                               window, cap)]
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              softcap=cap)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.tensor(d_out))
+    fold = [_fold(torch.tensor(a), h) for a, h in ((q, hq), (k, hkv),
+                                                   (v, hkv))]
+    o = ref.reference_attention(*fold, causal=causal, window=window,
+                                softcap=cap)
+    model = ref.attention_bwd(*fold, o, _fold(torch.tensor(d_out), hq),
+                              causal=causal, window=window, softcap=cap)
+    for name, g, m, w, h in zip("qkv", got, model, want, (hq, hkv, hkv)):
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * scale,
+                                   err_msg=f"d{name}")
+        m = m.reshape(b, h, -1, hd).permute(0, 2, 1, 3).numpy()
+        np.testing.assert_allclose(m, w, rtol=0, atol=1e-5 * scale,
+                                   err_msg=f"d{name}, plain model")
+
+
+def test_backward_launch_raises_on_cpu_tensors():
+    """The backward kernel's launcher takes CUDA tensors only; on the CPU
+    autograd differentiates the plain version."""
+    q = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_bwd(q, q, q, q, q)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_matches_plain_autograd_on_the_card():
+    """The gradient through ``ops.flash_attention`` on the card (the
+    forward kernel, then the backward kernel, one launch each) against
+    autograd through the plain version in float32 on the same inputs, at
+    the cases above and the training shape: dq, dk, dv within 1e-4 (float32
+    inputs) or 2e-2 (bf16 inputs) of each one's largest |value|.  Skips
+    without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(4)
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        tdt = DTYPES[dtype][1]
+        for case in GRAD_CASES + [(4, 512, 512, 32, 4, 128, True, 0, 0.0),
+                                  (1, 70, 70, 2, 1, 256, True, 0, 0.0),
+                                  (1, 128, 64, 2, 1, 64, False, 16, 0.0)]:
+            b, sq, skv, hq, hkv, hd, causal, window, cap = case
+            t = [torch.tensor(a, dtype=tdt, device="cuda",
+                              requires_grad=True)
+                 for a in _inputs(b, sq, skv, hq, hkv, hd)]
+            d_out = torch.tensor(rng.standard_normal((b, sq, hq, hd)),
+                                 dtype=tdt, device="cuda")
+            n0 = kernel.BWD_LAUNCHES[dtype]
+            got = torch.autograd.grad(
+                ops.flash_attention(*t, causal=causal, window=window,
+                                    softcap=cap), t, d_out)
+            assert kernel.BWD_LAUNCHES[dtype] == n0 + 1
+            fold = [_fold(x.detach().float(), h).requires_grad_()
+                    for x, h in zip(t, (hq, hkv, hkv))]
+            out = ref.reference_attention(*fold, causal=causal,
+                                          window=window, softcap=cap)
+            want = torch.autograd.grad(out, fold,
+                                       _fold(d_out.float(), hq))
+            for g, w, h in zip(got, want, (hq, hkv, hkv)):
+                w = w.reshape(b, h, -1, hd).transpose(1, 2)
+                err = float((g.float() - w).abs().max())
+                assert err <= tol * float(w.abs().max()), (case, dtype, err)

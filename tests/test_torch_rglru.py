@@ -91,3 +91,28 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
             assert got.dtype == dtype
             torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
                                        rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_autograd():
+    """The RG-LRU kernel has no backward yet: on the card, a call that
+    autograd would record raises (naming the ROADMAP item) instead of
+    returning a tensor with no gradient; under ``no_grad`` it runs.
+    Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    log_a = -torch.ones((1, 8, 4), device="cuda")
+    b = torch.randn((1, 8, 4), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="F14"):
+        ops.rglru_scan_op(log_a, b)
+    with torch.no_grad():
+        assert not ops.rglru_scan_op(log_a, b).requires_grad
+
+
+def test_cpu_path_differentiates_the_plain_version():
+    """On the CPU the scan is the plain version, which autograd
+    differentiates (recurrentgemma trains there): the gradient of
+    sum(h) against b is finite and nonzero."""
+    b = torch.randn((1, 8, 4), requires_grad=True)
+    ops.rglru_scan_op(-torch.ones((1, 8, 4)), b).sum().backward()
+    assert torch.isfinite(b.grad).all() and b.grad.abs().sum() > 0

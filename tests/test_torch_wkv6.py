@@ -217,3 +217,20 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
                     rtol=rtol)
             torch.testing.assert_close(state, want_state, atol=2e-4,
                                        rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_autograd():
+    """The WKV6 kernel has no backward yet: on the card, a call that
+    autograd would record raises (naming the ROADMAP item) instead of
+    returning a tensor with no gradient; under ``no_grad`` it runs.
+    Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r = torch.randn((1, 16, 2, 8), device="cuda", requires_grad=True)
+    args = (r, r, r, -torch.ones_like(r), torch.zeros((2, 8), device="cuda"))
+    with pytest.raises(RuntimeError, match="F14"):
+        ops.wkv6(*args)
+    with torch.no_grad():
+        y, _ = ops.wkv6(*args)
+    assert not y.requires_grad
