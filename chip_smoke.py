@@ -202,10 +202,14 @@ line):
    kernel (``csrc/flash_attention_bwd.cu``, through ``ops.flash_attention``'s
    autograd function) against autograd through the plain version at every
    ``FLASH_CASES`` shape in float32 and bf16 (dq, dk, dv within 1e-4 and
-   2e-2 of their largest |value|), and the expert GEMM's backward (dX and
-   dW, two launches of its kernel on transposed copies) against the plain
-   autograd at the training shapes and the ragged ones (the forward's
-   tolerances).  Then the same float32 weights of qwen cut to 2 layers on
+   2e-2 of their largest |value|; where the backward runs on the tensor
+   cores, bf16 at hd 64 and 128, also within 2^-7 of the plain model of
+   its rounding, twice bit for bit, with the forward's LSE instance giving
+   the serve instance's output bit for bit), and the expert GEMM's
+   backward (dX and dW, two launches: the TMA kernel's transpose-bit
+   variants on the operands where they lie, the kernel on transposed
+   copies for float32 and ragged shapes) against the plain autograd at
+   the training shapes and the ragged ones (the forward's tolerances).  Then the same float32 weights of qwen cut to 2 layers on
    the card and the CPU: the loss and every gradient leaf of a 2 x 64-token
    batch (rtol 1e-4; gradients within 1e-3 of each leaf's largest
    |value|), and three AdamW steps' losses (rtol 1e-3).  Then ``launch.train.train_loop`` at
@@ -217,7 +221,7 @@ line):
    expert GEMMs in the forward and 24 in the backward every step, all
    bf16, and some pair launches; the losses finite and the last below the
    first.  One more step runs under ``torch.profiler`` (device idle
-   share).  Then the restart pair at 1 of 48 layers (a 4-layer checkpoint
+   share, busy time by kernel).  Then the restart pair at 1 of 48 layers (a 4-layer checkpoint
    is 31.1 GB, and the card hosts this script runs on end a run that
    writes more than 45 GiB to their disk): the run uninterrupted, then with a checkpoint every 5 steps into
    a temporary directory, failing at step 7 under ``run_with_restarts``:
@@ -226,7 +230,9 @@ line):
    tokens/s, peak memory, launches a step, each re-placement's imbalance
    and pair launches; then times both backwards at the training shapes
    against their plain versions' autograd, SDPA's and ``torch.bmm``'s
-   backward (timed only) and their bounds.
+   backward (timed only) and their bounds, and the expert GEMM's backward
+   also as the parent commit ran it (its transposed copies and its
+   launches, each alone).
 8. Time the kernels, their plain versions and their bounds at the shapes
    the main paths launched most (the pair kernel also at E = 64, A = B =
    128, P = 32 an event, with the launcher's host time a call and its
@@ -446,12 +452,29 @@ TRAIN_RESTART_RTOL = 1e-3
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
 TRAIN_CHECK_STEPS = 3
 TRAIN_CHECK_RTOL, TRAIN_CHECK_GRAD = 1e-4, 1e-3
+# the profiled train step's kernels kept in the train JSON, by device time
+TRAIN_TOP_KERNELS = 20
 # the flash backward against the plain version's autograd (float32) at every
 # FLASH_CASES shape: each of dq, dk, dv within this share of its largest
 # |value| (float32 inputs: sums in another order; bf16 inputs: the forward's
 # output, whose p was rounded to bf16, enters D = rowsum(dO o O), and the
 # gradients are rounded once to bf16)
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the tensor-core flash backward (bf16, hd 64 and 128) against its plain
+# model, ref.attention_bwd(bf16_products=True) in float32 on the same bf16
+# inputs, fed the forward kernel's output and its LSE instance's row
+# statistics: each of dq, dk, dv within two bf16 ulps (2^-7) of its
+# largest |value|, under half of FLASH_BWD_TOL: the kernel rounds each
+# gradient once to bf16 (up to 2^-9 of the value), and P and dS entries
+# whose float32 values differ from the model's in the last bits (S and dP
+# summed in another order) round now and then to the other bf16
+# neighbour; at most 3.3e-3 was seen on an H100 over FLASH_CASES
+FLASH_BWD_MODEL_TOL = 2 ** -7
+# the LSE instance's row statistics (log2 units, of order 1 to 15 here)
+# against ref.row_lse, absolute: about ten float32 ulps of such values
+# (the forward's m + log2(l) sums exp2 in another order than torch's
+# logsumexp; at most 1.9e-6 was seen on an H100)
+FLASH_LSE_ATOL = 2e-5
 FLASH_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 FLASH_BWD_REPLACES = "src/repro/models/attention.py:98"
 GEMM_BWD_REPLACES = "src/repro/models/moe.py:68"
@@ -2670,6 +2693,16 @@ def check_flash_bwd(torch, flash_kernel, flash_ops, flash_ref) -> dict:
             want = torch.autograd.grad(out, fold,
                                        fold_heads(d_out.float(), hq))
             del out
+            if flash_kernel.tc_backward(dtype, hd):
+                m_err, l_err = hold_tc_backward(
+                    torch, flash_kernel, flash_ref,
+                    *(fold_heads(x.detach(), h)
+                      for x, h in zip(t, (hq, hkv, hkv))),
+                    fold_heads(d_out, hq), case)
+                worst["bfloat16_model"] = max(
+                    worst.get("bfloat16_model", 0.0), m_err)
+                worst["bfloat16_lse"] = max(
+                    worst.get("bfloat16_lse", 0.0), l_err)
             for g, w, h, what in zip(got, want, (hq, hkv, hkv), "qkv"):
                 w = w.reshape(b, h, -1, hd).transpose(1, 2)
                 if g.shape != w.shape or g.dtype != dtype \
@@ -2689,9 +2722,56 @@ def check_flash_bwd(torch, flash_kernel, flash_ops, flash_ref) -> dict:
             torch.cuda.empty_cache()
     print(f"flash backward kernel == plain version's autograd on "
           f"{2 * len(FLASH_CASES)} cases (dq, dk, dv within "
-          f"{FLASH_BWD_TOL} of their largest |value|); worst {worst}; "
+          f"{FLASH_BWD_TOL} of their largest |value|; the tensor-core "
+          f"shapes also within {FLASH_BWD_MODEL_TOL} of the plain model of "
+          f"their rounding, twice bit for bit, and the LSE instance's "
+          f"output the plain instance's bit for bit); worst {worst}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return worst
+
+
+def hold_tc_backward(torch, flash_kernel, flash_ref, q, k, v, d_out,
+                     case) -> tuple:
+    """The tensor-core flash backward at one case (bf16, folded tensors):
+    the forward's LSE instance gives the plain instance's output bit for
+    bit (the serve path's instance) and row statistics within
+    ``FLASH_LSE_ATOL`` of ``ref.row_lse``; two backward launches give the
+    same bits; the backward is within ``FLASH_BWD_MODEL_TOL`` of its plain
+    model (``ref.attention_bwd`` with ``bf16_products``, fed the kernel's
+    output and row statistics, in float32).  Returns the largest relative
+    error against the model and the row statistics' absolute error."""
+    _, sq, _, _, _, _, causal, window, cap = case
+    kw = dict(causal=causal, window=window, softcap=cap)
+    plain = flash_kernel.flash_attention_fwd(q, k, v, **kw)
+    out, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(plain, out):
+        fail(f"flash {case}: the LSE instance's output is not the plain "
+             "instance's, bit for bit")
+    del plain
+    lse_err = (lse[:, :sq] - flash_ref.row_lse(q, k, **kw)).abs().max().item()
+    if not lse_err <= FLASH_LSE_ATOL:
+        fail(f"flash {case}: the LSE instance's row statistics off by "
+             f"{lse_err} (tolerance {FLASH_LSE_ATOL})")
+    runs = [flash_kernel.flash_attention_bwd(q, k, v, out, d_out, lse=lse,
+                                             **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail(f"flash backward {case}: two runs on the same inputs differ")
+    model = flash_ref.attention_bwd(q, k, v, out, d_out, lse=lse,
+                                    bf16_products=True,
+                                    out_dtype=torch.float32, **kw)
+    err = 0.0
+    for g, m, what in zip(runs[0], model, "qkv"):
+        e = rel_err(torch, g, m)
+        if not e <= FLASH_BWD_MODEL_TOL:
+            fail(f"flash backward {case}: d{what} off its plain model by "
+                 f"{e} of its largest |value| (tolerance "
+                 f"{FLASH_BWD_MODEL_TOL})")
+        err = max(err, e)
+    del model, runs
+    torch.cuda.empty_cache()
+    return err, lse_err
 
 
 def check_gemm_bwd(torch, gemm_kernel, gemm_ops, gemm_ref) -> dict:
@@ -2748,9 +2828,13 @@ def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
     timed only, and the bound: the larger of the bytes (q, k, v, o, dO
     read once, dq, dk, dv written once; x, w, dY read, dX, dW written)
     over the HBM rate and the operations (flash: five products over the
-    visible pairs; the GEMM: two) over the bf16 tensor-core peak.
-    ``per_step`` is the main path's launches a step (a GEMM backward is two
-    launches; gate/up and down share it)."""
+    visible pairs; the GEMM: two) over the bf16 tensor-core peak.  The
+    flash backward runs on the forward's LSE output (the training path's
+    arguments).  The GEMM backward also as the parent commit ran it, split
+    into its two transposed copies (W^T, X^T) and its two launches of the
+    forward kernel on them, and the new path's copies are counted (its
+    plan: none).  ``per_step`` is the main path's launches a step (a GEMM
+    backward is two launches; gate/up and down share it)."""
     import torch.nn.functional as F
     out = {}
     cfg_b, hq, hkv, hd = TRAIN_BATCH, 32, 4, 128
@@ -2759,7 +2843,7 @@ def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
     k = torch.randn((cfg_b * hkv, sq, hd), dtype=torch.bfloat16,
                     device="cuda")
     v = torch.randn_like(k)
-    o = flash_kernel.flash_attention_fwd(q, k, v)
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True)
     d_out = torch.randn_like(q)
     qf, kf, vf = (t.detach().requires_grad_() for t in (q, k, v))
     plain = flash_ref.reference_attention(qf, kf, vf)
@@ -2771,7 +2855,7 @@ def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
     do4 = d_out.reshape(cfg_b, hq, sq, hd)
 
     def launch_one():
-        flash_kernel.flash_attention_bwd(q, k, v, o, d_out)
+        flash_kernel.flash_attention_bwd(q, k, v, o, d_out, lse=lse)
 
     k_ms = time_ms(torch, launch_one, 10)
     k_dev, k_host = queued_ms(torch, launch_one, 10)
@@ -2788,7 +2872,8 @@ def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
         ms=k_ms, device_ms=k_dev, host_ms=k_host, plain_ms=p_ms,
         library_ms=l_ms, bound_ms=max(t_b, t_o),
         bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
-        operations=ops, launches_per_step=per_step["flash_bwd"])}
+        operations=ops, launches_per_step=per_step["flash_bwd"],
+        tensor_cores=flash_kernel.tc_backward(q.dtype, hd))}
     print(f"time flash backward {key}: kernel {k_ms!r} ms (device "
           f"{k_dev!r} ms), plain autograd {p_ms!r} ms, sdpa backward "
           f"{l_ms!r} ms, bound {max(t_b, t_o)!r} ms ({nbytes} B, {ops} "
@@ -2808,8 +2893,26 @@ def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
         def launch_one():
             gemm_kernel.expert_gemm_bwd(x, w, dy)
 
+        copies = sum(len(r.copies) for r in gemm_kernel.plan_bwd(x, w, dy))
         k_ms = time_ms(torch, launch_one, 10)
         k_dev, k_host = queued_ms(torch, launch_one, 10)
+        # the parent's path: W^T and X^T copied contiguous, then the
+        # forward kernel on them, each part timed alone
+        wt = w.transpose(1, 2).contiguous()
+        xt = x.transpose(1, 2).contiguous()
+        parent = {
+            "copy_w_t": device_ms(torch, lambda: w.transpose(1, 2)
+                                  .contiguous(), 10),
+            "copy_x_t": device_ms(torch, lambda: x.transpose(1, 2)
+                                  .contiguous(), 10),
+            "dx_launch": device_ms(torch, lambda: gemm_kernel._launch(dy, wt),
+                                   10),
+            "dw_launch": device_ms(torch, lambda: gemm_kernel._launch(xt, dy),
+                                   10)}
+        parent["whole"] = device_ms(torch, lambda: (
+            gemm_kernel._launch(dy, w.transpose(1, 2).contiguous()),
+            gemm_kernel._launch(x.transpose(1, 2).contiguous(), dy)), 10)
+        del wt, xt
         p_ms = time_ms(torch, lambda: torch.autograd.grad(
             plain, (xr, wr), dy, retain_graph=True), 5)
         l_ms = time_ms(torch, lambda: torch.autograd.grad(
@@ -2822,12 +2925,13 @@ def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
             ms=k_ms, device_ms=k_dev, host_ms=k_host, plain_ms=p_ms,
             library_ms=l_ms, bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
-            operations=ops, launches_per_step=per_step["gemm_bwd"] // 2)
+            operations=ops, launches_per_step=per_step["gemm_bwd"] // 2,
+            copies=copies, parent_device_ms=parent)
         print(f"time expert_gemm backward {key}: kernel {k_ms!r} ms "
-              f"(device {k_dev!r} ms, with the two transposed copies), "
-              f"plain autograd {p_ms!r} ms, bmm backward {l_ms!r} ms, bound "
-              f"{max(t_b, t_o)!r} ms ({nbytes} B, {ops} operations)",
-              flush=True)
+              f"(device {k_dev!r} ms, {copies} copies), plain autograd "
+              f"{p_ms!r} ms, bmm backward {l_ms!r} ms, bound "
+              f"{max(t_b, t_o)!r} ms ({nbytes} B, {ops} operations); the "
+              f"parent's path, device ms: {parent}", flush=True)
     return out
 
 
@@ -2906,7 +3010,8 @@ def train_path(torch, mods) -> dict:
     recompute) and its backward once, the expert GEMM six times a layer in
     the forward and six in the backward, all bf16, and each re-placement
     plan the pair kernel.  One more step profiled for the device's idle
-    share.  Then the restart pair at ``TRAIN_RESTART_LAYERS``: the run
+    share and its busy time by kernel (the ``TRAIN_TOP_KERNELS``
+    longest).  Then the restart pair at ``TRAIN_RESTART_LAYERS``: the run
     uninterrupted, and failing at ``TRAIN_FAIL_AT`` under
     ``run_with_restarts`` with a checkpoint every ``TRAIN_CKPT_EVERY``
     steps; it must restore step 5 and its losses from there agree with the
@@ -3009,7 +3114,11 @@ def train_path(torch, mods) -> dict:
         replacements=log.replacements, pair_launches=pair,
         device_idle_share=prof["device_idle_share"],
         device_idle_share_bounds=prof["device_idle_share_bounds"],
-        profiled_step_s=prof["wall_s"],
+        profiled_step_s=prof["wall_s"], device_busy_ms=prof["device_busy_ms"],
+        kernels_unrecorded=prof["kernels_unrecorded"],
+        device_ms_by_kernel=dict(sorted(
+            ((k[:100], r["device_ms"]) for k, r in prof["by_name"].items()),
+            key=lambda kv: -kv[1])[:TRAIN_TOP_KERNELS]),
         restart=dict(layers=TRAIN_RESTART_LAYERS, restarts=stats.restarts,
                      restored_from=flog.restored_from, losses=resumed,
                      uninterrupted=ref_losses, wall_s=fault_wall,
@@ -4117,7 +4226,8 @@ def main() -> None:
             ("expert_gemm_bwd_bf16", "gemm_bwd", GEMM_SOURCE,
              GEMM_BWD_REPLACES, "no TPU kernel: the JAX package "
              "differentiates its per-expert jnp products; dX and dW are two "
-             "launches of the forward kernel (row 4) on transposed copies",
+             "launches of row 4's TMA kernel's transpose-bit variants on x, "
+             "w and dY where they lie (no copy)",
              gemm_bwd_worst["bfloat16"], gemm_bwd_worst["float32"])):
         by_shape = train_times[key]
         shape = next(iter(by_shape))
@@ -4134,7 +4244,11 @@ def main() -> None:
             "shape": shape, "by_shape": by_shape,
         })
     kernels[-2]["max_rel_err"] = {k: v["rel"]
-                                  for k, v in flash_bwd_worst.items()}
+                                  for k, v in flash_bwd_worst.items()
+                                  if isinstance(v, dict)}
+    kernels[-2]["max_rel_err_bf16_model"] = flash_bwd_worst.get(
+        "bfloat16_model")
+    kernels[-2]["max_abs_err_lse"] = flash_bwd_worst.get("bfloat16_lse")
     print(json.dumps({"serve": {k: v for k, v in serve.items()
                                 if k != "log_shapes"}}), flush=True)
     print(json.dumps({"serve_recurrent": {

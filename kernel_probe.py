@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the assembly tile's, WKV6's, the CCM scorer call's and the window
-kernel's time goes on one GPU.
+"""Where the assembly tile's, WKV6's, the CCM scorer call's, the window
+kernel's and the training backwards' time goes on one GPU.
 
     python3 kernel_probe.py [--parent DIR] [--steps STEP ...]
 
@@ -56,10 +56,21 @@ application's 16 x 16 tiles, WKV6 at (4, 512, 64, 64) in bf16.
    full collections (``gc.callbacks``), the live objects the collector
    tracks, and the last engine's ``_blk_cache`` entries; every run must
    equal the first, phase by phase.
+7. ``--steps bwd``, the training path's two backwards in bf16 at its
+   shapes (``chip_smoke.TRAIN_*``: flash at B·Hq 128, B·Hkv 16, S 512,
+   hd 128, causal; the expert GEMM's gate/up and down at C 168): with
+   ``--parent``, the parent's and this checkout's public entry points
+   (``flash_attention_bwd`` on the forward's output, and its row
+   statistics where this checkout's backward takes them;
+   ``expert_gemm_bwd``) in turns, parent, this, this, parent, each in a
+   process of its own, ``device_ms`` of each; then, for this checkout,
+   each backward's kernels by name from ``torch.profiler`` (device ms a
+   call), and each of the expert GEMM's backward launches at three block
+   counts (one block a tile, one a streaming multiprocessor, two).
 
 ``--steps`` runs only the named steps (``turns`` for step 1, ``tile``,
-``wkv6``, ``spec``, ``floor``, ``pipeline``); all by default.  Prints one JSON line of
-results, then the card's name and power limit.
+``wkv6``, ``spec``, ``floor``, ``pipeline``, ``bwd``); all by default.
+Prints one JSON line of results, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -249,6 +260,39 @@ wall = time.perf_counter() - t0
 out["f64_solo"] = stats(launch.STATS["calls"])
 out["f64_solo"].update(wall_s=wall, score_stage_s=sum(
     t["score"] for t in run.stage_timings), transfers=run.transfers)
+print(json.dumps(out))
+'''
+
+
+# the backwards at the training shapes, run in a process of its own for
+# each checkout through its public entry points
+BWD_TIMES = r'''
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from repro_torch.kernels.flash import kernel as fk
+from repro_torch.kernels.moe_gemm import kernel as gk
+out = {}
+torch.manual_seed(0)
+q, k, v, do = [t.to(torch.bfloat16) for t in (
+    torch.randn((cs.TRAIN_BATCH * 32, cs.TRAIN_SEQ, 128), device="cuda"),
+    torch.randn((cs.TRAIN_BATCH * 4, cs.TRAIN_SEQ, 128), device="cuda"),
+    torch.randn((cs.TRAIN_BATCH * 4, cs.TRAIN_SEQ, 128), device="cuda"),
+    torch.randn((cs.TRAIN_BATCH * 32, cs.TRAIN_SEQ, 128), device="cuda"))]
+kw = {}
+if hasattr(fk, "tc_backward") and fk.tc_backward(q.dtype, q.shape[-1]):
+    o, kw["lse"] = fk.flash_attention_fwd(q, k, v, with_lse=True)
+else:
+    o = fk.flash_attention_fwd(q, k, v)
+out["flash_bwd"] = cs.device_ms(
+    torch, lambda: fk.flash_attention_bwd(q, k, v, o, do, **kw), 20)
+for e, c, d, f in cs.GEMM_BWD_SHAPES[:2]:
+    x = torch.randn((e, c, d), device="cuda").to(torch.bfloat16)
+    w = (torch.randn((e, d, f), device="cuda") / d ** 0.5).to(torch.bfloat16)
+    dy = torch.randn((e, c, f), device="cuda").to(torch.bfloat16)
+    out[f"gemm_bwd x={[e, c, d]}"] = cs.device_ms(
+        torch, lambda: gk.expert_gemm_bwd(x, w, dy), 20)
 print(json.dumps(out))
 '''
 
@@ -553,7 +597,46 @@ def pipeline_turns(torch, cs) -> dict:
     return {"runs": out}
 
 
-STEPS = ("turns", "tile", "wkv6", "spec", "floor", "pipeline")
+def bwd_breakdown(torch, cs) -> dict:
+    """This checkout's two backwards at the training shapes: each kernel's
+    device ms a call by name (``torch.profiler``, ten calls), and each of
+    the expert GEMM's backward launches (``plan_bwd``) at three block
+    counts (``device_ms``)."""
+    from repro_torch.kernels.flash import kernel as fk
+    from repro_torch.kernels.moe_gemm import kernel as gk
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    def by_name(fn):
+        fn()
+        rows = cs.profiled_run(torch, lambda: [fn() for _ in range(10)])
+        return {k: r["device_ms"] / r["count"]
+                for k, r in rows["by_name"].items()}
+
+    b, s = cs.TRAIN_BATCH, cs.TRAIN_SEQ
+    q, k, v, do = (randn(b * 32, s, 128), randn(b * 4, s, 128),
+                   randn(b * 4, s, 128), randn(b * 32, s, 128))
+    o, lse = fk.flash_attention_fwd(q, k, v, with_lse=True)
+    out = {"flash_bwd_kernels": by_name(
+        lambda: fk.flash_attention_bwd(q, k, v, o, do, lse=lse))}
+    for e, c, d, f in cs.GEMM_BWD_SHAPES[:2]:
+        x, w, dy = randn(e, c, d), randn(e, d, f, scale=d ** -0.5), \
+            randn(e, c, f)
+        key = f"x={[e, c, d]}"
+        out[f"gemm_bwd_kernels {key}"] = by_name(
+            lambda: gk.expert_gemm_bwd(x, w, dy))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for run in gk.plan_bwd(x, w, dy):
+            for n in (0, sms, 2 * sms):
+                out[f"gemm_bwd {key} {run.out} blocks {n}"] = cs.device_ms(
+                    torch, lambda: gk._launch_tma(run, n), 20)
+    return out
+
+
+STEPS = ("turns", "tile", "wkv6", "spec", "floor", "pipeline", "bwd")
 
 
 def main() -> None:
@@ -600,6 +683,13 @@ def main() -> None:
             torch, lambda: torch.cuda._sleep(0), reps=200)
     if "pipeline" in args.steps:
         res["pipeline_turns"] = pipeline_turns(torch, cs)
+    if "bwd" in args.steps:
+        if parent is not None:
+            res["bwd_in_turns"] = [
+                dict(checkout=name, **run_in(path, BWD_TIMES))
+                for name, path in (("parent", parent), ("this", ROOT),
+                                   ("this", ROOT), ("parent", parent))]
+        res["bwd_breakdown"] = bwd_breakdown(torch, cs)
     print(json.dumps(res), flush=True)
     print(f"card: {cs.card_line()}", flush=True)
 

@@ -48,7 +48,11 @@
 //   rows (the TPU kernel's 0 * NaN guard).  TMA needs 16-byte row strides,
 //   so hd is a multiple of 8 (the wrapper raises otherwise); the tiles are
 //   fixed (64 x 64 per warpgroup).  csrc/hopper.cuh holds the TMA,
-//   mbarrier and wgmma helpers.
+//   mbarrier and wgmma helpers.  Training launches a second instance
+//   (flash_attention_bf16_lse, hd 64 and 128: the shapes whose backward
+//   runs on the tensor cores) that also writes each row's log-sum-exp in
+//   log2 units, m + log2(l), for flash_attention_bwd.cu; the serve path's
+//   instance is compiled without that store, so its output is unchanged.
 // - float32 (flash_fwd_kernel): the TPU kernel's float32 arithmetic on the
 //   float32 cores, one block of 256 threads per (q tile, bh), q, k, v and
 //   the scores in float32 shared tiles (113.5 KB at hd 128), each thread
@@ -348,14 +352,18 @@ __device__ __forceinline__ void scores(float* s, int r0, int c0, int skv,
   }
 }
 
-template <int HDP, bool CAP>
+// LSE: also write each row's log-sum-exp of its scores in log2 units, m +
+// log2(l), to lse[bh * sq_pad + row] (0 for a row that sees no key): the
+// instance that the autograd function launches, for the backward; the
+// serve path's instance (LSE = false) has no such code.
+template <int HDP, bool CAP, bool LSE>
 __global__ void __launch_bounds__(FlashBf16<HDP>::THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v,
                   __nv_bfloat16* __restrict__ out, int group, int sq,
                   int skv, int hd, int causal, int window, float sm_scale,
-                  float softcap) {
+                  float softcap, float* __restrict__ lse, int sq_pad) {
   using P = FlashBf16<HDP>;
   constexpr int BN = P::BN;
   extern __shared__ uint8_t smem_raw[];
@@ -539,6 +547,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     const float denom = lr == 0.0f ? 1.0f : lr;
     const int r = r0 + 8 * h;
     if (r >= sq) continue;
+    if constexpr (LSE) {
+      if (lane % 4 == 0)
+        lse[(long long)bh * sq_pad + r] = lr > 0.0f ? m[h] + log2f(lr) : 0.0f;
+    }
 #pragma unroll
     for (int j = 0; j < HDP / 8; ++j) {
       const int col = 8 * j + cq;
@@ -550,26 +562,26 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int HDP>
+template <int HDP, bool LSE>
 int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
                    int bhq, int bhkv, int sq, int skv, int hd, int causal,
-                   int window, float sm_scale, float softcap,
-                   cudaStream_t stream) {
+                   int window, float sm_scale, float softcap, float* lse,
+                   int sq_pad, cudaStream_t stream) {
   using P = FlashBf16<HDP>;
   CUtensorMap map_q, map_k, map_v;
   int rc = hopper::make_map_bf16(&map_q, q, hd, sq, bhq, P::BM);
   if (rc == 0) rc = hopper::make_map_bf16(&map_k, k, hd, skv, bhkv, P::BN);
   if (rc == 0) rc = hopper::make_map_bf16(&map_v, v, hd, skv, bhkv, P::BN);
   if (rc != 0) return rc;
-  auto kern = softcap > 0.0f ? flash_bf16_kernel<HDP, true>
-                             : flash_bf16_kernel<HDP, false>;
+  auto kern = softcap > 0.0f ? flash_bf16_kernel<HDP, true, LSE>
+                             : flash_bf16_kernel<HDP, false, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((sq + P::BQ - 1) / P::BQ), (unsigned)bhq);
   kern<<<grid, P::THREADS, P::SMEM, stream>>>(
       map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), bhq / bhkv, sq,
-      skv, hd, causal, window, sm_scale, softcap);
+      skv, hd, causal, window, sm_scale, softcap, lse, sq_pad);
   return (int)cudaGetLastError();
 }
 
@@ -590,13 +602,40 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   (void)block_k;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
-    return launch_bf16_hd<64>(q, k, v, out, bhq, bhkv, sq, skv, hd, causal,
-                              window, sm_scale, softcap, st);
+    return launch_bf16_hd<64, false>(q, k, v, out, bhq, bhkv, sq, skv, hd,
+                                     causal, window, sm_scale, softcap,
+                                     nullptr, 0, st);
   if (hd <= 128)
-    return launch_bf16_hd<128>(q, k, v, out, bhq, bhkv, sq, skv, hd, causal,
-                               window, sm_scale, softcap, st);
-  return launch_bf16_hd<256>(q, k, v, out, bhq, bhkv, sq, skv, hd, causal,
-                             window, sm_scale, softcap, st);
+    return launch_bf16_hd<128, false>(q, k, v, out, bhq, bhkv, sq, skv, hd,
+                                      causal, window, sm_scale, softcap,
+                                      nullptr, 0, st);
+  return launch_bf16_hd<256, false>(q, k, v, out, bhq, bhkv, sq, skv, hd,
+                                    causal, window, sm_scale, softcap,
+                                    nullptr, 0, st);
+}
+
+// The same forward, also writing each row's log-sum-exp (log2 units) to
+// lse (BHq, sq_pad) float32, sq_pad = Sq rounded up to a multiple of 64
+// (rows past Sq are left as they are): for the tensor-core backward, so
+// hd 64 or 128 only (another returns cudaErrorInvalidValue).
+extern "C" int flash_attention_bf16_lse(const void* q, const void* k,
+                                        const void* v, void* out, void* lse,
+                                        int bhq, int bhkv, int sq, int skv,
+                                        int hd, int causal, int window,
+                                        float sm_scale, float softcap,
+                                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  const int sq_pad = (sq + 63) / 64 * 64;
+  if (hd == 64)
+    return launch_bf16_hd<64, true>(q, k, v, out, bhq, bhkv, sq, skv, hd,
+                                    causal, window, sm_scale, softcap, l,
+                                    sq_pad, st);
+  if (hd == 128)
+    return launch_bf16_hd<128, true>(q, k, v, out, bhq, bhkv, sq, skv, hd,
+                                     causal, window, sm_scale, softcap, l,
+                                     sq_pad, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,

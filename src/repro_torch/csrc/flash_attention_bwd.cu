@@ -1,6 +1,6 @@
 // Flash attention, backward pass: dQ, dK and dV of the forward in
 // flash_attention.cu, with GQA, causal and sliding-window masks and the
-// gemma2 logit soft-cap, computing in float32 on bf16 or float32 inputs.
+// gemma2 logit soft-cap.
 //
 // Replaces no TPU kernel: the JAX package trains by differentiating its jnp
 // attention (repro/models/attention.py:98 attention_forward_kv -> _sdpa) and
@@ -11,7 +11,7 @@
 // ref.py::attention_bwd (its plain model):
 //
 //   s    = (q . k) * sm_scale;  s = cap * tanh(s / cap) if cap > 0
-//   P    = visible ? exp(s - m) / l : 0   m = row max, l = sum_visible exp(s - m)
+//   P    = visible ? exp(s - lse) : 0     lse = the row's log-sum-exp
 //   D    = rowsum(dO o O)
 //   dP   = dO . v^T
 //   dS   = P o (dP - D) [o (1 - (s / cap)^2) with the soft-cap]
@@ -22,45 +22,77 @@
 // dK and dV (the plain version's torch.where gives the same).  Layout, all
 // contiguous: q, o, dO, dQ (BHq, Sq, hd); k, v, dK, dV (BHkv, Skv, hd); q row
 // block bh reads kv row block bh / group (the kv-major GQA fold of ops.py).
+// Every output element is owned by one block (no float atomics), and every
+// sum is taken in a fixed order, so two runs on the same inputs give the
+// same bits.  Two designs, chosen by the shape alone before the launch
+// (kernels/flash/kernel.py::tc_backward):
 //
-// Three kernels, one launch of the C entry point (flash_attention_bwd_*):
-//
-// 1. bwd_prep_kernel, one block per (q tile, bh): the row max m and 1 / l
-//    (the log-sum-exp without its log), by walking the visible kv tiles
-//    with an online max and sum, and D.  The
-//    forward kernels are left as they are (no LSE output): the serve path's
-//    output stays bit-identical by construction, and the bf16 forward's
-//    consumer warpgroups hold 232 registers a thread with no room to spare.
-//    The price is one more q . k^T product.
-// 2. bwd_dkdv_kernel, one block per (kv tile, kv head): K and V of its tile
-//    in shared memory, dK and dV in registers; it walks the group's q heads
-//    and the q tiles that can see its tile, recomputing P and dS.
-// 3. bwd_dq_kernel, one block per (q tile, bh): q, dO, m, 1 / l and D of its
-//    tile in shared memory, dQ in registers; it walks the visible kv tiles.
-//
-// Every output element is owned by one thread of one block, so there are
-// no float atomics and the result does not change from run to run.  Tiles
-// are float32 in shared memory (rows padded by one float against bank
-// conflicts): 64 rows a tile up to hd 128, 32 at hd 256; each thread holds
-// an (R/16 x R/16) slice of a score tile and an (R/8 x HDMAX/32) slice of an
-// accumulator; every product is an explicit fused multiply-add (__fmaf_rn),
-// which --fmad=false leaves alone; exp and tanh are the accurate ones.
+// - bf16 with hd 64 or 128 (the training shape, gemma2's and qwen's heads):
+//   the tensor cores, flash_attention_bwd_bf16_tc.  Every product is a
+//   wgmma of bf16 operands with float32 accumulators; P and dS are rounded
+//   to bf16 in registers before the products that take them
+//   (ref.attention_bwd(bf16_products=True) is the plain model).  The
+//   forward writes each row's log-sum-exp in log2 units (its LSE instance,
+//   launched by the autograd function), so no pass recomputes q . k^T for
+//   the row statistics.  Three launches:
+//   1. bwd_delta_tc: D = rowsum(dO o O), a warp a row (bytes only).
+//   2. bwd_dkdv_tc, a block a (64-row kv tile, kv head), 1-D grid with the
+//      first kv tiles first (the longest under the causal mask): k and v
+//      resident; the (q head, q tile) pairs that see the tile dealt to two
+//      consumer warpgroups in turns, each fed (q, dO, lse, D) through a TMA
+//      ring of its own by a producer warp (setmaxnreg 24 / 240).  A pair
+//      is S^T = k q^T and dP^T = v dO^T (both K-major from shared memory),
+//      P^T and dS^T in registers, then dV += P^T dO and dK += dS^T q with
+//      P^T and dS^T as the register A operand and dO, q read MN-major.  The
+//      consumers' two partial dK and dV meet in shared memory at the end
+//      (two terms: the same bits in either order).  Splitting a kv head's
+//      pairs over two warpgroups of one block, rather than giving each a kv
+//      tile of its own, doubles the blocks at the training shape (B 4, Hkv
+//      4, S 512: 128 blocks for 132 SMs, against 64).
+//   3. bwd_dq_tc, a block a (128-row q tile, q head), the last q tiles
+//      first: two consumer warpgroups of 64 rows with q and dO resident, a
+//      ring of (k, v) tiles as the forward's (setmaxnreg 40 / 232); S = q
+//      k^T and dP = dO v^T, then dQ += dS k with k read MN-major.
+//   TMA needs the lse and D rows 16-byte aligned, so both are (BHq, Sq
+//   rounded up to 64) float32; the rows past Sq are never read as values.
+// - float32, and bf16 at other head dims (8, 32, 256 among the checked
+//   shapes): the float32 cores, flash_attention_bwd_{bf16,f32}, three
+//   kernels:
+//   1. bwd_prep_kernel, one block per (q tile, bh): the row max m and 1 / l
+//      (the log-sum-exp without its log), by walking the visible kv tiles
+//      with an online max and sum, and D (the float32 forward writes no
+//      row statistics);
+//   2. bwd_dkdv_kernel, one block per (kv tile, kv head): K and V of its
+//      tile in shared memory, dK and dV in registers; it walks the group's
+//      q heads and the q tiles that can see its tile, recomputing P and dS;
+//   3. bwd_dq_kernel, one block per (q tile, bh): q, dO, m, 1 / l and D of
+//      its tile in shared memory, dQ in registers; it walks the visible kv
+//      tiles.
+//   Tiles are float32 in shared memory (rows padded by one float against
+//   bank conflicts): 64 rows a tile up to hd 128, 32 at hd 256; each thread
+//   holds an (R/16 x R/16) slice of a score tile and an (R/8 x HDMAX/32)
+//   slice of an accumulator; every product is an explicit fused
+//   multiply-add (__fmaf_rn), which --fmad=false leaves alone; exp and tanh
+//   are the accurate ones.
 //
 // Bound on an H100 SXM at the training shape (B = 4, Hq = 32, Hkv = 4,
 // S = 512, hd = 128, causal, bf16): the 8 input and output arrays (q, k,
 // v, o, dO, dQ, dK, dV) are 75.5 MB, 0.0225 ms at 3.35 TB/s; the five
 // products of the backward over the visible (q, k) pairs are 21.5 GFLOP,
 // 0.0218 ms at the bf16 tensor-core peak (989 TFLOP/s): bytes bound it,
-// narrowly.  This design runs on the float32 cores (67 TFLOP/s, 0.32 ms for
-// those 21.5 GFLOP), does seven products and the prep pass's one where the
-// bound counts five, and keeps one block an SM (166 KB of shared memory at
-// hd 128): it is right first; wgmma, TMA and a Hopper redesign wait for a
-// later PR (ROADMAP queue 2, F12).
+// narrowly.  The tensor-core design does seven products where the bound
+// counts five (S and dP in both kernels), over whole 64 x 64 tiles (the
+// diagonal's masked halves included), and reads q, dO, k and v from L2
+// once per tile pair rather than once; the float32-core design runs at 67
+// TFLOP/s at best.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -530,6 +562,527 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 #undef FLASH_BWD_LAUNCH
 }
 
+// ------------------------------------- bf16, hd 64 or 128: the tensor cores
+// (see the header).  Tiles are 64 rows; every operand tile arrives by TMA
+// as boxes of 64 columns (128-byte swizzle, zero fill past Sq, Skv), and
+// one tile serves as a K-major operand (S, dP: the reduction runs along
+// hd) and as an MN-major one (dV, dK, dQ: along its rows).
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct Tc {
+  static constexpr int BOXES = HD / 64;      // 64-column boxes of a row
+  static constexpr int TILE = 64 * HD * 2;   // a 64-row bf16 tile
+  static constexpr int THREADS = 384;
+  // dK/dV: k and v resident; a ring a consumer of (q, dO) tiles and their
+  // rows' lse and D
+  static constexpr int KV_STAGES = HD == 128 ? 2 : 3;
+  static constexpr size_t KV_SMEM =
+      1024 + 2 * TILE + 2 * KV_STAGES * 2 * TILE
+      + 2 * KV_STAGES * 2 * 64 * sizeof(float)
+      + (1 + 4 * KV_STAGES) * sizeof(uint64_t);
+  // dQ: each consumer's q and dO resident; a ring of (k, v) tiles
+  static constexpr int Q_STAGES = HD == 128 ? 3 : 4;
+  static constexpr size_t Q_SMEM = 1024 + 4 * TILE + Q_STAGES * 2 * TILE
+                                   + (1 + 2 * Q_STAGES) * sizeof(uint64_t);
+  // the dK/dV exchange of partial sums fits in a consumer's ring
+  static_assert(KV_STAGES * 2 * TILE >= 64 * HD * (int)sizeof(float), "");
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// P and dS of one score in place: s (the raw q . k) becomes P = exp2(s2 -
+// lse2), s2 the score in log2 units as the forward computes it; dp (dO .
+// v) becomes dS = P (dP - D) [(1 - t^2) under the soft-cap, t = tanh(s
+// sm_scale / cap)]; both 0 where the pair is not visible (a pad's lse or D
+// may be anything)
+template <bool CAP>
+__device__ __forceinline__ void p_and_ds_tc(float& s, float& dp, float lse2,
+                                            float dl, bool ok, float sm_scale,
+                                            float scale2, float softcap) {
+  float s2, fac = 1.0f;
+  if (CAP) {
+    const float t = tanhf(s * sm_scale / softcap);
+    s2 = softcap * t * LOG2E;
+    fac = 1.0f - t * t;
+  } else {
+    s2 = s * scale2;
+  }
+  const float p = exp2f(s2 - lse2);
+  float ds = p * (dp - dl);
+  if (CAP) ds = ds * fac;
+  s = ok ? p : 0.0f;
+  dp = ok ? ds : 0.0f;
+}
+
+// a warpgroup's (64, HD) float32 accumulator, times `scale`, rounded to bf16
+// into rows r0 and r0 + 8 (those below `rows`) of the (rows, HD) array at
+// `out`
+template <int HD>
+__device__ __forceinline__ void store_acc(bf16* out, const float* acc,
+                                          float scale, int r0, int rows,
+                                          int cq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * HD + 8 * j
+                                         + cq) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * scale,
+                                acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// D = rowsum(dO o O) into delta[bh * sq_pad + q], a warp a row
+__global__ void __launch_bounds__(256)
+bwd_delta_tc(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+             float* __restrict__ delta, int rows, int sq, int sq_pad,
+             int hd) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const long long base = (long long)row * hd;
+  float acc = 0.0f;
+  for (int c = 2 * lane; c < hd; c += 64) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(dout + base + c));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(o + base + c));
+    acc = __fmaf_rn(a.x, b.x, acc);
+    acc = __fmaf_rn(a.y, b.y, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[(long long)(row / sq) * sq_pad + row % sq] = acc;
+}
+
+// dK and dV: a block a (64-row kv tile, kv head), the kv tiles in order
+// (under the causal mask the first sees the most q rows, so the longest
+// blocks start first).  Its q work is the (q head of the group, 64-row q
+// tile) pairs that can see the kv tile, dealt alternately to two consumer
+// warpgroups, each with a ring of its own that a producer warp fills (warp
+// 0 also loads k and v once).  Each consumer sums its pairs' products into
+// its own (64, HD) dK and dV; at the end they trade halves through shared
+// memory and each writes one of the two sums.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(384, 1)
+bwd_dkdv_tc(const __grid_constant__ CUtensorMap map_q,
+            const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v,
+            const __grid_constant__ CUtensorMap map_do,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, int group, int bhkv,
+            int sq, int skv, int sq_pad, int causal, int window,
+            float sm_scale, float softcap) {
+  using P = Tc<HD>;
+  constexpr int S = P::KV_STAGES;
+  constexpr int RING = S * 2 * P::TILE;  // a consumer's ring, in bytes
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* s_k = align1024(smem_raw);
+  uint8_t* s_v = s_k + P::TILE;
+  uint8_t* rings = s_v + P::TILE;
+  float* stats = reinterpret_cast<float*>(rings + 2 * RING);  // [c][st][2][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + 2 * S * 128);
+  uint64_t* full = kv_full + 1;    // [c][st]
+  uint64_t* empty = full + 2 * S;  // [c][st]
+
+  const int kvh = blockIdx.x % bhkv;
+  const int k0 = (blockIdx.x / bhkv) * 64;
+  const int k_last = min(k0 + 64, skv) - 1;
+  // the q rows that can see some row of this kv tile, in 64-row tiles
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(sq, k_last + window) : sq;
+  const int t_lo = q_lo / 64;
+  const int n_t = q_lo < q_hi ? (q_hi + 63) / 64 - t_lo : 0;
+  const int items = group * n_t;  // item i: q head i / n_t, tile i % n_t
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int i = 0; i < 2 * S; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 4);  // a consumer warp each
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup: warp w fills ring w
+    hopper::regs_dec<24>();
+    const int w = threadIdx.x / 32;
+    if (w < 2 && threadIdx.x % 32 == 0) {
+      if (w == 0) {
+        hopper::prefetch_map(&map_q);
+        hopper::prefetch_map(&map_k);
+        hopper::prefetch_map(&map_v);
+        hopper::prefetch_map(&map_do);
+        hopper::mbar_expect_tx(kv_full, 2 * P::TILE);
+        for (int b = 0; b < P::BOXES; ++b) {
+          hopper::tma_load_3d(s_k + b * 64 * 128, &map_k, kv_full, 64 * b,
+                              k0, kvh);
+          hopper::tma_load_3d(s_v + b * 64 * 128, &map_v, kv_full, 64 * b,
+                              k0, kvh);
+        }
+      }
+      for (int i = w, j = 0; i < items; i += 2, ++j) {
+        const int st = w * S + j % S;
+        hopper::mbar_wait(&empty[st], ((j / S) & 1) ^ 1);
+        const int g = i / n_t;
+        const int q0 = (t_lo + i - g * n_t) * 64;
+        const int bh = kvh * group + g;
+        hopper::mbar_expect_tx(&full[st], 2 * P::TILE + 512);
+        uint8_t* dst = rings + st * 2 * P::TILE;
+        for (int b = 0; b < P::BOXES; ++b) {
+          hopper::tma_load_3d(dst + b * 64 * 128, &map_q, &full[st], 64 * b,
+                              q0, bh);
+          hopper::tma_load_3d(dst + P::TILE + b * 64 * 128, &map_do,
+                              &full[st], 64 * b, q0, bh);
+        }
+        const long long at = (long long)bh * sq_pad + q0;
+        hopper::bulk_load(stats + st * 128, lse + at, 256, &full[st]);
+        hopper::bulk_load(stats + st * 128 + 64, delta + at, 256, &full[st]);
+      }
+    }
+    return;
+  }
+
+  // consumer c: its kv rows kr and kr + 8, its q columns 8 j + cq + {0, 1}
+  hopper::regs_inc<240>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int kr = k0 + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float scale2 = sm_scale * LOG2E;
+
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int i = c, j = 0; i < items; i += 2, ++j) {
+    const int st = c * S + j % S;
+    const int g = i / n_t;
+    const int q0 = (t_lo + i - g * n_t) * 64;
+    hopper::mbar_wait(&full[st], (j / S) & 1);
+    const uint8_t* s_q = rings + st * 2 * P::TILE;
+    const uint8_t* s_do = s_q + P::TILE;
+    const float* s_lse = stats + st * 128;
+    const float* s_dl = s_lse + 64;
+
+    // S^T = k . q^T and dP^T = v . dO^T, (64 kv rows, 64 q columns)
+    float s[32], dp[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      hopper::WgmmaSS<64, 0, 0>::run(
+          s, hopper::desc_sw128(s_k + off, 16, 1024),
+          hopper::desc_sw128(s_q + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      hopper::WgmmaSS<64, 0, 0>::run(
+          dp, hopper::desc_sw128(s_v + off, 16, 1024),
+          hopper::desc_sw128(s_do + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<32>(s);
+    hopper::fence_regs<32>(dp);
+
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * jj + cq + e;
+        const float lse2 = s_lse[col], dl = s_dl[col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int idx = 4 * jj + 2 * h + e;
+          p_and_ds_tc<CAP>(s[idx], dp[idx], lse2, dl,
+                           visible(q0 + col, kr + 8 * h, sq, skv, causal,
+                                   window),
+                           sm_scale, scale2, softcap);
+        }
+      }
+    }
+
+    // dV += P^T . dO and dK += dS^T . q: P^T and dS^T, rounded to bf16, are
+    // already the A fragments; dO and q are read MN-major
+    hopper::fence_regs<HD / 2>(dv_acc);
+    hopper::fence_regs<HD / 2>(dk_acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaRS<HD, 1>::run(
+          dv_acc, pack_bf16(s[8 * kk], s[8 * kk + 1]),
+          pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+          pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+          pack_bf16(s[8 * kk + 6], s[8 * kk + 7]),
+          hopper::desc_sw128(s_do + kk * 16 * 128, 64 * 128, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaRS<HD, 1>::run(
+          dk_acc, pack_bf16(dp[8 * kk], dp[8 * kk + 1]),
+          pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]),
+          pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]),
+          pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]),
+          hopper::desc_sw128(s_q + kk * 16 * 128, 64 * 128, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<HD / 2>(dv_acc);
+    hopper::fence_regs<HD / 2>(dk_acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  // the two partial sums: consumer 0 hands its dV over and writes dK,
+  // consumer 1 hands its dK over and writes dV; each sum has two terms,
+  // so it has the same bits whichever is added to which.  A consumer's
+  // ring is idle once its last tile is read.
+  float* mine = reinterpret_cast<float*>(rings + c * RING);
+  const float* theirs = reinterpret_cast<const float*>(rings + (1 - c) * RING);
+  if (c == 0) {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) mine[i * 128 + tid] = dv_acc[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) mine[i * 128 + tid] = dk_acc[i];
+  }
+  hopper::named_sync(1, 256);
+  const long long head = (long long)kvh * skv * HD;
+  if (c == 0) {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] += theirs[i * 128 + tid];
+    store_acc<HD>(dk + head, dk_acc, sm_scale, kr, skv, cq);
+  } else {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dv_acc[i] += theirs[i * 128 + tid];
+    store_acc<HD>(dv + head, dv_acc, 1.0f, kr, skv, cq);
+  }
+}
+
+// dQ: a block a (128-row q tile, q head), the last q tiles first (under the
+// causal mask they see the most kv tiles); two consumer warpgroups of 64 q
+// rows with their q and dO resident, a producer thread streaming (k, v)
+// tiles through a ring, as the forward does.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(384, 1)
+bwd_dq_tc(const __grid_constant__ CUtensorMap map_q,
+          const __grid_constant__ CUtensorMap map_k,
+          const __grid_constant__ CUtensorMap map_v,
+          const __grid_constant__ CUtensorMap map_do,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, int group, int bhq, int sq, int skv,
+          int sq_pad, int causal, int window, float sm_scale, float softcap) {
+  using P = Tc<HD>;
+  constexpr int S = P::Q_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* s_q = align1024(smem_raw);       // consumer c's at + c TILE
+  uint8_t* s_do = s_q + 2 * P::TILE;        // likewise
+  uint8_t* ring = s_do + 2 * P::TILE;       // stage: k tile, v tile
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + S * 2 * P::TILE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int n_qt = (sq + 127) / 128;
+  const int bh = blockIdx.x % bhq;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / bhq) * 128;
+  const int q_last = min(q0 + 128, sq) - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(skv, q_last + 1) : skv;
+  const int t_lo = k_lo / 64;
+  const int t_hi = (k_hi + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // a consumer warp each
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&map_q);
+      hopper::prefetch_map(&map_k);
+      hopper::prefetch_map(&map_v);
+      hopper::prefetch_map(&map_do);
+      hopper::mbar_expect_tx(q_full, 4 * P::TILE);
+      for (int c = 0; c < 2; ++c)
+        for (int b = 0; b < P::BOXES; ++b) {
+          hopper::tma_load_3d(s_q + c * P::TILE + b * 64 * 128, &map_q,
+                              q_full, 64 * b, q0 + 64 * c, bh);
+          hopper::tma_load_3d(s_do + c * P::TILE + b * 64 * 128, &map_do,
+                              q_full, 64 * b, q0 + 64 * c, bh);
+        }
+      const int kvh = bh / group;
+      for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
+        const int st = i % S;
+        hopper::mbar_wait(&empty[st], ((i / S) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[st], 2 * P::TILE);
+        uint8_t* dst = ring + st * 2 * P::TILE;
+        for (int b = 0; b < P::BOXES; ++b) {
+          hopper::tma_load_3d(dst + b * 64 * 128, &map_k, &full[st], 64 * b,
+                              t * 64, kvh);
+          hopper::tma_load_3d(dst + P::TILE + b * 64 * 128, &map_v,
+                              &full[st], 64 * b, t * 64, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer c: q rows qa + ..; this thread's rows r0 and r0 + 8, its kv
+  // columns 8 j + cq + {0, 1} of a tile
+  hopper::regs_inc<232>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int qa = q0 + 64 * c;
+  const int r0 = qa + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float scale2 = sm_scale * LOG2E;
+  const uint8_t* s_qc = s_q + c * P::TILE;
+  const uint8_t* s_doc = s_do + c * P::TILE;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const long long at = (long long)bh * sq_pad + r;
+    lse2[h] = r < sq ? lse[at] : 0.0f;
+    dl[h] = r < sq ? delta[at] : 0.0f;
+  }
+
+  float dq_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.0f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
+    const int st = i % S;
+    const int k0 = t * 64;
+    // a tile no row of this consumer sees adds nothing
+    const bool dead = k0 >= skv || (causal && k0 > qa + 63)
+                      || (window > 0 && k0 + 63 <= qa - window);
+    hopper::mbar_wait(&full[st], (i / S) & 1);
+    if (!dead) {
+      const uint8_t* s_k = ring + st * 2 * P::TILE;
+      const uint8_t* s_v = s_k + P::TILE;
+      // S = q . k^T and dP = dO . v^T, (64 q rows, 64 kv columns)
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+        hopper::WgmmaSS<64, 0, 0>::run(
+            s, hopper::desc_sw128(s_qc + off, 16, 1024),
+            hopper::desc_sw128(s_k + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+        hopper::WgmmaSS<64, 0, 0>::run(
+            dp, hopper::desc_sw128(s_doc + off, 16, 1024),
+            hopper::desc_sw128(s_v + off, 16, 1024), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<32>(s);
+      hopper::fence_regs<32>(dp);
+
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k_pos = k0 + 8 * jj + cq + e;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int idx = 4 * jj + 2 * h + e;
+            p_and_ds_tc<CAP>(s[idx], dp[idx], lse2[h], dl[h],
+                             visible(r0 + 8 * h, k_pos, sq, skv, causal,
+                                     window),
+                             sm_scale, scale2, softcap);
+          }
+        }
+      }
+
+      // dQ += dS . k: dS, rounded to bf16, is the A fragment; k MN-major
+      hopper::fence_regs<HD / 2>(dq_acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::WgmmaRS<HD, 1>::run(
+            dq_acc, pack_bf16(dp[8 * kk], dp[8 * kk + 1]),
+            pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]),
+            pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]),
+            pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]),
+            hopper::desc_sw128(s_k + kk * 16 * 128, 64 * 128, 1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<HD / 2>(dq_acc);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+  store_acc<HD>(dq + (long long)bh * sq * HD, dq_acc, sm_scale, r0, sq, cq);
+}
+
+template <int HD, bool CAP>
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+              const bf16* dout, const float* lse, bf16* dq, bf16* dk,
+              bf16* dv, float* delta, int bhq, int bhkv, int sq, int skv,
+              int causal, int window, float sm_scale, float softcap,
+              cudaStream_t stream) {
+  using P = Tc<HD>;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int rc = hopper::make_map_bf16(&map_q, q, HD, sq, bhq, 64);
+  if (rc == 0) rc = hopper::make_map_bf16(&map_do, dout, HD, sq, bhq, 64);
+  if (rc == 0) rc = hopper::make_map_bf16(&map_k, k, HD, skv, bhkv, 64);
+  if (rc == 0) rc = hopper::make_map_bf16(&map_v, v, HD, skv, bhkv, 64);
+  if (rc != 0) return rc;
+  auto dkdv = bwd_dkdv_tc<HD, CAP>;
+  auto dqk = bwd_dq_tc<HD, CAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::KV_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::Q_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int sq_pad = (sq + 63) / 64 * 64;
+  const int group = bhq / bhkv;
+  const long long rows = (long long)bhq * sq;
+  bwd_delta_tc<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      o, dout, delta, (int)rows, sq, sq_pad, HD);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkdv<<<(unsigned)((skv + 63) / 64 * bhkv), P::THREADS, P::KV_SMEM,
+         stream>>>(map_q, map_k, map_v, map_do, lse, delta, dk, dv, group,
+                   bhkv, sq, skv, sq_pad, causal, window, sm_scale, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<(unsigned)((sq + 127) / 128 * bhq), P::THREADS, P::Q_SMEM,
+        stream>>>(map_q, map_k, map_v, map_do, lse, delta, dq, group, bhq,
+                  sq, skv, sq_pad, causal, window, sm_scale, softcap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Returns the cudaError_t of the launches (0
@@ -556,6 +1109,46 @@ extern "C" int flash_attention_bwd_f32(
                        sq, skv, hd, causal, window, sm_scale, softcap, stream);
 }
 
+// The tensor-core backward (bf16, hd 64 or 128; another hd returns
+// cudaErrorInvalidValue): lse (BHq, sq_pad) float32 from the forward's LSE
+// instance, sq_pad = Sq rounded up to a multiple of 64; delta (BHq, sq_pad)
+// float32 scratch.  Returns the cudaError_t of the launches or a negative
+// code of hopper::make_map_bf16; the caller checks the shapes (BHq a
+// multiple of BHkv, Sq and Skv > 0, 16-byte aligned bases, everything
+// contiguous, one type).
+extern "C" int flash_attention_bwd_bf16_tc(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, int bhq, int bhkv, int sq, int skv, int hd, int causal,
+    int window, float sm_scale, float softcap, void* stream) {
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* ot = static_cast<const bf16*>(o);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  const float* lt = static_cast<const float*>(lse);
+  bf16* dqt = static_cast<bf16*>(dq);
+  bf16* dkt = static_cast<bf16*>(dk);
+  bf16* dvt = static_cast<bf16*>(dv);
+  float* dl = static_cast<float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_BWD_TC(HD, CAP)                                                \
+  return launch_tc<HD, CAP>(qt, kt, vt, ot, dot, lt, dqt, dkt, dvt, dl, bhq, \
+                            bhkv, sq, skv, causal, window, sm_scale,        \
+                            softcap, st)
+  const bool cap = softcap > 0.0f;
+  if (hd == 64) {
+    if (cap) FLASH_BWD_TC(64, true);
+    FLASH_BWD_TC(64, false);
+  }
+  if (hd == 128) {
+    if (cap) FLASH_BWD_TC(128, true);
+    FLASH_BWD_TC(128, false);
+  }
+#undef FLASH_BWD_TC
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" const char* flash_attention_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's bf16 tensor-core
 // kernels (flash_attention.cu, moe_gemm.cu) and the CCM window kernel
-// (ccm_scorer.cu): shared-memory barriers (mbarrier), TMA tile loads
-// (cp.async.bulk.tensor) and the tensor maps that describe them, 1-D bulk
+// (ccm_scorer.cu): shared-memory barriers (mbarrier), TMA tile loads and
+// stores (cp.async.bulk.tensor) and the tensor maps that describe them, 1-D bulk
 // copies (cp.async.bulk), warpgroup register hand-off (setmaxnreg), and
 // warpgroup matrix products (wgmma.mma_async) on 128-byte-swizzled shared
 // tiles.
@@ -97,6 +97,33 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// the box at shared `src` (laid out as a load of the same map would leave
+// it) to a rank-3 map at element coordinates (c0, c1, c2); elements
+// outside the tensor are not written.  Asynchronous: bulk_commit groups
+// the stores started so far, bulk_wait_read<N> waits until all but the last
+// N groups have read their shared memory.  Shared memory written by
+// threads is made visible to the store by fence_proxy_async (each writer)
+// and a barrier before the store starts.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // `bytes` (a multiple of 16) of contiguous memory from global `src` to
@@ -309,9 +336,12 @@ struct WgmmaRS;
     }                                                                        \
   };
 
-// the products the kernels issue: the expert GEMM's (weights MN-major,
-// tokens K-major, N any multiple of 8 up to 256), attention's q . k^T
-// (both K-major, N = 64) and p . v (p from registers, v MN-major)
+// the products the kernels run: the expert GEMM's forward (weights
+// MN-major, tokens K-major, N any multiple of 8 up to 256) and backward
+// (dX: both K-major; dW: both MN-major; N a multiple of 64), attention's
+// q . k^T (both K-major, N = 64) and p . v (p from registers, v MN-major),
+// which its backward reuses (S, dP and their transposes K-major; dV, dK
+// and dQ with P or dS from registers and dO, q or k MN-major)
 HOPPER_WGMMA_SS(8, 4, 1, 0)
 HOPPER_WGMMA_SS(16, 8, 1, 0)
 HOPPER_WGMMA_SS(24, 12, 1, 0)
@@ -345,6 +375,13 @@ HOPPER_WGMMA_SS(240, 120, 1, 0)
 HOPPER_WGMMA_SS(248, 124, 1, 0)
 HOPPER_WGMMA_SS(256, 128, 1, 0)
 HOPPER_WGMMA_SS(64, 32, 0, 0)
+HOPPER_WGMMA_SS(128, 64, 0, 0)
+HOPPER_WGMMA_SS(192, 96, 0, 0)
+HOPPER_WGMMA_SS(256, 128, 0, 0)
+HOPPER_WGMMA_SS(64, 32, 1, 1)
+HOPPER_WGMMA_SS(128, 64, 1, 1)
+HOPPER_WGMMA_SS(192, 96, 1, 1)
+HOPPER_WGMMA_SS(256, 128, 1, 1)
 HOPPER_WGMMA_RS(64, 32, 1)
 HOPPER_WGMMA_RS(128, 64, 1)
 

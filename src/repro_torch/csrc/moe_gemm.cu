@@ -28,7 +28,11 @@
 //   so L2 serves the x re-reads.  The float32 (F, N) tile goes through
 //   shared memory (the ring, once drained) and leaves as 16-byte row
 //   stores, rounded to nearest even once.  csrc/hopper.cuh holds the TMA,
-//   mbarrier and wgmma helpers.
+//   mbarrier and wgmma helpers.  The gradient's two products launch the
+//   same kernel's transpose-bit variants on the operands where they lie
+//   (expert_gemm_tma_bf16; see the TMA section): dX = dY . W^T reads w
+//   K-major, dW = X^T . dY reads dY and x MN-major, so no transposed copy
+//   is made; their blocks are persistent and store by TMA.
 // - bf16, D or F not a multiple of 8 (the ragged test shapes only):
 //   expert_gemm_bf16_kernel, tensor cores through the wmma API (16 x 16 x
 //   16 bf16 products, float accumulators in registers), K step 32, a
@@ -47,7 +51,11 @@
 // What the design does: every weight element is read from device memory
 // once per launch (C <= 256), by TMA, several steps ahead of the products,
 // and the MMA rows are weights, so a decode step's four tokens waste no
-// MMA rows of weights, only N columns (8 for 4).
+// MMA rows of weights, only N columns (8 for 4).  The backward at the
+// training shape (C = 168) reads w once for dX and writes dW once, 403 MB
+// each at qwen's gate/up: 0.303 ms for the pair at 3.35 TB/s, bytes bound;
+// dW's K is only 168, so its x and dY tiles are read again from L2 for
+// every (f, d) tile, which the 128 x 256 tiles keep to 4.5 bytes a result.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -282,43 +290,84 @@ int launch_bf16(const bf16* x, const bf16* w, bf16* out, int E, int C, int D,
 
 
 // ------------------------------------- bf16, D and F multiples of 8: TMA
-// out^T[e] = w[e]^T . x[e]^T: the weights are wgmma's M side (64 rows of F
-// a consumer warpgroup, two a block), the tokens its N side (N = C rounded
-// up to a multiple of 8, at most 256, a grid axis beyond); K = D in steps
-// of 64.  One producer warpgroup (its first thread issues the loads) keeps
-// STAGES steps of (w tile, x tile) in flight.
-template <int N>
+// out[e][n][m] = sum_k A[e][m][k] . B[e][k][n], as wgmma's (M, N) tile
+// with M the contiguous axis of out: 64 rows of M a consumer warpgroup,
+// two a block; N at most 256 a tile, a grid axis (or tile index) beyond;
+// K in steps of 64.  TA and TB are the operands' transpose bits:
+//   A, TA = 1 (MN-major): stored (E, K, M), two boxes of (64 of M, 64 of K);
+//   A, TA = 0 (K-major):  stored (E, M, K), one box of (64 of K, 128 of M);
+//   B, TB = 0 (K-major):  stored (E, N, K), one box of (64 of K, N rows);
+//   B, TB = 1 (MN-major): stored (E, K, N), N / 64 boxes of (64 of N, 64
+//   of K), so N is a multiple of 64 (the box's zero fill pads it).
+// The forward is (TA, TB) = (1, 0): A = w (E, D, F), B = x (E, C, D),
+// out (E, C, F).  The backward reads its operands where they lie:
+//   dX: (0, 0), A = w (E, d, f) (M = d, K = f), B = dY (E, C, f) (N = C);
+//   dW: (1, 1), A = dY (E, C, f) (M = f, K = C), B = x (E, C, d) (N = d).
+// One producer warpgroup (its first thread starts the loads) keeps STAGES
+// steps of (A tile, B tile) in flight.  PERSIST = false (the forward): one
+// block a tile, grid (M tiles, N tiles, E), the ring reused for the
+// epilogue, which leaves as 16-byte row stores.  PERSIST = true (the
+// backward): a block walks tiles blockIdx.x, + gridDim.x, ... (M fastest,
+// then N, then the expert) with an epilogue buffer of its own, two
+// 128-byte-swizzled boxes of (64 of M, N rows) that one TMA store each
+// writes out (clipped at the tensor's edge) while the consumers go on to
+// the next tile's products and the producer loads it; the launcher picks
+// the number of blocks.
+template <int N, int TA, int TB, bool PERSIST>
 struct GemmTma {
-  static constexpr int BF = 128;            // F rows of a block
-  static constexpr int BK = 64;             // D of a step (one 128-byte box)
-  static constexpr int W_BYTES = BK * BF * 2;
-  static constexpr int X_BYTES = N * BK * 2;
-  static constexpr int STAGE = W_BYTES + X_BYTES;
-  static constexpr int STAGES = (200 * 1024) / STAGE < 6
-                                    ? (200 * 1024) / STAGE : 6;
-  static constexpr int EPI_LD = BF + 8;     // bf16 row stride of the epilogue
+  static constexpr int BF = 128;            // M rows of a block
+  static constexpr int BK = 64;             // K of a step (one 128-byte box)
+  static constexpr int A_BYTES = BK * BF * 2;
+  static constexpr int B_BYTES = N * BK * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int EPI_LD = BF + 8;     // the forward's epilogue row
+  static constexpr int EPI_BYTES = PERSIST ? N * BF * 2 : 0;
+  static constexpr int RING = (PERSIST ? 216 : 200) * 1024 - EPI_BYTES;
+  static constexpr int STAGES = RING / STAGE < 6 ? RING / STAGE : 6;
   static constexpr int THREADS = 384;
-  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + EPI_BYTES
                                  + 2 * STAGES * sizeof(uint64_t);
   static_assert(N % 8 == 0 && N <= 256, "N: a multiple of 8, at most 256");
-  static_assert(STAGES >= 3 && STAGES * STAGE >= N * EPI_LD * 2,
-                "the epilogue reuses the ring");
+  static_assert(TB == 0 || N % 64 == 0, "an MN-major B is whole boxes");
+  static_assert(STAGES >= (PERSIST ? 2 : 3)
+                && (PERSIST || STAGES * STAGE >= N * EPI_LD * 2),
+                "the forward's epilogue reuses the ring");
 };
 
-template <int N>
-__global__ void __launch_bounds__(GemmTma<N>::THREADS, 1)
-expert_gemm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
-                       const __grid_constant__ CUtensorMap map_w,
-                       bf16* __restrict__ out, int C, int D, int F) {
-  using P = GemmTma<N>;
+template <int N, int TA, int TB, bool PERSIST>
+__global__ void __launch_bounds__(384, 1)
+expert_gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_b,
+                       const __grid_constant__ CUtensorMap map_out,
+                       bf16* __restrict__ out, int n_all, int K, int M,
+                       int m_tiles, int n_tiles, int tiles) {
+  using P = GemmTma<N, TA, TB, PERSIST>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + P::STAGES * P::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + P::STAGES * P::STAGE
+                                               + P::EPI_BYTES);
   uint64_t* empty = full + P::STAGES;
+  // the forward stages its epilogue in the drained ring
+  bf16* epi = reinterpret_cast<bf16*>(PERSIST ? ring + P::STAGES * P::STAGE
+                                              : ring);
 
-  const int f0 = blockIdx.x * P::BF, n0 = blockIdx.y * N, e = blockIdx.z;
-  const int nk = (D + P::BK - 1) / P::BK;
+  const int nk = (K + P::BK - 1) / P::BK;
+  const int t_first = PERSIST ? (int)blockIdx.x : 0;
+  const int t_step = PERSIST ? (int)gridDim.x : 1;
+  const int t_end = PERSIST ? tiles : 1;
+  // (m0, n0, e) of the tile t
+  auto tile_at = [&](int t, int& m0, int& n0, int& e) {
+    if constexpr (PERSIST) {
+      m0 = (t % m_tiles) * P::BF;
+      n0 = ((t / m_tiles) % n_tiles) * N;
+      e = t / (m_tiles * n_tiles);
+    } else {
+      m0 = blockIdx.x * P::BF;
+      n0 = blockIdx.y * N;
+      e = blockIdx.z;
+    }
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < P::STAGES; ++s) {
@@ -332,102 +381,181 @@ expert_gemm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
   if (threadIdx.x < 128) {  // producer warpgroup
     hopper::regs_dec<40>();
     if (threadIdx.x == 0) {
-      hopper::prefetch_map(&map_x);
-      hopper::prefetch_map(&map_w);
-      for (int t = 0; t < nk; ++t) {
-        const int st = t % P::STAGES;
-        hopper::mbar_wait(&empty[st], ((t / P::STAGES) & 1) ^ 1);
-        hopper::mbar_expect_tx(&full[st], P::STAGE);
-        uint8_t* sw = ring + st * P::STAGE;
-        hopper::tma_load_3d(sw, &map_w, &full[st], f0, t * P::BK, e);
-        hopper::tma_load_3d(sw + P::W_BYTES / 2, &map_w, &full[st], f0 + 64,
-                            t * P::BK, e);
-        hopper::tma_load_3d(sw + P::W_BYTES, &map_x, &full[st], t * P::BK,
-                            n0, e);
+      hopper::prefetch_map(&map_a);
+      hopper::prefetch_map(&map_b);
+      int i = 0;  // steps loaded, over every tile of this block
+      for (int t = t_first; t < t_end; t += t_step) {
+        int m0, n0, e;
+        tile_at(t, m0, n0, e);
+        for (int kt = 0; kt < nk; ++kt, ++i) {
+          const int st = i % P::STAGES;
+          const int k0 = kt * P::BK;
+          hopper::mbar_wait(&empty[st], ((i / P::STAGES) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full[st], P::STAGE);
+          uint8_t* sa = ring + st * P::STAGE;
+          uint8_t* sb = sa + P::A_BYTES;
+          if (TA) {
+            hopper::tma_load_3d(sa, &map_a, &full[st], m0, k0, e);
+            hopper::tma_load_3d(sa + P::A_BYTES / 2, &map_a, &full[st],
+                                m0 + 64, k0, e);
+          } else {
+            hopper::tma_load_3d(sa, &map_a, &full[st], k0, m0, e);
+          }
+          if (TB) {
+            for (int b = 0; b < N / 64; ++b)
+              hopper::tma_load_3d(sb + b * P::BK * 128, &map_b, &full[st],
+                                  n0 + 64 * b, k0, e);
+          } else {
+            hopper::tma_load_3d(sb, &map_b, &full[st], k0, n0, e);
+          }
+        }
       }
     }
     return;
   }
 
-  // consumer warpgroup c: F rows f0 + 64 c ..; acc holds (64 of F, N of C)
+  // consumer warpgroup c: M rows m0 + 64 c ..; acc holds (64 of M, N)
   hopper::regs_inc<232>();
   const int c = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
-  float acc[N / 2];
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
-
-  for (int t = 0; t < nk; ++t) {
-    const int st = t % P::STAGES;
-    hopper::mbar_wait(&full[st], (t / P::STAGES) & 1);
-    const uint8_t* sw = ring + st * P::STAGE + c * (P::W_BYTES / 2);
-    const uint8_t* sx = ring + st * P::STAGE + P::W_BYTES;
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < P::BK / 16; ++kk)
-      hopper::WgmmaSS<N, 1, 0>::run(
-          acc, hopper::desc_sw128(sw + kk * 16 * 128, P::W_BYTES / 2, 1024),
-          hopper::desc_sw128(sx + kk * 32, 16, 1024), 1);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs<N / 2>(acc);
-    __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&empty[st]);
-  }
-
-  // epilogue: every load has landed and been read, so the ring holds the
-  // (N, 128) bf16 tile, rounded once, for row-wise 16-byte stores
-  hopper::named_sync(1, 256);
-  bf16* epi = reinterpret_cast<bf16*>(ring);
   const int fr = 64 * c + 16 * warp + lane / 4;
+  int i = 0;
+  for (int t = t_first; t < t_end; t += t_step) {
+    int m0, n0, e;
+    tile_at(t, m0, n0, e);
+    float acc[N / 2];
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j)
+    for (int j = 0; j < N / 2; ++j) acc[j] = 0.0f;
+
+    for (int kt = 0; kt < nk; ++kt, ++i) {
+      const int st = i % P::STAGES;
+      hopper::mbar_wait(&full[st], (i / P::STAGES) & 1);
+      // consumer c's 64 rows of M: box c (MN-major) or rows 64 c .. of the
+      // one box (K-major), both A_BYTES / 2 on
+      const uint8_t* sa = ring + st * P::STAGE + c * (P::A_BYTES / 2);
+      const uint8_t* sb = ring + st * P::STAGE + P::A_BYTES;
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int kk = 0; kk < P::BK / 16; ++kk) {
+        const uint64_t da =
+            TA ? hopper::desc_sw128(sa + kk * 16 * 128, P::A_BYTES / 2, 1024)
+               : hopper::desc_sw128(sa + kk * 32, 16, 1024);
+        const uint64_t db =
+            TB ? hopper::desc_sw128(sb + kk * 16 * 128, P::BK * 128, 1024)
+               : hopper::desc_sw128(sb + kk * 32, 16, 1024);
+        hopper::WgmmaSS<N, TA, TB>::run(acc, da, db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<N / 2>(acc);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    }
+
+    if constexpr (PERSIST) {
+      // epilogue: the tile, rounded once, into consumer c's box of (64 of
+      // M, N rows) in the 128-byte swizzle (the 16-byte chunk of column m
+      // of row n at chunk (m / 8) ^ (n % 8)), then one TMA store a box;
+      // the first barrier: the last tile's stores have read the buffer
+      if (threadIdx.x == 128) hopper::bulk_wait_read<0>();
+      hopper::named_sync(1, 256);
+      uint8_t* box = reinterpret_cast<uint8_t*>(epi) + c * N * 128;
+      const int col = 16 * warp + lane / 4;
 #pragma unroll
-      for (int x = 0; x < 2; ++x)
-        epi[(8 * j + 2 * (lane % 4) + x) * P::EPI_LD + fr + 8 * h] =
-            __float2bfloat16_rn(acc[4 * j + 2 * h + x]);
-  hopper::named_sync(1, 256);
-  bf16* oe = out + (long long)e * C * F;
-  for (int idx = threadIdx.x - 128; idx < N * (P::BF / 8); idx += 256) {
-    const int n = idx / (P::BF / 8), f = (idx % (P::BF / 8)) * 8;
-    if (n0 + n < C && f0 + f < F)
-      *reinterpret_cast<uint4*>(oe + (long long)(n0 + n) * F + f0 + f) =
-          *reinterpret_cast<const uint4*>(epi + n * P::EPI_LD + f);
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int n = 8 * j + 2 * (lane % 4) + x;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = col + 8 * h;
+            *reinterpret_cast<bf16*>(box + n * 128
+                                     + ((((m >> 3) ^ (n & 7)) << 4)
+                                        | ((m & 7) << 1))) =
+                __float2bfloat16_rn(acc[4 * j + 2 * h + x]);
+          }
+        }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1, 256);
+      if (threadIdx.x == 128) {
+        hopper::tma_store_3d(&map_out, epi, m0, n0, e);
+        hopper::tma_store_3d(&map_out,
+                             reinterpret_cast<uint8_t*>(epi) + N * 128,
+                             m0 + 64, n0, e);
+        hopper::bulk_commit();
+      }
+    } else {
+      // epilogue: the (N, 128) bf16 tile, rounded once, for row-wise
+      // 16-byte stores; the first barrier: every consumer has read the
+      // ring
+      hopper::named_sync(1, 256);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            epi[(8 * j + 2 * (lane % 4) + x) * P::EPI_LD + fr + 8 * h] =
+                __float2bfloat16_rn(acc[4 * j + 2 * h + x]);
+      hopper::named_sync(1, 256);
+      bf16* oe = out + (long long)e * n_all * M;
+      for (int idx = threadIdx.x - 128; idx < N * (P::BF / 8); idx += 256) {
+        const int n = idx / (P::BF / 8), f = (idx % (P::BF / 8)) * 8;
+        if (n0 + n < n_all && m0 + f < M)
+          *reinterpret_cast<uint4*>(oe + (long long)(n0 + n) * M + m0 + f) =
+              *reinterpret_cast<const uint4*>(epi + n * P::EPI_LD + f);
+      }
+    }
   }
+  // the block's shared memory outlives the last store's reads of it
+  if (PERSIST && threadIdx.x == 128) hopper::bulk_wait_read<0>();
 }
 
-template <int N>
-int launch_tma(const bf16* x, const bf16* w, bf16* out, int E, int C, int D,
-               int F, int n_tiles, cudaStream_t stream) {
-  using P = GemmTma<N>;
-  CUtensorMap map_x, map_w;
-  int rc = hopper::make_map_bf16(&map_x, x, D, C, E, N);
-  if (rc == 0) rc = hopper::make_map_bf16(&map_w, w, F, D, E, P::BK);
+// The tensor maps of A and B (see GemmTma): A (E, M, K) or (E, K, M), B
+// (E, N, K) or (E, K, N), all contiguous.
+template <int N, int TA, int TB, bool PERSIST>
+int launch_tma(const bf16* a, const bf16* b, bf16* out, int E, int n_all,
+               int K, int M, int n_tiles, int blocks, cudaStream_t stream) {
+  using P = GemmTma<N, TA, TB, PERSIST>;
+  CUtensorMap map_a, map_b, map_out{};
+  int rc = TA ? hopper::make_map_bf16(&map_a, a, M, K, E, P::BK)
+              : hopper::make_map_bf16(&map_a, a, K, M, E, P::BF);
+  if (rc == 0)
+    rc = TB ? hopper::make_map_bf16(&map_b, b, n_all, K, E, P::BK)
+            : hopper::make_map_bf16(&map_b, b, K, n_all, E, N);
+  // out (E, n_all, M), boxes of (64 of M, N rows): the backward's stores
+  if (rc == 0 && PERSIST)
+    rc = hopper::make_map_bf16(&map_out, out, M, n_all, E, N);
   if (rc != 0) return rc;
+  auto kern = expert_gemm_tma_kernel<N, TA, TB, PERSIST>;
   cudaError_t err = cudaFuncSetAttribute(
-      expert_gemm_tma_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)P::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((F + P::BF - 1) / P::BF), (unsigned)n_tiles,
-                  (unsigned)E);
-  expert_gemm_tma_kernel<N><<<grid, P::THREADS, P::SMEM, stream>>>(
-      map_x, map_w, out, C, D, F);
+  const int m_tiles = (M + P::BF - 1) / P::BF;
+  const long long tiles = (long long)m_tiles * n_tiles * E;
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid =
+      PERSIST ? dim3((unsigned)(blocks > 0 && blocks < tiles ? blocks
+                                                             : tiles))
+              : dim3((unsigned)m_tiles, (unsigned)n_tiles, (unsigned)E);
+  kern<<<grid, P::THREADS, P::SMEM, stream>>>(map_a, map_b, map_out, out,
+                                              n_all, K, M, m_tiles, n_tiles,
+                                              (int)tiles);
   return (int)cudaGetLastError();
 }
 
-// N = C split into the fewest tiles of at most 256, each rounded up to a
-// multiple of 8
+// The forward: N = C split into the fewest tiles of at most 256, each
+// rounded up to a multiple of 8
 int launch_tma_any(const bf16* x, const bf16* w, bf16* out, int E, int C,
                    int D, int F, cudaStream_t stream) {
   const int n_tiles = (C + 255) / 256;
   const int n = ((C + n_tiles - 1) / n_tiles + 7) / 8 * 8;
   switch (n / 8) {
-#define HOPPER_GEMM_CASE(K) \
-  case K:                   \
-    return launch_tma<8 * K>(x, w, out, E, C, D, F, n_tiles, stream);
+#define HOPPER_GEMM_CASE(K)                                          \
+  case K:                                                            \
+    return launch_tma<8 * K, 1, 0, false>(w, x, out, E, C, D, F, n_tiles, \
+                                          0, stream);
     HOPPER_GEMM_CASE(1) HOPPER_GEMM_CASE(2) HOPPER_GEMM_CASE(3)
     HOPPER_GEMM_CASE(4) HOPPER_GEMM_CASE(5) HOPPER_GEMM_CASE(6)
     HOPPER_GEMM_CASE(7) HOPPER_GEMM_CASE(8) HOPPER_GEMM_CASE(9)
@@ -440,6 +568,31 @@ int launch_tma_any(const bf16* x, const bf16* w, bf16* out, int E, int C,
     HOPPER_GEMM_CASE(28) HOPPER_GEMM_CASE(29) HOPPER_GEMM_CASE(30)
     HOPPER_GEMM_CASE(31) HOPPER_GEMM_CASE(32)
 #undef HOPPER_GEMM_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward's products on the operands where they lie: (ta, tb) = (0, 0)
+// (dX) or (1, 1) (dW); N split into the fewest tiles of at most 256, each
+// rounded up to a multiple of 64 (whole boxes; the zero fill pads them)
+template <int TA, int TB>
+int launch_tma_bwd(const bf16* a, const bf16* b, bf16* out, int E, int n_all,
+                   int K, int M, int blocks, cudaStream_t stream) {
+  const int n_tiles = (n_all + 255) / 256;
+  const int n = ((n_all + n_tiles - 1) / n_tiles + 63) / 64 * 64;
+  switch (n / 64) {
+    case 1:
+      return launch_tma<64, TA, TB, true>(a, b, out, E, n_all, K, M, n_tiles,
+                                          blocks, stream);
+    case 2:
+      return launch_tma<128, TA, TB, true>(a, b, out, E, n_all, K, M,
+                                           n_tiles, blocks, stream);
+    case 3:
+      return launch_tma<192, TA, TB, true>(a, b, out, E, n_all, K, M,
+                                           n_tiles, blocks, stream);
+    case 4:
+      return launch_tma<256, TA, TB, true>(a, b, out, E, n_all, K, M,
+                                           n_tiles, blocks, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -460,6 +613,26 @@ extern "C" int expert_gemm_bf16(const void* x, const void* w, void* out,
     return launch_tma_any(xt, wt, ot, E, C, D, F, st);
   if (C <= 16) return launch_bf16<1, 4, 1, 2>(xt, wt, ot, E, C, D, F, st);
   return launch_bf16<2, 2, 2, 2>(xt, wt, ot, E, C, D, F, st);
+}
+
+// The backward's two products without copies (bf16, 16-byte aligned
+// bases, M and the contiguous extents multiples of 8): out (E, n_all, M) =
+// A . B with (ta, tb) = (0, 0): a (E, M, K), b (E, n_all, K) (dX = dY . W^T:
+// a = w, b = dY), or (1, 1): a (E, K, M), b (E, K, n_all) (dW = X^T . dY:
+// a = dY, b = x).  `blocks`: how many persistent blocks walk the tiles (0:
+// one block a tile).  Returns as expert_gemm_bf16.
+extern "C" int expert_gemm_tma_bf16(const void* a, const void* b, void* out,
+                                    int E, int M, int n_all, int K, int ta,
+                                    int tb, int blocks, void* stream) {
+  const bf16* at = static_cast<const bf16*>(a);
+  const bf16* bt = static_cast<const bf16*>(b);
+  bf16* ot = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ta == 0 && tb == 0)
+    return launch_tma_bwd<0, 0>(at, bt, ot, E, n_all, K, M, blocks, st);
+  if (ta == 1 && tb == 1)
+    return launch_tma_bwd<1, 1>(at, bt, ot, E, n_all, K, M, blocks, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int expert_gemm_f32(const void* x, const void* w, void* out,

@@ -6,7 +6,12 @@ The forward (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 replaces no TPU kernel: the JAX package differentiates its jnp attention,
 while the port's forward runs a kernel whose gradient must be a kernel too.
 Built and bound like the port's other kernels (``kernels/_build.py``); a
-failed build or launch raises, nothing falls back.
+failed build or launch raises, nothing falls back.  The backward's design is
+chosen by the shape alone (:func:`tc_backward`): bf16 at hd 64 or 128 runs
+on the tensor cores and reads each row's log-sum-exp from the forward's
+LSE instance (``flash_attention_fwd(..., with_lse=True)``); float32 and the
+other bf16 head dims run the float32-core kernels, which rebuild the row
+statistics themselves.
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` launch them on
 CUDA tensors only, on the current stream, and count the launches in
 :data:`LAUNCHES` and :data:`BWD_LAUNCHES`; ``ops.flash_attention`` is the
@@ -61,6 +66,10 @@ def build(verbose: bool = False) -> Path:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.flash_attention_bf16_lse.argtypes = [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
+                                ctypes.c_void_p]
+    lib.flash_attention_bf16_lse.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     bwd = ctypes.CDLL(str(_build.library_path(BWD_SOURCE)))
@@ -69,10 +78,29 @@ def build(verbose: bool = False) -> Path:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    bwd.flash_attention_bwd_bf16_tc.argtypes = [ctypes.c_void_p] * 10 \
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
+                                ctypes.c_void_p]
+    bwd.flash_attention_bwd_bf16_tc.restype = ctypes.c_int
     bwd.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     bwd.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     _lib, _bwd_lib = lib, bwd
     return Path(lib._name)
+
+
+def tc_backward(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the backward of this shape runs on the tensor cores (bf16,
+    hd 64 or 128: wgmma fed by TMA, the row statistics from the forward's
+    LSE instance); otherwise the float32-core kernels.  Decided by the
+    shape alone, before any launch."""
+    return dtype == torch.bfloat16 and hd in (64, 128)
+
+
+def lse_rows(sq: int) -> int:
+    """The row stride of the forward's LSE output and the backward's D
+    scratch: Sq rounded up to a multiple of 64 (16-byte aligned rows for
+    the backward's bulk copies)."""
+    return -(-sq // TILE) * TILE
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -117,52 +145,71 @@ def _check(q, k, v, block_q, block_k) -> None:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         softcap: float = 0.0, block_q: int = TILE,
-                        block_k: int = TILE) -> torch.Tensor:
+                        block_k: int = TILE, with_lse: bool = False):
     """Launch the kernel: q (BHq, Sq, hd), k, v (BHkv, Skv, hd), one dtype
     (bfloat16 or float32), contiguous on one CUDA device -> (BHq, Sq, hd)
     in q's dtype.  float32: ``block_q`` x ``block_k`` (at most 64 each) is
     the tile; it changes only the order of float32 sums.  bfloat16: the
     tiles are fixed by the tensor-core design (64 q rows a warpgroup, two a
     block, and 64 kv rows a stage), so only the default 64 x 64 is taken
-    and another value raises; hd must be a multiple of 8."""
+    and another value raises; hd must be a multiple of 8.  ``with_lse``
+    (only where :func:`tc_backward`; another shape raises) launches the
+    instance that also writes each row's log-sum-exp in log2 units and
+    returns (out, lse), lse (BHq, :func:`lse_rows`) float32 (0 for a row
+    that sees no key, the rows past Sq unset); its out is the plain
+    instance's, bit for bit."""
     bhq, sq, hd = q.shape
     bhkv, skv, _ = k.shape
     if q.dtype == torch.bfloat16 and (block_q, block_k) != (TILE, TILE):
         raise ValueError("flash_attention: the bf16 kernel's tiles are "
                          f"fixed at ({TILE}, {TILE}); got ({block_q}, "
                          f"{block_k})")
+    if with_lse and not tc_backward(q.dtype, hd):
+        raise ValueError("flash_attention: the LSE instance is for the "
+                         "tensor-core backward's shapes (bf16, hd 64 or "
+                         f"128); got {q.dtype}, hd {hd}")
     block_q, block_k = min(block_q, max(sq, 1)), min(block_k, max(skv, 1))
     _check(q, k, v, block_q, block_k)
     if q.dtype == torch.bfloat16:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
+    lse = (torch.empty((bhq, lse_rows(sq)), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     build()
-    fn = (_lib.flash_attention_bf16 if q.dtype == torch.bfloat16
-          else _lib.flash_attention_f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bhq, bhkv, sq, skv, hd, block_q, block_k, int(causal),
-                int(window), 1.0 / (hd ** 0.5), float(softcap), stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        scale = 1.0 / (hd ** 0.5)
+        if with_lse:
+            rc = _lib.flash_attention_bf16_lse(
+                *ptrs, lse.data_ptr(), bhq, bhkv, sq, skv, hd, int(causal),
+                int(window), scale, float(softcap), stream)
+        else:
+            fn = (_lib.flash_attention_bf16 if q.dtype == torch.bfloat16
+                  else _lib.flash_attention_f32)
+            rc = fn(*ptrs, bhq, bhkv, sq, skv, hd, block_q, block_k,
+                    int(causal), int(window), scale, float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({rc}): "
                            + _lib.flash_attention_error_string(rc).decode())
     LAUNCHES[_DTYPES[q.dtype]] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, d_out: torch.Tensor, *,
-                        causal: bool = True, window: int = 0,
-                        softcap: float = 0.0):
+                        lse: torch.Tensor = None, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
     """Launch the backward kernels: q, ``out`` (the forward's output) and
     ``d_out`` (BHq, Sq, hd), k and v (BHkv, Skv, hd), one dtype (bfloat16 or
     float32), contiguous on one CUDA device -> (dq, dk, dv) in that dtype,
-    computed in float32 and rounded once.  Each row's softmax max and
-    reciprocal sum (2, BHq, Sq) and rowsum(dO o O) (BHq, Sq) are float32
-    scratch of this call."""
+    accumulated in float32 and rounded once.  Where :func:`tc_backward`
+    (bf16, hd 64 or 128) the tensor-core kernels run on ``lse``, the
+    forward's LSE output (required there), with rowsum(dO o O) as float32
+    scratch of this call; elsewhere the float32-core kernels, whose scratch
+    also holds each row's softmax max and reciprocal sum (2, BHq, Sq)."""
     _check(q, k, v, TILE, TILE)
     for name, t in (("out", out), ("d_out", d_out)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -172,21 +219,44 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     bhq, sq, hd = q.shape
     bhkv, skv, _ = k.shape
+    tc = tc_backward(q.dtype, hd)
+    if tc and (lse is None or lse.shape != (bhq, lse_rows(sq))
+               or lse.dtype != torch.float32 or lse.device != q.device
+               or not lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd: the tensor-core backward "
+                         "needs the forward's lse (BHq, "
+                         f"{lse_rows(sq)}) float32 (flash_attention_fwd(..., "
+                         "with_lse=True))")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if sq == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    stats = torch.empty((2, bhq, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
     build()
-    fn = (_bwd_lib.flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
-          else _bwd_lib.flash_attention_bwd_f32)
+    scale = 1.0 / (hd ** 0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                stats.data_ptr(), delta.data_ptr(), bhq, bhkv, sq, skv, hd,
-                int(causal), int(window), 1.0 / (hd ** 0.5), float(softcap),
+        if tc:
+            q, k, v, out, d_out = (_aligned(t) for t in (q, k, v, out, d_out))
+            delta = torch.empty((bhq, lse_rows(sq)), dtype=torch.float32,
+                                device=q.device)
+            rc = _bwd_lib.flash_attention_bwd_bf16_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bhq, bhkv,
+                sq, skv, hd, int(causal), int(window), scale, float(softcap),
                 stream)
+        else:
+            stats = torch.empty((2, bhq, sq), dtype=torch.float32,
+                                device=q.device)
+            delta = torch.empty((bhq, sq), dtype=torch.float32,
+                                device=q.device)
+            fn = (_bwd_lib.flash_attention_bwd_bf16
+                  if q.dtype == torch.bfloat16
+                  else _bwd_lib.flash_attention_bwd_f32)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), stats.data_ptr(), delta.data_ptr(), bhq,
+                    bhkv, sq, skv, hd, int(causal), int(window), scale,
+                    float(softcap), stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_bwd kernel launch failed ({rc}): "

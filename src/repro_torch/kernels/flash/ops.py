@@ -14,24 +14,32 @@ class FlashAttention(torch.autograd.Function):
     """The kernels in the folded layout, q (BHq, Sq, hd), k and v (BHkv,
     Skv, hd), as one differentiable function: the forward kernel's output,
     and dq, dk, dv from the backward kernel (``csrc/flash_attention_bwd.cu``)
-    on q, k, v, that output and its gradient."""
+    on q, k, v, that output and its gradient.  Where the backward runs on
+    the tensor cores (``kernel.tc_backward``) the forward launches its LSE
+    instance (the same output) and keeps the row statistics for it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, block_q, block_k):
-        out = kernel.flash_attention_fwd(q, k, v, causal=causal,
-                                         window=window, softcap=softcap,
-                                         block_q=block_q, block_k=block_k)
-        ctx.save_for_backward(q, k, v, out)
+        lse = None
+        if kernel.tc_backward(q.dtype, q.shape[-1]):
+            out, lse = kernel.flash_attention_fwd(
+                q, k, v, causal=causal, window=window, softcap=softcap,
+                block_q=block_q, block_k=block_k, with_lse=True)
+        else:
+            out = kernel.flash_attention_fwd(
+                q, k, v, causal=causal, window=window, softcap=softcap,
+                block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, softcap)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, softcap = ctx.mask
         dq, dk, dv = kernel.flash_attention_bwd(
-            q, k, v, out, d_out.to(q.dtype).contiguous(), causal=causal,
-            window=window, softcap=softcap)
+            q, k, v, out, d_out.to(q.dtype).contiguous(), lse=lse,
+            causal=causal, window=window, softcap=softcap)
         return dq, dk, dv, None, None, None, None, None
 
 

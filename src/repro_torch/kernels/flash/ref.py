@@ -2,7 +2,10 @@
 the JAX package's ``kernels/flash/ref.py::reference_attention``.  The CPU
 tests use it, the entry point takes it for CPU tensors, and ``chip_smoke.py``
 holds the CUDA kernel (``csrc/flash_attention.cu``) against it on the card;
-``reference_attention_bf16_p`` models the bf16 kernel's rounding of p.
+``reference_attention_bf16_p`` models the bf16 kernel's rounding of p,
+``row_lse`` its LSE instance's output, and ``attention_bwd`` the backward
+kernels' formula (with ``bf16_products``, the tensor-core kernels'
+rounding).
 """
 from __future__ import annotations
 
@@ -70,19 +73,42 @@ def reference_attention_bf16_p(q: torch.Tensor, k: torch.Tensor,
     return out / torch.where(l == 0.0, 1.0, l)
 
 
+def row_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+            window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """What the forward's LSE instance writes, in plain torch: each q row's
+    log-sum-exp of its visible scores (scaled by 1 / sqrt(hd), soft-capped)
+    in log2 units, (BHq, Sq) float32; 0 for a row that sees no key.  Same
+    layout as :func:`reference_attention`.  For tests and ``chip_smoke.py``;
+    no path of the port calls it."""
+    s, mask, _ = _scores(q, k, k, causal, window, softcap)
+    lse = torch.logsumexp(torch.where(mask[None], s, -math.inf), dim=-1)
+    return torch.where(mask.any(-1)[None], lse * (1.0 / math.log(2.0)), 0.0)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   out: torch.Tensor, d_out: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  softcap: float = 0.0):
+                  softcap: float = 0.0, lse: torch.Tensor = None,
+                  bf16_products: bool = False, out_dtype=None):
     """The backward kernel's arithmetic in plain torch (a model of
     ``csrc/flash_attention_bwd.cu``, not autograd): D = rowsum(dO o out),
     P = exp(s - lse) where visible, lse the row log-sum-exp over the visible
-    keys (the kernel: exp(s - m) / l, m the row max and l the sum of
-    exp(s - m)), dS = P o (dP - D) (times 1 - (s / cap)^2 under the soft-cap),
-    dq = dS . k / sqrt(hd), dk = dS^T . q / sqrt(hd) summed over each kv
-    head's q heads, dv = P^T . dO likewise.  Same layout as
-    :func:`reference_attention`; returns (dq, dk, dv) in q's dtype, computed
-    in float32.  For tests; no path of the port calls it."""
+    keys (the float32-core kernels: exp(s - m) / l, m the row max and l the
+    sum of exp(s - m)), dS = P o (dP - D) (times 1 - (s / cap)^2 under the
+    soft-cap), dq = dS . k / sqrt(hd), dk = dS^T . q / sqrt(hd) summed over
+    each kv head's q heads, dv = P^T . dO likewise.  ``lse``: the rows'
+    log-sum-exp in log2 units, (BHq, Sq) or wider (the forward's LSE output,
+    :func:`row_lse`), P = 2^(s log2(e) - lse), as the tensor-core kernels
+    compute it; computed here when None.  ``bf16_products``: P and dS
+    rounded to bf16 before the products that take them, the sums in float32
+    (the tensor-core kernels' arithmetic).  Same layout as
+    :func:`reference_attention`; returns (dq, dk, dv) in ``out_dtype``
+    (q's dtype when None), computed in float32.  For tests and
+    ``chip_smoke.py``; no path of the port calls it."""
     bhq, sq, hd = q.shape
     bhkv, skv, _ = k.shape
     group = bhq // bhkv
@@ -100,15 +126,24 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= k_pos <= q_pos
     if window > 0:
         mask &= k_pos > q_pos - window
-    lse = torch.logsumexp(torch.where(mask[None], s, -math.inf), dim=-1)
-    p = torch.where(mask[None], torch.exp(s - lse[..., None]), 0.0)
+    if lse is None:
+        lse = torch.logsumexp(torch.where(mask[None], s, -math.inf), dim=-1)
+        p = torch.where(mask[None], torch.exp(s - lse[..., None]), 0.0)
+    else:
+        log2e = 1.0 / math.log(2.0)
+        p = torch.where(mask[None], torch.exp2(
+            s * log2e - lse[:, :sq, None].to(torch.float32)), 0.0)
     d = (dof * of).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bqd,bkd->bqk", dof, vf) - d)
     if softcap > 0.0:
         ds = ds * (1.0 - (s / softcap) ** 2)
+    if bf16_products:
+        p, ds = _bf16(p), _bf16(ds)
     dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
     dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     dk = dk.reshape(bhkv, group, skv, hd).sum(1)
     dv = dv.reshape(bhkv, group, skv, hd).sum(1)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dtypes = ((q.dtype, k.dtype, v.dtype) if out_dtype is None
+              else (out_dtype,) * 3)
+    return tuple(t.to(dt) for t, dt in zip((dq, dk, dv), dtypes))

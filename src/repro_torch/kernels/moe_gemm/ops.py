@@ -3,7 +3,8 @@
 counterpart of the JAX package's ``kernels/moe_gemm/ops.py``; the kernel
 picks its own tiles, so there are no block arguments).  Under autograd the
 card runs :class:`ExpertGemm`, whose gradient is two more launches of the
-same kernel."""
+kernel (its transpose-bit variants on the operands where they lie, for bf16
+with d and f multiples of 8)."""
 from __future__ import annotations
 
 import torch
@@ -13,8 +14,8 @@ from repro_torch.kernels.moe_gemm import kernel, ref
 
 class ExpertGemm(torch.autograd.Function):
     """y = x . w per expert, differentiable: dX = dY . W^T and dW = X^T . dY
-    by ``kernel.expert_gemm_bwd`` (the forward kernel on transposed copies
-    of its operands)."""
+    by ``kernel.expert_gemm_bwd``, one launch each (as
+    ``kernel.plan_bwd`` lays them out)."""
 
     @staticmethod
     def forward(ctx, x, w):

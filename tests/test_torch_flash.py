@@ -286,3 +286,157 @@ def test_cuda_backward_kernel_matches_plain_autograd_on_the_card():
                 w = w.reshape(b, h, -1, hd).transpose(1, 2)
                 err = float((g.float() - w).abs().max())
                 assert err <= tol * float(w.abs().max()), (case, dtype, err)
+
+
+# ------------------------------------------- the tensor-core backward's model
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,causal,window,cap", GRAD_CASES)
+def test_bf16_products_model_matches_jax_grad(b, sq, skv, hq, hkv, hd,
+                                              causal, window, cap):
+    """The plain model of the tensor-core backward's rounding
+    (``ref.attention_bwd(bf16_products=True)``: P and dS rounded to bf16
+    before their products, float32 sums) on float32 inputs, against
+    ``jax.grad`` of the reference's ``_sdpa``: dq, dk, dv within 1e-2 of
+    each one's largest |value|, half of the 2e-2 that the bf16 kernel is
+    held to on the card (the rounding alone gave at most 2.7e-3 here), so
+    that the new rounding leaves the kernel's own output rounding room."""
+    q, k, v = _inputs(b, sq, skv, hq, hkv, hd)
+    d_out = np.random.default_rng(9).standard_normal(q.shape).astype(
+        np.float32)
+    want = [np.asarray(g) for g in _sdpa_grads(q, k, v, d_out, causal,
+                                               window, cap)]
+    fold = [_fold(torch.tensor(a), h) for a, h in ((q, hq), (k, hkv),
+                                                   (v, hkv))]
+    o = ref.reference_attention(*fold, causal=causal, window=window,
+                                softcap=cap)
+    model = ref.attention_bwd(*fold, o, _fold(torch.tensor(d_out), hq),
+                              causal=causal, window=window, softcap=cap,
+                              bf16_products=True)
+    for name, m, w, h in zip("qkv", model, want, (hq, hkv, hkv)):
+        m = m.reshape(b, h, -1, hd).permute(0, 2, 1, 3).numpy()
+        np.testing.assert_allclose(m, w, rtol=0,
+                                   atol=1e-2 * np.abs(w).max(),
+                                   err_msg=f"d{name}")
+
+
+def _jax_row_lse(q, k, causal, window, cap):
+    """The log-sum-exp, in log2 units, of the reference's masked logits
+    (``_sdpa``'s scores: the einsum over hd, 1 / sqrt(hd), the soft-cap,
+    ``_mask_bias``), in the folded (B * Hkv * group, Sq) layout."""
+    from repro.models.attention import _mask_bias, softcap
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kind = "local" if window else ("causal" if causal else "none")
+    bias = _mask_bias(jnp.arange(sq)[None], jnp.arange(skv)[None], kind,
+                      window)[:, None]
+    qj = jnp.asarray(q).reshape(b, sq, hkv, hq // hkv, hd)
+    s = jnp.einsum("bqhgd,bkhd->bhgqk", qj, jnp.asarray(k))
+    s = softcap(s / jnp.sqrt(jnp.float32(hd)), cap) + bias[:, :, None]
+    lse = jax.nn.logsumexp(s, axis=-1) / np.log(2.0)
+    return np.asarray(lse).reshape(b * hq, sq)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,causal,window,cap", GRAD_CASES)
+def test_row_lse_matches_reference_logsumexp(b, sq, skv, hq, hkv, hd,
+                                             causal, window, cap):
+    """``ref.row_lse`` (what the forward's LSE instance writes: each row's
+    log-sum-exp in log2 units) against the log-sum-exp of the reference's
+    masked logits, float32: within 1e-5 absolute (values of order 5 in
+    log2 units; float32 sums of exp in another order); and
+    ``ref.attention_bwd`` fed with it (P = 2^(s log2 e - lse), as the
+    tensor-core kernels compute P) against its own log-sum-exp: dq, dk, dv
+    within 1e-5 of each one's largest |value| (exp2 against exp, one
+    float32 rounding apart)."""
+    q, k, v = _inputs(b, sq, skv, hq, hkv, hd)
+    fold = [_fold(torch.tensor(a), h) for a, h in ((q, hq), (k, hkv),
+                                                   (v, hkv))]
+    lse = ref.row_lse(fold[0], fold[1], causal=causal, window=window,
+                      softcap=cap)
+    assert lse.dtype == torch.float32 and lse.shape == (b * hq, sq)
+    np.testing.assert_allclose(lse.numpy(),
+                               _jax_row_lse(q, k, causal, window, cap),
+                               rtol=0, atol=1e-5)
+    d_out = _fold(torch.tensor(np.random.default_rng(9).standard_normal(
+        q.shape).astype(np.float32)), hq)
+    o = ref.reference_attention(*fold, causal=causal, window=window,
+                                softcap=cap)
+    own = ref.attention_bwd(*fold, o, d_out, causal=causal, window=window,
+                            softcap=cap)
+    fed = ref.attention_bwd(*fold, o, d_out, causal=causal, window=window,
+                            softcap=cap, lse=lse)
+    for name, got, want in zip("qkv", fed, own):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()),
+                                   err_msg=f"d{name}")
+
+
+def test_row_lse_of_rows_that_see_no_key():
+    """A row that sees no key (a window that ends before the keys do) gets
+    0, as the forward's LSE instance writes it; the backward's model fed
+    with it gives those rows dq = 0."""
+    rng = np.random.default_rng(3)
+    q = torch.tensor(rng.standard_normal((4, 128, 64)), dtype=torch.float32)
+    k = torch.tensor(rng.standard_normal((2, 64, 64)), dtype=torch.float32)
+    lse = ref.row_lse(q, k, causal=False, window=16)
+    assert (lse[:, 80:] == 0).all() and (lse[:, :79] != 0).all()
+    o = ref.reference_attention(q, k, k, causal=False, window=16)
+    dq, _, _ = ref.attention_bwd(q, k, k, o, torch.ones_like(q),
+                                 causal=False, window=16, lse=lse,
+                                 bf16_products=True)
+    assert (dq[:, 80:] == 0).all()
+
+
+def test_tensor_core_backward_is_chosen_by_shape():
+    """bf16 at hd 64 and 128 takes the tensor-core backward (and the
+    forward's LSE instance); float32 and the other head dims do not; the
+    LSE instance refuses another shape before anything else."""
+    assert kernel.tc_backward(torch.bfloat16, 64)
+    assert kernel.tc_backward(torch.bfloat16, 128)
+    for dtype, hd in ((torch.bfloat16, 8), (torch.bfloat16, 32),
+                      (torch.bfloat16, 256), (torch.float32, 64),
+                      (torch.float32, 128), (torch.bfloat16, 96)):
+        assert not kernel.tc_backward(dtype, hd)
+    assert kernel.lse_rows(1) == 64 and kernel.lse_rows(512) == 512 \
+        and kernel.lse_rows(100) == 128
+    q = torch.zeros((2, 8, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="LSE instance"):
+        kernel.flash_attention_fwd(q, q, q, with_lse=True)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_backward_matches_its_model():
+    """The tensor-core backward (bf16, hd 64 and 128) at the gradient cases
+    and the training shape: the forward's LSE instance gives the plain
+    instance's output bit for bit and row statistics within 2e-5 of
+    ``ref.row_lse``; two backward launches give the same bits; dq, dk, dv
+    within 2^-7 of each one's largest |value| of the plain model of their
+    rounding (``ref.attention_bwd(bf16_products=True)`` fed the kernel's
+    output and row statistics), as ``chip_smoke.py`` holds them.  Skips
+    without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(7)
+    for case in GRAD_CASES + [(4, 512, 512, 32, 4, 128, True, 0, 0.0)]:
+        b, sq, skv, hq, hkv, hd, causal, window, cap = case
+        if not kernel.tc_backward(torch.bfloat16, hd):
+            continue
+        kw = dict(causal=causal, window=window, softcap=cap)
+        q, k, v = (_fold(torch.tensor(a, dtype=torch.bfloat16,
+                                      device="cuda"), h).contiguous()
+                   for a, h in zip(_inputs(b, sq, skv, hq, hkv, hd),
+                                   (hq, hkv, hkv)))
+        d_out = torch.tensor(rng.standard_normal(q.shape),
+                             dtype=torch.bfloat16, device="cuda")
+        plain = kernel.flash_attention_fwd(q, k, v, **kw)
+        out, lse = kernel.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+        assert torch.equal(plain, out), case
+        lse_err = float((lse[:, :sq] - ref.row_lse(q, k, **kw)).abs().max())
+        assert lse_err <= 2e-5, (case, lse_err)
+        runs = [kernel.flash_attention_bwd(q, k, v, out, d_out, lse=lse, **kw)
+                for _ in range(2)]
+        assert all(torch.equal(a, c) for a, c in zip(*runs)), case
+        model = ref.attention_bwd(q, k, v, out, d_out, lse=lse,
+                                  bf16_products=True,
+                                  out_dtype=torch.float32, **kw)
+        for g, m in zip(runs[0], model):
+            err = float((g.float() - m).abs().max())
+            assert err <= 2 ** -7 * float(m.abs().max()), (case, err)

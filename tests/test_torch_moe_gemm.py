@@ -124,8 +124,11 @@ def test_backward_launch_raises_on_cpu_tensors():
 
 @pytest.mark.cuda
 def test_cuda_backward_matches_plain_autograd_on_the_card():
-    """dX and dW through ``ops.expert_gemm`` on the card (two launches of
-    the kernel on transposed copies) against autograd through the plain
+    """dX and dW through ``ops.expert_gemm`` on the card (two launches:
+    the transpose-bit variants on the operands in place for bf16 with d and
+    f multiples of 8, the kernel on transposed copies otherwise; the
+    variants also with one block a tile, bit for bit) against autograd
+    through the plain
     version on the same inputs, at the tolerances of the forward test, at
     these shapes and the training path's (C = 168, gate/up and down).
     Skips without a card."""
@@ -151,3 +154,78 @@ def test_cuda_backward_matches_plain_autograd_on_the_card():
             for g, wt in zip(got, want):
                 torch.testing.assert_close(g.float(), wt.float(), rtol=tol,
                                            atol=tol * 10)
+            # one block a tile walks the same tiles: the same bits
+            if kernel.in_place(x, w, dy):
+                runs = kernel.plan_bwd(x, w, dy)
+                for g, r in zip(got, runs):
+                    assert torch.equal(g, kernel._launch_tma(r, 0))
+
+
+# ---------------------------------------------------- the backward's plan
+def _view(t, strides, shape):
+    """The (E, rows, cols) matrix a planned launch reads from ``t``'s
+    storage, as a view (nothing is copied)."""
+    return t.as_strided(shape, strides, t.storage_offset())
+
+
+def _bwd_inputs(e, c, d, f, dtype):
+    x, w = _inputs(e, c, d, f)
+    dy = np.random.default_rng(5).standard_normal((e, c, f)).astype(
+        np.float32)
+    return x, w, dy, [torch.tensor(a, dtype=dtype) for a in (x, w, dy)]
+
+
+@pytest.mark.parametrize("e,c,d,f", [s for s in CASES
+                                     if s[2] % 8 == 0 and s[3] % 8 == 0])
+def test_bwd_plan_reads_bf16_operands_in_place(e, c, d, f):
+    """bf16 with d and f multiples of 8: the backward's two launches read
+    x, w and dy where they lie (no copy): dX from w (K-major, transpose bit
+    0) and dy (K-major), dW from dy (MN-major, bit 1) and x (MN-major),
+    with the strides of the tensors as they are stored."""
+    _, _, _, (x, w, dy) = _bwd_inputs(e, c, d, f, torch.bfloat16)
+    assert kernel.in_place(x, w, dy)
+    runs = {r.out: r for r in kernel.plan_bwd(x, w, dy)}
+    assert set(runs) == {"dx", "dw"}
+    dx, dw = runs["dx"], runs["dw"]
+    assert dx.copies == () and dw.copies == ()
+    assert (dx.a.data_ptr(), dx.b.data_ptr()) == (w.data_ptr(),
+                                                  dy.data_ptr())
+    assert (dw.a.data_ptr(), dw.b.data_ptr()) == (dy.data_ptr(),
+                                                  x.data_ptr())
+    assert (dx.ta, dx.tb, dw.ta, dw.tb) == (0, 0, 1, 1)
+    assert (dx.m, dx.n, dx.k) == (d, c, f) and (dw.m, dw.n, dw.k) == (f, d, c)
+    assert dx.a_strides == w.stride() and dw.b_strides == x.stride()
+    assert dx.b_strides == (c * f, 1, f) and dw.a_strides == (c * f, 1, f)
+    only = kernel.plan_bwd(x, w, dy, need_dx=False)
+    assert [r.out for r in only] == ["dw"]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("e,c,d,f", CASES)
+def test_bwd_plan_views_give_jax_vjp(e, c, d, f, dtype):
+    """A plain einsum over exactly the views each planned launch reads
+    (out[e, n, m] = sum_k A[e, m, k] B[e, k, n], computed in float32)
+    gives dX and dW equal to ``jax.vjp`` of the reference's
+    ``reference_expert_gemm`` on the same (bf16-rounded) values: within
+    1e-5 of each one's largest |value| (float32 sums in another order).
+    The ragged and float32 shapes read transposed copies (the plan names
+    them); the rest read the tensors in place."""
+    import jax
+    _, tdt, _ = DTYPES[dtype]
+    _, _, _, (x, w, dy) = _bwd_inputs(e, c, d, f, tdt)
+    xf, wf, dyf = (jnp.asarray(t.to(torch.float32).numpy())
+                   for t in (x, w, dy))
+    _, vjp = jax.vjp(r_reference, xf, wf)
+    want = dict(zip(("dx", "dw"), (np.asarray(g) for g in vjp(dyf))))
+    runs = kernel.plan_bwd(x, w, dy)
+    assert [r.out for r in runs] == ["dx", "dw"]
+    for r in runs:
+        a = _view(r.a, r.a_strides, (r.e, r.m, r.k)).float()
+        b = _view(r.b, r.b_strides, (r.e, r.k, r.n)).float()
+        got = torch.einsum("emk,ekn->enm", a, b).numpy()
+        assert got.shape == want[r.out].shape
+        np.testing.assert_allclose(got, want[r.out], rtol=0,
+                                   atol=1e-5 * np.abs(want[r.out]).max(),
+                                   err_msg=r.out)
+        in_place = tdt == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+        assert (r.copies == ()) == in_place
