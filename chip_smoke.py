@@ -120,7 +120,11 @@ line):
    0), head dims 8 and 256, recurrentgemma-9b's local attention as served
    (B 4, S 2560, 16 query heads on one K/V head, hd 256, window 2048) and
    gemma2-27b's (S 4608, 32 query heads on 16, hd 128, window 4096,
-   soft-cap 50); in bf16 also against the plain model of its arithmetic,
+   soft-cap 50), and phase 6c's served shapes: whisper-large-v3's encoder
+   (B 4, 1500 frames, 20 heads of 64, non-causal) and cross-attention (64
+   rows against the 1500 frames), gemma2's global layer (B 2, S 4608,
+   causal, soft-cap 50) and llava-next-mistral-7b's (B 4, S 1664, 32 on 8
+   heads, hd 128); in bf16 also against the plain model of its arithmetic,
    p rounded to bf16 before p . v (``atol=4e-3``, ``rtol=2^-8``), and in
    float32 its block shapes against each other (``atol=1e-5``); hold the
    expert-GEMM kernel (``csrc/moe_gemm.cu``) against its plain version
@@ -135,8 +139,9 @@ line):
    3 x 8 x 33 = 792 expert GEMM (a prefill and 32 decode steps); prints the
    prefill (and three more prefills of the same batch, uncounted) and
    decode-step seconds, tokens/s, peak memory and, from
-   ``torch.profiler`` over one more run, the device's idle share (with
-   bounds that count the kernels the profiler left unrecorded).  Last,
+   ``torch.profiler`` over ``PROFILE_DECODE_STEPS`` (8) more decode steps
+   after a prefill of the same batch, the device's idle share (with bounds that count the
+   kernels the profiler left unrecorded).  Last,
    the same weights on the CPU against the card (TF32 off): a 64-token
    prompt and 4 teacher-forced decode steps, each step's logits held to
    the serving contract (normalised log-probs within ``atol=0.07,
@@ -198,10 +203,33 @@ line):
    CPU).  The serving contract must hold in float32 and in bf16, where an
    argmax may differ only at a near tie (the CPU's top two logits closer
    than twice the step's largest logit error).
+6c. Serving the other families on the card, after phase 7, each model at
+   its published width and full depth with bf16 weights from the port's
+   init, freed before the next: ``gemma2-27b`` (46 layers, 27.23 G
+   parameters) under its ring cache (``window_kv_cache``) on 2 x
+   4608-token prompts, past the 4096-token window; ``whisper-large-v3``
+   (32 + 32 layers) on 4 x 1500 encoder frames (random ``audio_embed``)
+   and 64-token decoder prompts; ``llava-next-mistral-7b`` (32 layers) on
+   4 x (1152 random ``media_embed`` positions + 512 text tokens); 32 new
+   tokens each through ``serve_batch``.  Flash launches, counted from zero
+   just before the run, must be exactly 46 (23 local, 23 global), 96 (32
+   non-causal encoder, 32 causal self, 32 cross) and 32 a prefill, and
+   nothing else; prints the prefill and decode-step seconds, tokens/s,
+   peak memory and the device's idle share as for qwen.  Then gemma2's
+   ring (4096 slots) against its full cache (4640 slots) at full depth on
+   the served prompts, 32 teacher-forced steps: every row within the
+   serving contract, an argmax differing only at a near tie; the two
+   caches' K/V bytes are printed.  Last, the weights cut (gemma2 to one
+   (local, global) period, whisper to 2 + 2 layers at the full 1500
+   frames, llava to 2 layers at the full 1152 media positions) on the
+   card in bf16 and in float32 against one float32 CPU run on the same
+   values, 4 teacher-forced steps after a 64-token prompt: the serving
+   contract, where in bf16 an argmax may differ only at a near tie.
 7b. Training ``qwen3-moe-30b-a3b`` on the card.  Hold the flash backward
    kernel (``csrc/flash_attention_bwd.cu``, through ``ops.flash_attention``'s
    autograd function) against autograd through the plain version at every
-   ``FLASH_CASES`` shape in float32 and bf16 (dq, dk, dv within 1e-4 and
+   ``FLASH_BWD_CASES`` shape (``FLASH_CASES`` before phase 6c's) in
+   float32 and bf16 (dq, dk, dv within 1e-4 and
    2e-2 of their largest |value|; where the backward runs on the tensor
    cores, bf16 at hd 64 and 128, also within 2^-7 of the plain model of
    its rounding, twice bit for bit, with the forward's LSE instance giving
@@ -209,11 +237,12 @@ line):
    backward (dX and dW, two launches: the TMA kernel's transpose-bit
    variants on the operands where they lie, the kernel on transposed
    copies for float32 and ragged shapes) against the plain autograd at
-   the training shapes and the ragged ones (the forward's tolerances).  Then the same float32 weights of qwen cut to 2 layers on
-   the card and the CPU: the loss and every gradient leaf of a 2 x 64-token
-   batch (rtol 1e-4; gradients within 1e-3 of each leaf's largest
-   |value|), and three AdamW steps' losses (rtol 1e-3).  Then ``launch.train.train_loop`` at
-   the published width, 4 of 48 layers (3.11 G parameters), 10 steps of 4
+   the training shapes and the ragged ones (the forward's tolerances).
+   Then the same float32 weights of qwen cut to 1 layer on the card and
+   the CPU: the loss and every gradient leaf of a 2 x 64-token batch
+   (rtol 1e-4; gradients within 1e-3 of each leaf's largest |value|), and
+   two AdamW steps' losses (rtol 1e-3).  Then ``launch.train.train_loop``
+   at the published width, 4 of 48 layers (3.11 G parameters), 10 steps of 4
    x 512 tokens at lr 3e-4, a CCM-LB expert re-placement every 5 steps on
    16 expert ranks (the pair kernel in the plan; the experts and AdamW's
    moments permuted on the card).  Launches, counted from zero just before the run,
@@ -254,8 +283,9 @@ line):
    time.
 9. Import every module of ``repro_torch``, check that no module of JAX or
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
-   serve, per-run, pipeline and async, MILP and planner, and assembly
-   numbers, the launch floor, the card line,
+   serve, the other families' serve runs, per-run, pipeline and async,
+   MILP and planner, and assembly numbers, the launch floor, each phase's
+   wall seconds, the card line,
    the training numbers,
    one JSON line of per-kernel numbers (the scorer's pair kernel and its
    full-tile kernel, each in float64 and float32, its window kernel, the
@@ -291,6 +321,8 @@ HBM_BYTES_PER_S = 3.35e12
 QUEUE_SLEEP_CYCLES = 10 ** 8
 # seconds of idle host time at each end of a profiled run (profiled_run)
 PROFILE_MARGIN_S = 0.1
+# greedy decode steps a serve run's profile covers (profile_decode)
+PROFILE_DECODE_STEPS = 8
 PEAK_OPS = {"float64": 34e12, "float32": 67e12}
 # operations per (ia, ib) lane of the scorer: 106 adds, subtractions and
 # maxima plus the two mask compares (csrc/ccm_scorer.cu); selects not counted
@@ -394,9 +426,13 @@ GEMM_P_TOL = dict(rtol=2 ** -7, atol=1e-3)
 # of the 64-row tile, rows that see no key (a window ending before the
 # keys do), head dims 8 and 256, recurrentgemma-9b's local attention as
 # served (16 query heads on one K/V head, hd 256, 2560 tokens past the
-# 2048-token window, so whole key tiles before the window are skipped) and
-# gemma2-27b's as served (hd 128, soft-cap 50, 4608 tokens past the
-# 4096-token window)
+# 2048-token window, so whole key tiles before the window are skipped),
+# gemma2-27b's local attention as served (hd 128, soft-cap 50, 4608 tokens
+# past the 4096-token window); then phase 6c's served shapes: whisper's
+# encoder (non-causal, 1500 frames: no multiple of the 64-row tile, hd 64)
+# and cross-attention (64 decoder rows against the 1500 frames), gemma2's
+# global layer (causal, soft-cap 50) and llava's (1152 media positions and
+# 512 text tokens, 32 query heads on 8 K/V heads)
 FLASH_CASES = (
     (2, 128, 128, 4, 2, 64, True, 0, 0.0),
     (1, 256, 256, 4, 4, 64, True, 64, 0.0),
@@ -410,7 +446,15 @@ FLASH_CASES = (
     (1, 70, 70, 2, 1, 256, True, 0, 0.0),
     (4, 2560, 2560, 16, 1, 256, True, 2048, 0.0),
     (1, 4608, 4608, 32, 16, 128, True, 4096, 50.0),
+    (4, 1500, 1500, 20, 20, 64, False, 0, 0.0),
+    (4, 64, 1500, 20, 20, 64, False, 0, 0.0),
+    (2, 4608, 4608, 32, 16, 128, True, 0, 50.0),
+    (4, 1664, 1664, 32, 8, 128, True, 0, 0.0),
 )
+# the flash backward is held at the shapes before phase 6c's: the training
+# path's and the kernel's corner cases (training the three served families
+# stays off the card, ROADMAP queue 1)
+FLASH_BWD_CASES = FLASH_CASES[:12]
 # (E, C, d, f): the serve path's prefill gate/up and down, its decode
 # gate/up and down, then ragged C, d and f (the wmma kernel: d or f no
 # multiple of 8), and C = 1, 13 (no multiple of 8) and 300 (two N tiles of
@@ -441,21 +485,23 @@ TRAIN_REBALANCE, TRAIN_RANKS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 16, 5, 7
 # step-5 re-placement (a function-preserving permutation) that the
 # uninterrupted run applied, so its expert sums run in another order
 TRAIN_RESTART_RTOL = 1e-3
-# card vs cpu: the same float32 weights of qwen cut to 2 layers, a batch of
+# card vs cpu: the same float32 weights of qwen cut to 1 layer (2 before
+# phase 6c came: its CPU side took 76-84 s), a batch of
 # 2 x 64 tokens: the loss within rtol 1e-4 and each gradient leaf within
 # 1e-3 of its largest |value| (float32 on both sides, TF32 off; sums in
-# other orders); the three steps' losses within TRAIN_RESTART_RTOL, for the
+# other orders); two steps' losses (three before) within
+# TRAIN_RESTART_RTOL, for the
 # restart check's reason: AdamW moves an element by about lr whatever its
 # gradient's size, so where a gradient is near 0 the two sides' rounding
 # decides the step (on an H100, 7e-5 after three steps with the first loss
 # equal bit for bit)
-TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
-TRAIN_CHECK_STEPS = 3
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 1, 2, 64
+TRAIN_CHECK_STEPS = 2
 TRAIN_CHECK_RTOL, TRAIN_CHECK_GRAD = 1e-4, 1e-3
 # the profiled train step's kernels kept in the train JSON, by device time
 TRAIN_TOP_KERNELS = 20
 # the flash backward against the plain version's autograd (float32) at every
-# FLASH_CASES shape: each of dq, dk, dv within this share of its largest
+# FLASH_BWD_CASES shape: each of dq, dk, dv within this share of its largest
 # |value| (float32 inputs: sums in another order; bf16 inputs: the forward's
 # output, whose p was rounded to bf16, enters D = rowsum(dO o O), and the
 # gradients are rounded once to bf16)
@@ -499,6 +545,28 @@ REC_SERVES = (
     (RG_ARCH, 2560, {"rglru": ("float32", 26), "flash": ("bfloat16", 12)}, 3,
      {"bfloat16": 64, "float32": 2112}),
 )
+# 6c. the rest of serving, at published widths and full depths, each model
+# freed before the next: gemma2-27b under its ring cache (window_kv_cache,
+# as the JAX package's launch/dryrun.py sets it) on 2 x 4608-token prompts,
+# past the 4096-token window (46 flash launches a prefill: 23 local, 23
+# global); whisper-large-v3 on 4 x 1500 encoder frames (its 30 s window)
+# and 64-token decoder prompts (96: 32 encoder, 32 causal self, 32 cross);
+# llava-next-mistral-7b on 4 x (1152 media positions + 512 text tokens)
+# (32); SERVE_NEW new tokens each.  Each entry: arch, requests, prompt
+# tokens, encoder frames, flash launches a prefill, and the card-vs-cpu
+# check's cut (one (local, global) period; 2 + 2 layers at the full 1500
+# frames; 2 layers at the full 1152 media positions)
+GEMMA_ARCH, WHISPER_ARCH, LLAVA_ARCH = ("gemma2-27b", "whisper-large-v3",
+                                        "llava-next-mistral-7b")
+FAMILY_SERVES = (
+    (GEMMA_ARCH, 2, 4608, 0, 46, {"num_layers": 2}),
+    (WHISPER_ARCH, 4, 64, 1500, 96, {"num_layers": 2,
+                                     "num_decoder_layers": 2}),
+    (LLAVA_ARCH, 4, 512, 0, 32, {"num_layers": 2}),
+)
+# gemma2's ring against the full cache on the card: the full-depth model,
+# the served prompts, this many teacher-forced steps
+RING_STEPS = 32
 WKV_SOURCE = "src/repro_torch/csrc/wkv6.cu"
 WKV_REPLACES = "src/repro/kernels/rwkv6/kernel.py:22"
 RGLRU_SOURCE = "src/repro_torch/csrc/rglru.cu"
@@ -2195,19 +2263,27 @@ def route_flips(calls, ref_calls, top_k):
     return flips, unexplained
 
 
-def forced_logits(torch, model, params, tokens):
-    """Prefill on ``tokens[:, :prompt]``, then teacher-forced decode steps
-    on the rest: the last-position logits of each, float32 on the CPU."""
-    from repro_torch.launch.serve import pad_caches
+def forced_logits(torch, model, params, tokens, media=None):
+    """Prefill on ``tokens[:, :prompt]`` (after ``media``, the stub front
+    end's inputs, where the model has one), then teacher-forced decode
+    steps on the rest: the last-position logits of each, float32 on the
+    CPU."""
+    from repro_torch.launch.serve import decode_start, pad_caches
     prompt = tokens.shape[1] - CHECK_STEPS
+    cfg = model.cfg
+    off = decode_start(cfg, 0)
     t = torch.as_tensor(tokens, dtype=torch.int64, device=model.device)
+    batch = {"tokens": t[:, :prompt]}
+    for key, value in (media or {}).items():
+        batch[key] = torch.as_tensor(value, device=model.device)
     with torch.inference_mode():
-        caches, logits = model.prefill_fn(params, {"tokens": t[:, :prompt]})
-        caches = pad_caches(caches, tokens.shape[1])
+        caches, logits = model.prefill_fn(params, batch)
+        caches = pad_caches(caches, off + tokens.shape[1], cfg)
         out = [logits[:, 0].float().cpu()]
         for i in range(CHECK_STEPS):
             caches, logits = model.decode_fn(
-                params, caches, t[:, prompt + i:prompt + i + 1], prompt + i)
+                params, caches, t[:, prompt + i:prompt + i + 1],
+                off + prompt + i)
             out.append(logits[:, 0].float().cpu())
     return out
 
@@ -2266,17 +2342,22 @@ class StepClock:
 
 
 def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
-                  mods):
+                  mods, batch_size: int = SERVE_BATCH, frames: int = 0):
     """``cfg`` served through ``serve_batch`` on the card: bf16 weights
-    from the port's init (a seeded generator on the card), ``SERVE_BATCH``
-    prompts of ``prompt_len`` tokens (numpy seed 0), ``SERVE_NEW`` new
-    tokens, after a short warm-up.  Every kernel of ``mods`` has its
-    launches counted from zero and its launch shapes logged; they must
-    equal ``want`` ({kernel: (dtype, count)}, every other count 0).
-    Returns (numbers, model, params, the numpy generator)."""
+    from the port's init (a seeded generator on the card), ``batch_size``
+    prompts of ``prompt_len`` tokens (numpy seed 0) and, for a stub front
+    end, its inputs drawn next (``serve.stub_media``; ``frames`` encoder
+    frames), ``SERVE_NEW`` new tokens, after a short warm-up.  Every kernel
+    of ``mods`` has its launches counted from zero and its launch shapes
+    logged; they must equal ``want`` ({kernel: (dtype, count)}, every other
+    count 0).  The profile (``profile_decode``) covers
+    ``PROFILE_DECODE_STEPS`` decode steps after a prefill of the same
+    prompts.  Returns (numbers, model, params,
+    the numpy generator, the front end's inputs as card tensors or
+    None)."""
     import numpy as np
 
-    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.serve import serve_batch, stub_media
     from repro_torch.models.model import build_model
 
     t0 = time.perf_counter()
@@ -2286,8 +2367,13 @@ def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
     rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, prompt_len))
-    serve_batch(model, params, prompts[:1, :16], 2)        # warm-up
+    prompts = rng.integers(0, cfg.vocab_size, (batch_size, prompt_len))
+    media = stub_media(cfg, batch_size, rng, frames)
+    if media is not None:
+        media = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in media.items()}
+    serve_batch(model, params, prompts[:1, :16], 2,              # warm-up
+                media and {k: v[:1] for k, v in media.items()})
     clock = StepClock(torch, model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2295,7 +2381,7 @@ def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
         mod.reset_launches()
     with ShapeLog(mods) as log:
         t0 = time.perf_counter()
-        tokens = serve_batch(model, params, prompts, SERVE_NEW)
+        tokens = serve_batch(model, params, prompts, SERVE_NEW, media)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: dict(mod.LAUNCHES) for name, mod in mods.items()}
@@ -2306,7 +2392,7 @@ def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
         expected[name][dt] = n
     if launches != expected:
         fail(f"serve {cfg.name}: launches {launches}, expected {expected}")
-    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or tokens.min() < 0 \
+    if tokens.shape != (batch_size, SERVE_NEW) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab_size \
             or not torch.isfinite(clock.logits).all():
         fail(f"serve {cfg.name}: bad tokens {tokens.shape} or non-finite "
@@ -2316,7 +2402,8 @@ def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
     # the same prefill three times more, after the counted run (its
     # launches not counted): the spread of one prefill's time, and what of
     # the first one's is a one-off
-    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda"),
+             **(media or {})}
     again = []
     for _ in range(3):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2326,31 +2413,37 @@ def serve_on_card(torch, cfg, full_layers: int, prompt_len: int, want,
         end.synchronize()
         again.append(start.elapsed_time(end) / 1e3)
     del batch
+    layers = (f"{cfg.num_layers} of {full_layers}"
+              if isinstance(full_layers, int) else full_layers)
     out = dict(
-        arch=cfg.name, layers=f"{cfg.num_layers} of {full_layers}",
-        q_heads=cfg.num_heads, params=n_params, batch=SERVE_BATCH,
+        arch=cfg.name, layers=layers,
+        q_heads=cfg.num_heads, params=n_params, batch=batch_size,
         prompt=prompt_len, new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
         prefill_s=prefill_s, prefill_again_s=again,
         decode_step_s_median=float(np.median(decode_s)),
         decode_step_s_min=min(decode_s), decode_step_s_max=max(decode_s),
-        tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
-        decode_tokens_per_s=SERVE_BATCH * len(decode_s) / sum(decode_s),
+        tokens_per_s=batch_size * SERVE_NEW / wall,
+        decode_tokens_per_s=batch_size * len(decode_s) / sum(decode_s),
         peak_memory_gb=peak / 1e9, launches=launches,
         shapes={name: [[list(k), n] for k, n in c.most_common()]
                 for name, c in log.shapes.items() if c},
         log_shapes=log.shapes)
-    print(f"serve: {cfg.name}, {cfg.num_layers} of {full_layers} layers, "
+    print(f"serve: {cfg.name}, {layers} layers, "
           f"{n_params} parameters (bf16, init on the card {init_s:.2f} s); "
-          f"{SERVE_BATCH} requests x {prompt_len}-token prompts, "
+          f"{batch_size} requests x {prompt_len}-token prompts"
+          f"{' after ' + str(frames) + ' encoder frames' if frames else ''}"
+          f"{' after the media' if cfg.frontend == 'vision' else ''}, "
           f"{SERVE_NEW} new tokens: prefill {prefill_s!r} s (then "
           f"{again!r} s), decode step "
           f"median {out['decode_step_s_median']!r} s, {out['tokens_per_s']!r}"
           f" tokens/s over {wall!r} s, peak memory {peak / 1e9!r} GB; "
           f"launches {want}", flush=True)
-    out["profile"] = profile_serve(torch, model, params, prompts)
+    t0 = time.perf_counter()
+    out["profile"] = profile_decode(torch, model, params, prompts, media)
+    out["profile"]["seconds"] = time.perf_counter() - t0
     print(json.dumps({"serve_profile": {cfg.name: out["profile"]}}),
           flush=True)
-    return out, model, params, rng
+    return out, model, params, rng, media
 
 
 def serve_path(torch, mods) -> dict:
@@ -2372,8 +2465,8 @@ def serve_path(torch, mods) -> dict:
     cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS)
     want = {"flash": ("bfloat16", SERVE_LAYERS),
             "gemm": ("bfloat16", 3 * SERVE_LAYERS * (1 + SERVE_NEW))}
-    out, model, params, rng = serve_on_card(torch, cfg, full.num_layers,
-                                            SERVE_PROMPT, want, mods)
+    out, model, params, rng, _ = serve_on_card(torch, cfg, full.num_layers,
+                                               SERVE_PROMPT, want, mods)
 
     # the same weights on the CPU against the card, teacher-forced: in bf16
     # (the served weights), then in float32 (the same values, widened)
@@ -2552,15 +2645,36 @@ def replacement_loop(torch, cfg, model, params, mods) -> dict:
     return out
 
 
-def profile_serve(torch, model, params, prompts) -> dict:
-    """The device's idle share over one more ``serve_batch`` run, and the
-    eight kernels with the most device time (``profiled_run``)."""
-    from repro_torch.launch.serve import serve_batch
-    out = profiled_run(torch, lambda: serve_batch(model, params, prompts,
-                                                  SERVE_NEW))
+def profile_decode(torch, model, params, prompts, media=None) -> dict:
+    """The device's idle share over ``PROFILE_DECODE_STEPS`` greedy decode
+    steps (``profiled_run``), after a prefill of ``prompts`` (and
+    ``media``) whose caches are padded for them, and the eight kernels with
+    the most device time.  Until phase 6c came the profile covered a whole
+    ``serve_batch`` run (prefill and 32 decode steps, some 10^5 kernels for
+    the recurrent models), whose events took the profiler 10-29 s a model
+    to total on an H100 host; the prefill is out of this scope."""
+    from repro_torch.launch.serve import decode_start, pad_caches
+    cfg = model.cfg
+    pos = decode_start(cfg, prompts.shape[1])
+    with torch.inference_mode():
+        caches, logits = model.prefill_fn(params, {
+            "tokens": torch.as_tensor(prompts, device="cuda"),
+            **(media or {})})
+        caches = pad_caches(caches, pos + PROFILE_DECODE_STEPS, cfg)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+
+        def steps():
+            c, t = caches, tok
+            for i in range(PROFILE_DECODE_STEPS):
+                c, lg = model.decode_fn(params, c, t, pos + i)
+                t = torch.argmax(lg[:, -1:], dim=-1)
+
+        out = profiled_run(torch, steps)
     rows = out.pop("by_name")
     out["top"] = [list(kv) for kv in sorted(
         rows.items(), key=lambda kv: -kv[1]["device_ms"])[:8]]
+    out["what"] = f"{PROFILE_DECODE_STEPS} decode steps after a prefill"
     return out
 
 
@@ -2584,22 +2698,23 @@ def compare_steps(torch, card, cpu) -> dict:
                                in zip(argmax_eq, gaps, logit_err)))
 
 
-def card_vs_cpu(torch, cfg, model, params, check) -> dict:
+def card_vs_cpu(torch, cfg, model, params, check, media=None) -> dict:
     """``model`` with ``params`` on the card against the same weights on the
-    CPU, on ``check`` teacher-forced (``compare_steps``).  Where the model
-    routes tokens to experts, also the top-k router selections that differ
-    (and how many of them rounding explains), and the steps compared again
-    with the card's routing pinned to the CPU's."""
+    CPU, on ``check`` teacher-forced (``compare_steps``) after ``media``
+    (the stub front end's inputs, numpy) where the model has one.  Where
+    the model routes tokens to experts, also the top-k router selections
+    that differ (and how many of them rounding explains), and the steps
+    compared again with the card's routing pinned to the CPU's."""
     from repro_torch.models import moe
     from repro_torch.models.model import build_model
     label = f"{cfg.name} {dtype_name(model.dtype)}"
     with RouteLog(moe) as card_routes:
-        card = forced_logits(torch, model, params, check)
+        card = forced_logits(torch, model, params, check, media)
     t0 = time.perf_counter()
     cpu_params = tree_map(lambda t: t.cpu(), params)
     cpu_model = build_model(cfg, device="cpu", dtype=model.dtype)
     with RouteLog(moe) as cpu_routes:
-        cpu = forced_logits(torch, cpu_model, cpu_params, check)
+        cpu = forced_logits(torch, cpu_model, cpu_params, check, media)
     cpu_s = time.perf_counter() - t0
     del cpu_params
     out = dict(layers=cfg.num_layers, prompt=check.shape[1] - CHECK_STEPS,
@@ -2610,7 +2725,8 @@ def card_vs_cpu(torch, cfg, model, params, check) -> dict:
                                          cfg.top_k)
         with RouteLog(moe) as pinned:
             pinned.replay = [(c[1], c[2]) for c in cpu_routes.calls]
-            card_pinned = forced_logits(torch, model, params, check)
+            card_pinned = forced_logits(torch, model, params, check,
+                                        media)
         p = out["pinned"] = compare_steps(torch, card_pinned, cpu)
         out.update(
             router_tokens=sum(int(c[2].shape[0]) for c in cpu_routes.calls),
@@ -2662,7 +2778,7 @@ def check_flash_bwd(torch, flash_kernel, flash_ops, flash_ref) -> dict:
     autograd function: the forward kernel, then one backward launch)
     against autograd through the plain version in float32, on the same
     inputs (standard normal, drawn on the card from a seeded generator), at
-    every ``FLASH_CASES`` shape in float32 and bf16: dq, dk, dv each within
+    every ``FLASH_BWD_CASES`` shape in float32 and bf16: dq, dk, dv each within
     ``FLASH_BWD_TOL`` of its largest |value|.  Returns the largest absolute
     and relative errors per dtype."""
     t0 = time.perf_counter()
@@ -2671,7 +2787,7 @@ def check_flash_bwd(torch, flash_kernel, flash_ops, flash_ref) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
         worst[name] = {"abs": 0.0, "rel": 0.0}
-        for case in FLASH_CASES:
+        for case in FLASH_BWD_CASES:
             b, sq, skv, hq, hkv, hd, causal, window, cap = case
             t = [torch.randn(shape, generator=gen, device="cuda")
                  .to(dtype).requires_grad_()
@@ -2721,7 +2837,7 @@ def check_flash_bwd(torch, flash_kernel, flash_ops, flash_ref) -> dict:
             del got, want, fold, t
             torch.cuda.empty_cache()
     print(f"flash backward kernel == plain version's autograd on "
-          f"{2 * len(FLASH_CASES)} cases (dq, dk, dv within "
+          f"{2 * len(FLASH_BWD_CASES)} cases (dq, dk, dv within "
           f"{FLASH_BWD_TOL} of their largest |value|; the tensor-core "
           f"shapes also within {FLASH_BWD_MODEL_TOL} of the plain model of "
           f"their rounding, twice bit for bit, and the LSE instance's "
@@ -3299,8 +3415,8 @@ def serve_recurrent(torch, arch, prompt_len, want, cut, check_lens,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get_config(arch)
-    out, model, params, rng = serve_on_card(torch, cfg, cfg.num_layers,
-                                            prompt_len, want, mods)
+    out, model, params, rng, _ = serve_on_card(torch, cfg, cfg.num_layers,
+                                               prompt_len, want, mods)
 
     # the first `cut` layers' weights on the CPU against the card: in bf16
     # (the served weights), then in float32 (the same values, widened)
@@ -3323,6 +3439,161 @@ def serve_recurrent(torch, arch, prompt_len, want, cut, check_lens,
             fail(f"card vs cpu, {arch} {name}: a difference beyond the "
                  f"serving contract that rounding does not explain: {res}")
         out["card_vs_cpu"][name] = res
+    return out
+
+
+# ------------------------------------------ 6c. serving the other families
+def ring_vs_full(torch, cfg, model, params, rng, batch_size: int,
+                 prompt_len: int) -> dict:
+    """gemma2's ring cache against its full cache on the card, at full
+    depth: one prefill of ``batch_size`` prompts of ``prompt_len`` tokens
+    (drawn from ``rng``), its caches made into rings of min(window, total)
+    slots for the local layers (``pad_caches`` under ``window_kv_cache``)
+    and into padded full caches, then ``RING_STEPS`` teacher-forced decode
+    steps through each: every row's logits within the serving contract of
+    the full cache's, an argmax differing only at a near tie
+    (``compare_steps``).  Returns the comparison and both caches' K/V
+    bytes."""
+    import dataclasses
+
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models.model import build_model
+
+    full_cfg = dataclasses.replace(cfg, window_kv_cache=False)
+    full_model = build_model(full_cfg)              # the same weights
+    total = prompt_len + RING_STEPS
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (batch_size, total)),
+                             device="cuda")
+    t0 = time.perf_counter()
+    steps = {"ring": [], "full": []}
+    with torch.inference_mode():
+        caches, logits = model.prefill_fn(params,
+                                          {"tokens": tokens[:, :prompt_len]})
+        kv = {"ring": pad_caches(caches, total, cfg),
+              "full": pad_caches(caches, total, full_cfg)}
+        del caches
+        nbytes = {k: sum(t.numel() * t.element_size() for c in v
+                         for t in c.values()) for k, v in kv.items()}
+        slots = sorted({c["k"].shape[1] for c in kv["ring"]})
+        for key in steps:
+            steps[key].append(logits[:, 0].float().cpu())
+        for i in range(RING_STEPS):
+            tok = tokens[:, prompt_len + i:prompt_len + i + 1]
+            for key, m in (("ring", model), ("full", full_model)):
+                kv[key], logits = m.decode_fn(params, kv[key], tok,
+                                              prompt_len + i)
+                steps[key].append(logits[:, 0].float().cpu())
+        del kv
+    torch.cuda.synchronize()
+    rows = [(s[r:r + 1], f[r:r + 1]) for s, f in zip(steps["ring"],
+                                                    steps["full"])
+            for r in range(batch_size)]
+    res = compare_steps(torch, [a for a, _ in rows], [b for _, b in rows])
+    out = dict(prompt=prompt_len, steps=RING_STEPS, ring_slots=slots,
+               kv_bytes_ring=nbytes["ring"], kv_bytes_full=nbytes["full"],
+               contract_met=res["contract_met"],
+               max_abs_err=max(res["max_abs_err"]),
+               max_excess=res["max_excess"],
+               argmax_differ=sum(not a for a in res["argmax_equal"]),
+               argmax_unexplained=res["argmax_unexplained"],
+               seconds=time.perf_counter() - t0)
+    print(f"ring vs full cache, {cfg.name} ({cfg.num_layers} layers, "
+          f"{batch_size} x {prompt_len}-token prompts, {RING_STEPS} "
+          f"teacher-forced steps): ring slots {slots} against {total}; K/V "
+          f"{nbytes['ring']} B against {nbytes['full']} B; contract "
+          f"{'met' if out['contract_met'] else 'MISSED'}, max abs error "
+          f"{out['max_abs_err']!r}, argmax differing in "
+          f"{out['argmax_differ']} of {len(rows)} ({out['argmax_unexplained']}"
+          f" not at a near tie); {out['seconds']:.1f} s", flush=True)
+    if res["max_excess"] > 0 or res["argmax_unexplained"] \
+            or slots != sorted({min(cfg.window_size, total), total}):
+        fail(f"ring vs full cache, {cfg.name}: {out}")
+    return out
+
+
+def serve_family(torch, arch, batch_size, prompt_len, frames, n_flash, cut,
+                 mods) -> dict:
+    """``arch`` at its published width and full depth, served through
+    ``serve_batch`` on the card (``serve_on_card``: exactly ``n_flash``
+    bf16 flash launches and nothing else), gemma2 under its ring cache and
+    then its ring against the full cache (``ring_vs_full``); then the
+    weights cut to ``cut`` on the card against the CPU, teacher-forced on a
+    ``CHECK_PROMPT``-token prompt after the stub front end's full-size
+    inputs: the CPU runs once, in float32 on the served (bf16) values, and
+    holds the card in bf16 (the served weights: the serving contract, an
+    argmax differing only at a near tie) and in float32 (the same values
+    widened: the serving contract).  bf16 products on the CPU are slow
+    (phase 7's recurrentgemma check), so this phase runs none."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import stub_media
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(arch)
+    if arch == GEMMA_ARCH:
+        cfg = dataclasses.replace(cfg, window_kv_cache=True)
+    layers = (f"{cfg.num_layers} + {cfg.num_decoder_layers}"
+              if cfg.arch_type == "encdec" else cfg.num_layers)
+    t0 = time.perf_counter()
+    out, model, params, rng, media = serve_on_card(
+        torch, cfg, layers, prompt_len, {"flash": ("bfloat16", n_flash)},
+        mods, batch_size=batch_size, frames=frames)
+    del media
+    out["seconds"] = {"serve": time.perf_counter() - t0}
+    if cfg.window_kv_cache:
+        out["ring_vs_full"] = ring_vs_full(torch, cfg, model, params, rng,
+                                           batch_size, prompt_len)
+        out["seconds"]["ring_vs_full"] = out["ring_vs_full"]["seconds"]
+    t0 = time.perf_counter()
+    # keep only the cut's weights on the card
+    cut_cfg = dataclasses.replace(cfg, **cut)
+    if cfg.arch_type == "encdec":
+        cut_params = dict(params, enc_blocks=params["enc_blocks"][
+            :cut["num_layers"]], dec_blocks=params["dec_blocks"][
+                :cut["num_decoder_layers"]])
+    else:
+        cut_params = dict(params, blocks=params["blocks"][:cut["num_layers"]])
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = rng.integers(0, cfg.vocab_size, (1, CHECK_PROMPT + CHECK_STEPS))
+    check_media = stub_media(cfg, 1, rng, frames)
+    t0 = time.perf_counter()
+    wide = tree_map(lambda t: t.cpu().to(torch.float32), cut_params)
+    cpu = forced_logits(torch, build_model(cut_cfg, device="cpu",
+                                           dtype=torch.float32),
+                        wide, check, check_media)
+    cpu_s = time.perf_counter() - t0
+    del wide
+    out["card_vs_cpu"] = {"cpu_s": cpu_s}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = dtype_name(dtype)
+        card = forced_logits(
+            torch, build_model(cut_cfg, dtype=dtype),
+            tree_map(lambda t: t.to(dtype), cut_params), check, check_media)
+        torch.cuda.empty_cache()
+        res = dict(layers=cut, prompt=CHECK_PROMPT, steps=CHECK_STEPS,
+                   **compare_steps(torch, card, cpu))
+        print(f"card vs cpu, {cfg.name} {name} against the cpu's float32 "
+              f"run on the same values ({cut}, {CHECK_PROMPT}-token prompt"
+              f"{' after the front end' if check_media else ''}, "
+              f"{CHECK_STEPS} teacher-forced steps): serving contract "
+              f"{'met' if res['contract_met'] else 'MISSED'}; max abs error "
+              f"{res['max_abs_err']}; argmax equal {res['argmax_equal']} "
+              f"(cpu top-two gaps {res['cpu_top2_gap']}); cpu {cpu_s:.1f} s",
+              flush=True)
+        if name == "float32" and not res["contract_met"]:
+            fail(f"card vs cpu, {arch} float32: serving contract missed: "
+                 f"{res}")
+        if res["max_excess"] > 0 or res["argmax_unexplained"]:
+            fail(f"card vs cpu, {arch} {name}: a difference beyond the "
+                 f"serving contract that rounding does not explain: {res}")
+        out["card_vs_cpu"][name] = res
+    out["seconds"]["card_vs_cpu"] = time.perf_counter() - t0
     return out
 
 
@@ -3745,14 +4016,18 @@ def profile_spec_path(torch, kernel) -> dict:
 
 
 def time_flash(torch, flash_kernel, flash_ref, q_shape, k_shape, hq: int,
-               window: int, launches: int) -> dict:
-    """Flash at one launched shape (bf16, causal, ``window`` if not 0):
-    kernel, plain version, SDPA (K/V repeated to Hq, a window as a boolean
-    mask; timed here only, never on the path) and the bound: the larger of
+               kw, launches: int) -> dict:
+    """Flash at one launched shape (bf16, the launch's ``kw``: causal,
+    window, soft-cap): kernel, plain version, SDPA (K/V repeated to Hq, a
+    window as a boolean mask; timed here only, never on the path; null
+    under a soft-cap, which SDPA cannot apply) and the bound: the larger of
     the bytes (q, k, v read once, the output written once) over the HBM
     rate and the visible pairs' operations over the bf16 tensor-core
     peak."""
     import torch.nn.functional as F
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    cap = kw.get("softcap", 0.0)
+    mask_kw = dict(causal=causal, window=window, softcap=cap)
     bhq, sq, hd = q_shape
     bhkv, skv, _ = k_shape
     q = torch.randn(q_shape, dtype=torch.bfloat16, device="cuda")
@@ -3766,29 +4041,35 @@ def time_flash(torch, flash_kernel, flash_ref, q_shape, k_shape, hq: int,
     if window:
         q_pos = torch.arange(sq, device="cuda")[:, None]
         k_pos = torch.arange(skv, device="cuda")[None, :]
-        mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
+        mask = k_pos > q_pos - window
+        if causal:
+            mask &= k_pos <= q_pos
     big = bhq * sq * skv > 2 ** 28
     key = f"q={list(q_shape)},kv={list(k_shape)}" \
-        + (f",window={window}" if window else "")
+        + ("" if causal else ",non-causal") \
+        + (f",window={window}" if window else "") \
+        + (f",softcap={cap:g}" if cap else "")
     hold_flash(torch,
-               flash_kernel.flash_attention_fwd(q, k, v, causal=True,
-                                                window=window),
-               flash_ref.reference_attention(q, k, v, causal=True,
-                                             window=window),
-               flash_ref.reference_attention_bf16_p(q, k, v, causal=True,
-                                                    window=window),
+               flash_kernel.flash_attention_fwd(q, k, v, **mask_kw),
+               flash_ref.reference_attention(q, k, v, **mask_kw),
+               flash_ref.reference_attention_bf16_p(q, k, v, **mask_kw),
                f"flash at the launched shape {key}")
 
     def launch_one():
-        flash_kernel.flash_attention_fwd(q, k, v, causal=True, window=window)
+        flash_kernel.flash_attention_fwd(q, k, v, **mask_kw)
 
     k_ms = time_ms(torch, launch_one, 20)
     k_dev, k_host = queued_ms(torch, launch_one)
     p_ms = time_ms(torch, lambda: flash_ref.reference_attention(
-        q, k, v, causal=True, window=window), 2 if big else 10)
-    l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, is_causal=mask is None), 20)
-    pairs = bhq * sum(min(i + 1, skv, window or skv) for i in range(sq))
+        q, k, v, **mask_kw), 2 if big else 10)
+    l_ms = None
+    if not cap:
+        l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None),
+            20)
+    pairs = bhq * sum(max(0, (min(i + 1, skv) if causal else skv)
+                          - (max(0, i - window + 1) if window else 0))
+                      for i in range(sq))
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())
     ops = 4 * pairs * hd
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_BF16 * 1e3
@@ -3796,12 +4077,25 @@ def time_flash(torch, flash_kernel, flash_ref, q_shape, k_shape, hq: int,
                library_ms=l_ms, bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations",
                bytes=nbytes, operations=ops, launches=launches)
+    if cap:
+        out["library_note"] = ("SDPA cannot apply the logit soft-cap "
+                               f"{cap:g}")
     print(f"time flash {key}: kernel {k_ms!r} ms (device {k_dev!r} ms, "
           f"host {k_host!r} ms a call), "
           f"plain {p_ms!r} ms, sdpa {l_ms!r} ms, bound {out['bound_ms']!r} ms "
           f"({out['bound_by']}, {nbytes} B, {ops} operations), {launches} "
           f"launches", flush=True)
     return {key: out}
+
+
+def time_logged_flash(torch, flash_kernel, flash_ref, run) -> dict:
+    """``time_flash`` at every flash shape a serve ``run`` launched."""
+    times = {}
+    for ((q_shape, k_shape, _), kw), n in \
+            run["log_shapes"]["flash"].items():
+        times.update(time_flash(torch, flash_kernel, flash_ref, q_shape,
+                                k_shape, run["q_heads"], dict(kw), n))
+    return times
 
 
 def time_serve_kernels(torch, flash_kernel, flash_ref, gemm_kernel, gemm_ref,
@@ -3812,12 +4106,8 @@ def time_serve_kernels(torch, flash_kernel, flash_ref, gemm_kernel, gemm_ref,
     of the bytes (each input read once, the output written once) over the
     HBM rate and the operations over the bf16 tensor-core peak.  CUDA
     events, median of rounds."""
-    times = {"flash": {}, "gemm": {}}
-    for ((q_shape, k_shape, _), kw), n in \
-            serve["log_shapes"]["flash"].items():
-        times["flash"].update(time_flash(torch, flash_kernel, flash_ref,
-                                         q_shape, k_shape, serve["q_heads"],
-                                         dict(kw)["window"], n))
+    times = {"flash": time_logged_flash(torch, flash_kernel, flash_ref,
+                                        serve), "gemm": {}}
     for ((x_shape, w_shape), _), n in serve["log_shapes"]["gemm"].items():
         e, c, d = x_shape
         f = w_shape[2]
@@ -3919,11 +4209,8 @@ def time_recurrent_kernels(torch, mods, refs, flash_ref, rec, rng) -> dict:
               f"plain {p_ms!r} ms, bound {max(t_b, t_o)!r} ms "
               f"({times['rglru'][key]['bound_by']}, {nbytes} B), {n} "
               f"launches", flush=True)
-    for ((q_shape, k_shape, _), kw), n in \
-            rec[RG_ARCH]["log_shapes"]["flash"].items():
-        times["flash"].update(time_flash(
-            torch, mods["flash"], flash_ref, q_shape, k_shape,
-            rec[RG_ARCH]["q_heads"], dict(kw)["window"], n))
+    times["flash"].update(time_logged_flash(torch, mods["flash"], flash_ref,
+                                            rec[RG_ARCH]))
     return times
 
 
@@ -3963,6 +4250,15 @@ def main() -> None:
           f"{torch.cuda.get_device_capability(0)}", flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
+    # each phase's wall seconds, printed before the result
+    phase_s = {}
+    lap_at = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - lap_at[0]
+        lap_at[0] = now
+
     # 2. build the seven kernel sources, one nvcc each, in parallel
     t0 = time.perf_counter()
     kernel_mods = (kernel, asm_kernel, flash_kernel, gemm_kernel, wkv_kernel,
@@ -3980,20 +4276,24 @@ def main() -> None:
             fail(f"ptxas spills registers in {source.name}: {spills}")
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[str(lib.relative_to(ROOT)) for lib in libs]}", flush=True)
+    lap("2 build")
     # 3. the kernel against its plain version
     rng = np.random.default_rng(0)
     worst = check_kernel(torch, kernel, ref, rng)
     pair_worst = check_pair_kernel(torch, kernel, launch, ref, rng)
     spec_worst, spec_rows, fleet_rows, spec_lanes, spec_p = \
         check_spec_kernel(torch, kernel, launch, ref)
+    lap("3 scorer kernels")
     # 4. the main path (launch counts zeroed inside, per run), then through
     # the speculative driver, and the fleet
     mp = main_path(torch, kernel, launch)
     sp = spec_path(torch, kernel, launch, mp.pop("f64_cpu_run"))
     fleet = fleet_path(torch, kernel, launch)
+    lap("4 main, spec and fleet paths")
     # 4c / 4d. the pipeline and the async balancer (counts zeroed inside)
     pipe = pipeline_path(torch, kernel, launch)
     asy = async_path(torch, kernel, launch, mp.pop("f64_cuda_run"))
+    lap("4c-4d pipeline and async")
     # 4e / 4f. the MILP certification and the three planners (counts
     # zeroed inside, per run and per plan)
     t0 = time.perf_counter()
@@ -4004,9 +4304,11 @@ def main() -> None:
     planner_s = time.perf_counter() - t0
     print(f"milp_path {milp_s:.1f} s, planner_path {planner_s:.1f} s",
           flush=True)
+    lap("4e-4f milp and planners")
     # 5. the assembly application (launch counts zeroed inside, per run)
     asm_worst = check_assembly_kernel(torch, asm_ops, asm_ref, rng)
     asm = assembly_path(torch, asm_kernel, asm_ref, kernel, launch)
+    lap("5 assembly")
     # 6. serving qwen3-moe-30b-a3b (launch counts zeroed inside)
     flash_worst = check_flash_kernel(torch, flash_ops, flash_ref, rng)
     gemm_worst = check_gemm_kernel(torch, gemm_ops, gemm_ref, rng)
@@ -4015,6 +4317,7 @@ def main() -> None:
     serve = serve_path(torch, serve_mods)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("6 serve qwen")
     # 7. serving rwkv6-7b and recurrentgemma-9b (launch counts zeroed
     # inside); each model is freed before the next
     wkv_worst = check_wkv6_kernel(torch, wkv_ops, wkv_ref, rng)
@@ -4025,6 +4328,17 @@ def main() -> None:
                                     check_lens, serve_mods)
         gc.collect()
         torch.cuda.empty_cache()
+    lap("7 serve recurrent")
+    # 6c. serving gemma2-27b (ring cache), whisper-large-v3 and
+    # llava-next-mistral-7b (launch counts zeroed inside); each model is
+    # freed before the next
+    fam = {}
+    for arch, batch_size, prompt, frames, n_flash, cut in FAMILY_SERVES:
+        fam[arch] = serve_family(torch, arch, batch_size, prompt, frames,
+                                 n_flash, cut, serve_mods)
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("6c serve gemma2, whisper, llava")
     # 7b. training qwen3-moe-30b-a3b (launch counts zeroed inside)
     t0 = time.perf_counter()
     flash_bwd_worst = check_flash_bwd(torch, flash_kernel, flash_ops,
@@ -4041,6 +4355,7 @@ def main() -> None:
                                      train["launches_per_step"])
     train_s = time.perf_counter() - t0
     print(f"train phase {train_s:.1f} s", flush=True)
+    lap("7b train")
     # 8. times at the main paths' shapes, and where the time goes
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
     pair_times = time_pairs(torch, kernel, ref, launch, rng,
@@ -4064,8 +4379,12 @@ def main() -> None:
     rec_times = time_recurrent_kernels(
         torch, serve_mods, {"wkv6": wkv_ref, "rglru": rglru_ref}, flash_ref,
         rec, rng)
+    for run in fam.values():
+        serve_times["flash"].update(time_logged_flash(
+            torch, flash_kernel, flash_ref, run))
     prof = profile_main_path(torch, kernel)
     prof_spec = profile_spec_path(torch, kernel)
+    lap("8 timing and profiles")
 
     # 9. imports, then the result
     import repro_torch
@@ -4163,6 +4482,8 @@ def main() -> None:
         "bfloat16"], f"re-placement_{SERVE_ARCH}": serve["replacement"][
             "launches"]["flash"], f"train_{TRAIN_ARCH}": train["launches"][
                 "flash"]["bfloat16"]}
+    flash_by_path.update({f"serve_{arch}": r["launches"]["flash"]["bfloat16"]
+                          for arch, r in fam.items()})
     for name, key, worst_err, source, replaces, by_path in (
             ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
              FLASH_REPLACES, flash_by_path),
@@ -4254,6 +4575,9 @@ def main() -> None:
     print(json.dumps({"serve_recurrent": {
         arch: {k: v for k, v in r.items() if k != "log_shapes"}
         for arch, r in rec.items()}}), flush=True)
+    print(json.dumps({"serve_families": {
+        arch: {k: v for k, v in r.items() if k != "log_shapes"}
+        for arch, r in fam.items()}}), flush=True)
     print(json.dumps({"main_path": mp["runs"],
                       "device_idle_share": prof["device_idle_share"]}),
           flush=True)
@@ -4273,6 +4597,9 @@ def main() -> None:
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
         flush=True)
     print(json.dumps({"launch_floor": floor}), flush=True)
+    lap("9 imports and result")
+    print(json.dumps({"phase_s": phase_s,
+                      "total_s": sum(phase_s.values())}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ from the reference's fields.
 
 This system's "weights" are a phase (tasks, blocks, communications, ranks),
 the CCM coefficients and an assignment, the cost model's FNN parameters and
-the model stack's parameters.  The functions here take them as plain data —
+the model stack's parameters (the decoder LMs' and the
+encoder-decoder's).  The functions here take them as plain data —
 numpy arrays, floats and dicts, e.g. ``dataclasses.asdict`` of the
 reference's ``Phase`` or ``jax.tree.map(np.asarray, params)`` — so the port
 never imports the JAX package.
@@ -138,4 +139,44 @@ def lm_params_from_reference(values: Mapping, cfg: ModelConfig):
         blocks.append(_copy_tree(kind_want, got, where))
     out = {k: _copy_tree(want[k], values[k], k) for k in top}
     out["blocks"] = blocks
+    return out
+
+
+def _unstack(tree, n: int, i: int, where: str):
+    """Layer ``i`` of a reference scan tree whose leaves lead with ``n``."""
+    if isinstance(tree, Mapping):
+        return {k: _unstack(v, n, i, where) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.ndim == 0 or a.shape[0] != n:
+        raise ValueError(f"params/{where}: leading axis {a.shape} is not "
+                         f"the {n} layers")
+    return a[i]
+
+
+def encdec_params_from_reference(values: Mapping, cfg: ModelConfig):
+    """The port's encoder-decoder parameters (CPU tensors, in the
+    reference's dtypes and layouts) holding copies of the reference's
+    ``split_lp_tree(init_encdec(...))[0]`` tree given as numpy arrays:
+    ``{"embed", "enc_scan": {"b0": ...}, "enc_norm", "dec_scan": {"b0":
+    ...}, "final_norm", "lm_head"}``.  Each scan's leading layer axis is
+    un-stacked into one block per layer (``enc_blocks``, ``dec_blocks``).
+    Raises on an unknown or missing key, or a wrong shape or dtype."""
+    from repro_torch.models.encdec import init_encdec
+    dtype = _tensor(values["embed"]).dtype
+    want = init_encdec(None, cfg, dtype=dtype, device="meta")
+    scans = {"enc_blocks": ("enc_scan", cfg.num_layers),
+             "dec_blocks": ("dec_scan", cfg.num_decoder_layers)}
+    top = sorted(set(want) - set(scans))
+    expected = set(top) | {name for name, _ in scans.values()}
+    if set(values) != expected:
+        raise ValueError(f"params: keys {sorted(values)}, the port has "
+                         f"{sorted(expected)}")
+    out = {k: _copy_tree(want[k], values[k], k) for k in top}
+    for key, (name, n) in scans.items():
+        if set(values[name]) != {"b0"}:
+            raise ValueError(f"params/{name}: keys {sorted(values[name])}, "
+                             "the port has ['b0']")
+        out[key] = [_copy_tree(blk, _unstack(values[name]["b0"], n, i, name),
+                               f"{name}/b0[{i}]")
+                    for i, blk in enumerate(want[key])]
     return out

@@ -6,7 +6,7 @@ Documents are variable-length Zipf-ish token runs with a learnable
 built by packing documents into fixed-length rows.  Every batch is a pure
 function of (seed, step, shard) — restart-safe by construction, which is what
 the checkpoint/restart test relies on.  The encoder-decoder's and the vision
-front end's batches wait for those models (ROADMAP queue 1, item 7.5).
+front end's batches carry the stub front ends' random embeddings.
 """
 from __future__ import annotations
 
@@ -67,16 +67,32 @@ class SyntheticLMData:
 
 def make_batch(cfg: ModelConfig, seq_len: int, global_batch: int, step: int,
                seed: int = 0) -> Dict[str, np.ndarray]:
-    """The batch of ``step``: ``{"tokens", "targets"}`` (B, S) int32.
-    Raises for the encoder-decoder and the vision front end, as the model
-    does."""
+    """The batch of ``step``, bit for bit the reference's: ``{"tokens",
+    "targets"}`` (B, S) int32; for the encoder-decoder ``audio_embed`` (B,
+    seq_len, d) float32 frames and a decoder of ``decoder_len(cfg,
+    seq_len)`` tokens; for the vision front end ``media_embed`` (B,
+    P_media, d) float32 and seq_len - P_media text tokens (the stub front
+    ends' embeddings: standard normal times 0.1)."""
+    rng = np.random.default_rng(seed * 7919 + step)
     if cfg.arch_type == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP "
-            "queue 1, item 7.5)")
+        from repro_torch.models.encdec import decoder_len
+        dec = SyntheticLMData(cfg.vocab_size, decoder_len(cfg, seq_len),
+                              global_batch, seed=seed)
+        b = dec.batch(step)
+        return {
+            "audio_embed": rng.standard_normal(
+                (global_batch, seq_len, cfg.d_model)).astype(np.float32) * 0.1,
+            "tokens": b["tokens"],
+            "targets": b["targets"],
+        }
     if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision front end is not ported yet (ROADMAP "
-            "queue 1, item 7.5)")
+        text = SyntheticLMData(cfg.vocab_size,
+                               seq_len - cfg.num_media_positions,
+                               global_batch, seed=seed)
+        b = text.batch(step)
+        b["media_embed"] = rng.standard_normal(
+            (global_batch, cfg.num_media_positions, cfg.d_model)
+        ).astype(np.float32) * 0.1
+        return b
     return SyntheticLMData(cfg.vocab_size, seq_len, global_batch,
                            seed=seed).batch(step)

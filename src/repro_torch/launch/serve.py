@@ -4,62 +4,144 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --smoke --device cpu --batch 4 --prompt-len 32 --max-new 32
 
-serves any decoder LM the port runs (attention and MoE blocks,
-``rwkv6-7b``, ``recurrentgemma-9b``).  It runs on the card by default (``--device cuda``); weights are random, drawn
-from a seeded ``torch.Generator``.
+serves every architecture of the configs: the decoder LMs (attention and
+MoE blocks, ``rwkv6-7b``, ``recurrentgemma-9b``, ``gemma2-27b`` with its
+ring cache under ``window_kv_cache``), the vision front end
+(``llava-next-mistral-7b``: random ``media_embed`` patch embeddings before
+the prompt) and the encoder-decoder (``whisper-large-v3``: random
+``audio_embed`` frames, ``--prompt-len`` decoder tokens).  It runs on the
+card by default (``--device cuda``); weights are random, drawn from a
+seeded ``torch.Generator``, and the stub front ends' embeddings from numpy
+seed 0.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.configs.base import BLOCK_LOCAL, ModelConfig
 from repro_torch.models.model import build_model
 
-# self-attention caches grow to prompt + new tokens
-_KV_KEYS = ("k", "v")
+# self-attention caches grow to prompt + new tokens; cross-attention (ck/cv)
+# stays at the encoder's length
+_KV_KEYS = ("k", "v", "sk", "sv")
 
 
-def pad_caches(caches, target_len: int):
-    """Pad every layer's K/V cache along the sequence axis to
-    ``target_len`` (zeros past the prompt).  Only the ``k`` and ``v``
-    leaves are touched: recurrent state (``wkv``, the shifts, ``h``,
-    ``conv``) has no sequence axis."""
+def _grown(leaf: torch.Tensor, target_len: int) -> torch.Tensor:
+    """``leaf`` (..., S, Hkv, hd) padded with zeros to ``target_len``."""
+    if leaf.shape[-3] >= target_len:
+        return leaf
+    shape = list(leaf.shape)
+    shape[-3] = target_len
+    grown = leaf.new_zeros(shape)
+    grown[..., :leaf.shape[-3], :, :] = leaf
+    return grown
+
+
+def to_ring(leaf: torch.Tensor, slots: int) -> torch.Tensor:
+    """A prefill's K or V (B, P, Hkv, hd) as a ring of ``slots`` slots:
+    position p at slot p % slots, for the last ``slots`` positions of the
+    prompt; slots not yet written are zeros (``attention_decode(ring=True)``
+    masks them)."""
+    p_len = leaf.shape[1]
+    ring = leaf.new_zeros((leaf.shape[0], slots) + tuple(leaf.shape[2:]))
+    pos = torch.arange(max(0, p_len - slots), p_len, device=leaf.device)
+    ring[:, pos % slots] = leaf[:, pos]
+    return ring
+
+
+def pad_caches(caches, target_len: int, cfg: Optional[ModelConfig] = None):
+    """Pad every layer's self-attention K/V cache along the sequence axis to
+    ``target_len`` (zeros past the prompt).  Only the ``k``, ``v``, ``sk``
+    and ``sv`` leaves are touched: recurrent state (``wkv``, the shifts,
+    ``h``, ``conv``) has no sequence axis, and the encoder-decoder's cross
+    caches (``ck``, ``cv``) stay at the encoder's length.
+
+    With ``cfg`` under ``cfg.window_kv_cache``, each local layer's K/V
+    becomes a ring (:func:`to_ring`) of min(window, ``target_len``) slots
+    instead, so its decode memory is O(window).  (The reference pads those
+    too, so its ring decode indexes a ring of ``target_len`` slots and sees
+    past the window: ROADMAP queue 3.)"""
+    kinds = (cfg.layer_kinds() if cfg is not None and cfg.window_kv_cache
+             and cfg.arch_type != "encdec" else [None] * len(caches))
     out = []
-    for cache in caches:
+    for kind, cache in zip(kinds, caches, strict=True):
         padded = dict(cache)
         for key in _KV_KEYS:
-            leaf = cache.get(key)
-            if leaf is not None and leaf.shape[-3] < target_len:
-                shape = list(leaf.shape)
-                shape[-3] = target_len
-                grown = leaf.new_zeros(shape)
-                grown[..., :leaf.shape[-3], :, :] = leaf
-                padded[key] = grown
+            if key not in cache:
+                continue
+            if kind == BLOCK_LOCAL:
+                padded[key] = to_ring(cache[key],
+                                      min(cfg.window_size, target_len))
+            else:
+                padded[key] = _grown(cache[key], target_len)
         out.append(padded)
     return out
 
 
+def decode_start(cfg: ModelConfig, prompt_len: int) -> int:
+    """The position of the first decode step after a ``prompt_len``-token
+    prompt: the vision model's positions run over its P_media media
+    positions first."""
+    if cfg.frontend == "vision":
+        return cfg.num_media_positions + prompt_len
+    return prompt_len
+
+
 @torch.inference_mode()
-def serve_batch(model, params, prompts: np.ndarray,
-                max_new: int) -> np.ndarray:
-    """prompts: (B, P) int -> (B, max_new) int32 greedy continuations."""
+def serve_batch(model, params, prompts: np.ndarray, max_new: int,
+                media: Optional[Dict] = None) -> np.ndarray:
+    """prompts: (B, P) int -> (B, max_new) int32 greedy continuations.
+    ``media``: the stub front ends' inputs, ``{"audio_embed": (B, S_enc,
+    d)}`` for the encoder-decoder or ``{"media_embed": (B, P_media, d)}``
+    for the vision front end (numpy arrays or tensors); the vision model's
+    positions run over the media first, so its decode positions start at
+    P_media + P, and it raises without ``media_embed``."""
+    cfg = model.cfg
+    if cfg.frontend == "vision" and "media_embed" not in (media or {}):
+        raise ValueError(f"{cfg.name} serves after its media: pass "
+                         "media={'media_embed': (B, P_media, d)}")
     b, p_len = prompts.shape
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
                                        device=model.device)}
+    for key, value in (media or {}).items():
+        batch[key] = torch.as_tensor(value, device=model.device)
     caches, logits = model.prefill_fn(params, batch)
-    caches = pad_caches(caches, p_len + max_new)
+    start = decode_start(cfg, p_len)
+    caches = pad_caches(caches, start + max_new, cfg)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     out: List[torch.Tensor] = []
     for i in range(max_new):
         out.append(tok[:, 0])
-        caches, logits = model.decode_fn(params, caches, tok, p_len + i)
+        caches, logits = model.decode_fn(params, caches, tok, start + i)
         tok = torch.argmax(logits[:, -1:], dim=-1)
     return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+
+
+def stub_media(cfg: ModelConfig, batch: int, rng: np.random.Generator,
+               frames: Optional[int] = None
+               ) -> Optional[Dict[str, np.ndarray]]:
+    """The stub front end's inputs for ``batch`` requests, drawn from
+    ``rng`` as ``data.pipeline.make_batch`` draws them (standard normal
+    times 0.1, float32): ``audio_embed`` (batch, ``frames``, d) for the
+    encoder-decoder, ``media_embed`` (batch, P_media, d) for the vision
+    front end; None for a model without one.  The encoder-decoder needs
+    ``frames``."""
+    if cfg.arch_type == "encdec":
+        if not frames:
+            raise ValueError(f"{cfg.name}: stub_media needs frames > 0")
+        return {"audio_embed": rng.standard_normal(
+            (batch, frames, cfg.d_model)).astype(np.float32) * 0.1}
+    if cfg.frontend == "vision":
+        return {"media_embed": rng.standard_normal(
+            (batch, cfg.num_media_positions, cfg.d_model)
+        ).astype(np.float32) * 0.1}
+    return None
 
 
 def main(argv=None):
@@ -80,8 +162,11 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
+    # the encoder-decoder's frames: 8 x the prompt, whose decoder_len
+    # (models.encdec) is the prompt
+    media = stub_media(cfg, args.batch, rng, frames=8 * args.prompt_len)
     t0 = time.perf_counter()
-    tokens = serve_batch(model, params, prompts, args.max_new)
+    tokens = serve_batch(model, params, prompts, args.max_new, media)
     dt = time.perf_counter() - t0
     print(f"[serve] {cfg.name} on {model.device}: {args.batch} requests x "
           f"{args.max_new} new tokens in {dt:.2f}s "

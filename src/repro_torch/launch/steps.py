@@ -32,9 +32,13 @@ def make_optimizer(params, *, lr=3e-4, warmup_steps=100,
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A numpy batch as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device).long()
-            for k, v in batch.items()}
+    """A numpy batch as tensors on ``device``: integers (tokens, targets)
+    as int64, the stub front ends' float embeddings as they are."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v, device=device)
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
 
 
 def make_train_step(model: Model):

@@ -1,11 +1,12 @@
-"""GQA self-attention: full/sliding-window masks, logit softcap, and decode
-with an updatable KV cache (after the JAX package's ``models/attention.py``;
-its cross-attention, used by the encoder-decoder only, and its ring cache,
-``cfg.window_kv_cache``, wait for the slices that need them).
+"""GQA attention: full, sliding-window and unmasked self-attention,
+cross-attention, logit softcap, and decode with an updatable KV cache, a
+ring cache (``cfg.window_kv_cache``) or a fixed cross-attention cache
+(after the JAX package's ``models/attention.py``).
 
 Prefill (:func:`attention_forward_kv`) runs the flash kernel
 (``kernels/flash``): the CUDA kernel on the card, its plain torch version on
-the CPU.  Decode (:func:`attention_decode`) is one query row over the cache
+the CPU; unmasked self-attention (the encoder) and cross-attention run it
+non-causal.  Decode (:func:`attention_decode`) is one query row over the cache
 and stays plain torch (:func:`_sdpa`), as it is jnp code outside any Pallas
 kernel in the reference.  The reference's ``_sdpa_chunked`` (the XLA
 stand-in for the flash kernel, behind ``cfg.attn_kv_chunk``) is not ported:
@@ -40,6 +41,9 @@ def _mask_bias(q_pos, k_pos, kind: str, window: int) -> torch.Tensor:
         ok = k <= q
     elif kind == "local":
         ok = (k <= q) & (k > q - window)
+    elif kind == "none":
+        ok = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                        dtype=torch.bool, device=q.device)
     else:
         raise ValueError(kind)
     return torch.where(ok, 0.0, -1e30).to(torch.float32)
@@ -64,21 +68,31 @@ def _sdpa(q, k, v, bias, logit_cap: float) -> torch.Tensor:
 
 
 def attention_forward_kv(params, x, cfg: ModelConfig, *, mask_kind: str,
-                         positions):
-    """Training/prefill self-attention.  Returns (out, k, v) so prefill can
-    populate the KV cache for free.
+                         positions, kv_x=None):
+    """Training/prefill attention.  ``kv_x`` set => cross-attention: K/V
+    from ``kv_x``, no RoPE on either side, nothing masked.  ``mask_kind``:
+    ``"causal"``, ``"local"`` (causal within ``cfg.window_size``) or
+    ``"none"`` (bidirectional, the encoder's).  Returns (out, k, v) so
+    prefill can populate the KV cache for free.
 
     The flash kernel masks by row index from 0 for q and k; those are the
-    reference's position masks for the positions ``lm_inputs`` makes
-    (``arange(S)``).
+    reference's position masks for the positions the models make
+    (``arange(S)``).  The reference's ``kv_positions`` only feed its
+    ``"none"`` mask, which ignores them, so they are not taken here.
     """
+    if kv_x is not None and mask_kind != "none":
+        raise ValueError(f"cross-attention is unmasked, got {mask_kind!r}")
+    if mask_kind not in ("causal", "local", "none"):
+        raise ValueError(mask_kind)
+    kv_in = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhe->bshe", x, params["w_q"])
-    k = torch.einsum("bsd,dhe->bshe", x, params["w_k"])
-    v = torch.einsum("bsd,dhe->bshe", x, params["w_v"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = torch.einsum("bsd,dhe->bshe", kv_in, params["w_k"])
+    v = torch.einsum("bsd,dhe->bshe", kv_in, params["w_v"])
+    if kv_x is None:                                  # self-attention: RoPE
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = flash_ops.flash_attention(
-        q, k, v, causal=True,
+        q, k, v, causal=mask_kind != "none",
         window=cfg.window_size if mask_kind == "local" else 0,
         softcap=cfg.logit_softcap)
     return torch.einsum("bshe,hed->bsd", out, params["w_o"]), k, v
@@ -86,28 +100,44 @@ def attention_forward_kv(params, x, cfg: ModelConfig, *, mask_kind: str,
 
 # ------------------------------------------------------------------- decode
 def attention_decode(params, x, cache_k, cache_v, pos: int,
-                     cfg: ModelConfig, *, mask_kind: str):
+                     cfg: ModelConfig, *, mask_kind: str, cross: bool = False,
+                     ring: bool = False):
     """One-token decode.  x: (B,1,d); cache_{k,v}: (B,S,Hkv,hd); pos: int.
 
     The new K/V row is written into the caches in place (``index_copy_``;
     the reference returns updated copies with ``dynamic_update_slice``).
-    Returns (out, cache_k, cache_v).
+    ``cross=True``: the caches hold the encoder's K/V, are not written, and
+    nothing is masked (no RoPE either).  ``ring=True`` (a local layer under
+    ``cfg.window_kv_cache``): the cache is a ring of S slots, position p in
+    slot p % S, K stored with RoPE at its true position; slot s holds
+    position pos - ((pos - s) mod S), masked while that is negative.  With
+    S = min(window, prompt + new), as ``launch.serve.pad_caches`` makes
+    it, that is the local mask.  Returns (out, cache_k, cache_v).
     """
     b = x.shape[0]
     s_max = cache_k.shape[1]
     dev = x.device
     q = torch.einsum("bsd,dhe->bshe", x, params["w_q"])
-    k_new = torch.einsum("bsd,dhe->bshe", x, params["w_k"])
-    v_new = torch.einsum("bsd,dhe->bshe", x, params["w_v"])
     at = torch.full((b, 1), pos, device=dev)
-    q = apply_rope(q, at, cfg.rope_theta)
-    k_new = apply_rope(k_new, at, cfg.rope_theta)
-    write_at = torch.tensor([pos], device=dev)
-    cache_k.index_copy_(1, write_at, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(1, write_at, v_new.to(cache_v.dtype))
-    k_pos = torch.arange(s_max, device=dev)[None, :]
-    bias = _mask_bias(at, k_pos, "local" if mask_kind == "local" else "causal",
-                      cfg.window_size)[:, None]
+    if not cross:
+        k_new = torch.einsum("bsd,dhe->bshe", x, params["w_k"])
+        v_new = torch.einsum("bsd,dhe->bshe", x, params["w_v"])
+        q = apply_rope(q, at, cfg.rope_theta)
+        k_new = apply_rope(k_new, at, cfg.rope_theta)
+        write_at = torch.tensor([pos % s_max if ring else pos], device=dev)
+        cache_k.index_copy_(1, write_at, k_new.to(cache_k.dtype))
+        cache_v.index_copy_(1, write_at, v_new.to(cache_v.dtype))
+    slots = torch.arange(s_max, device=dev)[None, :]
+    if cross:
+        bias = torch.zeros((b, 1, 1, s_max), dtype=torch.float32, device=dev)
+    elif ring:
+        k_pos = pos - torch.remainder(pos - slots, s_max)
+        bias = torch.where(k_pos >= 0, 0.0, -1e30).to(torch.float32)
+        bias = bias[:, None, None, :].expand(b, 1, 1, s_max)
+    else:
+        bias = _mask_bias(at, slots,
+                          "local" if mask_kind == "local" else "causal",
+                          cfg.window_size)[:, None]
     out = _sdpa(q, cache_k, cache_v, bias, cfg.logit_softcap)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
     return out, cache_k, cache_v

@@ -1,0 +1,195 @@
+"""Encoder-decoder assembly (the whisper-large-v3 backbone), after the JAX
+package's ``models/encdec.py``.
+
+The audio front end is a stub, as in the reference: a batch carries
+precomputed frame embeddings ``audio_embed`` (B, S_enc, d_model), which the
+encoder casts to the weights' dtype (the reference promotes instead; the
+two agree wherever the embeddings already have the weights' dtype).  The
+encoder is a bidirectional stack over the frames (RoPE, ``mask_kind=
+"none"``); the decoder a causal stack with cross-attention to the encoder's
+output.  The decoder length of a shape cell is min(448, seq_len // 8)
+(whisper's 448-token label budget), at least 8.
+
+Parameters are plain dicts: ``{"embed", "enc_blocks": [one dict per
+layer], "enc_norm", "dec_blocks": [...], "final_norm", "lm_head"}``; a
+Python loop over the blocks replaces the reference's ``lax.scan``
+(``convert.encdec_params_from_reference`` un-stacks a reference tree).  The
+decoder's serving state is one dict per layer, ``{"sk", "sv"}`` (the
+self-attention's K/V, padded to prompt + new tokens by
+``launch.serve.pad_caches``) and ``{"ck", "cv"}`` (the cross-attention's,
+at the encoder's length, never written).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (dense_init, init_mlp, mlp_forward,
+                                       rms_norm)
+from repro_torch.models.transformer import (_remat, embed_tokens,
+                                            masked_cross_entropy, unembed)
+
+
+def decoder_len(cfg: ModelConfig, seq_len: int) -> int:
+    return max(8, min(448, seq_len // 8))
+
+
+def init_enc_block(gen, cfg: ModelConfig, dtype=torch.bfloat16,
+                   device="cuda") -> Dict[str, Any]:
+    f32 = dict(dtype=torch.float32, device=device)
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "norm_attn": torch.zeros((cfg.d_model,), **f32),
+        "attn": attn.init_attention(gen, cfg, **kw),
+        "norm_mlp": torch.zeros((cfg.d_model,), **f32),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
+    }
+
+
+def init_dec_block(gen, cfg: ModelConfig, dtype=torch.bfloat16,
+                   device="cuda") -> Dict[str, Any]:
+    f32 = dict(dtype=torch.float32, device=device)
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "norm_self": torch.zeros((cfg.d_model,), **f32),
+        "self_attn": attn.init_attention(gen, cfg, **kw),
+        "norm_cross": torch.zeros((cfg.d_model,), **f32),
+        "cross_attn": attn.init_attention(gen, cfg, **kw),
+        "norm_mlp": torch.zeros((cfg.d_model,), **f32),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
+    }
+
+
+def init_encdec(gen, cfg: ModelConfig, dtype=torch.bfloat16,
+                device="cuda") -> Dict[str, Any]:
+    """Full encoder-decoder params, drawn from the generator ``gen`` (on
+    ``device``); on the ``meta`` device, shapes and dtypes only."""
+    kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1,
+                            **kw),
+        "enc_blocks": [init_enc_block(gen, cfg, **kw)
+                       for _ in range(cfg.num_layers)],
+        "enc_norm": torch.zeros((cfg.d_model,), **f32),
+        "dec_blocks": [init_dec_block(gen, cfg, **kw)
+                       for _ in range(cfg.num_decoder_layers)],
+        "final_norm": torch.zeros((cfg.d_model,), **f32),
+        "lm_head": dense_init(gen, (cfg.d_model, cfg.vocab_size), **kw),
+    }
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+
+def run_encoder(params, audio_embed, cfg: ModelConfig):
+    """The encoder stack over (B, S_enc, d) frame embeddings -> its normed
+    output in the weights' dtype.  Under autograd each layer runs through
+    ``transformer._remat``, as the reference's scan body does."""
+    x = audio_embed.to(device=params["embed"].device,
+                       dtype=params["embed"].dtype)
+    positions = _positions(x)
+
+    def layer(x, blk):
+        h = rms_norm(x, blk["norm_attn"], cfg.norm_eps)
+        a, _, _ = attn.attention_forward_kv(blk["attn"], h, cfg,
+                                            mask_kind="none",
+                                            positions=positions)
+        x = x + a
+        h = rms_norm(x, blk["norm_mlp"], cfg.norm_eps)
+        return x + mlp_forward(blk["mlp"], h, cfg.act)
+
+    body = _remat(layer, cfg) if torch.is_grad_enabled() else layer
+    for blk in params["enc_blocks"]:
+        x = body(x, blk)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_layer(blk, x, enc_out, positions, cfg: ModelConfig):
+    """One decoder block, full sequence -> (x, its four caches)."""
+    h = rms_norm(x, blk["norm_self"], cfg.norm_eps)
+    a, sk, sv = attn.attention_forward_kv(blk["self_attn"], h, cfg,
+                                          mask_kind="causal",
+                                          positions=positions)
+    x = x + a
+    h = rms_norm(x, blk["norm_cross"], cfg.norm_eps)
+    a, ck, cv = attn.attention_forward_kv(blk["cross_attn"], h, cfg,
+                                          mask_kind="none",
+                                          positions=positions, kv_x=enc_out)
+    x = x + a
+    h = rms_norm(x, blk["norm_mlp"], cfg.norm_eps)
+    x = x + mlp_forward(blk["mlp"], h, cfg.act)
+    return x, {"sk": sk, "sv": sv, "ck": ck, "cv": cv}
+
+
+def run_decoder(params, tokens, enc_out, cfg: ModelConfig,
+                collect_cache: bool = False):
+    """The decoder stack over ``tokens`` (B, S) with cross-attention to
+    ``enc_out`` -> (normed x, per-layer caches or None).  Under autograd
+    (and not collecting caches) each layer runs through
+    ``transformer._remat``."""
+    x = embed_tokens(params, tokens, cfg)
+    positions = _positions(x)
+
+    def layer(x, blk, enc_out):
+        return _dec_layer(blk, x, enc_out, positions, cfg)[0]
+
+    body = layer
+    if torch.is_grad_enabled() and not collect_cache:
+        body = _remat(layer, cfg)
+    caches = []
+    for blk in params["dec_blocks"]:
+        if collect_cache:
+            x, cache = _dec_layer(blk, x, enc_out, positions, cfg)
+            caches.append(cache)
+        else:
+            x = body(x, blk, enc_out)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, (caches if collect_cache else None)
+
+
+def encdec_loss(params, batch, cfg: ModelConfig):
+    """(loss, metrics ``ce_loss`` and ``tokens``) on ``audio_embed``,
+    ``tokens`` and ``targets`` (-1: no target)."""
+    enc_out = run_encoder(params, batch["audio_embed"], cfg)
+    x, _ = run_decoder(params, batch["tokens"], enc_out, cfg)
+    loss, denom = masked_cross_entropy(params, x, batch["targets"], cfg)
+    return loss, {"ce_loss": loss, "tokens": denom}
+
+
+def encdec_prefill(params, batch, cfg: ModelConfig):
+    """Encoder, then the decoder prompt pass: returns (caches,
+    last-position logits (B, 1, V) f32)."""
+    enc_out = run_encoder(params, batch["audio_embed"], cfg)
+    x, caches = run_decoder(params, batch["tokens"], enc_out, cfg,
+                            collect_cache=True)
+    return caches, unembed(params, x[:, -1:], cfg)
+
+
+def encdec_decode(params, caches, token, pos: int, cfg: ModelConfig):
+    """One-token decode.  token: (B, 1); caches: one ``{"sk", "sv", "ck",
+    "cv"}`` dict per decoder layer, the self-attention's updated in place.
+    Returns (caches, logits (B, 1, V) f32)."""
+    x = embed_tokens(params, token, cfg)
+    new = []
+    for blk, cache in zip(params["dec_blocks"], caches, strict=True):
+        h = rms_norm(x, blk["norm_self"], cfg.norm_eps)
+        a, sk, sv = attn.attention_decode(blk["self_attn"], h, cache["sk"],
+                                          cache["sv"], pos, cfg,
+                                          mask_kind="causal")
+        x = x + a
+        h = rms_norm(x, blk["norm_cross"], cfg.norm_eps)
+        a, _, _ = attn.attention_decode(blk["cross_attn"], h, cache["ck"],
+                                        cache["cv"], pos, cfg,
+                                        mask_kind="none", cross=True)
+        x = x + a
+        h = rms_norm(x, blk["norm_mlp"], cfg.norm_eps)
+        x = x + mlp_forward(blk["mlp"], h, cfg.act)
+        new.append({"sk": sk, "sv": sv, "ck": cache["ck"], "cv": cache["cv"]})
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return new, unembed(params, x, cfg)

@@ -12,10 +12,11 @@ and MoE blocks, ``{"wkv", "tm_shift", "cm_shift"}`` for ``rwkv6`` (the
 "conv"}`` for ``rglru`` (the recurrence's h and the conv tail).
 
 Ported here: the ``attn``, ``local_attn``, ``moe``, ``rwkv6`` and
-``rglru`` blocks, the training loss (:func:`lm_loss`, with ``cfg.remat``
-around each period of the block pattern), prefill and decode.  Not yet: the
-ring KV cache (ROADMAP queue 1, item 7.1), the encoder-decoder and the
-vision front end (item 7.5).
+``rglru`` blocks, the vision front end's stub (``media_embed`` prepended to
+the token embeddings), the training loss (:func:`lm_loss`, with
+``cfg.remat`` around each period of the block pattern), prefill and decode,
+with a ring cache for the local layers under ``cfg.window_kv_cache``.  The
+encoder-decoder is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -44,19 +45,7 @@ def _check_kind(kind: str) -> None:
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
-    if cfg.arch_type == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP "
-            "queue 1, item 7.5)")
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision front end is not ported yet (ROADMAP "
-            "queue 1, item 7.5)")
-    if cfg.window_kv_cache:
-        raise NotImplementedError(
-            f"{cfg.name}: the ring KV cache (window_kv_cache) is not ported "
-            "yet (ROADMAP queue 1, item 7.1)")
+    """Raise for a block kind the port does not know."""
     for kind in set(cfg.layer_kinds()):
         _check_kind(kind)
 
@@ -140,8 +129,9 @@ def block_train(p, kind: str, x, positions, cfg: ModelConfig,
 
 
 def block_decode(p, kind: str, x, cache, pos: int, cfg: ModelConfig):
-    """One block, one-token decode; a K/V cache is updated in place, the
-    recurrent state is replaced.  Returns (x, cache)."""
+    """One block, one-token decode; a K/V cache is updated in place (a ring
+    for a local layer under ``cfg.window_kv_cache``), the recurrent state is
+    replaced.  Returns (x, cache)."""
     _check_kind(kind)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
@@ -160,8 +150,10 @@ def block_decode(p, kind: str, x, cache, pos: int, cfg: ModelConfig):
         return x + mlp_forward(p["mlp"], h, cfg.act), {"h": h_last,
                                                         "conv": tail}
     mask_kind = "local" if kind == BLOCK_LOCAL else "causal"
+    ring = kind == BLOCK_LOCAL and cfg.window_kv_cache
     a, ck, cv = attn.attention_decode(p["attn"], h, cache["k"], cache["v"],
-                                      pos, cfg, mask_kind=mask_kind)
+                                      pos, cfg, mask_kind=mask_kind,
+                                      ring=ring)
     x = x + a
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     if kind == BLOCK_MOE:
@@ -272,9 +264,14 @@ def unembed(params, x, cfg: ModelConfig):
 
 
 def lm_inputs(params, batch, cfg: ModelConfig):
-    """Token embedding -> (x, positions)."""
+    """Token embedding (after the stub vision front end's ``media_embed``
+    (B, P_media, d), cast to the embeddings' dtype, where the config has
+    one) -> (x, positions), positions running over media and text."""
     check_config(cfg)
     x = embed_tokens(params, batch["tokens"], cfg)
+    if cfg.frontend == "vision" and "media_embed" in batch:
+        media = batch["media_embed"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([media, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     return x, positions
@@ -320,11 +317,17 @@ def lm_loss(params, batch, cfg: ModelConfig):
     and, for MoE, ``moe_aux_loss`` and ``expert_counts`` (periods, E); the
     loss adds 0.01 of the aux loss to the cross-entropy, as the reference.
     ``batch``: ``tokens`` and ``targets`` (B, S) integer tensors on the
-    params' device."""
+    params' device, and for the vision front end ``media_embed``, whose
+    positions take no target (-1)."""
     x, positions = lm_inputs(params, batch, cfg)
     x, stats, _ = run_stack(params, x, positions, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss, denom = masked_cross_entropy(params, x, batch["targets"], cfg)
+    targets = batch["targets"]
+    if cfg.frontend == "vision" and "media_embed" in batch:
+        pad = targets.new_full((targets.shape[0],
+                                batch["media_embed"].shape[1]), -1)
+        targets = torch.cat([pad, targets], dim=1)
+    loss, denom = masked_cross_entropy(params, x, targets, cfg)
     metrics = {"ce_loss": loss, "tokens": denom}
     if "aux_loss" in stats:
         metrics["moe_aux_loss"] = stats["aux_loss"]

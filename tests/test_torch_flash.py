@@ -185,6 +185,33 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
         torch.testing.assert_close(o, outs[0], atol=1e-5, rtol=0)
 
 
+# (B, Sq, Skv, Hq, Hkv, hd): the encoder-decoder's unmasked uses, cut: the
+# encoder (Sq = Skv, no multiple of the 64-row tile), the cross-attention
+# (a short decoder prompt against many frames, and one query row), and GQA
+UNMASKED = [(2, 150, 150, 4, 4, 16), (2, 8, 150, 4, 4, 16),
+            (1, 1, 70, 4, 4, 16), (1, 12, 40, 8, 2, 32)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd", UNMASKED)
+def test_unmasked_plain_version_matches_sdpa(b, sq, skv, hq, hkv, hd, dtype):
+    """``ops.flash_attention(causal=False)`` (the plain version), as the
+    encoder and the cross-attention call it, against the reference's jnp
+    attention ``_sdpa`` with ``_mask_bias(..., "none")`` on the same
+    inputs; tolerance as above (2e-5 float32, 2e-2 bf16)."""
+    from repro.models.attention import _mask_bias, _sdpa
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(b, sq, skv, hq, hkv, hd, seed=5)
+    got = ops.flash_attention(*(torch.tensor(a, dtype=tdt) for a in (q, k, v)),
+                              causal=False)
+    bias = _mask_bias(jnp.arange(sq)[None], jnp.arange(skv)[None], "none",
+                      0)[:, None]
+    want = _sdpa(*(jnp.asarray(a, jnp.float32) for a in (q, k, v)), bias,
+                 0.0)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
 # ------------------------------------------------------------------ gradient
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap): CASES with the reference
 # _sdpa's masks (a window is causal there, "local"), and causal Sq != Skv

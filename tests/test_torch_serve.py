@@ -308,24 +308,62 @@ def test_build_model_default_device_is_cuda():
         assert build_model(cfg).device.type == "cuda"
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3",
-                                  "llava-next-mistral-7b"])
-def test_unported_families_raise(arch):
-    """The encoder-decoder and the vision front end, of later slices, raise,
-    naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(configs.get_smoke_config(arch), device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "whisper-large-v3",
+                                  "llava-next-mistral-7b"])
 def test_serve_main_on_cpu(arch, capsys):
-    """``python -m repro_torch.launch.serve --smoke --device cpu``."""
+    """``python -m repro_torch.launch.serve --smoke --device cpu``; the
+    encoder-decoder and the vision model with the stub front ends' random
+    embeddings (the reference's ``main`` builds none for the
+    encoder-decoder: ROADMAP queue 3)."""
     serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                 "--batch", "2", "--prompt-len", "8", "--max-new", "3"])
     out = capsys.readouterr().out
     name = configs.get_smoke_config(arch).name
     assert f"{name} on cpu: 2 requests x 3 new tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-large-v3",
+                                  "llava-next-mistral-7b"])
+def test_decode_start_counts_the_media(arch):
+    """The first decode position: after the vision model's media positions
+    and the prompt; after the prompt alone otherwise."""
+    cfg = configs.get_smoke_config(arch)
+    media = cfg.num_media_positions if cfg.frontend == "vision" else 0
+    assert (cfg.frontend == "vision") == (arch == "llava-next-mistral-7b")
+    assert media > 0 or arch != "llava-next-mistral-7b"
+    assert serve.decode_start(cfg, PROMPT) == media + PROMPT
+
+
+def test_serve_batch_refuses_vision_without_media():
+    """The vision model's decode positions start after its media, so a call
+    without ``media_embed`` would decode against unwritten cache slots:
+    ``serve_batch`` raises instead."""
+    cfg = configs.get_smoke_config("llava-next-mistral-7b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts = np.zeros((B, PROMPT), np.int32)
+    for media in (None, {}, {"audio_embed": np.zeros((B, 8, cfg.d_model))}):
+        with pytest.raises(ValueError, match="media_embed"):
+            serve_batch(model, params, prompts, 2, media)
+
+
+def test_stub_media_needs_frames_for_the_encoder_decoder():
+    """``stub_media`` draws no empty encoder input: the encoder-decoder
+    needs ``frames``; the vision model's media has the config's length."""
+    rng = np.random.default_rng(0)
+    whisper = configs.get_smoke_config("whisper-large-v3")
+    for frames in (None, 0):
+        with pytest.raises(ValueError, match="frames"):
+            serve.stub_media(whisper, B, rng, frames)
+    got = serve.stub_media(whisper, B, rng, 16)
+    assert got["audio_embed"].shape == (B, 16, whisper.d_model)
+    llava = configs.get_smoke_config("llava-next-mistral-7b")
+    got = serve.stub_media(llava, B, rng)
+    assert got["media_embed"].shape == (B, llava.num_media_positions,
+                                        llava.d_model)
+    assert serve.stub_media(configs.get_smoke_config("rwkv6-7b"), B,
+                            rng) is None
 
 
 def test_pad_caches_pads_only_kv():

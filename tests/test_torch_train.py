@@ -128,15 +128,6 @@ def test_make_batch_is_the_reference_bit_for_bit(arch, seed, step):
         RData(cfg.vocab_size, 48, 3).doc_lengths(rng_b))
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3",
-                                  "llava-next-mistral-7b"])
-def test_make_batch_refuses_unported_front_ends(arch):
-    """The encoder-decoder's and the vision front end's batches raise, as
-    the model does (ROADMAP queue 1, item 7.5)."""
-    with pytest.raises(NotImplementedError, match="7.5"):
-        make_batch(configs.get_smoke_config(arch), 16, 2, 0)
-
-
 # ------------------------------------------------------- loss and gradients
 @pytest.fixture(scope="module", params=ARCHS)
 def loss_pair(request):
