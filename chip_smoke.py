@@ -262,6 +262,33 @@ line):
    backward (timed only) and their bounds, and the expert GEMM's backward
    also as the parent commit ran it (its transposed copies and its
    launches, each alone).
+7c. The device mesh.  (a) ``torch.distributed`` over NCCL at world size 1
+   and ``launch.mesh.make_local_mesh(1, 1)``: ``qwen3-moe-30b-a3b`` served
+   (8 of 48 layers, the serve cell's 4 x 512-token prompts, 32 new tokens)
+   and trained (4 layers, 3 steps of 4 x 512 tokens) through the mesh
+   entry points (``build_model(mesh=...)``, ``serve_batch``,
+   ``train_loop(mesh=...)``), each against the same run without a mesh
+   under ``torch.use_deterministic_algorithms``: every prefill and decode
+   logit, every loss and every parameter after the steps equal bit for
+   bit; launches counted from zero just before each run (flash, the
+   expert GEMM and both backwards, per step).  (b) Every model rank's
+   expert-parallel body (``models.moe.local_moe`` at ``model_rank`` m of
+   M = 4 and 16) on its E / M experts of the served model's first MoE
+   layer, at full width over 4 x 512 tokens, with the expert GEMM kernel:
+   the ranks' outputs (float32) summed by hand held to the unsharded
+   layer at float32 summation order (atol 1e-5 + rtol 1e-6: each rank's
+   GEMMs are the whole layer's), every rank's counts equal to the
+   unsharded counts; two planted faults must fail that limit (a rank's
+   share dropped, and a rank's body run at another rank's expert
+   offset); and a slot permutation of a CCM-LB plan on M ranks
+   (and a reversal, which crosses every rank), applied rank by rank
+   (``launch.train.take_slots`` on the gathered leaf) equal to the
+   one-device permutation.  (c) ``launch.dryrun`` on the ``h100`` mesh
+   (host only, ``meta`` tensors) in ``DRYRUN_JOBS`` subprocesses at once,
+   each on its share of the configs, the served ones first, starting no
+   cell after 60 s (those listed as not run); one line a cell (FLOPs,
+   bytes, dominant term, per-device GB, fits in 80 GB) and the phase's
+   seconds.
 8. Time the kernels, their plain versions and their bounds at the shapes
    the main paths launched most (the pair kernel also at E = 64, A = B =
    128, P = 32 an event, with the launcher's host time a call and its
@@ -3255,6 +3282,333 @@ def train_path(torch, mods) -> dict:
     return out
 
 
+# ------------------------------------------------------ 7c. the device mesh
+# (a)'s training steps (the train cell's width, depth and batch)
+MESH_TRAIN_STEPS = 3
+# (b)'s model-axis sizes: 128 experts give 32 a rank at 4 and 8 at 16
+EP_RANKS = (4, 16)
+# (b)'s limit on the ranks' float32 sum against the unsharded layer
+EP_ATOL, EP_RTOL = 1e-5, 1e-6
+# the served configs, whose dry-run cells (c) runs first, and (c)'s
+# processes (the card host has 8 cores; there, beside an NVIDIA H100 80GB
+# HBM3 at 700.00 W, one process took 70 s for 25 of the 33 cells)
+DRYRUN_FIRST = ("qwen3-moe-30b-a3b", "rwkv6-7b", "recurrentgemma-9b",
+                "gemma2-27b", "whisper-large-v3", "llava-next-mistral-7b")
+DRYRUN_BUDGET_S = 60.0
+DRYRUN_JOBS = 5
+
+
+class LogitLog:
+    """Every logit tensor a model's prefill and decode return, copied to
+    the CPU (the model's closures wrapped while the log is open)."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def __enter__(self):
+        m = self.model
+        self.saved = (m.prefill_fn, m.decode_fn)
+        pre, dec = self.saved
+
+        def prefill(p, b):
+            caches, logits = pre(p, b)
+            self.logits.append(logits.float().cpu())
+            return caches, logits
+
+        def decode(p, c, t, pos):
+            caches, logits = dec(p, c, t, pos)
+            self.logits.append(logits.float().cpu())
+            return caches, logits
+        m.prefill_fn, m.decode_fn = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        self.model.prefill_fn, self.model.decode_fn = self.saved
+
+
+def launches_now(mods) -> dict:
+    return {"flash": sum(mods["flash"].LAUNCHES.values()),
+            "flash_bwd": sum(mods["flash"].BWD_LAUNCHES.values()),
+            "gemm": sum(mods["gemm"].LAUNCHES.values()),
+            "gemm_bwd": sum(mods["gemm"].BWD_LAUNCHES.values())}
+
+
+def mesh_runs(torch, mods) -> dict:
+    """(a): serve and train ``SERVE_ARCH`` without a mesh and on the 1 x 1
+    NCCL mesh; the two equal bit for bit (see the module's docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import tree_leaves as ckpt_leaves
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.train import TrainLog, train_loop
+    from repro_torch.models.model import build_model
+
+    mesh = make_local_mesh(1, 1)                    # NCCL, a world of one
+    backend = dist.get_backend()
+    if backend != "nccl" or mesh.device_type != "cuda":
+        fail(f"mesh: backend {backend}, device {mesh.device_type}")
+    full = configs.get_config(SERVE_ARCH)
+    out = {"backend": backend, "world": dist.get_world_size(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+        runs = {}
+        for label, kw in (("no mesh", {}), ("mesh 1x1", {"mesh": mesh})):
+            model = build_model(cfg, **kw)
+            params = model.init(torch.Generator(device="cuda").manual_seed(0))
+            for mod in mods.values():
+                mod.reset_launches()
+            t0 = time.perf_counter()
+            with LogitLog(model) as log:
+                tokens = serve_batch(model, params, prompts, SERVE_NEW)
+            torch.cuda.synchronize()
+            runs[label] = dict(tokens=tokens, logits=log.logits,
+                               launches=launches_now(mods),
+                               wall_s=time.perf_counter() - t0)
+            del model, params
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = runs["no mesh"], runs["mesh 1x1"]
+        serve_same = bool((a["tokens"] == b["tokens"]).all()) and len(
+            a["logits"]) == len(b["logits"]) and all(
+            torch.equal(x, y) for x, y in zip(a["logits"], b["logits"]))
+        want = {"flash": SERVE_LAYERS, "flash_bwd": 0,
+                "gemm": 3 * SERVE_LAYERS * (1 + SERVE_NEW), "gemm_bwd": 0}
+        if not serve_same or a["launches"] != want \
+                or b["launches"] != want:
+            fail(f"mesh serve: bit for bit {serve_same}, launches "
+                 f"{a['launches']} / {b['launches']} (want {want})")
+        out["serve"] = {k: {"launches": v["launches"], "wall_s": v["wall_s"],
+                            "logit_rows": len(v["logits"])}
+                        for k, v in runs.items()}
+        out["serve"]["bit_for_bit"] = serve_same
+        # training: 3 steps at 4 layers, with and without the mesh
+        cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+        runs = {}
+        for label, kw in (("no mesh", {}), ("mesh 1x1", {"mesh": mesh})):
+            for mod in mods.values():
+                mod.reset_launches()
+            log = TrainLog()
+            params, opt, losses = train_loop(
+                cfg, steps=MESH_TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH, lr=TRAIN_LR, log_every=1,
+                device="cuda", log=log, **kw)
+            runs[label] = dict(
+                losses=losses, launches=log.launches, step_s=log.step_s,
+                params=[t.detach().cpu() for t in ckpt_leaves(params)])
+            del params, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = runs["no mesh"], runs["mesh 1x1"]
+        train_same = a["losses"] == b["losses"] and all(
+            torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+        n = TRAIN_LAYERS
+        want_step = {"flash_fwd": 2 * n, "flash_bwd": n, "gemm_fwd": 6 * n,
+                     "gemm_bwd": 6 * n}
+        if not train_same or any(rec != want_step for r in runs.values()
+                                 for rec in r["launches"]):
+            fail(f"mesh train: bit for bit {train_same}, losses "
+                 f"{a['losses']} / {b['losses']}, launches "
+                 f"{a['launches']} / {b['launches']}")
+        out["train"] = {k: {"losses": v["losses"], "step_s": v["step_s"],
+                            "launches_per_step": v["launches"][0]}
+                        for k, v in runs.items()}
+        out["train"]["bit_for_bit"] = train_same
+        del runs, a, b
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"mesh 1x1 ({backend}, world {out['world']}): serve "
+          f"{SERVE_LAYERS} of 48 layers equal bit for bit without the mesh "
+          f"({out['serve']['mesh 1x1']['logit_rows']} logit tensors), "
+          f"launches {out['serve']['mesh 1x1']['launches']}; train "
+          f"{TRAIN_LAYERS} layers x {MESH_TRAIN_STEPS} steps equal bit for "
+          f"bit (losses {out['train']['mesh 1x1']['losses']}, every "
+          f"parameter), launches a step "
+          f"{out['train']['mesh 1x1']['launches_per_step']}", flush=True)
+    return out
+
+
+def ep_ranks(torch, mods) -> dict:
+    """(b): every model rank's expert-parallel body on the one card (see
+    the module's docstring)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.balance.expert_placement import plan_expert_placement
+    from repro_torch.balance.pipeline_stages import H100_HBM_BYTES
+    from repro_torch.launch.train import take_slots
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(configs.get_config(SERVE_ARCH), num_layers=1)
+    params = build_model_params(torch, cfg)
+    p = params["blocks"][0]["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((SERVE_BATCH, SERVE_PROMPT, cfg.d_model),
+                    generator=gen, device="cuda").to(torch.bfloat16)
+    w = [p[n] for n in moe.EXPERT_LEAVES]
+    with torch.inference_mode():
+        full, _, counts = moe.local_moe(p["router"], *w, x, cfg=cfg,
+                                        act_name=cfg.act)
+        out = {}
+        for m_size in EP_RANKS:
+            e_loc = cfg.num_experts // m_size
+            mods["gemm"].reset_launches()
+            parts = []
+            same_counts = True
+            for rank in range(m_size):
+                part, _, c = moe.local_moe(
+                    p["router"], *(t[rank * e_loc:(rank + 1) * e_loc]
+                                   for t in w), x, cfg=cfg, act_name=cfg.act,
+                    model_rank=rank, model_size=m_size)
+                parts.append(part)
+                same_counts &= bool(torch.equal(c, counts))
+            launches = sum(mods["gemm"].LAUNCHES.values())
+            total = torch.stack(parts).sum(0)
+            err = (total - full).abs()
+            # float32 summation order: each rank's GEMMs are the whole
+            # layer's, only the order of the ranks' sum differs
+            tol = EP_ATOL + EP_RTOL * full.abs()
+            ok = bool((err <= tol).all())
+            # planted faults, which that limit must catch: rank 1's share
+            # dropped, and rank 1's body at rank 0's expert offset
+            wrong, _, _ = moe.local_moe(
+                p["router"], *(t[e_loc:2 * e_loc] for t in w), x, cfg=cfg,
+                act_name=cfg.act, model_rank=0, model_size=m_size)
+            faults = {"rank dropped": total - parts[1],
+                      "wrong offset": total - parts[1] + wrong}
+            caught = {k: not bool(((v - full).abs() <= tol).all())
+                      for k, v in faults.items()}
+            if not all(caught.values()):
+                fail(f"ep ranks {m_size}: a planted fault passed the "
+                     f"limit ({caught})")
+            # a CCM-LB plan on m_size ranks (of skewed counts: this layer's
+            # random router loads its experts about evenly, and its plan
+            # moves nothing), and a reversal, applied rank by rank against
+            # the one-device permutation
+            plan = plan_expert_placement(
+                zipf_counts(np.random.default_rng(m_size), cfg.num_experts,
+                            l_n=1), cfg, m_size,
+                hbm_budget_bytes=H100_HBM_BYTES, rank_speed=None,
+                device="cuda")
+            perms = {"plan": torch.as_tensor(plan.permutations[0],
+                                             device="cuda"),
+                     "reversal": torch.arange(cfg.num_experts - 1, -1, -1,
+                                              device="cuda")}
+            moved = {}
+            for name, perm in perms.items():
+                got = torch.cat([take_slots(w[0], 0, perm, r, e_loc)
+                                 for r in range(m_size)])
+                if not torch.equal(got, w[0].index_select(0, perm)):
+                    fail(f"ep ranks {m_size}: {name} permutation differs "
+                         "from the one-device one")
+                moved[name] = int(sum(
+                    1 for s, e in enumerate(perm.tolist())
+                    if s // e_loc != e // e_loc))
+            out[m_size] = dict(
+                experts_a_rank=e_loc, gemm_launches=launches,
+                max_abs_err=float(err.max()), within_tol=ok,
+                faults_caught=caught, counts_equal=same_counts,
+                slots_moved_across_ranks=moved)
+            if not ok or not same_counts or launches != 3 * m_size \
+                    or moved["reversal"] == 0:
+                fail(f"ep ranks {m_size}: {out[m_size]}")
+            print(f"ep body, {m_size} model ranks x {e_loc} experts, "
+                  f"{SERVE_BATCH} x {SERVE_PROMPT} tokens: the ranks' sum "
+                  f"within atol {EP_ATOL:g} + rtol {EP_RTOL:g} of the "
+                  f"unsharded layer (max abs err "
+                  f"{out[m_size]['max_abs_err']!r}; a rank dropped and a "
+                  f"wrong offset both caught), counts equal on every rank, "
+                  f"{launches} GEMM launches; "
+                  f"permutations across ranks equal the one-device one "
+                  f"(slots moved across ranks {moved})", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_model_params(torch, cfg):
+    from repro_torch.models.model import build_model
+    return build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+
+
+def dryrun_h100() -> dict:
+    """(c): ``launch.dryrun`` on the ``h100`` mesh in ``DRYRUN_JOBS``
+    subprocesses at once (the configs dealt out, the served ones first),
+    none starting a cell after ``DRYRUN_BUDGET_S``."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    archs = DRYRUN_FIRST + tuple(a for a in configs.ARCH_IDS
+                                 if a not in DRYRUN_FIRST)
+    t0 = time.perf_counter()
+    procs = []
+    for j in range(DRYRUN_JOBS):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+               "--mesh", "h100", "--archs",
+               ",".join(archs[j::DRYRUN_JOBS]), "--budget-s",
+               str(DRYRUN_BUDGET_S), "--out", str(tmp / f"dryrun{j}.json")]
+        procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    recs = {}
+    try:
+        for j, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"dryrun: rc {proc.returncode}\n{out[-3000:]}\n"
+                     f"{err[-3000:]}")
+            recs.update(json.loads((tmp / f"dryrun{j}.json").read_text()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    cells = {}
+    for arch, shape in configs.cells():
+        rec = recs.get(f"{arch}|{shape}|h100")
+        key = f"{arch} {shape}"
+        if rec is None or rec.get("not_run"):
+            cells[key] = {"run": False}
+            print(f"dryrun h100 {key}: not run (the phase passed "
+                  f"{DRYRUN_BUDGET_S:g} s)", flush=True)
+            continue
+        if not rec.get("ok"):
+            cells[key] = {"run": True, "skipped": rec.get("skipped")}
+            print(f"dryrun h100 {key}: skipped ({rec.get('skipped')})",
+                  flush=True)
+            continue
+        st, r, m = rec["stats"], rec["roofline"], rec["memory_per_device"]
+        cells[key] = dict(run=True, flops=st["flops"],
+                          bytes=st["bytes_accessed"], dominant=r["dominant"],
+                          bound_step_s=r["bound_step_s"],
+                          per_device_gb=m["total"] / 1e9,
+                          fits_80gb=rec["fits_80gb"], count_s=rec["count_s"])
+        print(f"dryrun h100 {key}: flops {st['flops']!r}, bytes "
+              f"{st['bytes_accessed']!r}, dominant {r['dominant']} "
+              f"(bound {r['bound_step_s']!r} s), per-device "
+              f"{m['total'] / 1e9!r} GB, fits 80 GB {rec['fits_80gb']}",
+              flush=True)
+    print(f"dryrun h100: {sum(c['run'] for c in cells.values())} of "
+          f"{len(cells)} cells run in {seconds:.1f} s on the host", flush=True)
+    return {"seconds": seconds, "cells": cells}
+
+
 # ------------------------------------------------ 7. serving the recurrent LMs
 def wkv6_inputs(torch, rng, b, s, h, hd, log_w, dtype):
     """tests/test_kernels.py's distributions: r, k at 0.5, v standard,
@@ -4356,6 +4710,17 @@ def main() -> None:
     train_s = time.perf_counter() - t0
     print(f"train phase {train_s:.1f} s", flush=True)
     lap("7b train")
+    # 7c. the device mesh: the 1 x 1 NCCL mesh's serve and train runs
+    # (launch counts zeroed inside, per run), every rank's EP body, the
+    # dry-run
+    mesh = mesh_runs(torch, serve_mods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh["ep_ranks"] = ep_ranks(torch, serve_mods)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    mesh["dryrun_h100"] = dryrun_h100()
+    lap("7c mesh")
     # 8. times at the main paths' shapes, and where the time goes
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
     pair_times = time_pairs(torch, kernel, ref, launch, rng,
@@ -4484,6 +4849,10 @@ def main() -> None:
                 "flash"]["bfloat16"]}
     flash_by_path.update({f"serve_{arch}": r["launches"]["flash"]["bfloat16"]
                           for arch, r in fam.items()})
+    flash_by_path[f"mesh_serve_{SERVE_ARCH}"] = mesh["serve"]["mesh 1x1"][
+        "launches"]["flash"]
+    flash_by_path[f"mesh_train_{TRAIN_ARCH}"] = MESH_TRAIN_STEPS * mesh[
+        "train"]["mesh 1x1"]["launches_per_step"]["flash_fwd"]
     for name, key, worst_err, source, replaces, by_path in (
             ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
              FLASH_REPLACES, flash_by_path),
@@ -4492,7 +4861,12 @@ def main() -> None:
                  "gemm"]["bfloat16"], f"re-placement_{SERVE_ARCH}":
                  serve["replacement"]["launches"]["gemm"],
                  f"train_{TRAIN_ARCH}": train["launches"]["gemm"][
-                     "bfloat16"]})):
+                     "bfloat16"],
+                 f"mesh_serve_{SERVE_ARCH}": mesh["serve"]["mesh 1x1"][
+                     "launches"]["gemm"],
+                 f"mesh_train_{TRAIN_ARCH}": MESH_TRAIN_STEPS * mesh[
+                     "train"]["mesh 1x1"]["launches_per_step"]["gemm_fwd"]}
+             )):
         by_shape = serve_times[key]
         shape = max(by_shape, key=lambda k: by_shape[k]["launches"])
         m = by_shape[shape]
@@ -4553,11 +4927,13 @@ def main() -> None:
         by_shape = train_times[key]
         shape = next(iter(by_shape))
         m = by_shape[shape]
-        n = train["launches"][key]["bfloat16"]
+        by_path = {f"train_{TRAIN_ARCH}": train["launches"][key]["bfloat16"],
+                   f"mesh_train_{TRAIN_ARCH}": MESH_TRAIN_STEPS * mesh[
+                       "train"]["mesh 1x1"]["launches_per_step"][key]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "replaces_note": note, "launches": n,
-            "launches_by_path": {f"train_{TRAIN_ARCH}": n},
+            "replaces": replaces, "replaces_note": note,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": worst_bf16, "max_abs_err_float32": worst_f32,
             "ms": m["ms"], "device_ms": m["device_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
@@ -4593,6 +4969,7 @@ def main() -> None:
                       "planner_path_s": planner_s}), flush=True)
     print(json.dumps({"train": train, "train_card_vs_cpu": train_check,
                       "train_phase_s": train_s}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"assembly": {
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
         flush=True)

@@ -26,7 +26,7 @@ import os
 import shutil
 import threading
 from pathlib import Path
-from typing import Any, List, Optional
+from typing import Any, Iterable, List, Optional
 
 import torch
 
@@ -62,6 +62,14 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def save(ckpt_dir, step: int, tree: Any, *, extra: Optional[dict] = None
          ) -> Path:
+    return save_leaves(ckpt_dir, step, tree_leaves(tree), extra=extra)
+
+
+def save_leaves(ckpt_dir, step: int, leaves: Iterable[Any], *,
+                extra: Optional[dict] = None) -> Path:
+    """Write ``leaves`` (in ``tree_leaves`` order) as the checkpoint of
+    ``step``, one at a time: an iterator that makes each leaf when asked
+    (a mesh's gather) holds one leaf in host memory at a time."""
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
@@ -69,7 +77,7 @@ def save(ckpt_dir, step: int, tree: Any, *, extra: Optional[dict] = None
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
-    for i, leaf in enumerate(tree_leaves(tree)):
+    for i, leaf in enumerate(leaves):
         t = torch.as_tensor(leaf).detach().cpu()
         name = f"leaf_{i:05d}"
         torch.save(t.clone(), tmp / f"{name}.pt")
@@ -126,12 +134,15 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, step: int, example_tree: Any, device=None) -> Any:
+def restore(ckpt_dir, step: int, example_tree: Any, device=None,
+            place=None) -> Any:
     """Restore into the structure of ``example_tree`` (its leaves give the
     structure; their values are not read), each leaf on ``device`` (the
-    CPU by default).  Raises ``ValueError`` when the saved tree has another
-    number of leaves, or a leaf another shape or dtype, than the example
-    has a tensor leaf."""
+    CPU by default), or, with ``place``, each leaf ``place(i, leaf)`` of
+    the i-th whole leaf memory-mapped from its file (a mesh rank's shard:
+    only its pages are read).  Raises ``ValueError`` when the saved tree
+    has another number of leaves, or a leaf another shape or dtype, than
+    the example has a tensor leaf."""
     wait_for_inflight(ckpt_dir)
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
@@ -140,7 +151,7 @@ def restore(ckpt_dir, step: int, example_tree: Any, device=None) -> Any:
         raise ValueError(f"tree structure changed: {len(manifest['leaves'])} "
                          f"leaves saved, {len(flat)} in the example")
     loaded = []
-    for meta, example in zip(manifest["leaves"], flat):
+    for i, (meta, example) in enumerate(zip(manifest["leaves"], flat)):
         if isinstance(example, torch.Tensor) and (
                 list(example.shape) != meta["shape"]
                 or _dtype_name(example.dtype) != meta["dtype"]):
@@ -149,8 +160,11 @@ def restore(ckpt_dir, step: int, example_tree: Any, device=None) -> Any:
                              f"example has {list(example.shape)} "
                              f"{_dtype_name(example.dtype)}")
         t = torch.load(d / f"{meta['name']}.pt", map_location="cpu",
-                       weights_only=True)
-        loaded.append(t if device is None else t.to(device))
+                       weights_only=True, mmap=place is not None)
+        if place is not None:
+            loaded.append(place(i, t))
+        else:
+            loaded.append(t if device is None else t.to(device))
     return tree_unflatten(example_tree, loaded)
 
 
@@ -185,6 +199,14 @@ class CheckpointManager:
         else:
             work()
 
+    def save_leaves(self, step: int, leaves: Iterable[Any],
+                    extra: Optional[dict] = None):
+        """Write ``leaves`` synchronously, one at a time
+        (:func:`save_leaves`), after any save in flight."""
+        self.wait()
+        save_leaves(self.dir, step, leaves, extra=extra)
+        self._gc()
+
     def _gc(self):
         steps = sorted(int(p.name.split("_")[1])
                        for p in self.dir.glob("step_*"))
@@ -195,9 +217,9 @@ class CheckpointManager:
         return latest_step(self.dir)
 
     def restore(self, example_tree: Any, device=None,
-                step: Optional[int] = None):
+                step: Optional[int] = None, place=None):
         self.wait()
         step = step if step is not None else self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoint to restore in {self.dir}")
-        return restore(self.dir, step, example_tree, device), step
+        return restore(self.dir, step, example_tree, device, place), step

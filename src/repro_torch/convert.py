@@ -8,7 +8,9 @@ the model stack's parameters (the decoder LMs' and the
 encoder-decoder's).  The functions here take them as plain data —
 numpy arrays, floats and dicts, e.g. ``dataclasses.asdict`` of the
 reference's ``Phase`` or ``jax.tree.map(np.asarray, params)`` — so the port
-never imports the JAX package.
+never imports the JAX package.  :func:`params_onto` carries an LM's tree
+onto a model built on a mesh: each rank keeps its shards by
+``sharding.spec_for``.
 """
 from __future__ import annotations
 
@@ -180,3 +182,17 @@ def encdec_params_from_reference(values: Mapping, cfg: ModelConfig):
                                f"{name}/b0[{i}]")
                     for i, blk in enumerate(want[key])]
     return out
+
+
+def params_onto(model, values: Mapping):
+    """The reference's LM or encoder-decoder parameters (numpy, as
+    :func:`lm_params_from_reference` and
+    :func:`encdec_params_from_reference` take them) as ``model`` holds
+    them: on its device, and on a mesh this rank's shard of each leaf by
+    its spec."""
+    from repro_torch.models.model import shard_params
+    cfg = model.cfg
+    full = (encdec_params_from_reference(values, cfg)
+            if cfg.arch_type == "encdec"
+            else lm_params_from_reference(values, cfg))
+    return shard_params(model, full)

@@ -2,12 +2,58 @@
 version on CPU tensors (differentiated by autograd), the CUDA kernels on CUDA
 tensors (the counterpart of the JAX package's ``kernels/flash/ops.py``).
 Under autograd the card runs :class:`FlashAttention`: the forward kernel,
-and the backward kernel for its gradient."""
+and the backward kernel for its gradient.  On ``meta`` tensors (the
+dry-run, ``launch/dryrun.py``) nothing runs: an empty output of the right
+shape, and the kernels' FLOPs and bytes added to the active count
+(``roofline.add_kernel``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch import roofline
 from repro_torch.kernels.flash import kernel, ref
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (q, k) pairs that a head's rows attend to: row i sees keys
+    0..i (causal), the last ``window`` of them (a window), or all."""
+    if not causal:
+        return sq * skv
+    seen = np.minimum(np.arange(1, sq + 1, dtype=np.int64), skv)
+    if window:
+        seen = np.minimum(seen, window)
+    return int(seen.sum())
+
+
+def cost(q, k, causal: bool, window: int, backward: bool = False):
+    """(FLOPs, bytes) of the forward (backward) kernel in the folded
+    layout: 4 (10) hd operations a visible pair; q, k, v read and the
+    output written (and dO read, dq, dk, dv written) once."""
+    pairs = q.shape[0] * visible_pairs(q.shape[1], k.shape[1], causal,
+                                       window)
+    elem = q.element_size()
+    if backward:
+        return 10 * pairs * q.shape[2], elem * (4 * q.numel()
+                                                + 4 * k.numel())
+    return 4 * pairs * q.shape[2], elem * (2 * q.numel() + 2 * k.numel())
+
+
+class _MetaFlash(torch.autograd.Function):
+    """The kernels on ``meta``: shapes, and the kernels' work counted."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.args = (q, k, causal, window)
+        roofline.add_kernel("flash_fwd", *cost(q, k, causal, window))
+        return torch.empty_like(q)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, causal, window = ctx.args
+        roofline.add_kernel("flash_bwd", *cost(q, k, causal, window, True))
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(k), None, None)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -68,6 +114,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if all(t.device.type == "cpu" for t in (q, k, v)):
         out = ref.reference_attention(qt, kt, vt, causal=causal,
                                       window=window, softcap=softcap)
+    elif q.is_meta:
+        out = _MetaFlash.apply(qt, kt, vt, causal, window)
     elif torch.is_grad_enabled() and any(t.requires_grad
                                          for t in (qt, kt, vt)):
         out = FlashAttention.apply(qt, kt, vt, causal, window, softcap,

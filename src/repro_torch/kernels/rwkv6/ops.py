@@ -1,11 +1,24 @@
 """Entry point of WKV6 in the model's layout: the plain chunked torch version
 on CPU tensors, the CUDA kernel on CUDA tensors (the counterpart of the JAX
-package's ``kernels/rwkv6/ops.py``)."""
+package's ``kernels/rwkv6/ops.py``).  On ``meta`` tensors (the dry-run)
+nothing runs: empty outputs, and the kernel's FLOPs and bytes added to the
+active count (``roofline.add_kernel``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.kernels.rwkv6 import kernel, ref
+
+
+def cost(r, log_w, u):
+    """(FLOPs, bytes): 4 hd^2 float32 operations a token and head; r, k,
+    v read and y written in r's dtype, log_w, u and the final state
+    float32, each once."""
+    b, s, h, hd = r.shape
+    return (4 * hd * hd * b * s * h,
+            4 * r.numel() * r.element_size() + 4 * log_w.numel()
+            + 4 * u.numel() + 4 * b * h * hd * hd)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -27,6 +40,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             "wkv6: the CUDA kernel has no backward yet (ROADMAP queue 2, "
             "F14); train rwkv6 on the CPU, or run under torch.no_grad()")
+    if r.is_meta:
+        roofline.add_kernel("wkv6", *cost(r, log_w, u))
+        b, s, h, hd = r.shape
+        return (torch.empty_like(r),
+                r.new_empty((b, h, hd, hd), dtype=torch.float32))
     return kernel.wkv6_fwd(r.contiguous(), k.contiguous(), v.contiguous(),
                            log_w.to(torch.float32).contiguous(),
                            u.to(torch.float32).contiguous())

@@ -13,6 +13,15 @@ the prompt) and the encoder-decoder (``whisper-large-v3``: random
 card by default (``--device cuda``); weights are random, drawn from a
 seeded ``torch.Generator``, and the stub front ends' embeddings from numpy
 seed 0.
+
+On a mesh (``--mesh D,M``, under ``torchrun --nproc-per-node D*M``; rank
+and world from the environment) each data group serves its rows of the
+batch (all of them where the batch does not divide over the data axis),
+the weights and caches laid out as ``models.model`` says, and every rank
+returns the whole batch's tokens; rank 0 prints.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --arch qwen3-moe-30b-a3b --smoke --device cpu --mesh 1,2
 """
 from __future__ import annotations
 
@@ -23,9 +32,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, sharding
 from repro_torch.configs.base import BLOCK_LOCAL, ModelConfig
-from repro_torch.models.model import build_model
+from repro_torch.launch.steps import to_device
+from repro_torch.models.model import (build_model, cache_specs,
+                                      decode_layout, local_batch)
 
 # self-attention caches grow to prompt + new tokens; cross-attention (ck/cv)
 # stays at the encoder's length
@@ -107,20 +118,44 @@ def serve_batch(model, params, prompts: np.ndarray, max_new: int,
         raise ValueError(f"{cfg.name} serves after its media: pass "
                          "media={'media_embed': (B, P_media, d)}")
     b, p_len = prompts.shape
-    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
-                                       device=model.device)}
-    for key, value in (media or {}).items():
-        batch[key] = torch.as_tensor(value, device=model.device)
+    batch = to_device(local_batch(model, {"tokens": prompts, **(media or {})}),
+                      model.device)
     caches, logits = model.prefill_fn(params, batch)
     start = decode_start(cfg, p_len)
     caches = pad_caches(caches, start + max_new, cfg)
+    caches = lay_out_caches(model, caches, batch, b, start + max_new, media)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     out: List[torch.Tensor] = []
     for i in range(max_new):
         out.append(tok[:, 0])
         caches, logits = model.decode_fn(params, caches, tok, start + i)
         tok = torch.argmax(logits[:, -1:], dim=-1)
-    return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+    tokens = torch.stack(out, dim=1)
+    if model.ctx is not None:
+        tokens = model.ctx.gather(tokens, (model.ctx.batch_entry(b), None))
+    return tokens.cpu().numpy().astype(np.int32)
+
+
+def lay_out_caches(model, caches, batch, b: int, total: int, media=None):
+    """On a mesh, the padded caches of a rank's rows (``batch``, the
+    ``sharding.LocalBatch`` they were computed from) kept by the
+    reference's ``cache_specs`` for ``b`` sequences of ``total``
+    positions (the sequence over the model axis where it
+    divides), as a ``sharding.LocalCaches`` that carries that layout to
+    decode (``models.model.decode_layout``).  The caches as they are
+    without a mesh."""
+    ctx = model.ctx
+    if ctx is None:
+        return caches
+    s = total
+    if model.cfg.arch_type == "encdec":
+        s = np.shape(media["audio_embed"])[1]
+    _, specs = cache_specs(model.cfg, b, s, ctx.mesh, ctx.axes, s_dec=total)
+    specs = decode_layout(specs)
+    return sharding.LocalCaches(
+        [{k: sharding.shard(v, ctx.mesh, spec[k]) for k, v in c.items()}
+         for c, spec in zip(caches, specs, strict=True)],
+        specs, sharded=batch.sharded)
 
 
 def stub_media(cfg: ModelConfig, batch: int, rng: np.random.Generator,
@@ -152,11 +187,22 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="serve on a D x M (data, model) mesh over the "
+                    "world torchrun starts (NCCL on the card, gloo with "
+                    "--device cpu)")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
     args = ap.parse_args(argv)
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    model = build_model(cfg, device=args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_local_mesh, parse_mesh
+        mesh = make_local_mesh(*parse_mesh(args.mesh), device=args.device)
+    model = build_model(cfg, device=args.device,
+                        dtype=getattr(torch, args.dtype), mesh=mesh)
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
 
     rng = np.random.default_rng(0)
@@ -168,10 +214,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     tokens = serve_batch(model, params, prompts, args.max_new, media)
     dt = time.perf_counter() - t0
-    print(f"[serve] {cfg.name} on {model.device}: {args.batch} requests x "
-          f"{args.max_new} new tokens in {dt:.2f}s "
-          f"({args.batch * args.max_new / dt:.1f} tok/s)")
-    print(tokens[:, :16])
+    if mesh is None or torch.distributed.get_rank() == 0:
+        where = f"a {args.mesh} mesh" if mesh is not None else model.device
+        print(f"[serve] {cfg.name} on {where}: {args.batch} requests x "
+              f"{args.max_new} new tokens in {dt:.2f}s "
+              f"({args.batch * args.max_new / dt:.1f} tok/s)")
+        print(tokens[:, :16])
+    return tokens
 
 
 if __name__ == "__main__":

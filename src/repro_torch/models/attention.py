@@ -33,6 +33,13 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.bfloat16,
     }
 
 
+def attention_axes():
+    return {"w_q": ("embed", "heads", "head_dim"),
+            "w_k": ("embed", "kv_heads", "head_dim"),
+            "w_v": ("embed", "kv_heads", "head_dim"),
+            "w_o": ("heads", "head_dim", "embed")}
+
+
 def _mask_bias(q_pos, k_pos, kind: str, window: int) -> torch.Tensor:
     """(q, k) additive mask bias in f32.  q_pos: (...,Sq), k_pos: (...,Sk)."""
     q = q_pos[..., :, None]

@@ -18,6 +18,11 @@ decoder's serving state is one dict per layer, ``{"sk", "sv"}`` (the
 self-attention's K/V, padded to prompt + new tokens by
 ``launch.serve.pad_caches``) and ``{"ck", "cv"}`` (the cross-attention's,
 at the encoder's length, never written).
+
+On a mesh (``ctx``, a ``sharding.MeshCtx``) the batch is the local shard,
+each layer gathers its leaves at use (``transformer.gather_block``) and the
+loss is the global mean, as in ``models/transformer.py``; the reference
+pins its activations' layout with ``ctx.bconstrain``.
 """
 from __future__ import annotations
 
@@ -27,9 +32,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (dense_init, init_mlp, mlp_forward,
-                                       rms_norm)
-from repro_torch.models.transformer import (_remat, embed_tokens,
+from repro_torch.models.layers import (dense_init, init_mlp, mlp_axes,
+                                       mlp_forward, rms_norm)
+from repro_torch.models.transformer import (_leaf, _placed, _remat,
+                                            embed_tokens, gather_block,
+                                            gathered_caches, kept_caches,
                                             masked_cross_entropy, unembed)
 
 
@@ -63,22 +70,43 @@ def init_dec_block(gen, cfg: ModelConfig, dtype=torch.bfloat16,
     }
 
 
+def encdec_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`init_encdec`'s leaves, leaf for leaf (a
+    scan leaf's without its leading ``"layers"``)."""
+    attn_ax = attn.attention_axes()
+    enc = {"norm_attn": ("embed",), "attn": attn_ax, "norm_mlp": ("embed",),
+           "mlp": mlp_axes()}
+    dec = {"norm_self": ("embed",), "self_attn": attn_ax,
+           "norm_cross": ("embed",), "cross_attn": attn_ax,
+           "norm_mlp": ("embed",), "mlp": mlp_axes()}
+    return {"embed": ("vocab", "embed"),
+            "enc_blocks": [enc] * cfg.num_layers, "enc_norm": ("embed",),
+            "dec_blocks": [dec] * cfg.num_decoder_layers,
+            "final_norm": ("embed",), "lm_head": ("embed", "vocab")}
+
+
 def init_encdec(gen, cfg: ModelConfig, dtype=torch.bfloat16,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", place=None) -> Dict[str, Any]:
     """Full encoder-decoder params, drawn from the generator ``gen`` (on
-    ``device``); on the ``meta`` device, shapes and dtypes only."""
+    ``device``); on the ``meta`` device, shapes and dtypes only.
+    ``place`` as ``transformer.init_lm`` takes it."""
     kw = dict(dtype=dtype, device=device)
     f32 = dict(dtype=torch.float32, device=device)
+    ax = encdec_axes(cfg)
     return {
-        "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1,
-                            **kw),
-        "enc_blocks": [init_enc_block(gen, cfg, **kw)
-                       for _ in range(cfg.num_layers)],
-        "enc_norm": torch.zeros((cfg.d_model,), **f32),
-        "dec_blocks": [init_dec_block(gen, cfg, **kw)
-                       for _ in range(cfg.num_decoder_layers)],
-        "final_norm": torch.zeros((cfg.d_model,), **f32),
-        "lm_head": dense_init(gen, (cfg.d_model, cfg.vocab_size), **kw),
+        "embed": _placed(place, dense_init(
+            gen, (cfg.vocab_size, cfg.d_model), in_axis=1, **kw),
+            ax["embed"]),
+        "enc_blocks": [_placed(place, init_enc_block(gen, cfg, **kw), a)
+                       for a in ax["enc_blocks"]],
+        "enc_norm": _placed(place, torch.zeros((cfg.d_model,), **f32),
+                            ax["enc_norm"]),
+        "dec_blocks": [_placed(place, init_dec_block(gen, cfg, **kw), a)
+                       for a in ax["dec_blocks"]],
+        "final_norm": _placed(place, torch.zeros((cfg.d_model,), **f32),
+                              ax["final_norm"]),
+        "lm_head": _placed(place, dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), **kw), ax["lm_head"]),
     }
 
 
@@ -87,7 +115,11 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=x.device)[None, :].expand(b, s)
 
 
-def run_encoder(params, audio_embed, cfg: ModelConfig):
+def _specs(ctx, key: str, n: int):
+    return [None] * n if ctx is None else ctx.specs[key]
+
+
+def run_encoder(params, audio_embed, cfg: ModelConfig, ctx=None):
     """The encoder stack over (B, S_enc, d) frame embeddings -> its normed
     output in the weights' dtype.  Under autograd each layer runs through
     ``transformer._remat``, as the reference's scan body does."""
@@ -95,7 +127,8 @@ def run_encoder(params, audio_embed, cfg: ModelConfig):
                        dtype=params["embed"].dtype)
     positions = _positions(x)
 
-    def layer(x, blk):
+    def layer(x, blk, spec):
+        blk = gather_block(blk, spec, ctx)
         h = rms_norm(x, blk["norm_attn"], cfg.norm_eps)
         a, _, _ = attn.attention_forward_kv(blk["attn"], h, cfg,
                                             mask_kind="none",
@@ -105,13 +138,16 @@ def run_encoder(params, audio_embed, cfg: ModelConfig):
         return x + mlp_forward(blk["mlp"], h, cfg.act)
 
     body = _remat(layer, cfg) if torch.is_grad_enabled() else layer
-    for blk in params["enc_blocks"]:
-        x = body(x, blk)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    for blk, spec in zip(params["enc_blocks"],
+                         _specs(ctx, "enc_blocks", cfg.num_layers)):
+        x = body(x, blk, spec)
+    return rms_norm(x, _leaf(params, "enc_norm", ctx), cfg.norm_eps)
 
 
-def _dec_layer(blk, x, enc_out, positions, cfg: ModelConfig):
+def _dec_layer(blk, x, enc_out, positions, cfg: ModelConfig, ctx=None,
+               spec=None):
     """One decoder block, full sequence -> (x, its four caches)."""
+    blk = gather_block(blk, spec, ctx)
     h = rms_norm(x, blk["norm_self"], cfg.norm_eps)
     a, sk, sv = attn.attention_forward_kv(blk["self_attn"], h, cfg,
                                           mask_kind="causal",
@@ -128,56 +164,61 @@ def _dec_layer(blk, x, enc_out, positions, cfg: ModelConfig):
 
 
 def run_decoder(params, tokens, enc_out, cfg: ModelConfig,
-                collect_cache: bool = False):
+                collect_cache: bool = False, ctx=None):
     """The decoder stack over ``tokens`` (B, S) with cross-attention to
     ``enc_out`` -> (normed x, per-layer caches or None).  Under autograd
     (and not collecting caches) each layer runs through
     ``transformer._remat``."""
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
     positions = _positions(x)
 
-    def layer(x, blk, enc_out):
-        return _dec_layer(blk, x, enc_out, positions, cfg)[0]
+    def layer(x, blk, enc_out, spec):
+        return _dec_layer(blk, x, enc_out, positions, cfg, ctx, spec)[0]
 
     body = layer
     if torch.is_grad_enabled() and not collect_cache:
         body = _remat(layer, cfg)
     caches = []
-    for blk in params["dec_blocks"]:
+    for blk, spec in zip(params["dec_blocks"],
+                         _specs(ctx, "dec_blocks", cfg.num_decoder_layers)):
         if collect_cache:
-            x, cache = _dec_layer(blk, x, enc_out, positions, cfg)
+            x, cache = _dec_layer(blk, x, enc_out, positions, cfg, ctx, spec)
             caches.append(cache)
         else:
-            x = body(x, blk, enc_out)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x = body(x, blk, enc_out, spec)
+    x = rms_norm(x, _leaf(params, "final_norm", ctx), cfg.norm_eps)
     return x, (caches if collect_cache else None)
 
 
-def encdec_loss(params, batch, cfg: ModelConfig):
+def encdec_loss(params, batch, cfg: ModelConfig, ctx=None):
     """(loss, metrics ``ce_loss`` and ``tokens``) on ``audio_embed``,
     ``tokens`` and ``targets`` (-1: no target)."""
-    enc_out = run_encoder(params, batch["audio_embed"], cfg)
-    x, _ = run_decoder(params, batch["tokens"], enc_out, cfg)
-    loss, denom = masked_cross_entropy(params, x, batch["targets"], cfg)
+    enc_out = run_encoder(params, batch["audio_embed"], cfg, ctx)
+    x, _ = run_decoder(params, batch["tokens"], enc_out, cfg, ctx=ctx)
+    loss, denom = masked_cross_entropy(params, x, batch["targets"], cfg, ctx)
     return loss, {"ce_loss": loss, "tokens": denom}
 
 
-def encdec_prefill(params, batch, cfg: ModelConfig):
+def encdec_prefill(params, batch, cfg: ModelConfig, ctx=None):
     """Encoder, then the decoder prompt pass: returns (caches,
     last-position logits (B, 1, V) f32)."""
-    enc_out = run_encoder(params, batch["audio_embed"], cfg)
+    enc_out = run_encoder(params, batch["audio_embed"], cfg, ctx)
     x, caches = run_decoder(params, batch["tokens"], enc_out, cfg,
-                            collect_cache=True)
-    return caches, unembed(params, x[:, -1:], cfg)
+                            collect_cache=True, ctx=ctx)
+    return caches, unembed(params, x[:, -1:], cfg, ctx)
 
 
-def encdec_decode(params, caches, token, pos: int, cfg: ModelConfig):
+def encdec_decode(params, caches, token, pos: int, cfg: ModelConfig,
+                  ctx=None):
     """One-token decode.  token: (B, 1); caches: one ``{"sk", "sv", "ck",
     "cv"}`` dict per decoder layer, the self-attention's updated in place.
     Returns (caches, logits (B, 1, V) f32)."""
-    x = embed_tokens(params, token, cfg)
+    x = embed_tokens(params, token, cfg, ctx)
     new = []
-    for blk, cache in zip(params["dec_blocks"], caches, strict=True):
+    for blk, cache, spec in zip(
+            params["dec_blocks"], gathered_caches(caches, ctx),
+            _specs(ctx, "dec_blocks", cfg.num_decoder_layers), strict=True):
+        blk = gather_block(blk, spec, ctx)
         h = rms_norm(x, blk["norm_self"], cfg.norm_eps)
         a, sk, sv = attn.attention_decode(blk["self_attn"], h, cache["sk"],
                                           cache["sv"], pos, cfg,
@@ -191,5 +232,5 @@ def encdec_decode(params, caches, token, pos: int, cfg: ModelConfig):
         h = rms_norm(x, blk["norm_mlp"], cfg.norm_eps)
         x = x + mlp_forward(blk["mlp"], h, cfg.act)
         new.append({"sk": sk, "sv": sv, "ck": cache["ck"], "cv": cache["cv"]})
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return new, unembed(params, x, cfg)
+    x = rms_norm(x, _leaf(params, "final_norm", ctx), cfg.norm_eps)
+    return kept_caches(new, caches, ctx), unembed(params, x, cfg, ctx)

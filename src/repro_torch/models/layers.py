@@ -3,8 +3,11 @@
 Every function keeps the reference's numerics: norms, RoPE and the soft-cap
 run in float32 and cast back to the input's dtype; matrix products run in
 the working dtype (bf16 products accumulate in float32 on both devices).
-The logical-axis ``LP`` convention belongs to sharding and is not ported:
-parameters are plain tensors in dicts.
+Parameters are plain tensors in dicts, PyTorch's idiom; the logical axes
+that the reference's ``LP`` leaves carry are a parallel tree of tuples
+(``*_axes`` next to each ``init_*``, gathered by
+``models.model.param_axes``), which ``sharding.spec_for`` resolves on a
+mesh.
 """
 from __future__ import annotations
 
@@ -105,6 +108,11 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype=torch.bfloat16,
         "w_up": dense_init(gen, (d_model, d_ff), dtype=dtype, device=device),
         "w_down": dense_init(gen, (d_ff, d_model), dtype=dtype, device=device),
     }
+
+
+def mlp_axes():
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
 
 
 def mlp_forward(params, x: torch.Tensor, act_name: str) -> torch.Tensor:

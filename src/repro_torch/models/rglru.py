@@ -45,6 +45,14 @@ def init_rglru_block(gen, cfg: ModelConfig, dtype=torch.bfloat16,
     }
 
 
+def rglru_axes(cfg: ModelConfig):
+    rnn = "rnn" if cfg.shard_rnn else None
+    return {"w_in_x": ("embed", rnn), "w_in_gate": ("embed", rnn),
+            "conv_w": ("conv", rnn), "conv_b": (rnn,), "w_a": (rnn, rnn),
+            "b_a": (rnn,), "w_x": (rnn, rnn), "b_x": (rnn,),
+            "lambda_p": (rnn,), "w_out": (rnn, "embed")}
+
+
 def _conv1d(p, y, tail=None):
     """Causal depthwise conv of width W.  y: (B, S, dr); tail:
     (B, W - 1, dr).  Returns (out, new tail), in y's dtype."""

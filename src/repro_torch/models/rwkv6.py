@@ -49,6 +49,22 @@ def init_time_mix(gen, cfg: ModelConfig, dtype=torch.bfloat16,
     }
 
 
+def time_mix_axes(cfg: ModelConfig):
+    rnn = "rnn" if cfg.shard_rnn else None
+    return {"mu_x": ("embed",), "mu": (None, "embed"),
+            "mix_a": ("embed", "lora"), "mix_b": (None, "lora", "embed"),
+            "w0": (rnn, "head_dim"), "w_a": ("embed", "lora"),
+            "w_b": ("lora", "embed"), "u": (rnn, "head_dim"),
+            "w_r": ("embed", rnn), "w_k": ("embed", rnn),
+            "w_v": ("embed", rnn), "w_g": ("embed", rnn),
+            "w_o": (rnn, "embed"), "ln_w": (rnn,), "ln_b": (rnn,)}
+
+
+def channel_mix_axes():
+    return {"mu_k": ("embed",), "mu_r": ("embed",), "w_k": ("embed", "mlp"),
+            "w_v": ("mlp", "embed"), "w_r": ("embed", "embed")}
+
+
 def init_channel_mix(gen, cfg: ModelConfig, dtype=torch.bfloat16,
                      device="cuda"):
     d, f = cfg.d_model, cfg.d_ff

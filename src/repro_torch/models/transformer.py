@@ -17,6 +17,15 @@ the token embeddings), the training loss (:func:`lm_loss`, with
 ``cfg.remat`` around each period of the block pattern), prefill and decode,
 with a ring cache for the local layers under ``cfg.window_kv_cache``.  The
 encoder-decoder is ``models/encdec.py``.
+
+On a mesh (``ctx``, a ``sharding.MeshCtx``) every function takes the local
+batch shard and the parameters' local shards: each block gathers its dense
+leaves at use and hands the MoE block its local expert shards
+(``moe.moe_forward``); the loss sums its token counts and NLL over the
+batch axes; decode gathers each cache leaf by the layout the caches carry
+(``sharding.LocalCaches``) at use and keeps its shard of the result.
+Where the reference pins the activations' layout (``Ctx.bconstrain``), the
+port's activations are the local batch shard by construction.
 """
 from __future__ import annotations
 
@@ -26,14 +35,15 @@ from typing import Any, Dict, List
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_MOE,
                                       BLOCK_REC, BLOCK_RWKV, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv_lib
-from repro_torch.models.layers import (dense_init, init_mlp, mlp_forward,
-                                       rms_norm, softcap)
+from repro_torch.models.layers import (dense_init, init_mlp, mlp_axes,
+                                       mlp_forward, rms_norm, softcap)
 
 _ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_MOE)
 _KINDS = _ATTN_KINDS + (BLOCK_RWKV, BLOCK_REC)
@@ -75,31 +85,93 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype=torch.bfloat16,
     return p
 
 
-def init_lm(gen, cfg: ModelConfig, dtype=torch.bfloat16,
-            device="cuda") -> Dict[str, Any]:
-    """Full LM params, drawn from the generator ``gen`` (on ``device``); on
-    the ``meta`` device, shapes and dtypes only (``gen`` may be None)."""
-    check_config(cfg)
-    params: Dict[str, Any] = {
-        "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1,
-                            dtype=dtype, device=device),
-        "blocks": [init_block(gen, kind, cfg, dtype, device)
-                   for kind in cfg.layer_kinds()],
-        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                  device=device),
+def block_axes(kind: str, cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`init_block`'s leaves."""
+    _check_kind(kind)
+    axes: Dict[str, Any] = {"norm_attn": ("embed",), "norm_mlp": ("embed",)}
+    if kind in _ATTN_KINDS:
+        axes["attn"] = attn.attention_axes()
+    if kind == BLOCK_MOE:
+        axes["moe"] = moe_lib.moe_axes(cfg)
+    elif kind == BLOCK_RWKV:
+        axes["time_mix"] = rwkv_lib.time_mix_axes(cfg)
+        axes["channel_mix"] = rwkv_lib.channel_mix_axes()
+    elif kind == BLOCK_REC:
+        axes["rec"] = rglru_lib.rglru_axes(cfg)
+        axes["mlp"] = mlp_axes()
+    else:
+        axes["mlp"] = mlp_axes()
+    return axes
+
+
+def lm_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`init_lm`'s leaves, leaf for leaf: the
+    reference's ``LP`` axes (a scan leaf's without its leading
+    ``"layers"``, which maps to no mesh axis)."""
+    axes: Dict[str, Any] = {
+        "embed": ("vocab", "embed"),
+        "blocks": [block_axes(kind, cfg) for kind in cfg.layer_kinds()],
+        "final_norm": ("embed",),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                       dtype=dtype, device=device)
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def _placed(place, tree, axes):
+    return tree if place is None else place(tree, axes)
+
+
+def init_lm(gen, cfg: ModelConfig, dtype=torch.bfloat16,
+            device="cuda", place=None) -> Dict[str, Any]:
+    """Full LM params, drawn from the generator ``gen`` (on ``device``); on
+    the ``meta`` device, shapes and dtypes only (``gen`` may be None).
+    ``place(subtree, axes)``, when given, maps each top-level leaf and
+    each block to what is kept (a mesh rank's shards) as soon as it is
+    drawn, so that one block at a time is whole."""
+    check_config(cfg)
+    axes = lm_axes(cfg)
+    params: Dict[str, Any] = {
+        "embed": _placed(place, dense_init(
+            gen, (cfg.vocab_size, cfg.d_model), in_axis=1, dtype=dtype,
+            device=device), axes["embed"]),
+        "blocks": [_placed(place, init_block(gen, kind, cfg, dtype, device),
+                           ax)
+                   for kind, ax in zip(cfg.layer_kinds(), axes["blocks"])],
+        "final_norm": _placed(place, torch.zeros(
+            (cfg.d_model,), dtype=torch.float32, device=device),
+            axes["final_norm"]),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _placed(place, dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype=dtype, device=device),
+            axes["lm_head"])
     return params
+
+
+def gather_block(p, spec, ctx):
+    """A block's leaves gathered at use on a mesh, but the MoE experts'
+    weights, which stay this rank's shards (``moe_forward`` gathers them
+    over the data axis only)."""
+    if ctx is None:
+        return p
+    out = {k: ctx.gather_tree(v, spec[k]) for k, v in p.items()
+           if k != "moe"}
+    if "moe" in p:
+        out["moe"] = {k: v if k in moe_lib.EXPERT_LEAVES
+                      else ctx.gather_tree(v, spec["moe"][k])
+                      for k, v in p["moe"].items()}
+    return out
 
 
 # ------------------------------------------------------------------- forward
 def block_train(p, kind: str, x, positions, cfg: ModelConfig,
-                return_kv: bool = False):
+                return_kv: bool = False, ctx=None, spec=None):
     """One block, full-sequence.  Returns (x, stats, cache_or_None), the
-    cache packed as ``block_decode`` takes it."""
+    cache packed as ``block_decode`` takes it.  On a mesh ``p`` holds the
+    block's local shards and ``spec`` their specs."""
     _check_kind(kind)
+    p = gather_block(p, spec, ctx)
     stats = {}
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
@@ -121,18 +193,22 @@ def block_train(p, kind: str, x, positions, cfg: ModelConfig,
         x = x + a
         h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
         if kind == BLOCK_MOE:
-            y, stats = moe_lib.moe_forward(p["moe"], h, cfg, cfg.act)
+            y, stats = moe_lib.moe_forward(
+                p["moe"], h, cfg, cfg.act, ctx=ctx,
+                spec=None if ctx is None else spec["moe"])
         else:
             y = mlp_forward(p["mlp"], h, cfg.act)
         cache = {"k": k_c, "v": v_c}
     return x + y, stats, (cache if return_kv else None)
 
 
-def block_decode(p, kind: str, x, cache, pos: int, cfg: ModelConfig):
+def block_decode(p, kind: str, x, cache, pos: int, cfg: ModelConfig,
+                 ctx=None, spec=None):
     """One block, one-token decode; a K/V cache is updated in place (a ring
     for a local layer under ``cfg.window_kv_cache``), the recurrent state is
     replaced.  Returns (x, cache)."""
     _check_kind(kind)
+    p = gather_block(p, spec, ctx)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
         y, (wkv, tm_last) = rwkv_lib.time_mix_step(
@@ -157,7 +233,8 @@ def block_decode(p, kind: str, x, cache, pos: int, cfg: ModelConfig):
     x = x + a
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     if kind == BLOCK_MOE:
-        y, _ = moe_lib.moe_forward(p["moe"], h, cfg, cfg.act)
+        y, _ = moe_lib.moe_forward(p["moe"], h, cfg, cfg.act, ctx=ctx,
+                                   spec=None if ctx is None else spec["moe"])
     else:
         y = mlp_forward(p["mlp"], h, cfg.act)
     return x + y, {"k": ck, "v": cv}
@@ -200,7 +277,7 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def run_stack(params, x, positions, cfg: ModelConfig,
-              collect_cache: bool = False):
+              collect_cache: bool = False, ctx=None):
     """All blocks in order.  Returns (x, stats, caches).
 
     Stats as the reference's scan gives them: the aux loss summed over
@@ -212,13 +289,15 @@ def run_stack(params, x, positions, cfg: ModelConfig,
     period = cfg.pattern_period
     n_periods = len(kinds) // period
     blocks = params["blocks"]
+    specs = [None] * len(kinds) if ctx is None else ctx.specs["blocks"]
     caches: List[Dict[str, torch.Tensor]] = []
 
     def period_fn(x, i):
         sts = []
         for j in range(i * period, (i + 1) * period):
             x, st, cache = block_train(blocks[j], kinds[j], x, positions, cfg,
-                                       return_kv=collect_cache)
+                                       return_kv=collect_cache, ctx=ctx,
+                                       spec=specs[j])
             sts.append(st)
             if collect_cache:
                 caches.append(cache)
@@ -234,7 +313,8 @@ def run_stack(params, x, positions, cfg: ModelConfig,
     tail_stats = []
     for j in range(n_periods * period, len(kinds)):
         x, st, cache = block_train(blocks[j], kinds[j], x, positions, cfg,
-                                   return_kv=collect_cache)
+                                   return_kv=collect_cache, ctx=ctx,
+                                   spec=specs[j])
         tail_stats.append(st)
         if collect_cache:
             caches.append(cache)
@@ -248,8 +328,19 @@ def run_stack(params, x, positions, cfg: ModelConfig,
 
 
 # ----------------------------------------------------------------- embedding
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens]
+def _leaf(params, name: str, ctx):
+    """A top-level leaf, gathered on a mesh."""
+    t = params[name]
+    return t if ctx is None else ctx.gather(t, ctx.specs[name])
+
+
+def _head(params, cfg: ModelConfig, ctx):
+    return _leaf(params, "embed", ctx).T if cfg.tie_embeddings \
+        else _leaf(params, "lm_head", ctx)
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig, ctx=None):
+    x = _leaf(params, "embed", ctx)[tokens]
     if cfg.tie_embeddings:
         scale = torch.sqrt(torch.tensor(float(cfg.d_model),
                                         dtype=torch.float32))
@@ -257,18 +348,18 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
     return x
 
 
-def unembed(params, x, cfg: ModelConfig):
-    table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def unembed(params, x, cfg: ModelConfig, ctx=None):
+    table = _head(params, cfg, ctx)
     logits = torch.einsum("bsd,dv->bsv", x, table).to(torch.float32)
     return softcap(logits, cfg.final_softcap)
 
 
-def lm_inputs(params, batch, cfg: ModelConfig):
+def lm_inputs(params, batch, cfg: ModelConfig, ctx=None):
     """Token embedding (after the stub vision front end's ``media_embed``
     (B, P_media, d), cast to the embeddings' dtype, where the config has
     one) -> (x, positions), positions running over media and text."""
     check_config(cfg)
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, ctx)
     if cfg.frontend == "vision" and "media_embed" in batch:
         media = batch["media_embed"].to(device=x.device, dtype=x.dtype)
         x = torch.cat([media, x], dim=1)
@@ -292,13 +383,16 @@ def _ce_piece(x, targets, table, cfg: ModelConfig):
     return nll.sum(), mask.sum()
 
 
-def masked_cross_entropy(params, x, targets, cfg: ModelConfig):
+def masked_cross_entropy(params, x, targets, cfg: ModelConfig, ctx=None):
     """CE over the vocab without a one-hot: logsumexp - label logit, over
     the tokens whose target is >= 0.  Returns (mean nll, token count).
 
     With cfg.ce_chunk > 0 the sequence is processed in chunks, so the f32
-    (B, chunk, V) logits tile replaces the full (B, S, V) one."""
-    table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    (B, chunk, V) logits tile replaces the full (B, S, V) one.  On a mesh
+    the count is summed over the batch axes, and the mean is the global
+    one: each rank's NLL over the global count, summed over the batch
+    axes with an identity gradient."""
+    table = _head(params, cfg, ctx)
     s = x.shape[1]
     if cfg.ce_chunk and s > cfg.ce_chunk:
         pieces = [_ce_piece(x[:, lo:lo + cfg.ce_chunk],
@@ -308,26 +402,30 @@ def masked_cross_entropy(params, x, targets, cfg: ModelConfig):
         cnt = functools.reduce(torch.add, (p[1] for p in pieces))
     else:
         nll, cnt = _ce_piece(x, targets, table, cfg)
+    if ctx is not None:
+        cnt = sharding.all_reduce_(cnt.clone(), ctx.mesh, ctx.reduce_axes)
     denom = torch.clamp_min(cnt, 1)
+    if ctx is not None:
+        return sharding.psum(nll / denom, ctx.mesh, ctx.reduce_axes), denom
     return nll / denom, denom
 
 
-def lm_loss(params, batch, cfg: ModelConfig):
+def lm_loss(params, batch, cfg: ModelConfig, ctx=None):
     """The training loss: (loss, metrics), metrics ``ce_loss``, ``tokens``
     and, for MoE, ``moe_aux_loss`` and ``expert_counts`` (periods, E); the
     loss adds 0.01 of the aux loss to the cross-entropy, as the reference.
     ``batch``: ``tokens`` and ``targets`` (B, S) integer tensors on the
     params' device, and for the vision front end ``media_embed``, whose
     positions take no target (-1)."""
-    x, positions = lm_inputs(params, batch, cfg)
-    x, stats, _ = run_stack(params, x, positions, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x, positions = lm_inputs(params, batch, cfg, ctx)
+    x, stats, _ = run_stack(params, x, positions, cfg, ctx=ctx)
+    x = rms_norm(x, _leaf(params, "final_norm", ctx), cfg.norm_eps)
     targets = batch["targets"]
     if cfg.frontend == "vision" and "media_embed" in batch:
         pad = targets.new_full((targets.shape[0],
                                 batch["media_embed"].shape[1]), -1)
         targets = torch.cat([pad, targets], dim=1)
-    loss, denom = masked_cross_entropy(params, x, targets, cfg)
+    loss, denom = masked_cross_entropy(params, x, targets, cfg, ctx)
     metrics = {"ce_loss": loss, "tokens": denom}
     if "aux_loss" in stats:
         metrics["moe_aux_loss"] = stats["aux_loss"]
@@ -337,22 +435,48 @@ def lm_loss(params, batch, cfg: ModelConfig):
 
 
 # ------------------------------------------------------------------- serving
-def lm_prefill(params, batch, cfg: ModelConfig):
-    """Prompt pass: returns (caches, last-position logits (B, 1, V) f32)."""
-    x, positions = lm_inputs(params, batch, cfg)
-    x, _, caches = run_stack(params, x, positions, cfg, collect_cache=True)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return caches, unembed(params, x[:, -1:], cfg)
+def lm_prefill(params, batch, cfg: ModelConfig, ctx=None):
+    """Prompt pass: returns (caches, last-position logits (B, 1, V) f32).
+    On a mesh the caches are the local batch's, whole along the sequence
+    (``launch.serve`` lays them out)."""
+    x, positions = lm_inputs(params, batch, cfg, ctx)
+    x, _, caches = run_stack(params, x, positions, cfg, collect_cache=True,
+                             ctx=ctx)
+    x = rms_norm(x, _leaf(params, "final_norm", ctx), cfg.norm_eps)
+    return caches, unembed(params, x[:, -1:], cfg, ctx)
 
 
-def lm_decode(params, caches, token, pos: int, cfg: ModelConfig):
+def gathered_caches(caches, ctx):
+    """Each cache leaf whole at use on a mesh, by the layout the caches
+    carry (``sharding.LocalCaches``); the caches as they are otherwise."""
+    specs = getattr(caches, "specs", None)
+    if ctx is None or specs is None:
+        return caches
+    return [{k: ctx.gather(v, spec[k]) for k, v in c.items()}
+            for c, spec in zip(caches, specs, strict=True)]
+
+
+def kept_caches(new, caches, ctx):
+    """This rank's shards of the whole caches ``new``, laid out as
+    ``caches`` (the decode's input) are."""
+    specs = getattr(caches, "specs", None)
+    if ctx is None or specs is None:
+        return new
+    return caches.like(
+        [{k: sharding.shard(v, ctx.mesh, spec[k]) for k, v in c.items()}
+         for c, spec in zip(new, specs, strict=True)])
+
+
+def lm_decode(params, caches, token, pos: int, cfg: ModelConfig, ctx=None):
     """One-token decode.  token: (B, 1) integer; pos: int.  The caches are
     updated in place and returned with the logits (B, 1, V) f32."""
-    x = embed_tokens(params, token, cfg)
+    x = embed_tokens(params, token, cfg, ctx)
+    specs = [None] * cfg.num_layers if ctx is None else ctx.specs["blocks"]
     new = []
-    for p, kind, cache in zip(params["blocks"], cfg.layer_kinds(), caches,
-                              strict=True):
-        x, c = block_decode(p, kind, x, cache, pos, cfg)
+    for p, kind, cache, spec in zip(params["blocks"], cfg.layer_kinds(),
+                                    gathered_caches(caches, ctx), specs,
+                                    strict=True):
+        x, c = block_decode(p, kind, x, cache, pos, cfg, ctx=ctx, spec=spec)
         new.append(c)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return new, unembed(params, x, cfg)
+    x = rms_norm(x, _leaf(params, "final_norm", ctx), cfg.norm_eps)
+    return kept_caches(new, caches, ctx), unembed(params, x, cfg, ctx)

@@ -15,7 +15,10 @@ as the reference reads it.  :meth:`AdamW.state_leaves` and
 :meth:`AdamW.load_state_leaves` give and take the state, the reference's
 ``AdamWState(step, m, v)``, as flat lists in the order of the parameters the
 optimizer was given: the LM trainer checkpoints it that way and permutes
-the moments of re-placed experts with the experts.
+the moments of re-placed experts with the experts.  On a mesh each rank
+updates its shards (every step but the clipping is elementwise), and
+``norm_reduce`` sums each leaf's squares over the mesh axes it is sharded
+on, so that the clipping norm is the whole model's.
 """
 from __future__ import annotations
 
@@ -25,19 +28,27 @@ import numpy as np
 import torch
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
-                          for t in tensors))
+def global_norm(tensors, reduce=None) -> torch.Tensor:
+    """The L2 norm of all ``tensors``; ``reduce(i, s)``, when given, maps
+    tensor i's sum of squares to the whole leaf's (a mesh rank's shard
+    summed over the axes it is sharded on)."""
+    if reduce is None:
+        return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
+                              for t in tensors))
+    return torch.sqrt(sum(reduce(i, torch.sum(torch.square(
+        t.to(torch.float32)))) for i, t in enumerate(tensors)))
 
 
 class AdamW(torch.optim.Optimizer):
     def __init__(self, params, lr: Union[float, Callable[[int], float]], *,
                  b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.0, clip_norm: float = 1.0):
+                 weight_decay: float = 0.0, clip_norm: float = 1.0,
+                 norm_reduce=None):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
         self.clip_norm = clip_norm
+        self.norm_reduce = norm_reduce
         self.steps = 0
 
     @torch.no_grad()
@@ -49,7 +60,7 @@ class AdamW(torch.optim.Optimizer):
                  for g in self.param_groups for p in g["params"]}
         scale = 1.0
         if self.clip_norm:
-            gnorm = global_norm(grads.values())
+            gnorm = global_norm(grads.values(), self.norm_reduce)
             scale = torch.clamp(self.clip_norm
                                 / torch.clamp_min(gnorm, 1e-9), max=1.0)
         step = np.float32(self.steps)

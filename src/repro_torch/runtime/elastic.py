@@ -12,9 +12,10 @@ smaller rank count and warm-started via
 counterpart: fresh ranks appended to a phase's rank set mid-stream (a pod
 joins), defaulting to the median capacity/speed of the existing ranks so
 a join never manufactures an outlier.  :func:`resume_on_mesh` restores a
-trainer's checkpoint onto a device (one card holds the model, so the
-device takes the mesh's place); its imports are deferred so that the
-async simulator imports this module without the model stack.
+trainer's checkpoint onto a mesh, whichever mesh wrote it (checkpoints
+hold whole leaves; each rank reads its shard by the new mesh's specs), or
+onto one device; its imports are deferred so that the async simulator
+imports this module without the model stack.
 """
 from __future__ import annotations
 
@@ -26,31 +27,49 @@ import numpy as np
 from repro_torch.core.problem import Phase
 
 
-def resume_on_mesh(cfg, device, ckpt_dir, with_opt: bool = True) -> Tuple:
-    """Returns (model, params, opt_state_or_None, step) on ``device``, from
-    the latest checkpoint in ``ckpt_dir``: ``(params, opt_state)`` as
-    ``launch.train`` saves it, or params alone when ``with_opt`` is false.
+def resume_on_mesh(cfg, mesh, ckpt_dir, with_opt: bool = True,
+                   dtype=None) -> Tuple:
+    """Returns (model, params, opt_state_or_None, step) from the latest
+    checkpoint in ``ckpt_dir``: ``(params, opt_state)`` as ``launch.train``
+    saves it, or params alone when ``with_opt`` is false.  ``mesh`` is a
+    ``DeviceMesh`` (each rank takes its shards by that mesh's specs, as
+    the reference restores with another mesh's shardings) or a device (a
+    string or ``torch.device``: one device holds the model).
     ``opt_state`` is ``AdamW.state_leaves``' list (``load_state_leaves``
-    takes it).  The model is ``build_model``'s (bf16 weights, as the
-    trainer's); a checkpoint of another structure or dtype raises."""
+    takes it; on a mesh its moments are the rank's shards).  The model is
+    ``build_model``'s (bf16 weights, as the trainer's, unless ``dtype``
+    says otherwise); a checkpoint of another structure or dtype raises."""
     import torch
 
+    from repro_torch import sharding
     from repro_torch.checkpoint import CheckpointManager, tree_leaves
-    from repro_torch.models.model import build_model
-    from repro_torch.models.transformer import init_lm
+    from repro_torch.launch.steps import tree_leaves_specs
+    from repro_torch.models.model import abstract_params, build_model
 
-    model = build_model(cfg, device=device)
-    params_like = init_lm(None, cfg, dtype=model.dtype, device="meta")
+    on_device = isinstance(mesh, (str, torch.device))
+    kw = {} if dtype is None else {"dtype": dtype}
+    model = build_model(cfg, device=mesh, **kw) if on_device \
+        else build_model(cfg, device=mesh.device_type, mesh=mesh, **kw)
+    params_like = abstract_params(cfg, model.dtype)
     mgr = CheckpointManager(ckpt_dir)
+    place = None
+    if not on_device:
+        specs = tree_leaves_specs(model.ctx.specs)
+        # params, then the step, then m and v, each laid out as its param
+        order = specs + [()] + specs + specs
+
+        def place(i, t):
+            spec = order[i] if with_opt else specs[i]
+            return sharding.shard(t, mesh, spec).to(model.device, copy=True)
     if with_opt:
         leaves = tree_leaves(params_like)
         opt_like = ([torch.zeros((), dtype=torch.int32, device="meta")]
                     + [torch.empty(t.shape, dtype=torch.float32,
                                    device="meta") for t in leaves] * 2)
-        (params, opt_state), step = mgr.restore((params_like, opt_like),
-                                                model.device)
+        (params, opt_state), step = mgr.restore(
+            (params_like, opt_like), model.device, place=place)
         return model, params, opt_state, step
-    params, step = mgr.restore(params_like, model.device)
+    params, step = mgr.restore(params_like, model.device, place=place)
     return model, params, None, step
 
 

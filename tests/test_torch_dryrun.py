@@ -1,0 +1,186 @@
+"""Port parity, the dry-run: ``repro_torch.roofline`` against the JAX
+package's ``roofline.py``, and the port's counts of a smoke cell against a
+hand count from the shapes.
+
+- ``model_flops`` equals the reference's bit for bit on every (arch x
+  shape) cell; ``roofline_terms``, fed stats under the reference's keys and
+  the reference module's own constants, equals the reference's dict.
+- One subprocess (this file run as a script; the ``fake`` backend needs a
+  process group of its own) counts ``qwen3-moe-smoke``'s prefill of 4 x 32
+  tokens through ``launch.dryrun`` on the ``h100`` mesh and on a fake 2 x 2
+  mesh, and one MoE layer on the 2 x 2 mesh alone.  The FLOPs equal the
+  hand count: per layer the q, k, v and o products, the flash kernel's 4
+  hd a visible pair, the router's product and the three expert products
+  over the rank's E / M experts at the capacity of its T_loc tokens; the
+  last position's unembedding.  The MoE layer's collectives are its
+  schedule's: all-reduces of the (T_loc, d) float32 output over the model
+  axis and of the counts (E,) and the aux loss over the data axis, and the
+  data-axis all-gathers of the three expert shards.  A decode step on the
+  2 x 2 mesh keeps each rank's rows and quarter of the caches, and gathers
+  the caches' sequence over the model axis at use.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+B, S = 4, 32
+
+
+def test_model_flops_match_reference_bit_for_bit():
+    from repro import configs as r_configs
+    from repro import roofline as r_roofline
+
+    from repro_torch import configs, roofline
+    cells = list(configs.cells())
+    assert cells == list(r_configs.cells())
+    for arch, shape_name in cells:
+        got = roofline.model_flops(configs.get_config(arch),
+                                   configs.get_shape(shape_name))
+        want = r_roofline.model_flops(r_configs.get_config(arch),
+                                      r_configs.get_shape(shape_name))
+        assert got == want and type(got) is type(want), (arch, shape_name)
+
+
+@pytest.mark.parametrize("n_chips", [1, 256, 512])
+def test_roofline_terms_match_reference(n_chips):
+    from repro import configs as r_configs
+    from repro import roofline as r_roofline
+
+    from repro_torch import configs, roofline
+    rng = np.random.default_rng(n_chips)
+    for arch, shape_name in list(configs.cells())[::3]:
+        stats = {"flops": float(rng.uniform(1e12, 1e17)),
+                 "bytes_accessed": float(rng.uniform(1e9, 1e14)),
+                 "collective_bytes_total": int(rng.integers(0, 1e12))}
+        want = r_roofline.roofline_terms(
+            stats, r_configs.get_config(arch),
+            r_configs.get_shape(shape_name), n_chips)
+        got = roofline.roofline_terms(
+            stats, configs.get_config(arch), configs.get_shape(shape_name),
+            n_chips, peak=r_roofline.PEAK_FLOPS, hbm=r_roofline.HBM_BW,
+            link=r_roofline.LINK_BW)
+        assert got == want, (arch, shape_name)
+    # the port's own constants are the H100's
+    assert (roofline.PEAK_FLOPS, roofline.HBM_BW, roofline.LINK_BW) == (
+        989e12, 3.35e12, 450e9)
+
+
+def _count(out: str) -> None:
+    import torch
+
+    from repro_torch import configs, roofline, sharding
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import lower_cell
+    from repro_torch.models import moe
+
+    cfg = configs.get_smoke_config("qwen3-moe-30b-a3b")
+    shape = ShapeConfig("tiny_prefill", S, B, "prefill")
+    res = {"h100": lower_cell(cfg, shape, dryrun.make_mesh("h100")).analyze()}
+    dryrun.fake_world(4)
+    mesh = make_local_mesh(2, 2, device="cpu")
+    res["2x2"] = lower_cell(cfg, shape, mesh).analyze()
+    # a decode step over a full cache on the 2 x 2 mesh: each rank's rows,
+    # the cache's sequence gathered over the model axis at use
+    lowered = lower_cell(cfg, ShapeConfig("tiny_decode", S, B, "decode"),
+                         mesh)
+    res["2x2_decode"] = dict(lowered.analyze(),
+                             cache_bytes=lowered.memory["caches"])
+    # one MoE layer on the 2 x 2 mesh, bf16 weights, no gradient
+    axes = sharding.MeshAxes.for_mesh(mesh)
+    full = moe.init_moe(None, cfg, device="meta")
+    specs = {k: sharding.spec_for(mesh, axes, moe.moe_axes(cfg)[k],
+                                  tuple(v.shape)) for k, v in full.items()}
+    local = {k: torch.empty(sharding.local_shape(mesh, specs[k], v.shape),
+                            dtype=v.dtype, device="meta")
+             for k, v in full.items()}
+    ctx = sharding.MeshCtx(mesh, axes, specs)
+    x = torch.empty((B // 2, S, cfg.d_model), dtype=torch.bfloat16,
+                    device="meta")
+    with torch.no_grad(), roofline.Counter() as c:
+        moe.moe_forward(dict(local, router=torch.empty(
+            (cfg.d_model, cfg.num_experts), device="meta")), x, cfg, cfg.act,
+            ctx=ctx, spec=specs)
+    res["moe_layer"] = c.stats()
+    res["expert_shard_bytes"] = sum(
+        local[k].numel() * local[k].element_size()
+        for k in moe.EXPERT_LEAVES)
+    Path(out).write_text(json.dumps(res))
+
+
+@pytest.fixture(scope="module")
+def counted(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun") / "counts.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, __file__, str(out)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(out.read_text())
+
+
+def _hand_flops(cfg, data: int, model: int) -> int:
+    from repro_torch.models.moe import _capacity
+    b = B // data
+    t = b * S
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    e_loc = cfg.num_experts // model
+    pairs = S * (S + 1) // 2
+    per_layer = (2 * t * d * h * hd + 2 * 2 * t * d * hkv * hd
+                 + 4 * b * h * pairs * hd + 2 * t * h * hd * d
+                 + 2 * t * d * cfg.num_experts
+                 + 3 * 2 * e_loc * _capacity(cfg, t) * d * cfg.moe_d_ff)
+    return cfg.num_layers * per_layer + 2 * b * d * cfg.vocab_size
+
+
+@pytest.mark.parametrize("label,data,model", [("h100", 1, 1),
+                                              ("2x2", 2, 2)])
+def test_dryrun_flops_equal_hand_count(counted, label, data, model):
+    from repro_torch import configs
+    cfg = configs.get_smoke_config("qwen3-moe-30b-a3b")
+    st = counted[label]
+    assert st["flops"] == _hand_flops(cfg, data, model)
+    assert st["kernel_calls"] == {"flash_fwd": cfg.num_layers,
+                                  "expert_gemm_fwd": 3 * cfg.num_layers}
+    if label == "h100":
+        assert st["collective_bytes_total"] == 0
+    else:
+        assert st["collective_counts"]["all-reduce"] >= 3 * cfg.num_layers
+
+
+def test_decode_cell_on_a_mesh_gathers_its_caches(counted):
+    from repro_torch import configs
+    cfg = configs.get_smoke_config("qwen3-moe-30b-a3b")
+    st = counted["2x2_decode"]
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    # every layer's K and V: (B / 2) rows x (S / 2) positions a rank, bf16
+    local = cfg.num_layers * 2 * (B // 2) * (S // 2) * hkv * hd * 2
+    assert st["cache_bytes"] == local
+    assert st["kernel_calls"] == {"expert_gemm_fwd": 3 * cfg.num_layers}
+    # the caches' model-axis gathers, besides the weights'
+    assert st["collective_bytes"]["all-gather"] > local
+
+
+def test_moe_layer_collectives_follow_the_schedule(counted):
+    from repro_torch import configs
+    cfg = configs.get_smoke_config("qwen3-moe-30b-a3b")
+    st = counted["moe_layer"]
+    t_loc = (B // 2) * S
+    assert st["collective_counts"]["all-reduce"] == 3
+    assert st["collective_bytes"]["all-reduce"] == (
+        t_loc * cfg.d_model * 4 + cfg.num_experts * 4 + 4)
+    assert st["collective_counts"]["all-gather"] == 3
+    assert st["collective_bytes"]["all-gather"] == \
+        counted["expert_shard_bytes"]
+    assert st["collective_counts"]["reduce-scatter"] == 0
+
+
+if __name__ == "__main__":
+    _count(sys.argv[1])
