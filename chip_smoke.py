@@ -10,9 +10,10 @@ line):
 
 1. Print the python, torch and CUDA versions, the card, and the card's name
    and power limit as nvidia-smi reports them.
-2. Build the seven kernel sources (``src/repro_torch/csrc/``: the scorer,
+2. Build the eight kernel sources (``src/repro_torch/csrc/``: the scorer,
    the assembly tile, flash attention and its backward, the expert GEMM,
-   WKV6 and the RG-LRU scan) from the checkout's sources into ``build/``,
+   WKV6 and its backward, and the RG-LRU scan with its backward) from the
+   checkout's sources into ``build/``,
    one nvcc each, in parallel, and print the build seconds and ptxas's
    report; fail if ptxas spills registers in any kernel.
 3. Hold the scorer's two kernels against their plain torch versions on
@@ -54,15 +55,17 @@ line):
    (``spec_window=8`` and 32 scan/disjoint, 8 vmap/greedy), each run
    identical to f64 solo's CPU run, with window-kernel launches equal to
    the windows that scored a row and no pair or full-tile launch; and
-   ``ccm_lb_many`` of the JAX package's fleet benchmark (64 instances of a
-   16-rank, 400-task phase, window 64, vmap), each instance identical to
-   its solo run on the card's host engine.  Wall and stage seconds,
+   ``ccm_lb_many`` of the JAX package's fleet benchmark (cut to 16
+   instances of a 16-rank, 400-task phase, window 16, vmap), each instance
+   identical to its solo run on the card's host engine.  Wall and stage
+   seconds,
    windows, rollbacks and the window launcher's split are printed.  Then
    ``ccm_lb_pipeline`` over the JAX package's pipeline benchmark (256
-   ranks, 6 phases of drifting loads, batch 8) on the CPU and on the card
-   with ``reuse_csr``, with ``carry_engine``, and with ``carry_engine``
-   and ``spec_window=8``: each card run equal to the CPU's phase by phase,
-   CSR reuse, warm starts and engine carry on phases 1 to 5, the pair (or
+   ranks, cut to 2 phases of drifting loads, batch 8) on the CPU and on the
+   card with ``reuse_csr``, with ``carry_engine``, and with
+   ``carry_engine`` and ``spec_window=8``: each card run equal to the
+   CPU's phase by phase, CSR reuse, warm starts and engine carry on every
+   phase after the first, the pair (or
    window) kernel launched in every phase; per-phase seconds, transfers,
    launches and ``score``/``commit`` seconds are printed.  Last, the
    async balancer ``ccm_lb_async`` on ``scaling_phase(256)`` at latency 0
@@ -142,7 +145,8 @@ line):
    ``torch.profiler`` over ``PROFILE_DECODE_STEPS`` (8) more decode steps
    after a prefill of the same batch, the device's idle share (with bounds that count the
    kernels the profiler left unrecorded).  Last,
-   the same weights on the CPU against the card (TF32 off): a 64-token
+   the weights' first 4 layers on the CPU against the card (TF32 off): a
+   64-token
    prompt and 4 teacher-forced decode steps, each step's logits held to
    the serving contract (normalised log-probs within ``atol=0.07,
    rtol=0.05``, argmax equal), with the count of top-k router selections
@@ -228,8 +232,9 @@ line):
 7b. Training ``qwen3-moe-30b-a3b`` on the card.  Hold the flash backward
    kernel (``csrc/flash_attention_bwd.cu``, through ``ops.flash_attention``'s
    autograd function) against autograd through the plain version at every
-   ``FLASH_BWD_CASES`` shape (``FLASH_CASES`` before phase 6c's) in
-   float32 and bf16 (dq, dk, dv within 1e-4 and
+   ``FLASH_CASES`` shape, phase 6c's included (whisper's 1500-frame
+   encoder and its cross-attention, gemma2's global layer, llava's S 1664),
+   in float32 and bf16 (dq, dk, dv within 1e-4 and
    2e-2 of their largest |value|; where the backward runs on the tensor
    cores, bf16 at hd 64 and 128, also within 2^-7 of the plain model of
    its rounding, twice bit for bit, with the forward's LSE instance giving
@@ -238,6 +243,18 @@ line):
    variants on the operands where they lie, the kernel on transposed
    copies for float32 and ragged shapes) against the plain autograd at
    the training shapes and the ragged ones (the forward's tolerances).
+   Hold the WKV6 backward kernel (``csrc/wkv6_bwd.cu``, through
+   ``ops.wkv6``'s autograd function) against the plain backward
+   (``ref.wkv6_backward``) at the training shape (4, 512, 64, 64) with the
+   test's decay and the model's initial one, a ragged S, hd 32 and 128 and
+   the clip -exp(8), with and without a final-state gradient, in float32
+   and bf16, and the RG-LRU backward (``csrc/rglru.cu``) against
+   ``ref.rglru_backward`` at (2, 2560, 4096) and ragged S and W: every
+   gradient within 2e-5 of its largest |value| (bf16 dr, dk, dv, db
+   within 2^-7), dlog_w exactly 0 at the clip, two WKV6 launches bit for
+   bit, and a planted fault (dlog_w shifted by a token, dlog_a by a step)
+   caught; both timed at their training shapes against their plain
+   versions and bounds.
    Then the same float32 weights of qwen cut to 1 layer on the card and
    the CPU: the loss and every gradient leaf of a 2 x 64-token batch
    (rtol 1e-4; gradients within 1e-3 of each leaf's largest |value|), and
@@ -289,6 +306,23 @@ line):
    cell after 60 s (those listed as not run); one line a cell (FLOPs,
    bytes, dominant term, per-device GB, fits in 80 GB) and the phase's
    seconds.
+7d. Training the other families on the card, each at its published width
+   in bf16 through ``launch.train.train_loop``, a warm-up step and 3
+   measured steps, freed before the next: ``rwkv6-7b`` at 8 of 32 layers
+   (4 x 512 tokens), ``recurrentgemma-9b`` at one period of 38 layers (2 x
+   2560 tokens, past the 2048-token window), ``whisper-large-v3`` at full
+   depth (4 x 1500 encoder frames, 187-token decoder) and
+   ``llava-next-mistral-7b`` at 8 of 32 layers (4 x (1152 media positions
+   + 512 tokens)).  Launches, counted from zero just before each run,
+   must be exactly the remat's every step (``expected_train_launches``:
+   wkv6 16 + 8; rglru 4 + 2 and flash 2 + 1; flash 192 + 96; flash 16 +
+   8), all bf16 but the RG-LRU scan's (float32, the model's gates); the
+   loss must fall over the measured steps.  Prints step seconds, tokens/s,
+   peak memory, launches and one profiled step's idle share and busy time
+   by kernel.  Each family's float32 card-vs-CPU check (``FAMILY_TRAINS``:
+   rwkv6 1 layer, recurrentgemma one period, whisper 2 + 2 layers at the
+   full 1500 frames, llava 2 layers at the full 1152 media positions) at
+   qwen's limits.
 8. Time the kernels, their plain versions and their bounds at the shapes
    the main paths launched most (the pair kernel also at E = 64, A = B =
    128, P = 32 an event, with the launcher's host time a call and its
@@ -312,13 +346,12 @@ line):
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
    serve, the other families' serve runs, per-run, pipeline and async,
    MILP and planner, and assembly numbers, the launch floor, each phase's
-   wall seconds, the card line,
-   the training numbers,
-   one JSON line of per-kernel numbers (the scorer's pair kernel and its
-   full-tile kernel, each in float64 and float32, its window kernel, the
-   assembly tile,
-   flash, the expert GEMM, wkv6, rglru, the flash backward and the expert
-   GEMM's backward) and, as the last line,
+   wall seconds, the card line, the training numbers (qwen's and the
+   families'), one JSON line of per-kernel numbers (the scorer's pair
+   kernel and its full-tile kernel, each in float64 and float32, its
+   window kernel, the assembly tile, flash, the expert GEMM, wkv6, rglru,
+   the flash backward, the expert GEMM's backward, the WKV6 backward and
+   the RG-LRU backward) and, as the last line,
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or when the
@@ -367,20 +400,25 @@ SPEC_REPLACES = "src/repro/kernels/ccm_scorer/jit.py:253"
 SPEC_RUNS = (("spec8 scan/disjoint", 8, "scan", "disjoint"),
              ("spec32 scan/disjoint", 32, "scan", "disjoint"),
              ("spec8 vmap/greedy", 8, "vmap", "greedy"))
-# the fleet run: the JAX package's benchmarks/ccmlb_fleet.py full
-# configuration (64 instances of a 16-rank, 400-task random phase)
-FLEET_N = 64
+# the fleet run: the JAX package's benchmarks/ccmlb_fleet.py configuration
+# (16-rank, 400-task random phases) cut from its 64 instances to 16 (the
+# smoke's time limit: 64 took some 54 s of card and CPU runs beside an
+# H100 80GB HBM3 at 700 W)
+FLEET_N = 16
 FLEET_PHASE = dict(num_ranks=16, num_tasks=400, num_blocks=24,
                    num_comms=1600, mem_cap=1e12)
 FLEET_KW = dict(n_iter=8, k_rounds=2, fanout=8, max_candidates=12)
 # per shortlist slot past the scorer tree and the combine: the diff, the
 # max of the works, two feasibility compares and the selection compare
 SPEC_SLOT_OPS = 5
-# the JAX package's benchmarks/ccmlb_pipeline.py full configuration (256
-# ranks, 6 phases, loads drifting by a lognormal sigma of 0.08 a phase)
+# the JAX package's benchmarks/ccmlb_pipeline.py configuration (256 ranks,
+# loads drifting by a lognormal sigma of 0.08 a phase) cut from its 6 phases
+# to 2, the least that carries a warm start, a CSR and an engine (the
+# smoke's time limit: 6 took some 95 s, 3 some 45 s beside an H100 80GB
+# HBM3 at 700 W)
 PIPE_PHASE = dict(num_ranks=256, num_tasks=6400, num_blocks=768,
                   num_comms=12800, mem_cap=1e12)
-PIPE_N, PIPE_DRIFT = 6, 0.08
+PIPE_N, PIPE_DRIFT = 2, 0.08
 PIPE_KW = dict(n_iter=4, k_rounds=2, fanout=4, seed=0, batch_lock_events=8)
 # benchmarks/ccmlb_async.py (256 ranks) and ccmlb_fault.py at its largest
 # size (64 ranks)
@@ -425,6 +463,10 @@ SERVE_ARCH = "qwen3-moe-30b-a3b"
 SERVE_LAYERS = 8
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
 CHECK_PROMPT, CHECK_STEPS = 64, 4
+# the served weights' first layers, held on the CPU against the card: at
+# all 8 served layers the bf16 check took 23.3 s and the float32 one 12.1
+# s (an H100 80GB HBM3 at 700 W), time phase 7d needs
+SERVE_CHECK_LAYERS = 4
 PEAK_BF16 = 989e12          # dense bf16 tensor-core rate, H100 SXM
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash/kernel.py:28"
@@ -478,10 +520,10 @@ FLASH_CASES = (
     (2, 4608, 4608, 32, 16, 128, True, 0, 50.0),
     (4, 1664, 1664, 32, 8, 128, True, 0, 0.0),
 )
-# the flash backward is held at the shapes before phase 6c's: the training
-# path's and the kernel's corner cases (training the three served families
-# stays off the card, ROADMAP queue 1)
-FLASH_BWD_CASES = FLASH_CASES[:12]
+# the flash backward is held at every shape: the training paths' (whisper's
+# and llava's among phase 6c's, which phase 7d trains) and the kernel's
+# corner cases
+FLASH_BWD_CASES = FLASH_CASES
 # (E, C, d, f): the serve path's prefill gate/up and down, its decode
 # gate/up and down, then ragged C, d and f (the wmma kernel: d or f no
 # multiple of 8), and C = 1, 13 (no multiple of 8) and 300 (two N tiles of
@@ -556,6 +598,30 @@ GEMM_BWD_REPLACES = "src/repro/models/moe.py:68"
 GEMM_BWD_SHAPES = ((128, 168, 2048, 768), (128, 168, 768, 2048),
                    (3, 37, 100, 70), (5, 16, 64, 130), (8, 1, 2048, 768),
                    (8, 13, 2048, 768), (8, 300, 2048, 768))
+# the recurrent backwards against their plain versions (phase 7b).  WKV6
+# (B, S, H, hd, log_w, with a final-state gradient): the training shape with
+# the test's decay and the model's initial -exp(-6), a ragged S, hd 32 and
+# 128, the clip -exp(8) (where dlog_w is exactly 0); RG-LRU (B, S, W): the
+# training shape, ragged S and W.  Each gradient within this share of its
+# largest |value|: float32 sums in other orders (the WKV6 kernel's dlog_w
+# is a difference of suffix sums; 1.4e-6 at most seen on an H100 80GB
+# HBM3 at 700 W, in line with the float32 emulation's 1.5e-6 against
+# float64 in tests/test_torch_wkv6.py); bf16 dr, dk, dv, db rounded once to
+# bf16 (2^-8 of a value; up to 3.4e-3 of the largest seen); dlog_w, du and
+# dlog_a are float32 outputs of the same bf16 inputs, so the float32 share
+# holds
+WKV_BWD_CASES = (
+    (4, 512, 64, 64, None, False), (4, 512, 64, 64, -0.0024787521766663585,
+                                    True),
+    (2, 77, 3, 64, None, True), (1, 100, 2, 32, None, True),
+    (2, 70, 2, 128, None, True), (1, 64, 2, 64, -2980.9579870417283, True),
+)
+REC_BWD_TOL = {"float32": 2e-5, "bfloat16": 2 ** -7}
+RGLRU_BWD_CASES = ((2, 2560, 4096), (3, 77, 50), (2, 100, 4100), (1, 1, 300))
+WKV_BWD_SOURCE = "src/repro_torch/csrc/wkv6_bwd.cu"
+# no TPU kernel: the JAX package differentiates its jnp forms
+WKV_BWD_REPLACES = "src/repro/models/rwkv6.py:113"
+RGLRU_BWD_REPLACES = "src/repro/models/rglru.py:78"
 
 # the recurrent serving paths, at their published widths and full depths:
 # rwkv6-7b (32 rwkv6 layers: 32 wkv6 launches in prefill) and
@@ -617,6 +683,36 @@ WKV_CASES = (
 # S and W
 RGLRU_CASES = ((2, 128, 64), (2, 256, 64), (2, 64, 128), (4, 2560, 4096),
                (3, 77, 50), (1, 1, 300), (2, 100, 4100))
+# 7d. training the other families on the card, each at its published width
+# in bf16 through train_loop, freed before the next: one warm-up step and
+# FAMILY_STEPS more at TRAIN_LR.  Each entry: arch, depth cut, requests,
+# tokens a request (whisper: encoder frames, with a decoder of
+# decoder_len = 187 tokens; llava: 1152 media positions and 512 text
+# tokens), and the float32 card-vs-CPU check's cut, requests and tokens (the
+# smallest depth with every block kind, at full width; whisper at the full
+# 1500 frames and llava at the full 1152 media positions, one request of
+# 64 text tokens: float32 products on the CPU are the check's cost; rwkv6
+# at 2 x 512 tokens: at 2 x 64 the group norm of a head's first outputs,
+# spanned by one or two value vectors, made the gradients of w_r, w_k,
+# mix_b, mu and the embedding ill-conditioned: a one-ulp change of the
+# weights moved them by up to 1.2e-3 of their largest |value| on the CPU
+# (1.8e-6 at 2 x 512), and two float32 forms differed by 2.5e-4 on one
+# device and 2.4e-3 across the two, the card with a plain torch WKV6
+# against the CPU (kernel_probe.py --steps rwkv_grad, on an H100 80GB HBM3
+# at 700 W and its host).  Cuts: rwkv6 8 of 32 layers (2.30 G parameters,
+# 27.6 GB of bf16 weights and gradients and float32 AdamW moments),
+# recurrentgemma one period of 38 layers (1.71 G, its 256000 x 4096
+# embedding tied; 2 x 2560 tokens, past the 2048-token window), whisper at
+# full depth (2.02 G), llava 8 of 32 (2.01 G)
+FAMILY_STEPS = 3
+FAMILY_TRAINS = (
+    (RWKV_ARCH, {"num_layers": 8}, 4, 512, {"num_layers": 1}, 2, 512),
+    (RG_ARCH, {"num_layers": 3}, 2, 2560, {"num_layers": 3}, 2, 64),
+    (WHISPER_ARCH, {}, 4, 1500, {"num_layers": 2, "num_decoder_layers": 2},
+     2, 1500),
+    (LLAVA_ARCH, {"num_layers": 8}, 4, 1152 + 512, {"num_layers": 2}, 1,
+     1152 + 64),
+)
 
 
 def fail(msg: str) -> None:
@@ -1299,8 +1395,9 @@ def pipeline_path(torch, kernel, launch) -> dict:
     with ``carry_engine`` and ``spec_window=8`` in place of the batch;
     each card run equals the CPU's phase by phase (assignment, transfer
     log, count, max_work) with the CSR reused, the warm start carried and,
-    with carry, the engine carried on phases 1 to 5.  Launches, counted
-    from zero just before each card run and read just after, must be more
+    with carry, the engine carried on every phase after the first.
+    Launches, counted from zero just before each card run and read just
+    after, must be more
     than zero in every phase and equal the scorer calls (pair kernel) or
     the windows that scored (window kernel), with no full-tile launch and
     none of the other kernel."""
@@ -2477,8 +2574,8 @@ def serve_path(torch, mods) -> dict:
     """``qwen3-moe-30b-a3b`` at its published width, depth cut to
     ``SERVE_LAYERS`` of 48, served through ``serve_batch`` on the card
     (exactly one flash launch per layer and three expert-GEMM launches per
-    layer and forward); then the same weights on the CPU against the card,
-    teacher-forced."""
+    layer and forward); then the first ``SERVE_CHECK_LAYERS`` layers of
+    the same weights on the CPU against the card, teacher-forced."""
     import dataclasses
 
     from repro_torch import configs
@@ -2495,18 +2592,22 @@ def serve_path(torch, mods) -> dict:
     out, model, params, rng, _ = serve_on_card(torch, cfg, full.num_layers,
                                                SERVE_PROMPT, want, mods)
 
-    # the same weights on the CPU against the card, teacher-forced: in bf16
-    # (the served weights), then in float32 (the same values, widened)
+    # the served weights' first SERVE_CHECK_LAYERS layers on the CPU
+    # against the card, teacher-forced: in bf16 (the served weights), then
+    # in float32 (the same values, widened)
     check = rng.integers(0, cfg.vocab_size, (1, CHECK_PROMPT + CHECK_STEPS))
-    bf = card_vs_cpu(torch, cfg, model, params, check)
+    ccfg = dataclasses.replace(full, num_layers=SERVE_CHECK_LAYERS)
+    cparams = dict(params, blocks=params["blocks"][:SERVE_CHECK_LAYERS])
+    bf = card_vs_cpu(torch, ccfg, build_model(ccfg, dtype=model.dtype),
+                     cparams, check)
     if bf["router_flips_unexplained"] or bf["pinned"]["max_excess"] > 0 \
             or bf["pinned"]["argmax_unexplained"]:
         fail(f"card vs cpu, bf16: a difference that rounding does not "
              f"explain (a kernel fault): {bf}")
-    wide = build_model(cfg, dtype=torch.float32)
-    wide_params = tree_map(lambda t: t.to(torch.float32), params)
-    f32 = card_vs_cpu(torch, cfg, wide, wide_params, check)
-    del wide_params
+    wide = build_model(ccfg, dtype=torch.float32)
+    wide_params = tree_map(lambda t: t.to(torch.float32), cparams)
+    f32 = card_vs_cpu(torch, ccfg, wide, wide_params, check)
+    del wide_params, cparams
     torch.cuda.empty_cache()
     if not f32["contract_met"]:
         fail(f"card vs cpu, float32: serving contract missed: {f32}")
@@ -2963,6 +3064,180 @@ def check_gemm_bwd(torch, gemm_kernel, gemm_ops, gemm_ref) -> dict:
     return worst
 
 
+def rec_bwd_errors(torch, got, want, names, label, worst) -> None:
+    """Each gradient's largest error over its largest |value|, against
+    ``REC_BWD_TOL`` (bf16 outputs at the bf16 share, float32 outputs at
+    the float32 share); fails naming the first one over.  Keeps the
+    largest relative and absolute errors by gradient in ``worst``."""
+    for name, g, w in zip(names, got, want):
+        tol = REC_BWD_TOL[dtype_name(g.dtype)]
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"{label} {name}: {tuple(g.shape)} against "
+                 f"{tuple(w.shape)}, or not finite")
+        rel = rel_err(torch, g, w)
+        if not rel <= tol:
+            fail(f"{label} {name} off its plain version by {rel} of its "
+                 f"largest |value| (tolerance {tol})")
+        err = worst.setdefault(name, {"rel": 0.0, "abs": 0.0})
+        err["rel"] = max(err["rel"], rel)
+        err["abs"] = max(err["abs"],
+                         (g.float() - w.float()).abs().max().item())
+
+
+def check_wkv6_bwd(torch, wkv_kernel, wkv_ops, wkv_ref) -> dict:
+    """The WKV6 backward kernel (``csrc/wkv6_bwd.cu``, through
+    ``ops.wkv6``'s autograd function: one backward call a gradient)
+    against the plain backward (``ref.wkv6_backward``, both states held)
+    on the same inputs, at ``WKV_BWD_CASES`` in float32 and bf16 (r, k, v,
+    dy; log_w and u float32), with and without a final-state gradient:
+    dr, dk, dv, dlog_w, du within ``REC_BWD_TOL``; at the clip dlog_w
+    exactly 0; a second launch gives the same bits; and a planted fault,
+    dlog_w shifted by one token, must fail the same check.  Returns the
+    largest errors per dtype."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    names = ("dr", "dk", "dv", "dlog_w", "du")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        worst[name] = {}
+        for case in WKV_BWD_CASES:
+            b, s, h, hd, log_w, with_state = case
+            label = f"wkv6 backward {name} {case[:5]}"
+            r, k, v, lw, u = wkv6_inputs(torch, rng, b, s, h, hd, log_w,
+                                         dtype)
+            dy = torch.randn(r.shape, generator=gen, device="cuda").to(dtype)
+            ds = torch.randn((b, h, hd, hd), generator=gen, device="cuda") \
+                if with_state else None
+            leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+            n0 = wkv_kernel.BWD_LAUNCHES[name]
+            y, state = wkv_ops.wkv6(*leaves)
+            outs, cots = ((y, state), (dy, ds)) if with_state \
+                else ((y,), (dy,))
+            got = torch.autograd.grad(outs, leaves, cots)
+            again = wkv_kernel.wkv6_bwd(r, k, v, lw, u, dy, ds)
+            torch.cuda.synchronize()
+            if wkv_kernel.BWD_LAUNCHES[name] != n0 + 2:
+                fail(f"{label}: {wkv_kernel.BWD_LAUNCHES[name] - n0} "
+                     "backward launches for 2 calls")
+            if not all(torch.equal(x, z) for x, z in zip(got, again)):
+                fail(f"{label}: two launches on the same inputs differ")
+            want = wkv_ref.wkv6_backward(r, k, v, lw, u, dy, ds)
+            rec_bwd_errors(torch, got, want, names, label, worst[name])
+            if log_w is not None and log_w < -100:
+                if not ((got[3] == 0).all() and (want[3] == 0).all()):
+                    fail(f"{label}: dlog_w not exactly 0 at the clip")
+            else:
+                shifted = torch.roll(got[3], 1, dims=1)
+                if rel_err(torch, shifted, want[3]) <= REC_BWD_TOL[
+                        "float32"]:
+                    fail(f"{label}: dlog_w shifted by one token passes "
+                         "the check")
+            del got, again, want, leaves, y, state
+            torch.cuda.empty_cache()
+    print(f"wkv6 backward kernel == plain backward on "
+          f"{2 * len(WKV_BWD_CASES)} cases (each gradient within "
+          f"{REC_BWD_TOL} of its largest |value|; dlog_w 0 at the clip; "
+          f"twice bit for bit; dlog_w shifted by a token caught); worst "
+          f"{worst}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def check_rglru_bwd(torch, rglru_kernel, rglru_ops, rglru_ref) -> dict:
+    """The RG-LRU backward kernel (through ``ops.rglru_scan_op``'s autograd
+    function) against the plain backward (``ref.rglru_backward``) at
+    ``RGLRU_BWD_CASES`` in float32 and bf16 b: dlog_a and db within
+    ``REC_BWD_TOL``; a planted fault, dlog_a shifted by one step, must
+    fail the same check.  Returns the largest errors per dtype."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(22)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        worst[name] = {}
+        for b, s, w in RGLRU_BWD_CASES:
+            label = f"rglru backward {name} ({b}, {s}, {w})"
+            la = torch.tensor(-np.exp(rng.standard_normal((b, s, w))) * 0.1
+                              - 1e-3, dtype=torch.float32, device="cuda")
+            bb = torch.tensor(rng.standard_normal((b, s, w)),
+                              dtype=torch.float32, device="cuda").to(dtype)
+            dh = torch.tensor(rng.standard_normal((b, s, w)),
+                              dtype=torch.float32, device="cuda").to(dtype)
+            leaves = [la.clone().requires_grad_(), bb.clone().requires_grad_()]
+            n0 = rglru_kernel.BWD_LAUNCHES[name]
+            h = rglru_ops.rglru_scan_op(*leaves)
+            got = torch.autograd.grad(h, leaves, dh)
+            torch.cuda.synchronize()
+            if rglru_kernel.BWD_LAUNCHES[name] != n0 + 1:
+                fail(f"{label}: {rglru_kernel.BWD_LAUNCHES[name] - n0} "
+                     "backward launches")
+            want = rglru_ref.rglru_backward(la, h.detach(), dh)
+            rec_bwd_errors(torch, got, want, ("dlog_a", "db"), label,
+                           worst[name])
+            if s > 1 and rel_err(torch, torch.roll(got[0], 1, dims=1),
+                                 want[0]) <= REC_BWD_TOL["float32"]:
+                fail(f"{label}: dlog_a shifted by one step passes the "
+                     "check")
+    print(f"rglru backward kernel == plain backward on "
+          f"{2 * len(RGLRU_BWD_CASES)} cases (within {REC_BWD_TOL} of "
+          f"each largest |value|; dlog_a shifted by a step caught); worst "
+          f"{worst}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def time_rec_bwd(torch, mods, refs, ops_mods) -> dict:
+    """The two recurrent backwards at their training shapes (phase 7d's
+    rwkv6 (4, 512, 64, 64) in bf16, recurrentgemma's (2, 2560, 4096)
+    float32): the kernel (CUDA events and ``device_ms``), the plain
+    backward, and the bound, the larger of the bytes (``ops.cost(...,
+    backward=True)``: each input read once, each output written once) over
+    the HBM rate and the float32 operations over the float32 peak.  No
+    single PyTorch call computes either gradient (library: null)."""
+    import numpy as np
+    rng = np.random.default_rng(23)
+    out = {}
+    b, s, h, hd = 4, 512, 64, 64
+    r, k, v, lw, u = wkv6_inputs(torch, rng, b, s, h, hd, None,
+                                 torch.bfloat16)
+    dy = torch.randn(r.shape, device="cuda").to(torch.bfloat16)
+
+    def launch_wkv():
+        mods["wkv6"].wkv6_bwd(r, k, v, lw, u, dy)
+
+    def launch_rglru():
+        mods["rglru"].rglru_bwd(la, hh, dh)
+
+    la = -torch.rand((2, 2560, 4096), device="cuda") * 0.1 - 1e-3
+    hh = mods["rglru"].rglru_fwd(la, torch.randn_like(la))
+    dh = torch.randn_like(la)
+    for key, launch, plain, (ops, nbytes) in (
+            (f"r={[b, s, h, hd]}", launch_wkv,
+             lambda: refs["wkv6"].wkv6_backward(r, k, v, lw, u, dy),
+             ops_mods["wkv6"].cost(r, lw, u, backward=True)),
+            (f"x={list(la.shape)}", launch_rglru,
+             lambda: refs["rglru"].rglru_backward(la, hh, dh),
+             ops_mods["rglru"].cost(la, backward=True))):
+        k_ms = time_ms(torch, launch, 10)
+        k_dev = device_ms(torch, launch, reps=10)
+        p_ms = time_ms(torch, plain, 1, rounds=3)
+        t_b, t_o = (nbytes / HBM_BYTES_PER_S * 1e3,
+                    ops / PEAK_OPS["float32"] * 1e3)
+        name = "wkv6_bwd" if key.startswith("r=") else "rglru_bwd"
+        out[name] = {key: dict(
+            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
+            bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
+            operations=ops)}
+        print(f"time {name} {key}: kernel {k_ms!r} ms (device {k_dev!r} "
+              f"ms), plain {p_ms!r} ms, bound {max(t_b, t_o)!r} ms "
+              f"({out[name][key]['bound_by']}, {nbytes} B, {ops} "
+              f"operations)", flush=True)
+    return out
+
+
 def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
                        gemm_ref, per_step) -> dict:
     """The two backwards at the training shapes, bf16: kernel (CUDA events
@@ -3078,25 +3353,30 @@ def time_train_kernels(torch, flash_kernel, flash_ref, gemm_kernel,
     return out
 
 
-def train_card_vs_cpu(torch) -> dict:
-    """``TRAIN_ARCH`` cut to ``TRAIN_CHECK_LAYERS`` layers in float32, the
-    same weights on the card and the CPU (drawn on the card, copied to the
-    CPU): the loss and every gradient leaf of one batch at the
-    ``TRAIN_CHECK_*`` tolerances, then ``TRAIN_CHECK_STEPS`` train steps'
-    losses within ``TRAIN_RESTART_RTOL``."""
+def train_card_vs_cpu(torch, arch=TRAIN_ARCH, cut=None,
+                      batch=TRAIN_CHECK_BATCH, seq=TRAIN_CHECK_SEQ) -> dict:
+    """``arch`` cut (``cut``; ``TRAIN_CHECK_LAYERS`` layers by default) in
+    float32, the same weights on the card and the CPU (drawn on the card,
+    copied to the CPU): the loss and every gradient leaf of one batch of
+    ``batch`` x ``seq`` at the ``TRAIN_CHECK_*`` tolerances, then the
+    losses of ``TRAIN_CHECK_STEPS`` train steps within
+    ``TRAIN_RESTART_RTOL``: step k's loss is the loss of batch k at the
+    weights after k AdamW updates, so the updates run are the first
+    ``TRAIN_CHECK_STEPS - 1`` (the last step's, which no loss shows, is
+    not run: on the CPU an update of a billion float32 parameters takes
+    some 15 s)."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.checkpoint import tree_leaves as leaves
     from repro_torch.data.pipeline import make_batch
-    from repro_torch.launch.steps import (make_optimizer, make_train_step,
-                                          to_device)
+    from repro_torch.launch.steps import make_optimizer, to_device
     from repro_torch.models.model import build_model
     import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
-                              num_layers=TRAIN_CHECK_LAYERS)
-    batches = [make_batch(cfg, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH, i)
+    cut = cut or {"num_layers": TRAIN_CHECK_LAYERS}
+    cfg = dataclasses.replace(configs.get_config(arch), **cut)
+    batches = [make_batch(cfg, seq, batch, i)
                for i in range(TRAIN_CHECK_STEPS)]
     t0 = time.perf_counter()
     card_model = build_model(cfg, device="cuda", dtype=torch.float32)
@@ -3105,43 +3385,60 @@ def train_card_vs_cpu(torch) -> dict:
     cpu_model = build_model(cfg, device="cpu", dtype=torch.float32)
     cpu_params = tree_map(lambda t: t.cpu(), card_params)
     runs = {}
+    split = {"init_and_copy": time.perf_counter() - t0}
     for where, model, params in (("cuda", card_model, card_params),
                                  ("cpu", cpu_model, cpu_params)):
+        t1 = time.perf_counter()
         opt = make_optimizer(params, lr=TRAIN_LR, warmup_steps=1,
                              total_steps=TRAIN_CHECK_STEPS)
         loss, _ = model.loss_fn(params, to_device(batches[0], model.device))
         loss.backward()
-        runs[where] = {"loss": loss.item(), "opt": opt,
-                       "step": make_train_step(model), "params": params}
-    worst_grad = 0.0
-    for g_card, g_cpu in zip(leaves(card_params), leaves(cpu_params),
-                             strict=True):
-        err = rel_err(torch, g_card.grad.cpu(), g_cpu.grad)
-        worst_grad = max(worst_grad, err)
-        if not err <= TRAIN_CHECK_GRAD:
-            fail(f"train card vs cpu: a gradient leaf {tuple(g_cpu.shape)} "
-                 f"off by {err} of its largest |value|")
-    losses = {where: [] for where in runs}
-    for batch in batches:
+        runs[where] = {"loss": loss.item(), "opt": opt, "model": model,
+                       "params": params}
+        split[f"grad_{where}"] = time.perf_counter() - t1
+    errs = [(tuple(g_cpu.shape), rel_err(torch, g_card.grad.cpu(),
+                                         g_cpu.grad))
+            for g_card, g_cpu in zip(leaves(card_params), leaves(cpu_params),
+                                     strict=True)]
+    worst_grad = max(e for _, e in errs)
+    over = [(shape, e) for shape, e in errs if not e <= TRAIN_CHECK_GRAD]
+    if over:
+        fail(f"train card vs cpu ({arch}): gradient leaves off by more than "
+             f"{TRAIN_CHECK_GRAD} of their largest |value|: {over} (of "
+             f"{errs})")
+    losses = {where: [r["loss"]] for where, r in runs.items()}
+    for k, b in enumerate(batches[1:], start=1):
         for where, r in runs.items():
-            losses[where].append(float(r["step"](r["params"], r["opt"],
-                                                 batch)["loss"]))
+            t1 = time.perf_counter()
+            # a train step's update (launch.steps.make_train_step) from the
+            # last batch's gradients, then this batch's loss
+            r["opt"].step()
+            r["opt"].zero_grad(set_to_none=True)
+            last = k == len(batches) - 1
+            with torch.set_grad_enabled(not last):
+                loss, _ = r["model"].loss_fn(r["params"],
+                                             to_device(b, r["model"].device))
+            if not last:
+                loss.backward()
+            losses[where].append(loss.item())
+            split[f"steps_{where}"] = split.get(f"steps_{where}", 0.0) \
+                + time.perf_counter() - t1
     cpu_s = time.perf_counter() - t0
-    out = dict(layers=TRAIN_CHECK_LAYERS, tokens=TRAIN_CHECK_BATCH
-               * TRAIN_CHECK_SEQ, loss_card=runs["cuda"]["loss"],
-               loss_cpu=runs["cpu"]["loss"], grad_rel_err=worst_grad,
-               step_losses=losses, seconds=cpu_s)
+    out = dict(arch=arch, cut=cut, batch=batch, seq=seq,
+               loss_card=runs["cuda"]["loss"], loss_cpu=runs["cpu"]["loss"],
+               grad_rel_err=worst_grad, step_losses=losses, seconds=cpu_s,
+               seconds_split=split)
     lc, lp = np.array(losses["cuda"]), np.array(losses["cpu"])
     if not (abs(out["loss_card"] - out["loss_cpu"])
             <= TRAIN_CHECK_RTOL * abs(out["loss_cpu"])
             and np.allclose(lc, lp, rtol=TRAIN_RESTART_RTOL, atol=0)):
         fail(f"train card vs cpu: losses differ: {out}")
-    print(f"train card vs cpu ({cfg.name}, {TRAIN_CHECK_LAYERS} layers, "
-          f"float32, {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ} tokens): loss "
-          f"{out['loss_card']!r} vs {out['loss_cpu']!r}; gradient leaves "
-          f"within {worst_grad} of their largest |value|; "
-          f"{TRAIN_CHECK_STEPS} steps' losses {losses}; {cpu_s:.1f} s",
-          flush=True)
+    print(f"train card vs cpu ({cfg.name}, {cut}, float32, {batch} x {seq}): "
+          f"loss {out['loss_card']!r} vs {out['loss_cpu']!r}; gradient "
+          f"leaves within {worst_grad} of their largest |value|; "
+          f"{TRAIN_CHECK_STEPS} steps' losses {losses}; {cpu_s:.1f} s "
+          f"({split})", flush=True)
+    del runs, card_params, cpu_params, card_model, cpu_model
     return out
 
 
@@ -3193,9 +3490,7 @@ def train_path(torch, mods) -> dict:
     pair = scorer.PAIR_LAUNCHES["float64"]
     others = {k: sum(mods[k].LAUNCHES.values()) for k in mods
               if k not in ("flash", "gemm")}
-    n = TRAIN_LAYERS
-    want_step = {"flash_fwd": 2 * n, "flash_bwd": n, "gemm_fwd": 6 * n,
-                 "gemm_bwd": 6 * n}
+    want_step = expected_train_launches(cfg)
     if any(rec != want_step for rec in log.launches) or any(
             c["float32"] for c in counts.values()) or any(
             others.values()) or pair == 0 or len(log.replacements) != 2:
@@ -3211,7 +3506,12 @@ def train_path(torch, mods) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the restart pair: uninterrupted, then failing at TRAIN_FAIL_AT
+    # the restart pair: uninterrupted, then failing at TRAIN_FAIL_AT, both
+    # under deterministic algorithms, so that the two runs are the same
+    # until the restart (the expert combine's index_add_ is otherwise
+    # atomic: its sums' order moved a near-tied routing and, through the
+    # step-5 plan, the two runs' losses 2.8e-3 apart by step 7 on an H100)
+    torch.use_deterministic_algorithms(True, warn_only=True)
     cut = dataclasses.replace(full, num_layers=TRAIN_RESTART_LAYERS)
     _, _, ref_losses = train_loop(cut, **common)
     gc.collect()
@@ -3236,6 +3536,7 @@ def train_path(torch, mods) -> dict:
         fault_wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
     gc.collect()
     torch.cuda.empty_cache()
     first = TRAIN_CKPT_EVERY
@@ -3291,11 +3592,12 @@ EP_RANKS = (4, 16)
 EP_ATOL, EP_RTOL = 1e-5, 1e-6
 # the served configs, whose dry-run cells (c) runs first, and (c)'s
 # processes (the card host has 8 cores; there, beside an NVIDIA H100 80GB
-# HBM3 at 700.00 W, one process took 70 s for 25 of the 33 cells)
+# HBM3 at 700.00 W, one process took 70 s for 25 of the 33 cells, and five
+# 35.5 s for all 33 once rwkv6's and recurrentgemma's train cells came)
 DRYRUN_FIRST = ("qwen3-moe-30b-a3b", "rwkv6-7b", "recurrentgemma-9b",
                 "gemma2-27b", "whisper-large-v3", "llava-next-mistral-7b")
 DRYRUN_BUDGET_S = 60.0
-DRYRUN_JOBS = 5
+DRYRUN_JOBS = 7
 
 
 class LogitLog:
@@ -3410,9 +3712,7 @@ def mesh_runs(torch, mods) -> dict:
         a, b = runs["no mesh"], runs["mesh 1x1"]
         train_same = a["losses"] == b["losses"] and all(
             torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
-        n = TRAIN_LAYERS
-        want_step = {"flash_fwd": 2 * n, "flash_bwd": n, "gemm_fwd": 6 * n,
-                     "gemm_bwd": 6 * n}
+        want_step = expected_train_launches(cfg)
         if not train_same or any(rec != want_step for r in runs.values()
                                  for rec in r["launches"]):
             fail(f"mesh train: bit for bit {train_same}, losses "
@@ -3589,10 +3889,7 @@ def dryrun_h100() -> dict:
                   f"{DRYRUN_BUDGET_S:g} s)", flush=True)
             continue
         if not rec.get("ok"):
-            cells[key] = {"run": True, "skipped": rec.get("skipped")}
-            print(f"dryrun h100 {key}: skipped ({rec.get('skipped')})",
-                  flush=True)
-            continue
+            fail(f"dryrun h100 {key}: {rec}")
         st, r, m = rec["stats"], rec["roofline"], rec["memory_per_device"]
         cells[key] = dict(run=True, flops=st["flops"],
                           bytes=st["bytes_accessed"], dominant=r["dominant"],
@@ -3607,6 +3904,122 @@ def dryrun_h100() -> dict:
     print(f"dryrun h100: {sum(c['run'] for c in cells.values())} of "
           f"{len(cells)} cells run in {seconds:.1f} s on the host", flush=True)
     return {"seconds": seconds, "cells": cells}
+
+
+# ------------------------------------------- 7d. training the other families
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one train step (``launch.train.launch_counts``'
+    keys) by the model's remat: a kernel of a layer inside a recomputed
+    period (every layer of the encoder-decoder) runs twice in the forward
+    (the forward and the remat's recompute), a tail layer's once; each
+    backward once (the expert GEMM's: dX and dW, two launches)."""
+    from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_LOCAL,
+                                          BLOCK_MOE, BLOCK_REC, BLOCK_RWKV)
+    want = {f"{k}_{d}": 0 for k in ("flash", "gemm", "wkv6", "rglru")
+            for d in ("fwd", "bwd")}
+    fwd = 1 if not cfg.remat or cfg.remat_policy == "none" else 2
+    if cfg.arch_type == "encdec":
+        n = cfg.num_layers + 2 * cfg.num_decoder_layers
+        want.update(flash_fwd=fwd * n, flash_bwd=n)
+        return want
+    kinds = cfg.layer_kinds()
+    n_scan = (len(kinds) // cfg.pattern_period) * cfg.pattern_period
+    for i, kind in enumerate(kinds):
+        times = fwd if i < n_scan else 1
+        name = {BLOCK_RWKV: "wkv6", BLOCK_REC: "rglru"}.get(kind, "flash")
+        if kind in (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_MOE, BLOCK_RWKV,
+                    BLOCK_REC):
+            want[f"{name}_fwd"] += times
+            want[f"{name}_bwd"] += 1
+        if kind == BLOCK_MOE:
+            want["gemm_fwd"] += 3 * times
+            want["gemm_bwd"] += 6
+    return want
+
+
+def train_family(torch, arch, cut, batch, seq, check, mods) -> dict:
+    """``arch`` cut by ``cut`` at its published width, trained on the card
+    in bf16 through ``train_loop``: a warm-up step and ``FAMILY_STEPS``
+    more of ``batch`` x ``seq`` at ``TRAIN_LR``, launch counts zeroed just
+    before and read just after.  Every step must launch what
+    ``expected_train_launches`` says, nothing in float32 but the RG-LRU
+    scan (the model's gates, and so its b, are float32, as the
+    reference's), and the loss must fall over the measured steps.  One
+    more step under the profiler (device idle share, busy time by kernel).
+    Then the float32 card-vs-CPU check at ``check`` (cut, requests,
+    tokens)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import tree_leaves as leaves
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainLog, train_loop
+    from repro_torch.models.encdec import decoder_len
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(configs.get_config(arch), **cut)
+    steps = 1 + FAMILY_STEPS
+    for mod in mods.values():
+        mod.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = TrainLog()
+    t0 = time.perf_counter()
+    params, opt, losses = train_loop(cfg, steps=steps, seq_len=seq,
+                                     global_batch=batch, lr=TRAIN_LR,
+                                     log_every=1, device="cuda", log=log)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {k: {"fwd": dict(mods[k].LAUNCHES),
+                  "bwd": dict(mods[k].BWD_LAUNCHES)} for k in mods}
+    want = expected_train_launches(cfg)
+    float32 = {k: c["fwd"]["float32"] + c["bwd"]["float32"]
+               for k, c in counts.items() if k != "rglru"}
+    if any(rec != want for rec in log.launches) or any(float32.values()):
+        fail(f"train {arch}: launches a step {log.launches} (expected "
+             f"{want}), totals {counts}")
+    measured = losses[1:]
+    if not (np.isfinite(losses).all() and measured[-1] < measured[0]):
+        fail(f"train {arch}: losses {losses}")
+    n_params = sum(t.numel() for t in leaves(params))
+    positions = batch * (seq + (decoder_len(cfg, seq)
+                                if cfg.arch_type == "encdec" else 0))
+    step = make_train_step(build_model(cfg, device="cuda"))
+    nxt = make_batch(cfg, seq, batch, steps)
+    prof = profiled_run(torch, lambda: step(params, opt, nxt))
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = sorted(log.step_s[1:])
+    med = step_s[len(step_s) // 2]
+    out = dict(
+        cut=cut, params=n_params, batch=batch, seq=seq,
+        positions_per_step=positions, losses=losses, step_s=log.step_s,
+        step_s_median=med, step_s_min=step_s[0], step_s_max=step_s[-1],
+        tokens_per_s=positions / med, peak_gb=peak_gb, wall_s=wall,
+        launches_per_step=log.launches[0], launches=counts,
+        device_idle_share=prof["device_idle_share"],
+        device_idle_share_bounds=prof["device_idle_share_bounds"],
+        profiled_step_s=prof["wall_s"], device_busy_ms=prof["device_busy_ms"],
+        kernels_unrecorded=prof["kernels_unrecorded"],
+        device_ms_by_kernel=dict(sorted(
+            ((k[:100], r["device_ms"]) for k, r in prof["by_name"].items()),
+            key=lambda kv: -kv[1])[:TRAIN_TOP_KERNELS]))
+    print(f"train {arch} ({cut or 'full depth'}, {n_params / 1e9:.3f} G "
+          f"parameters, {batch} x {seq}): losses {losses}; step s median "
+          f"{med!r} (min {step_s[0]!r}, max {step_s[-1]!r}) after a "
+          f"warm-up of {log.step_s[0]!r}; {out['tokens_per_s']!r} "
+          f"positions/s; peak {peak_gb!r} GB; run {wall:.1f} s; launches "
+          f"a step {log.launches[0]}; device idle "
+          f"{prof['device_idle_share']} "
+          f"({prof['device_idle_share_bounds']})", flush=True)
+    out["card_vs_cpu"] = train_card_vs_cpu(torch, arch, *check)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------ 7. serving the recurrent LMs
@@ -4613,12 +5026,13 @@ def main() -> None:
         phase_s[name] = now - lap_at[0]
         lap_at[0] = now
 
-    # 2. build the seven kernel sources, one nvcc each, in parallel
+    # 2. build the eight kernel sources, one nvcc each, in parallel
     t0 = time.perf_counter()
     kernel_mods = (kernel, asm_kernel, flash_kernel, gemm_kernel, wkv_kernel,
                    rglru_kernel)
     reports = _build.compile_sources([m.SOURCE for m in kernel_mods]
-                                     + [flash_kernel.BWD_SOURCE],
+                                     + [flash_kernel.BWD_SOURCE,
+                                        wkv_kernel.BWD_SOURCE],
                                      verbose=True)
     libs = [m.build() for m in kernel_mods]
     for source, report in reports.items():
@@ -4698,6 +5112,14 @@ def main() -> None:
     flash_bwd_worst = check_flash_bwd(torch, flash_kernel, flash_ops,
                                       flash_ref)
     gemm_bwd_worst = check_gemm_bwd(torch, gemm_kernel, gemm_ops, gemm_ref)
+    wkv_bwd_worst = check_wkv6_bwd(torch, wkv_kernel, wkv_ops, wkv_ref)
+    rglru_bwd_worst = check_rglru_bwd(torch, rglru_kernel, rglru_ops,
+                                      rglru_ref)
+    rec_bwd_times = time_rec_bwd(torch, serve_mods,
+                                 {"wkv6": wkv_ref, "rglru": rglru_ref},
+                                 {"wkv6": wkv_ops, "rglru": rglru_ops})
+    gc.collect()
+    torch.cuda.empty_cache()
     train_check = train_card_vs_cpu(torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4721,6 +5143,14 @@ def main() -> None:
     dist.destroy_process_group()
     mesh["dryrun_h100"] = dryrun_h100()
     lap("7c mesh")
+    # 7d. training rwkv6-7b, recurrentgemma-9b, whisper-large-v3 and
+    # llava-next-mistral-7b (launch counts zeroed inside); each model is
+    # freed before the next
+    fam_train = {}
+    for arch, cut, batch, seq, *check in FAMILY_TRAINS:
+        fam_train[arch] = train_family(torch, arch, cut, batch, seq, check,
+                                       serve_mods)
+    lap("7d train families")
     # 8. times at the main paths' shapes, and where the time goes
     times = time_kernel(torch, kernel, ref, rng, mp["shapes"])
     pair_times = time_pairs(torch, kernel, ref, launch, rng,
@@ -4853,6 +5283,8 @@ def main() -> None:
         "launches"]["flash"]
     flash_by_path[f"mesh_train_{TRAIN_ARCH}"] = MESH_TRAIN_STEPS * mesh[
         "train"]["mesh 1x1"]["launches_per_step"]["flash_fwd"]
+    flash_by_path.update({f"train_{arch}": r["launches"]["flash"]["fwd"][
+        "bfloat16"] for arch, r in fam_train.items()})
     for name, key, worst_err, source, replaces, by_path in (
             ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
              FLASH_REPLACES, flash_by_path),
@@ -4893,11 +5325,13 @@ def main() -> None:
         by_shape = rec_times[key]
         shape = max(by_shape, key=lambda k: by_shape[k]["launches"])
         m = by_shape[shape]
-        n = rec[arch]["launches"][key][dtype]
+        by_path = {f"serve_{arch}": rec[arch]["launches"][key][dtype],
+                   f"train_{arch}": fam_train[arch]["launches"][key]["fwd"][
+                       dtype]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n,
-            "launches_by_path": {f"serve_{arch}": n},
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": worst_bf16 if dtype == "bfloat16" else worst_f32,
             "max_abs_err_bfloat16": worst_bf16,
             "max_abs_err_float32": worst_f32,
@@ -4930,6 +5364,9 @@ def main() -> None:
         by_path = {f"train_{TRAIN_ARCH}": train["launches"][key]["bfloat16"],
                    f"mesh_train_{TRAIN_ARCH}": MESH_TRAIN_STEPS * mesh[
                        "train"]["mesh 1x1"]["launches_per_step"][key]}
+        if key == "flash_bwd":
+            by_path.update({f"train_{arch}": r["launches"]["flash"]["bwd"][
+                "bfloat16"] for arch, r in fam_train.items()})
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "replaces_note": note,
@@ -4946,6 +5383,31 @@ def main() -> None:
     kernels[-2]["max_rel_err_bf16_model"] = flash_bwd_worst.get(
         "bfloat16_model")
     kernels[-2]["max_abs_err_lse"] = flash_bwd_worst.get("bfloat16_lse")
+    for name, key, arch, dtype, source, replaces, note, worst_err in (
+            ("wkv6_bwd_bf16", "wkv6", RWKV_ARCH, "bfloat16", WKV_BWD_SOURCE,
+             WKV_BWD_REPLACES, "no TPU kernel: the JAX package "
+             "differentiates its jnp WKV6 (wkv6_chunked); this is the "
+             "gradient of row 6's kernel", wkv_bwd_worst),
+            ("rglru_bwd_f32", "rglru", RG_ARCH, "float32", RGLRU_SOURCE,
+             RGLRU_BWD_REPLACES, "no TPU kernel: the JAX package "
+             "differentiates its associative_scan; this is the gradient of "
+             "row 7's kernel", rglru_bwd_worst)):
+        by_shape = rec_bwd_times[f"{key}_bwd"]
+        shape = next(iter(by_shape))
+        m = by_shape[shape]
+        n = fam_train[arch]["launches"][key]["bwd"][dtype]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "replaces_note": note, "launches": n,
+            "launches_by_path": {f"train_{arch}": n},
+            "max_abs_err": max(e["abs"] for e in worst_err[dtype].values()),
+            "max_rel_err": worst_err,
+            "ms": m["ms"], "device_ms": m["device_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes this gradient",
+            "shape": shape, "by_shape": by_shape,
+        })
     print(json.dumps({"serve": {k: v for k, v in serve.items()
                                 if k != "log_shapes"}}), flush=True)
     print(json.dumps({"serve_recurrent": {
@@ -4970,6 +5432,7 @@ def main() -> None:
     print(json.dumps({"train": train, "train_card_vs_cpu": train_check,
                       "train_phase_s": train_s}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"train_families": fam_train}), flush=True)
     print(json.dumps({"assembly": {
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
         flush=True)

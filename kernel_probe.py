@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the assembly tile's, WKV6's, the CCM scorer call's, the window
-kernel's and the training backwards' time goes on one GPU.
+kernel's and the training backwards' time goes on one GPU, and how well
+conditioned rwkv6's float32 gradients are.
 
     python3 kernel_probe.py [--parent DIR] [--steps STEP ...]
 
@@ -68,8 +69,19 @@ application's 16 x 16 tiles, WKV6 at (4, 512, 64, 64) in bf16.
    call), and each of the expert GEMM's backward launches at three block
    counts (one block a tile, one a streaming multiprocessor, two).
 
+8. ``--steps rwkv_grad``: why phase 7d holds rwkv6's card-vs-CPU check
+   at 2 x 512 tokens.  ``rwkv6-7b`` cut to 1 layer at full width, float32,
+   the same weights (drawn on the card), at 2 x 64 and 2 x 512 tokens:
+   every gradient leaf from the card with the WKV6 kernels, the card with
+   a plain sequential WKV6 under autograd, the CPU's chunked form (the
+   port's CPU path) and the CPU at chunk 1, each pair's largest error over
+   the leaf's largest |value|; and, on the CPU, how far each leaf moves
+   when every weight changes by one float32 ulp (random sign), its
+   conditioning.
+
 ``--steps`` runs only the named steps (``turns`` for step 1, ``tile``,
-``wkv6``, ``spec``, ``floor``, ``pipeline``, ``bwd``); all by default.
+``wkv6``, ``spec``, ``floor``, ``pipeline``, ``bwd``, ``rwkv_grad``); all
+by default.
 Prints one JSON line of results, then the card's name and power limit.
 """
 from __future__ import annotations
@@ -636,7 +648,92 @@ def bwd_breakdown(torch, cs) -> dict:
     return out
 
 
-STEPS = ("turns", "tile", "wkv6", "spec", "floor", "pipeline", "bwd")
+def rwkv_grad(torch) -> dict:
+    """Step 8: rwkv6's float32 gradient leaves at 1 layer, full width,
+    from four computations of WKV6 (the card's kernels, the card's plain
+    sequential form, the CPU's chunked form and chunk 1) and their
+    one-ulp conditioning on the CPU, at 2 x 64 and 2 x 512 tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import tree_leaves
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.rwkv6 import ops, ref
+    from repro_torch.launch.steps import to_device
+    from repro_torch.models.model import build_model
+
+    def plain(r, k, v, log_w, u, chunk=16):
+        b, s, h, hd = r.shape
+        fold = [t.float().transpose(1, 2).reshape(b * h, s, hd)
+                for t in (r, k, v, log_w)]
+        return ref.reference_wkv6(*fold[:3], fold[3], u.float().repeat(
+            b, 1)).reshape(b, h, s, hd).transpose(1, 2), None
+
+    def chunk_one(r, k, v, log_w, u, chunk=16):
+        return chunked(r, k, v, log_w, u, chunk=1)
+
+    def share(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config("rwkv6-7b"), num_layers=1)
+    card_model = build_model(cfg, device="cuda", dtype=torch.float32)
+    params = card_model.init(torch.Generator(device="cuda").manual_seed(1))
+    cpu_model = build_model(cfg, device="cpu", dtype=torch.float32)
+    chunked, wkv = ref.wkv6_chunked, ops.wkv6
+    shapes = [list(t.shape) for t in tree_leaves(params)]
+    out = {"leaves": shapes}
+    for seq in (64, 512):
+        batch = make_batch(cfg, seq, 2, 0)
+
+        def grads(model, p):
+            leaves = tree_leaves(p)
+            for t in leaves:
+                t.grad = None
+                t.requires_grad_(True)
+            loss, _ = model.loss_fn(p, to_device(batch, model.device))
+            loss.backward()
+            return [t.grad.detach().cpu().clone() for t in leaves]
+
+        cpu_params = _tree_cpu(params)
+        runs = {"card kernels": grads(card_model, params)}
+        ops.wkv6 = plain
+        runs["card plain"] = grads(card_model, params)
+        ops.wkv6 = wkv
+        runs["cpu chunked"] = grads(cpu_model, cpu_params)
+        ref.wkv6_chunked = chunk_one
+        runs["cpu chunk 1"] = grads(cpu_model, cpu_params)
+        ref.wkv6_chunked = chunked
+        names = list(runs)
+        pairs = {f"{a} | {b}": [share(x, y) for x, y in zip(runs[a],
+                                                           runs[b])]
+                 for i, a in enumerate(names) for b in names[i + 1:]}
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for t in tree_leaves(cpu_params):
+                if t.numel() > 1000 and t.abs().max() > 0:
+                    sign = torch.randint(0, 2, t.shape, generator=gen) * 2 - 1
+                    t.mul_(1 + 2.0 ** -23 * sign)
+        ulp = [share(x, y) for x, y in zip(grads(cpu_model, cpu_params),
+                                            runs["cpu chunked"])]
+        out[f"2x{seq}"] = {"pairs": pairs, "one_ulp": ulp}
+        worst = {k: max(v) for k, v in pairs.items()}
+        print(f"rwkv_grad 2 x {seq}: worst leaf by pair {worst}; one ulp "
+              f"moves a leaf by at most {max(ulp)}", flush=True)
+        del runs, cpu_params
+    return out
+
+
+def _tree_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_cpu(v) for v in tree]
+    return tree.detach().cpu().clone()
+
+
+STEPS = ("turns", "tile", "wkv6", "spec", "floor", "pipeline", "bwd",
+         "rwkv_grad")
 
 
 def main() -> None:
@@ -690,6 +787,8 @@ def main() -> None:
                 for name, path in (("parent", parent), ("this", ROOT),
                                    ("this", ROOT), ("parent", parent))]
         res["bwd_breakdown"] = bwd_breakdown(torch, cs)
+    if "rwkv_grad" in args.steps:
+        res["rwkv_grad"] = rwkv_grad(torch)
     print(json.dumps(res), flush=True)
     print(f"card: {cs.card_line()}", flush=True)
 

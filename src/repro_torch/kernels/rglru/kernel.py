@@ -1,11 +1,14 @@
-"""The CUDA RG-LRU scan kernel (``csrc/rglru.cu``): build, bind and launch.
+"""The CUDA RG-LRU scan kernels (``csrc/rglru.cu``): build, bind and launch.
 
-Replaces the Pallas TPU kernel ``repro/kernels/rglru/kernel.py:55``
-(``rglru_fwd`` → ``_rglru_kernel``).  Built and bound like the port's other
-kernels (``kernels/_build.py``); a failed build or launch raises, nothing
-falls back.  :func:`rglru_fwd` launches it on CUDA tensors only, on the
-current stream, and counts the launch in :data:`LAUNCHES`;
-``ops.rglru_scan_op`` is the entry point that also takes CPU tensors.
+The forward replaces the Pallas TPU kernel ``repro/kernels/rglru/
+kernel.py:55`` (``rglru_fwd`` → ``_rglru_kernel``); the backward is its
+gradient, which the JAX package leaves to autodiff.  Built and bound like
+the port's other kernels (``kernels/_build.py``); a failed build or launch
+raises, nothing falls back.  :func:`rglru_fwd` and :func:`rglru_bwd` launch
+them on CUDA tensors only, on the current stream, and count each launch in
+:data:`LAUNCHES` and :data:`BWD_LAUNCHES`; ``ops.rglru_scan_op`` is the
+entry point that also takes CPU tensors, and the autograd function that
+joins the two.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ SOURCE = _build.CSRC / "rglru.cu"
 
 #: kernel launches per dtype of b, counted where the kernel is launched only
 LAUNCHES = {"bfloat16": 0, "float32": 0}
+#: backward launches per dtype of b
+BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 
 _DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 _MAX_GRID_Y = 65535
@@ -27,8 +32,9 @@ _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def build(verbose: bool = False) -> Path:
@@ -42,6 +48,11 @@ def build(verbose: bool = False) -> Path:
     for name in ("rglru_bf16", "rglru_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("rglru_bwd_bf16", "rglru_bwd_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.rglru_error_string.argtypes = [ctypes.c_int]
@@ -86,3 +97,32 @@ def rglru_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                            + _lib.rglru_error_string(rc).decode())
     LAUNCHES[_DTYPES[b.dtype]] += 1
     return out
+
+
+def rglru_bwd(log_a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """Launch the backward: log_a (B, S, W) float32, the forward's output h
+    and its gradient dh (B, S, W) in one dtype (bfloat16 or float32),
+    contiguous on one CUDA device -> (dlog_a float32, db in h's dtype)."""
+    _check(log_a, h)
+    if dh.device != h.device or dh.dtype != h.dtype or dh.shape != h.shape \
+            or not dh.is_contiguous():
+        raise ValueError("rglru backward: dh must be contiguous and of h's "
+                         f"device, dtype and shape (got {dh.device}, "
+                         f"{dh.dtype}, {tuple(dh.shape)})")
+    bsz, s, w = h.shape
+    dlog_a = torch.empty_like(log_a)
+    db = torch.empty_like(h)
+    if db.numel() == 0:
+        return dlog_a, db
+    build()
+    fn = _lib.rglru_bwd_bf16 if h.dtype == torch.bfloat16 \
+        else _lib.rglru_bwd_f32
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        rc = fn(log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+                dlog_a.data_ptr(), db.data_ptr(), bsz, s, w, stream)
+    if rc != 0:
+        raise RuntimeError("rglru backward kernel launch failed: "
+                           + _lib.rglru_error_string(rc).decode())
+    BWD_LAUNCHES[_DTYPES[h.dtype]] += 1
+    return dlog_a, db

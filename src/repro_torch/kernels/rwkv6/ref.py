@@ -1,9 +1,10 @@
 """Plain torch versions of WKV6, written after the JAX package's
 ``kernels/rwkv6/ref.py::reference_wkv6`` (the sequential oracle) and
-``models/rwkv6.py::wkv6_chunked`` (the chunked form the model runs).  The
-CPU tests use them, the entry point takes :func:`wkv6_chunked` for CPU
-tensors, and ``chip_smoke.py`` holds the CUDA kernel (``csrc/wkv6.cu``)
-against them on the card.
+``models/rwkv6.py::wkv6_chunked`` (the chunked form the model runs), and
+of its gradient (:func:`wkv6_backward`).  The CPU tests use them, the entry
+point takes :func:`wkv6_chunked` for CPU tensors (autograd differentiates
+it), and ``chip_smoke.py`` holds the CUDA kernels (``csrc/wkv6.cu``,
+``csrc/wkv6_bwd.cu``) against them on the card.
 """
 from __future__ import annotations
 
@@ -76,3 +77,48 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys.append(y1 + y2 + diag)
     y = torch.stack(ys, dim=1).reshape(b, s, h, hd)
     return y, state
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                  d_state=None):
+    """The gradient of :func:`reference_wkv6`'s y and final state in the
+    model layout: r, k, v, log_w, dy (B, S, H, hd), u (H, hd), d_state
+    (B, H, hd, hd) or None (zero) -> (dr, dk, dv, dlog_w (B, S, H, hd),
+    du (H, hd)), float32.  Step by step in float32, holding both states:
+    S_{t-1} for every t from a forward walk, then, from G = d_state
+    backwards, ``G_{t-1} = diag(w_t) G_t + r_t dy_t^T`` and::
+
+        dr_t = S_{t-1} dy_t + u o k_t (v_t . dy_t)
+        dk_t = G_t v_t + u o r_t (v_t . dy_t)
+        dv_t = G_t^T k_t + (sum_i r_t u k_t) dy_t
+        dlog_w_t = w_t o rowsum(G_t o S_{t-1})
+        du = sum_{b, t} r_t o k_t (v_t . dy_t)
+    """
+    b, s, h, hd = r.shape
+    rf, kf, vf, wf, dyf = (x.to(torch.float32).transpose(1, 2).reshape(
+        b * h, s, hd) for x in (r, k, v, torch.exp(log_w.float()), dy))
+    uf = u.to(torch.float32).repeat(b, 1)                  # (BH, hd)
+    state = torch.zeros((b * h, hd, hd), dtype=torch.float32,
+                        device=r.device)
+    before = []
+    for t in range(s):
+        before.append(state)
+        state = wf[:, t, :, None] * state + kf[:, t, :, None] * vf[:, t, None]
+    g = (torch.zeros_like(state) if d_state is None
+         else d_state.to(torch.float32).reshape(b * h, hd, hd).clone())
+    vd = (vf * dyf).sum(-1, keepdim=True)                  # (BH, S, 1)
+    bonus = (rf * uf[:, None] * kf).sum(-1, keepdim=True)
+    grads = [torch.empty_like(rf) for _ in range(4)]
+    for t in reversed(range(s)):
+        grads[0][:, t] = torch.einsum("bij,bj->bi", before[t], dyf[:, t]) \
+            + uf * kf[:, t] * vd[:, t]
+        grads[1][:, t] = torch.einsum("bij,bj->bi", g, vf[:, t]) \
+            + uf * rf[:, t] * vd[:, t]
+        grads[2][:, t] = torch.einsum("bij,bi->bj", g, kf[:, t]) \
+            + bonus[:, t] * dyf[:, t]
+        grads[3][:, t] = wf[:, t] * (g * before[t]).sum(-1)
+        g = wf[:, t, :, None] * g + rf[:, t, :, None] * dyf[:, t, None]
+    du = (rf * kf * vd).sum(1).reshape(b, h, hd).sum(0)
+    return tuple(x.reshape(b, h, s, hd).transpose(1, 2)
+                 for x in grads) + (du,)

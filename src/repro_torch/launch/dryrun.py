@@ -11,9 +11,8 @@ runs once on ``meta`` tensors of rank 0's shapes (``launch.steps.
 lower_cell``) under ``roofline.Counter``.  The reference's ``--unroll``
 has no counterpart: eager counting sees every layer.  Its
 ``--attn-chunk`` neither: the port has no chunked-XLA attention (the flash
-kernel does that work).  rwkv6 and recurrentgemma train cells are
-recorded as skipped: their kernels have no backward, and the port refuses
-to train them on the card.
+kernel does that work).  Every kernel counts its backward in a train
+cell (flash, the expert GEMM, WKV6, the RG-LRU scan).
 
 Each record holds FLOPs, bytes, collective bytes and counts by kind, the
 kernels' calls, rank 0's bytes of parameters, their gradients (train),
@@ -118,7 +117,7 @@ def already_done(arch, shape_name, mesh_name, out: Path) -> bool:
         return False
     data = json.loads(out.read_text())
     rec = data.get(f"{arch}|{shape_name}|{mesh_name}")
-    return bool(rec and (rec.get("ok") or rec.get("skipped")))
+    return bool(rec and rec.get("ok"))
 
 
 def main(argv=None) -> int:
@@ -201,13 +200,7 @@ def main(argv=None) -> int:
                       f"t_coll={r['collective_s']:.2e}s "
                       f"per_device_GB={m['total'] / 1e9:.2f} "
                       f"fits={rec['fits_80gb']}", flush=True)
-            except Exception as e:
-                if isinstance(e, RuntimeError) and "no backward" in str(e):
-                    save({"arch": arch, "shape": shape_name,
-                          "mesh": key_mesh, "ok": False, "skipped": str(e)},
-                         out)
-                    print(f"[skip] {label}: {e}", flush=True)
-                    continue
+            except Exception:
                 failures += 1
                 err = traceback.format_exc()
                 save({"arch": arch, "shape": shape_name, "mesh": key_mesh,

@@ -1,7 +1,8 @@
 """Training launcher, after the JAX package's ``launch/train.py``.
 
-Runs any decoder --arch the port serves (smoke configs on the CPU; full
-configs that fit on the card) with checkpoint/restart
+Runs any --arch the port serves, the encoder-decoder and the vision front
+end included (smoke configs on the CPU; full configs that fit on the card,
+or cut in depth), with checkpoint/restart
 fault tolerance and — for MoE archs — periodic CCM-LB expert re-placement
 applied as function-preserving slot permutations of the live parameters
 and of AdamW's moments.
@@ -25,9 +26,9 @@ under the H100's HBM size and FLOP rate (``balance.pipeline_stages``), not
 the reference's TPU figures.  Deviation from the reference, on purpose: a
 re-placement permutes AdamW's m and v with the experts; the reference
 permutes the parameters only, so after a re-placement it updates each
-expert with another expert's moments (ROADMAP queue 3).  rwkv6 and
-recurrentgemma train on the CPU only: their kernels have no backward yet
-and refuse autograd on the card.
+expert with another expert's moments (ROADMAP queue 3).  On the card
+every kernel the step runs has a backward kernel: flash attention, the
+expert GEMM, WKV6 (rwkv6) and the RG-LRU scan (recurrentgemma).
 """
 from __future__ import annotations
 
@@ -49,6 +50,8 @@ from repro_torch.data.pipeline import make_batch
 from repro_torch.kernels.ccm_scorer import kernel as scorer_kernel
 from repro_torch.kernels.flash import kernel as flash_kernel
 from repro_torch.kernels.moe_gemm import kernel as gemm_kernel
+from repro_torch.kernels.rglru import kernel as rglru_kernel
+from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
 from repro_torch.launch.steps import (make_optimizer, make_train_step,
                                      tree_leaves_specs)
 from repro_torch.models.model import build_model
@@ -61,8 +64,8 @@ from repro_torch.runtime.fault import FaultInjector, run_with_restarts
 class TrainLog:
     """What a :func:`train_loop` run measured, appended to as it runs:
     per step its index, seconds (CUDA events on the card, the host clock on
-    the CPU) and kernel launches (flash forward and backward, expert GEMM
-    in the forward and the backward); per re-placement its step, imbalance
+    the CPU) and kernel launches (:func:`launch_counts`); per
+    re-placement its step, imbalance
     before and after, pair-kernel launches and seconds; the step a run
     restored from."""
     steps: List[int] = dataclasses.field(default_factory=list)
@@ -72,12 +75,20 @@ class TrainLog:
     restored_from: List[int] = dataclasses.field(default_factory=list)
 
 
+#: the model kernels' modules, by the prefix of their counts
+KERNELS = {"flash": flash_kernel, "gemm": gemm_kernel, "wkv6": wkv6_kernel,
+           "rglru": rglru_kernel}
+
+
 def launch_counts() -> Dict[str, int]:
-    """The model kernels' launch counters, summed over dtypes."""
-    return {"flash_fwd": sum(flash_kernel.LAUNCHES.values()),
-            "flash_bwd": sum(flash_kernel.BWD_LAUNCHES.values()),
-            "gemm_fwd": sum(gemm_kernel.LAUNCHES.values()),
-            "gemm_bwd": sum(gemm_kernel.BWD_LAUNCHES.values())}
+    """The model kernels' launch counters (flash attention, the expert
+    GEMM, WKV6 and the RG-LRU scan, each forward and backward), summed over
+    dtypes."""
+    out = {}
+    for name, mod in KERNELS.items():
+        out[f"{name}_fwd"] = sum(mod.LAUNCHES.values())
+        out[f"{name}_bwd"] = sum(mod.BWD_LAUNCHES.values())
+    return out
 
 
 def train_loop(cfg, *, steps: int, seq_len: int, global_batch: int,

@@ -103,12 +103,27 @@ def test_problem_is_field_equal():
         np.testing.assert_array_equal(getattr(p_got, f), getattr(p_want, f))
 
 
+def _tile_float64(pr, pc, couple, q):
+    """The tile's formula in float64 numpy, from the float32 points: the
+    value both packages' float32 tiles round towards."""
+    d = np.sqrt(((pr[:, None].astype(np.float64) - pc[None]) ** 2).sum(-1)
+                + 1e-12)
+    acc = np.zeros_like(d)
+    for k in range(q):
+        r_q = (k + 0.5) / q
+        acc += np.cos(ref.WAVENUMBER * d * r_q) / q / (d + 0.05 * r_q + 1e-3)
+    return np.where(couple, acc, 0.0)
+
+
 @pytest.mark.parametrize("q", QUADS)
 @pytest.mark.parametrize("case", ["96x160", "13x7", "coincident"])
 def test_tile_matches_reference(case, q):
     """Tolerance ``rtol=1e-5, atol=1e-4`` (module docstring): the port's
     ``tile_kernel`` on CPU tensors against the application's
-    ``execute.tile_kernel`` and the Pallas kernel in interpret mode."""
+    ``execute.tile_kernel`` and the Pallas kernel in interpret mode.
+    Each side is first held to the formula in float64 at the same
+    tolerance (float32 rounding leaves each within 1e-6), so that a
+    failure names the side that moved."""
     pr, pc, couple = _tile_inputs(case)
     got = tile_kernel(torch.tensor(pr), torch.tensor(pc),
                       torch.tensor(couple), q)
@@ -118,6 +133,12 @@ def test_tile_matches_reference(case, q):
     pallas = r_assembly_tile(jnp.asarray(pr), jnp.asarray(pc),
                              jnp.asarray(couple), quad_order=q, block_r=32,
                              block_c=64, interpret=True)
+    exact = _tile_float64(pr, pc, couple, q)
+    for name, side in (("the port", got.numpy()),
+                       ("execute.tile_kernel", np.asarray(app)),
+                       ("pallas", np.asarray(pallas))):
+        np.testing.assert_allclose(side, exact, rtol=1e-5, atol=1e-4,
+                                   err_msg=f"{name} against float64")
     for name, want in (("execute.tile_kernel", app), ("pallas", pallas)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-4, err_msg=name)

@@ -17,7 +17,9 @@ hand count from the shapes.
   axis and of the counts (E,) and the aux loss over the data axis, and the
   data-axis all-gathers of the three expert shards.  A decode step on the
   2 x 2 mesh keeps each rank's rows and quarter of the caches, and gathers
-  the caches' sequence over the model axis at use.
+  the caches' sequence over the model axis at use.  rwkv6's and
+  recurrentgemma's ``train_4k`` cells are counted at full size on
+  ``h100``, each kernel's backward among the calls.
 """
 import json
 import os
@@ -112,6 +114,9 @@ def _count(out: str) -> None:
     res["expert_shard_bytes"] = sum(
         local[k].numel() * local[k].element_size()
         for k in moe.EXPERT_LEAVES)
+    # the recurrent archs' train cells at full size on the card's mesh
+    res["train_4k"] = {arch: dryrun.run_cell(arch, "train_4k", "h100")
+                       for arch in ("rwkv6-7b", "recurrentgemma-9b")}
     Path(out).write_text(json.dumps(res))
 
 
@@ -180,6 +185,31 @@ def test_moe_layer_collectives_follow_the_schedule(counted):
     assert st["collective_bytes"]["all-gather"] == \
         counted["expert_shard_bytes"]
     assert st["collective_counts"]["reduce-scatter"] == 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_recurrent_train_cells_are_counted_on_h100(counted, arch):
+    """rwkv6's and recurrentgemma's ``train_4k`` cells are counted on the
+    ``h100`` mesh (once recorded as skipped: their kernels had no
+    backward): each recurrent kernel launched twice a layer in the forward
+    (the remat's recompute; recurrentgemma's two tail layers once) and its
+    backward once a layer, flash likewise on recurrentgemma's 12 local
+    layers, and a backward's FLOPs in the step's count."""
+    from repro_torch import configs
+    rec = counted["train_4k"][arch]
+    assert rec["ok"] and "skipped" not in rec
+    cfg = configs.get_config(arch)
+    calls = rec["stats"]["kernel_calls"]
+    if arch == "rwkv6-7b":
+        assert calls == {"wkv6": 2 * cfg.num_layers,
+                         "wkv6_bwd": cfg.num_layers}
+    else:
+        n_rec = cfg.layer_kinds().count("rglru")
+        periods = cfg.num_layers // cfg.pattern_period
+        tail = cfg.num_layers - periods * cfg.pattern_period
+        assert calls == {"rglru": 2 * n_rec - tail, "rglru_bwd": n_rec,
+                         "flash_fwd": 2 * periods, "flash_bwd": periods}
+    assert rec["stats"]["flops"] > 0 and rec["roofline"]["dominant"]
 
 
 if __name__ == "__main__":

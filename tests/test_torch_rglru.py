@@ -6,9 +6,10 @@ version (``ref.reference_rglru``); it is held against the reference's
 sequential oracle and its Pallas kernel in interpret mode over
 ``tests/test_kernels.py``'s cases, at that test's ``atol=1e-4``
 (float32; the Pallas kernel's closed form sums in another order), and to
-one bf16 ulp of the output for bf16 ``b``.  The CUDA kernel is held against
-the plain version on the card by the ``cuda``-marked test, which skips
-without a card.
+one bf16 ulp of the output for bf16 ``b``.  The plain backward
+(``ref.rglru_backward``) is held against ``jax.vjp`` of the reference's
+oracle.  The CUDA kernels are held against the plain versions on the card
+by the ``cuda``-marked tests, which skip without a card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -93,20 +94,81 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
                                        rtol=tol)
 
 
+def _share(got, want):
+    """The largest |got - want| over the largest |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 128, 64), (2, 64, 128), (3, 77, 50),
+                                   (1, 1, 300)])
+def test_rglru_backward_matches_jax_grad_of_reference(b, s, w):
+    """The plain backward (``ref.rglru_backward``, from the forward's h)
+    against ``jax.vjp`` of the reference's oracle ``reference_rglru`` on
+    the same dh: dlog_a and db each within 1e-5 of its largest |value|
+    (float32 on both sides; the reference's autodiff of its scan sums the
+    same terms in another order)."""
+    import jax
+    la, bb = _inputs(b, s, w, seed=3)
+    dh = np.random.default_rng(4).standard_normal(la.shape).astype(
+        np.float32)
+    _, vjp = jax.vjp(r_reference_rglru, jnp.asarray(la), jnp.asarray(bb))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dh))]
+    h = ref.reference_rglru(torch.tensor(la), torch.tensor(bb))
+    got = ref.rglru_backward(torch.tensor(la), h, torch.tensor(dh))
+    for name, g, wt in zip(("dlog_a", "db"), got, want):
+        assert g.dtype == torch.float32 and g.shape == wt.shape
+        assert _share(g.numpy(), wt) <= 1e-5, name
+
+
+def test_meta_autograd_counts_the_backward():
+    """On ``meta`` tensors under autograd ``ops.rglru_scan_op`` counts the
+    forward kernel's work and, in the backward, the backward kernel's (5
+    operations an element; log_a, h, dh read, dlog_a, db written, float32)
+    instead of raising."""
+    from repro_torch import roofline
+    la = torch.empty((2, 16, 8), device="meta", requires_grad=True)
+    b = torch.empty((2, 16, 8), device="meta", requires_grad=True)
+    with roofline.Counter() as c:
+        ops.rglru_scan_op(la, b).sum().backward()
+    assert c.stats()["kernel_calls"] == {"rglru": 1, "rglru_bwd": 1}
+    assert ops.cost(la, backward=True) == (5 * la.numel(), 20 * la.numel())
+    assert la.grad.shape == la.shape and b.grad.shape == b.shape
+
+
+def test_launch_counts_reset():
+    """``reset_launches`` zeroes the forward's and the backward's counts
+    (``chip_smoke.py`` zeroes them before each run it counts)."""
+    kernel.LAUNCHES["float32"] = 3
+    kernel.BWD_LAUNCHES["float32"] = 2
+    kernel.reset_launches()
+    assert kernel.LAUNCHES == {"bfloat16": 0, "float32": 0}
+    assert kernel.BWD_LAUNCHES == {"bfloat16": 0, "float32": 0}
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_autograd():
-    """The RG-LRU kernel has no backward yet: on the card, a call that
-    autograd would record raises (naming the ROADMAP item) instead of
-    returning a tensor with no gradient; under ``no_grad`` it runs.
+def test_cuda_backward_matches_plain_version_on_the_card():
+    """The backward kernel (through ``ops.rglru_scan_op``'s autograd
+    function) against the plain backward on the same card inputs: float32
+    within 1e-5 of each gradient's largest |value| (the same steps in the
+    same order; exp may differ in the last bit), bf16 db within one bf16
+    ulp (2^-7), at the training shape (2, 2560, 4096) and ragged S and W.
     Skips without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    log_a = -torch.ones((1, 8, 4), device="cuda")
-    b = torch.randn((1, 8, 4), device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="F14"):
-        ops.rglru_scan_op(log_a, b)
-    with torch.no_grad():
-        assert not ops.rglru_scan_op(log_a, b).requires_grad
+    for s, w in [(2560, 4096), (77, 50), (1, 300), (100, 4100)]:
+        la, b = (torch.tensor(x, device="cuda") for x in _inputs(2, s, w))
+        dh = torch.tensor(np.random.default_rng(5).standard_normal(la.shape),
+                          device="cuda", dtype=torch.float32)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+            la_g = la.clone().requires_grad_()
+            b_g = b.to(dtype).requires_grad_()
+            h = ops.rglru_scan_op(la_g, b_g)
+            got = torch.autograd.grad(h, (la_g, b_g), dh.to(dtype))
+            want = ref.rglru_backward(la, h.detach(), dh.to(dtype))
+            assert got[1].dtype == dtype
+            for g, wt, t in zip(got, want, (1e-5, tol)):
+                assert _share(g.float().cpu(), wt.cpu()) <= t
 
 
 def test_cpu_path_differentiates_the_plain_version():

@@ -13,6 +13,13 @@ and sequential forms sum in another order), ``atol=rtol=1e-4`` against
 the output (``atol=rtol=1e-2``).  The CUDA kernel is held against the plain
 versions on the card by the ``cuda``-marked test, which skips without a
 card.
+
+The gradient: the plain backward (``ref.wkv6_backward``) is held against
+``jax.vjp`` of the reference's oracle and of its ``wkv6_chunked``, and the
+backward kernel's algorithm (the pair identity for dlog_w), emulated in
+float32, against float64 autograd at S 512; tolerances in each test's
+docstring.  The ``cuda``-marked test holds the backward kernel to the plain
+backward on the card.
 """
 import re
 
@@ -146,11 +153,14 @@ def test_cuda_launch_raises_on_cpu_tensors():
 
 
 def test_launch_counts_reset():
-    """``reset_launches`` zeroes every dtype's count (``chip_smoke.py``
-    zeroes them before each run it counts)."""
+    """``reset_launches`` zeroes every dtype's count of the forward and
+    the backward (``chip_smoke.py`` zeroes them before each run it
+    counts)."""
     kernel.LAUNCHES["bfloat16"] = 3
+    kernel.BWD_LAUNCHES["float32"] = 2
     kernel.reset_launches()
     assert kernel.LAUNCHES == {"bfloat16": 0, "float32": 0}
+    assert kernel.BWD_LAUNCHES == {"bfloat16": 0, "float32": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -219,18 +229,271 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
                                        rtol=1e-5)
 
 
+def _share(got, want):
+    """The largest |got - want| over the largest |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def _jax_vjp(fn, primals, cotangents):
+    import jax
+    _, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in primals))
+    return [np.asarray(g, np.float32) for g in vjp(cotangents)]
+
+
+def _jax_oracle(b, s, h, hd):
+    """The reference's sequential oracle as a function of model-layout
+    (r, k, v, log_w, u), for ``jax.vjp``."""
+    def oracle(r, k, v, lw, u):
+        uf = jnp.tile(u[None], (b, 1, 1)).reshape(b * h, hd)
+        y = r_reference_wkv6(*(x.transpose(0, 2, 1, 3).reshape(b * h, s, hd)
+                               for x in (r, k, v, lw)), uf)
+        return y.reshape(b, h, s, hd).transpose(0, 2, 1, 3)
+    return oracle
+
+
+def _plain_backward(r, k, v, lw, u, dy, ds=None):
+    got = ref.wkv6_backward(*(torch.tensor(x) for x in (r, k, v, lw, u, dy)),
+                            None if ds is None else torch.tensor(ds))
+    return [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("s,h,hd,log_w", [(40, 2, 16, None), (33, 3, 8, None),
+                                           (64, 1, 16, -15.0)])
+def test_wkv6_backward_matches_jax_grad_of_reference(s, h, hd, log_w):
+    """The plain backward (``ref.wkv6_backward``: S_{t-1} held for every
+    t, G walked back) against ``jax.vjp`` of the reference's sequential
+    oracle ``reference_wkv6`` on the same dy: dr, dk, dv, dlog_w and du
+    each within 2e-5 of its largest |value| (float32 on both sides, sums
+    in other orders; about 1e-6 is seen)."""
+    r, k, v, lw, u = _inputs(2, s, h, hd, seed=5, log_w=log_w)
+    dy = np.random.default_rng(6).standard_normal(r.shape).astype(np.float32)
+    want = _jax_vjp(_jax_oracle(*r.shape), (r, k, v, lw, u),
+                    jnp.asarray(dy))
+    got = _plain_backward(r, k, v, lw, u, dy)
+    for name, g, w in zip(("dr", "dk", "dv", "dlog_w", "du"), got, want):
+        assert g.shape == w.shape and g.dtype == np.float32
+        assert _share(g, w) <= 2e-5, name
+
+
+@pytest.mark.parametrize("s,chunk", [(48, 16), (100, 10)])
+def test_wkv6_backward_matches_jax_grad_of_wkv6_chunked(s, chunk):
+    """The plain backward against ``jax.vjp`` of the model's
+    ``wkv6_chunked`` (the training form), with a gradient of the final
+    state as well as of y, away from the decay clip: each gradient within
+    2e-5 of its largest |value|."""
+    r, k, v, lw, u = _inputs(2, s, 2, 16, seed=7)
+    rng = np.random.default_rng(8)
+    dy = rng.standard_normal(r.shape).astype(np.float32)
+    ds = rng.standard_normal((2, 2, 16, 16)).astype(np.float32)
+    want = _jax_vjp(lambda *a: r_wkv6_chunked(*a, chunk=chunk),
+                    (r, k, v, lw, u), (jnp.asarray(dy), jnp.asarray(ds)))
+    got = _plain_backward(r, k, v, lw, u, dy, ds)
+    for name, g, w in zip(("dr", "dk", "dv", "dlog_w", "du"), got, want):
+        assert _share(g, w) <= 2e-5, name
+
+
+def test_wkv6_backward_at_the_decay_clip():
+    """At the model's clip log_w = -exp(8) every w is 0 in float32: the
+    plain backward against ``jax.vjp`` of the oracle (exact there, unlike
+    the chunked form), within 2e-5 of each largest |value|; dlog_w = w o
+    rowsum(G o S) is exactly 0 on both sides."""
+    r, k, v, lw, u = _inputs(1, 64, 2, 16, seed=9, log_w=-float(np.exp(8.0)))
+    dy = np.random.default_rng(10).standard_normal(r.shape).astype(
+        np.float32)
+    want = _jax_vjp(_jax_oracle(*r.shape), (r, k, v, lw, u),
+                    jnp.asarray(dy))
+    got = _plain_backward(r, k, v, lw, u, dy)
+    assert (got[3] == 0).all() and (want[3] == 0).all()
+    for name, g, w in zip(("dr", "dk", "dv", "du"), got[:3] + got[4:],
+                          want[:3] + want[4:]):
+        assert _share(g, w) <= 2e-5, name
+
+
+def _kernel_walks(r, k, v, lw, u, dy, ds):
+    """``csrc/wkv6_bwd.cu``'s algorithm, step for step in float32 torch on
+    folded (BH, S, hd) inputs, u (BH, hd), ds (BH, hd, hd): a forward walk
+    one token behind (S_{t-2}) for dr and c_t = r_t w_{t-1} (S_{t-2}
+    dy_t), a backward walk one token behind (G_{s+1}) for dk and e_s = k_s
+    w_{s+1} (G_{s+1} v_s), a backward walk of G for dv, and dlog_w as the
+    suffix sums of c (from the final state's c_T) less those of e."""
+    bh, s, hd = r.shape
+    w = torch.exp(lw)
+    zero = torch.zeros((bh, hd), dtype=r.dtype)
+    vd = (v * dy).sum(-1)
+    state = torch.zeros((bh, hd, hd), dtype=r.dtype)
+    dr, c = torch.empty_like(r), torch.empty_like(r)
+    for t in range(s):
+        wp, kp, vp = ((x[:, t - 1] if t else zero) for x in (w, k, v))
+        a = torch.einsum("bij,bj->bi", state, dy[:, t])
+        pv = (vp * dy[:, t]).sum(-1, keepdim=True)
+        dr[:, t] = wp * a + kp * pv + u * k[:, t] * vd[:, t, None]
+        c[:, t] = r[:, t] * (wp * a)
+        state = wp[:, :, None] * state + kp[:, :, None] * vp[:, None]
+    c_tail = w[:, -1] * (ds * state).sum(-1)
+    g = ds.clone()
+    dk, e = torch.empty_like(r), torch.empty_like(r)
+    for t in reversed(range(s)):
+        last = t == s - 1
+        wn = torch.ones_like(zero) if last else w[:, t + 1]
+        rn, dyn = (zero, zero) if last else (r[:, t + 1], dy[:, t + 1])
+        bl = torch.einsum("bij,bj->bi", g, v[:, t])
+        pd = (dyn * v[:, t]).sum(-1, keepdim=True)
+        dk[:, t] = wn * bl + rn * pd + u * r[:, t] * vd[:, t, None]
+        e[:, t] = 0.0 if last else k[:, t] * (wn * bl)
+        g = wn[:, :, None] * g + rn[:, :, None] * dyn[:, None]
+    g = ds.clone()
+    dv = torch.empty_like(r)
+    bonus = (r * u[:, None] * k).sum(-1, keepdim=True)
+    for t in reversed(range(s)):
+        dv[:, t] = torch.einsum("bij,bi->bj", g, k[:, t]) \
+            + bonus[:, t] * dy[:, t]
+        g = w[:, t, :, None] * g + r[:, t, :, None] * dy[:, t, None]
+    acc, dlw = c_tail, torch.empty_like(r)
+    for t in reversed(range(s)):
+        acc = acc - e[:, t]
+        dlw[:, t] = acc
+        acc = acc + c[:, t]
+    return dr, dk, dv, dlw, (r * k * vd[..., None]).sum(1)
+
+
+def _float64_grads(r, k, v, lw, u, dy, ds):
+    """Autograd of the sequential recurrence in float64 (the truth)."""
+    xs = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+    rr, kk, vv, ll, uu = xs
+    state = torch.zeros_like(ds)
+    w = torch.exp(ll)
+    loss = 0.0
+    for t in range(r.shape[1]):
+        y = torch.einsum("bi,bij->bj", rr[:, t], state) \
+            + (rr[:, t] * uu * kk[:, t]).sum(-1, keepdim=True) * vv[:, t]
+        loss = loss + (y * dy[:, t]).sum()
+        state = w[:, t, :, None] * state + kk[:, t, :, None] * vv[:, t, None]
+    loss = loss + (state * ds).sum()
+    return torch.autograd.grad(loss, xs)
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one thread for the test, restored after: the walks are 512
+    steps of small products, which a thread pool shared with other test
+    processes slows a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("log_w", [None, -float(np.exp(-6.0)),
+                                   -float(np.exp(8.0))])
+def test_kernel_algorithm_cancellation_at_s512(log_w, one_thread):
+    """The backward kernel's dlog_w is a difference of suffix sums (the
+    pair identity in ``csrc/wkv6_bwd.cu``), which could cancel.  Its
+    algorithm, emulated in float32 (``_kernel_walks``), against float64
+    autograd at S 512, hd 64, for random decay, the model's initial decay
+    -exp(-6) (slow: long sums) and the clip -exp(8): every gradient within
+    4e-6 of its largest |value| (up to 1.5e-6 seen, as the direct form in
+    float32 gives: no cancellation beyond float32 summation), and at the
+    clip dlog_w exactly 0."""
+    r, k, v, lw, u = _inputs(1, 512, 2, 64, seed=11, log_w=log_w)
+    rng = np.random.default_rng(12)
+    dy = rng.standard_normal(r.shape)
+    ds = rng.standard_normal((2, 64, 64))
+    folded = [torch.tensor(_fold(x)) for x in (r, k, v, lw, dy)]
+    uf, dsf = torch.tensor(u), torch.tensor(ds)
+    r64, k64, v64, lw64, dy64 = (x.double() for x in folded)
+    want = _float64_grads(r64, k64, v64, lw64, uf.double(), dy64,
+                          dsf.double())
+    got = _kernel_walks(*(x.float() for x in folded[:4]), uf.float(),
+                        folded[4].float(), dsf.float())
+    for name, g, w in zip(("dr", "dk", "dv", "dlog_w", "du"), got, want):
+        assert _share(g.numpy(), w.numpy()) <= 4e-6, name
+    if log_w is not None and log_w < -100:
+        assert (got[3] == 0).all()
+
+
+def test_meta_autograd_counts_the_backward():
+    """On ``meta`` tensors under autograd ``ops.wkv6`` counts the forward
+    kernel's work and, in the backward, the backward kernel's (12 hd^2
+    operations a token and head; r, k, v, dy read and dr, dk, dv written
+    in r's dtype, log_w read and dlog_w written in float32, u and du)
+    instead of raising."""
+    from repro_torch import roofline
+    b, s, h, hd = 2, 8, 3, 16
+    r = torch.empty((b, s, h, hd), device="meta", dtype=torch.bfloat16,
+                    requires_grad=True)
+    lw = torch.empty((b, s, h, hd), device="meta", requires_grad=True)
+    u = torch.empty((h, hd), device="meta", requires_grad=True)
+    with roofline.Counter() as c:
+        y, _ = ops.wkv6(r, r, r, lw, u)
+        y.sum().backward()
+    st = c.stats()
+    assert st["kernel_calls"] == {"wkv6": 1, "wkv6_bwd": 1}
+    assert ops.cost(r, lw, u, backward=True) == (
+        12 * hd * hd * b * s * h, 7 * r.numel() * 2 + 8 * lw.numel()
+        + 8 * u.numel())
+    assert r.grad is not None and r.grad.shape == r.shape
+
+
+@pytest.mark.parametrize("hd", [1, 8, 32, 33, 64, 100, 128])
+def test_bwd_geometry_fits_the_card(hd):
+    """``kernel.bwd_geometry``, the backward walks' launch (which
+    ``csrc/wkv6_bwd.cu`` checks): three blocks a (batch, head), one a
+    role; ``BWD_PARTS`` threads a row of the state padded to 32, 64 or
+    128, whole warps, in quads of four columns; within an H100's threads a
+    block and shared memory.  The constants are the kernel source's."""
+    src = kernel.BWD_SOURCE.read_text()
+    for name, value in (("TOKENS", kernel.TOKENS),
+                        ("PARTS", kernel.BWD_PARTS)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) \
+            == str(value)
+    g = kernel.bwd_geometry(4, 64, hd)
+    assert g.grid == 3 * 256
+    assert g.head_pad in (32, 64, 128) and hd <= g.head_pad
+    assert g.threads == g.parts * g.head_pad
+    assert g.threads % 32 == 0 and g.threads <= 1024
+    assert (g.head_pad // g.parts) % 4 == 0 and 32 % g.parts == 0
+    assert g.smem_bytes <= _build.MAX_SMEM_BYTES
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_autograd():
-    """The WKV6 kernel has no backward yet: on the card, a call that
-    autograd would record raises (naming the ROADMAP item) instead of
-    returning a tensor with no gradient; under ``no_grad`` it runs.
-    Skips without a card."""
+def test_cuda_backward_matches_plain_version_on_the_card():
+    """The backward kernel (through ``ops.wkv6``'s autograd function, and
+    called alone with a final-state gradient) against the plain backward
+    on the same card inputs: each gradient within 2e-5 of its largest
+    |value| in float32 (sums in other orders), and dr, dk, dv within 2^-7
+    in bf16 (each rounded once to bf16), dlog_w and du (float32 outputs of
+    the same bf16 inputs) within 2e-5; at chunk boundaries, a ragged S,
+    head dims 8 to 128, the clip (dlog_w exactly 0) and the training shape
+    (4, 512, 64, 64).  Two runs give the same bits.  Skips without a
+    card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    r = torch.randn((1, 16, 2, 8), device="cuda", requires_grad=True)
-    args = (r, r, r, -torch.ones_like(r), torch.zeros((2, 8), device="cuda"))
-    with pytest.raises(RuntimeError, match="F14"):
-        ops.wkv6(*args)
-    with torch.no_grad():
-        y, _ = ops.wkv6(*args)
-    assert not y.requires_grad
+    cases = [(2, 64, 2, 32, None), (1, 100, 3, 64, None),
+             (1, 64, 1, 16, -float(np.exp(8.0))), (1, 37, 2, 8, None),
+             (2, 77, 3, 128, None), (4, 512, 64, 64, None)]
+    for dtype in (torch.float32, torch.bfloat16):
+        low = 2e-5 if dtype == torch.float32 else 2 ** -7
+        for b, s, h, hd, log_w in cases:
+            r, k, v, lw, u = (torch.tensor(x, device="cuda") for x in
+                              _inputs(b, s, h, hd, log_w=log_w))
+            r, k, v = (t.to(dtype) for t in (r, k, v))
+            rng = np.random.default_rng(13)
+            dy = torch.tensor(rng.standard_normal(r.shape), device="cuda",
+                              dtype=dtype)
+            ds = torch.tensor(rng.standard_normal((b, h, hd, hd)),
+                              device="cuda", dtype=torch.float32)
+            want = ref.wkv6_backward(r, k, v, lw, u, dy, ds)
+            got = kernel.wkv6_bwd(r, k, v, lw, u, dy, ds)
+            assert torch.equal(got[3], kernel.wkv6_bwd(
+                r, k, v, lw, u, dy, ds)[3])
+            for g, w, tol in zip(got, want, (low, low, low, 2e-5, 2e-5)):
+                assert _share(g.float().cpu(), w.cpu()) <= tol
+            if log_w is not None:
+                assert (got[3] == 0).all()
+            leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+            y, _ = ops.wkv6(*leaves)
+            grads = torch.autograd.grad(y, leaves, dy)
+            want = ref.wkv6_backward(r, k, v, lw, u, dy)
+            for g, w, tol in zip(grads, want, (low, low, low, 2e-5, 2e-5)):
+                assert _share(g.float().cpu(), w.cpu()) <= tol
