@@ -249,12 +249,14 @@ line):
    test's decay and the model's initial one, a ragged S, hd 32 and 128 and
    the clip -exp(8), with and without a final-state gradient, in float32
    and bf16, and the RG-LRU backward (``csrc/rglru.cu``) against
-   ``ref.rglru_backward`` at (2, 2560, 4096) and ragged S and W: every
-   gradient within 2e-5 of its largest |value| (bf16 dr, dk, dv, db
-   within 2^-7), dlog_w exactly 0 at the clip, two WKV6 launches bit for
-   bit, and a planted fault (dlog_w shifted by a token, dlog_a by a step)
-   caught; both timed at their training shapes against their plain
-   versions and bounds.
+   ``ref.rglru_backward`` at (2, 2560, 4096) and ragged S and W (its TMA
+   ring where a row is a whole number of 16 bytes, its plain loads
+   elsewhere): every gradient within 2e-5 of its largest |value| (bf16
+   dr, dk, dv, db within 2^-7), dlog_w exactly 0 at the clip, two WKV6
+   launches bit for bit, the RG-LRU's float32 gradients bit for bit its
+   plain version's, and a planted fault (dlog_w shifted by a token,
+   dlog_a by a step) caught; both timed at their training shapes against
+   their plain versions and bounds.
    Then the same float32 weights of qwen cut to 1 layer on the card and
    the CPU: the loss and every gradient leaf of a 2 x 64-token batch
    (rtol 1e-4; gradients within 1e-3 of each leaf's largest |value|), and
@@ -3148,18 +3150,24 @@ def check_wkv6_bwd(torch, wkv_kernel, wkv_ops, wkv_ref) -> dict:
 def check_rglru_bwd(torch, rglru_kernel, rglru_ops, rglru_ref) -> dict:
     """The RG-LRU backward kernel (through ``ops.rglru_scan_op``'s autograd
     function) against the plain backward (``ref.rglru_backward``) at
-    ``RGLRU_BWD_CASES`` in float32 and bf16 b: dlog_a and db within
-    ``REC_BWD_TOL``; a planted fault, dlog_a shifted by one step, must
-    fail the same check.  Returns the largest errors per dtype."""
+    ``RGLRU_BWD_CASES`` in float32 and bf16 b, on the kernel's TMA ring or
+    its plain loads as ``kernel.bwd_geometry`` picks: dlog_a and db within
+    ``REC_BWD_TOL``, and in float32 bit for bit (the same steps in the
+    same order); a planted fault, dlog_a shifted by one step, must fail
+    the same check, and the cases must run both paths.  Returns the
+    largest errors per dtype."""
     import numpy as np
     t0 = time.perf_counter()
     rng = np.random.default_rng(22)
-    worst = {}
+    worst, paths = {}, {"tma": [], "plain": []}
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
         worst[name] = {}
         for b, s, w in RGLRU_BWD_CASES:
             label = f"rglru backward {name} ({b}, {s}, {w})"
+            path = "tma" if rglru_kernel.bwd_geometry(w, dtype).tma \
+                else "plain"
+            paths[path].append(f"{name} {(b, s, w)}")
             la = torch.tensor(-np.exp(rng.standard_normal((b, s, w))) * 0.1
                               - 1e-3, dtype=torch.float32, device="cuda")
             bb = torch.tensor(rng.standard_normal((b, s, w)),
@@ -3177,14 +3185,20 @@ def check_rglru_bwd(torch, rglru_kernel, rglru_ops, rglru_ref) -> dict:
             want = rglru_ref.rglru_backward(la, h.detach(), dh)
             rec_bwd_errors(torch, got, want, ("dlog_a", "db"), label,
                            worst[name])
+            if dtype == torch.float32 and not all(
+                    torch.equal(g, x) for g, x in zip(got, want)):
+                fail(f"{label}: not bit for bit the plain backward")
             if s > 1 and rel_err(torch, torch.roll(got[0], 1, dims=1),
                                  want[0]) <= REC_BWD_TOL["float32"]:
                 fail(f"{label}: dlog_a shifted by one step passes the "
                      "check")
     print(f"rglru backward kernel == plain backward on "
           f"{2 * len(RGLRU_BWD_CASES)} cases (within {REC_BWD_TOL} of "
-          f"each largest |value|; dlog_a shifted by a step caught); worst "
-          f"{worst}; {time.perf_counter() - t0:.1f} s", flush=True)
+          f"each largest |value|, float32 bit for bit; dlog_a shifted by a "
+          f"step caught); paths {paths}; worst {worst}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (paths["tma"] and paths["plain"]):
+        fail(f"rglru backward: RGLRU_BWD_CASES ran one path only ({paths})")
     return worst
 
 

@@ -79,9 +79,28 @@ application's 16 x 16 tiles, WKV6 at (4, 512, 64, 64) in bf16.
    when every weight changes by one float32 ulp (random sign), its
    conditioning.
 
+9. ``--steps rec_bwd``, the two recurrent backwards at their training
+   shapes (``chip_smoke.time_rec_bwd``'s inputs: WKV6 (4, 512, 64, 64) in
+   bf16, the RG-LRU (2, 2560, 4096) float32): with ``--parent``, the
+   parent's and this checkout's public entry points (``kernel.wkv6_bwd``,
+   ``kernel.rglru_bwd``) in turns, parent, this, this, parent, each in a
+   process of its own, ``device_ms`` of each; then, for each checkout in
+   a process of its own, each backward whole and with each of its phases
+   left out (``REC_BWD_CUTS``: WKV6's staging, each role's walk, the
+   per-token scalars, the stores and the finish kernel; the RG-LRU's
+   loads, its dependent chain and its stores), built from that
+   checkout's source with those lines cut, with ptxas's registers and
+   spills of the whole kernels.  The cut variants are for timing only:
+   their results are wrong.  For the redesigned kernels also the designs
+   they were measured against (``REC_BWD_VARIANTS``: the copies issued by
+   every warp, no register bound, a head's three roles launched together,
+   the token loops unrolled by 2; the RG-LRU's exps of a chunk first, its
+   walk fully unrolled), each held to the kernel's results and timed in
+   turns with it.
+
 ``--steps`` runs only the named steps (``turns`` for step 1, ``tile``,
-``wkv6``, ``spec``, ``floor``, ``pipeline``, ``bwd``, ``rwkv_grad``); all
-by default.
+``wkv6``, ``spec``, ``floor``, ``pipeline``, ``bwd``, ``rwkv_grad``,
+``rec_bwd``); all by default.
 Prints one JSON line of results, then the card's name and power limit.
 """
 from __future__ import annotations
@@ -186,6 +205,237 @@ SPEC_CUTS = {
              "  for (int off = 16; false; off >>= 1) {"),),
     },
 }
+
+
+#: the recurrent backwards' training shapes (``chip_smoke.time_rec_bwd``)
+REC_WKV_SHAPE, REC_RGLRU_SHAPE = (4, 512, 64, 64), (2, 2560, 4096)
+# (kernel -> kind -> name -> ((what the source says, what it is replaced
+# by), ...)) for each phase of the recurrent backwards that a variant
+# leaves out: of the first designs ("parent", told apart by their source)
+# and of the redesigned kernels ("this")
+REC_BWD_CUTS = {
+    "wkv6": {
+        "parent": {
+            "staging": (
+                ("    for (int e = tid; e < (n + 2) * HD; e += THREADS) {",
+                 "    for (int e = tid; false; e += THREADS) {"),),
+            "walk 0": (
+                ("      for (int tt = 0; tt < n; ++tt) {\n"
+                 "        const int row = tt + 1;\n"
+                 "        const float* dyt",
+                 "      for (int tt = 0; false; ++tt) {\n"
+                 "        const int row = tt + 1;\n"
+                 "        const float* dyt"),),
+            "walk 1": (
+                ("      for (int tt = n - 1; tt >= 0; --tt) {\n"
+                 "        const int row = tt + 1;\n"
+                 "        const int s = t0 + tt;",
+                 "      for (int tt = n - 1; false; --tt) {\n"
+                 "        const int row = tt + 1;\n"
+                 "        const int s = t0 + tt;"),),
+            "walk 2": (
+                ("      for (int tt = n - 1; tt >= 0; --tt) {\n"
+                 "        const int row = tt + 1;\n"
+                 "        const float* ks",
+                 "      for (int tt = n - 1; false; --tt) {\n"
+                 "        const int row = tt + 1;\n"
+                 "        const float* ks"),),
+            "per-token scalars": (
+                ("            pv[x & 1] = __fmaf_rn(pp[x], dd[x], pv[x & 1]);\n"
+                 "            vd[x & 1] = __fmaf_rn(tv[x], dd[x], vd[x & 1]);\n",
+                 ""),
+                ("            pd[x & 1] = __fmaf_rn(nn[x], vv[x], pd[x & 1]);\n"
+                 "            vd[x & 1] = __fmaf_rn(vv[x], ss[x], vd[x & 1]);\n",
+                 ""),
+                ("            bo[x & 1] = __fmaf_rn(__fmul_rn(rr[x], uq[c]), "
+                 "kk[x], bo[x & 1]);\n", "")),
+            "scattered stores": (
+                ("          const size_t g = base + (size_t)(t0 + tt) * stride"
+                 " + i;\n          dr[g]",
+                 "          const size_t g = base + i;\n          dr[g]"),
+                ("          const size_t g = base + (size_t)s * stride + i;",
+                 "          const size_t g = base + i;"),
+                ("          dv[base + (size_t)(t0 + tt) * stride + j] =",
+                 "          dv[base + j] =")),
+            "finish": (
+                ("  wkv6_bwd_finish<<<", "  if (false) wkv6_bwd_finish<<<"),),
+        },
+        "this": {
+            "staging": (
+                ("    if (it + 1 < n_groups) stage_group(grp + step, buf ^ 1);",
+                 "    if (false) stage_group(grp + step, buf ^ 1);"),),
+            "the copies' wait": (
+                ("    cp_async_wait_all();\n    __syncthreads();   // this "
+                 "group staged",
+                 "    __syncthreads();   // this group staged"),),
+            "conversion and scalars": (
+                ("    for (int e = tid; e < rows * HD; e += THREADS) {\n"
+                 "      ca[e]",
+                 "    for (int e = tid; false; e += THREADS) {\n      ca[e]"),
+                ("    for (int task = tid; task < (rows * 8 + 31) / 32 * 32; "
+                 "task += THREADS) {",
+                 "    for (int task = tid; false; task += THREADS) {")),
+            "walk 0": (
+                ("      for (int tt = 0; tt < n; ++tt) {\n"
+                 "        const float* dyt",
+                 "      for (int tt = 0; false; ++tt) {\n"
+                 "        const float* dyt"),),
+            "walk 1": (
+                ("      for (int tt = n - 1; tt >= 0; --tt) {\n"
+                 "        const float* vs = ca",
+                 "      for (int tt = n - 1; false; --tt) {\n"
+                 "        const float* vs = ca"),),
+            "walk 2": (
+                ("      for (int tt = n - 1; tt >= 0; --tt) {\n"
+                 "        const float* ks = ca",
+                 "      for (int tt = n - 1; false; --tt) {\n"
+                 "        const float* ks = ca"),),
+            "sums and stores": (
+                ("    for (int e = tid; e < n * (HD / ITEM); e += THREADS) {",
+                 "    for (int e = tid; false; e += THREADS) {"),),
+            "finish": (
+                ("  wkv6_bwd_finish<<<", "  if (false) wkv6_bwd_finish<<<"),),
+        },
+    },
+    "rglru": {
+        "parent": {
+            "loads": (
+                ("        la[s] = log_a[at];\n"
+                 "        dd[s] = widen(dh[at]);\n"
+                 "        hp[s] = t > 0 ? widen(h[at - W]) : 0.0f;",
+                 "        la[s] = -1e-3f * s;\n"
+                 "        dd[s] = 1.0f;\n"
+                 "        hp[s] = 0.5f;"),),
+            "chain": (
+                ("        g = __fadd_rn(dd[s], __fmul_rn(a_next, g));",
+                 "        g = dd[s];"),),
+            "stores": (
+                ("  float g = 0.0f, a_next = 0.0f;",
+                 "  float g = 0.0f, a_next = 0.0f, sink = 0.0f;"),
+                ("        db[at] = narrow<T>(g);",
+                 "        if (t == 0) db[at] = narrow<T>(g);"),
+                ("        dlog_a[at] = __fmul_rn(__fmul_rn(g, a), hp[s]);",
+                 "        sink = __fadd_rn(sink, __fmul_rn(__fmul_rn(g, a), "
+                 "hp[s]));"),
+                ("      }\n    }\n  }\n}\n\ntemplate <typename T>\n"
+                 "int launch_bwd(",
+                 "      }\n    }\n  }\n  if (sink == 1.2345f) dlog_a[base] = "
+                 "sink;\n}\n\ntemplate <typename T>\nint launch_bwd(")),
+        },
+        "this": {
+            "loads": (
+                ("    hopper::mbar_expect_tx(&full[st], P::STAGE);\n"
+                 "    hopper::tma_load_3d(s, &map_la, &full[st], c0, t0, b);\n"
+                 "    hopper::tma_load_3d(s + P::H, &map_h, &full[st], c0, "
+                 "t0 - 1, b);\n"
+                 "    hopper::tma_load_3d(s + P::DH, &map_dh, &full[st], c0, "
+                 "t0, b);",
+                 "    hopper::mbar_arrive(&full[st]);"),),
+            "chain": (
+                ("  g = __fadd_rn(dd, __fmul_rn(a_next, g));", "  g = dd;"),),
+            "walk": (
+                ("    for (int j = BWD_STEPS - 1; j >= 0; --j) {",
+                 "    for (int j = BWD_STEPS - 1; false; --j) {"),),
+            "stores": (
+                ("      hopper::tma_store_3d(&map_dla, o_dla, c0, t0, b);\n"
+                 "      hopper::tma_store_3d(&map_db, o_db, c0, t0, b);\n", ""),),
+        },
+    },
+}
+
+#: (kernel -> name -> ((what the source says, what it is replaced by), ...))
+#: designs the redesigned kernels were measured against: each is built
+#: from this checkout's source with its lines replaced and timed in turns
+#: with the kernel as it is (whole, each variant, then in reverse); their
+#: results are held to the whole kernel's within ``REC_BWD_TOL``
+REC_BWD_VARIANTS = {
+    "wkv6": {
+        "copies by every warp": (
+            ("    constexpr int HALF = THREADS / 2;\n"
+             "    for (int c = tid - HALF + lo * CHUNKS; tid >= HALF && c < "
+             "hi * CHUNKS;\n         c += HALF) {",
+             "    for (int c = tid + lo * CHUNKS; c < hi * CHUNKS; "
+             "c += THREADS) {"),),
+        "no register bound": (
+            ("__launch_bounds__(Bwd<T, HD>::THREADS, Bwd<T, HD>::MIN_BLOCKS)",
+             "__launch_bounds__(Bwd<T, HD>::THREADS)"),),
+        "a head's three roles launched together": (
+            ("  const int bh = blockIdx.x;\n  const int role = blockIdx.y;\n",
+             "  const int bh = blockIdx.x / 3;\n"
+             "  const int role = blockIdx.x - 3 * bh;\n"),
+            ("  wkv6_bwd_scan<T, HD><<<dim3((unsigned)(B * H), 3), P::THREADS,"
+             " P::SMEM,",
+             "  wkv6_bwd_scan<T, HD><<<(unsigned)(3 * B * H), P::THREADS, "
+             "P::SMEM,")),
+        "token loops unrolled by 2": tuple(
+            (head, "#pragma unroll 2\n" + head) for head in (
+                "      for (int tt = 0; tt < n; ++tt) {\n"
+                "        const float* dyt",
+                "      for (int tt = n - 1; tt >= 0; --tt) {\n"
+                "        const float* vs = ca",
+                "      for (int tt = n - 1; tt >= 0; --tt) {\n"
+                "        const float* ks = ca")),
+    },
+    "rglru": {
+        "a chunk's exps first": (
+            ("#pragma unroll 8\n"
+             "    for (int j = BWD_STEPS - 1; j >= 0; --j) {\n"
+             "      const int e = j * BWD_CHANNELS + c;\n"
+             "      bwd_step(la[e], widen(dd[e]), widen(hp[e]), g, a_next, "
+             "o_db + e,\n               o_dla + e);\n    }",
+             "    float a[BWD_STEPS];\n"
+             "#pragma unroll\n"
+             "    for (int j = 0; j < BWD_STEPS; ++j)\n"
+             "      a[j] = expf(la[j * BWD_CHANNELS + c]);\n"
+             "#pragma unroll\n"
+             "    for (int j = BWD_STEPS - 1; j >= 0; --j) {\n"
+             "      const int e = j * BWD_CHANNELS + c;\n"
+             "      g = __fadd_rn(widen(dd[e]), __fmul_rn(a_next, g));\n"
+             "      o_db[e] = narrow<T>(g);\n"
+             "      o_dla[e] = __fmul_rn(__fmul_rn(g, a[j]), widen(hp[e]));\n"
+             "      a_next = a[j];\n    }"),),
+        "the walk fully unrolled": (
+            ("#pragma unroll 8\n    for (int j = BWD_STEPS - 1;",
+             "#pragma unroll\n    for (int j = BWD_STEPS - 1;"),),
+    },
+}
+
+
+def rec_bwd_kind(name: str, text: str) -> str:
+    """Which design of a recurrent backward ``text`` (its source) holds."""
+    if name == "wkv6":
+        return "parent" if "auto stage = [&](int t0, int n) {" in text \
+            else "this"
+    return "this" if "int stages" in text else "parent"
+
+
+# the recurrent backwards at their training shapes through a checkout's
+# public entry points, in a process of its own
+REC_BWD_TIMES = r'''
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import kernel_probe as kp
+from repro_torch.kernels.rglru import kernel as rk
+from repro_torch.kernels.rwkv6 import kernel as wk
+w_in, r_in = kp.rec_bwd_inputs(torch, cs)
+print(json.dumps({"wkv6_bwd": cs.device_ms(torch, lambda: wk.wkv6_bwd(*w_in),
+                                           20),
+                  "rglru_bwd": cs.device_ms(torch,
+                                            lambda: rk.rglru_bwd(*r_in), 20)}))
+'''
+
+# a checkout's recurrent backwards whole and with each phase cut, in a
+# process of its own
+REC_BWD_PHASES = r'''
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import kernel_probe as kp
+print(json.dumps(kp.rec_bwd_phases(torch, cs)))
+'''
 
 
 # the timed part, run in a process of its own for each checkout
@@ -425,11 +675,13 @@ def wkv6_phases(torch, cs, rng) -> dict:
     return out
 
 
-def cut_variants(source: Path, cuts: dict, tag: str) -> dict:
+def cut_variants(source: Path, cuts: dict, tag: str,
+                 label: str = "without", every_cut: bool = True) -> dict:
     """``source`` whole and with each of ``cuts`` applied, each written
     under ``build/kernels/probe/`` (local includes made absolute):
-    ``{"whole": path, "without <name>": path, ..., "without all": path}``.
-    Exits if a cut's text is not in the source exactly once."""
+    ``{"whole": path, "<label> <name>": path, ..., "<label> all": path}``
+    (the last, all of them, when ``every_cut``).  Exits if a cut's text is
+    not in the source exactly once."""
     from repro_torch.kernels import _build
     text = source.read_text()
     probe_dir = _build.BUILD_DIR / "probe"
@@ -439,7 +691,7 @@ def cut_variants(source: Path, cuts: dict, tag: str) -> dict:
         text = text.replace(f'#include "{name}"',
                             f'#include "{(source.parent / name).resolve()}"')
     variants, every = {}, []
-    for name, pairs in list(cuts.items()) + [("all", None)]:
+    for name, pairs in list(cuts.items()) + [("all", None)] * every_cut:
         pairs = every if pairs is None else pairs
         every = every + list(pairs)
         cut = text
@@ -448,13 +700,129 @@ def cut_variants(source: Path, cuts: dict, tag: str) -> dict:
                 sys.exit(f"kernel_probe: {source} no longer has the {name} "
                          f"lines this probe cuts: {was!r}")
             cut = cut.replace(was, now)
-        variants[f"without {name}"] = cut
+        variants[f"{label} {name}"] = cut
     out = {}
     for name, body in [("whole", text)] + list(variants.items()):
         stem = "".join(ch if ch.isalnum() else "_" for ch in name)
         path = probe_dir / f"{source.stem}_{tag}_{stem}.cu"
         path.write_text(body)
         out[name] = path
+    return out
+
+
+def rec_bwd_inputs(torch, cs):
+    """The recurrent backwards' arguments at their training shapes, on the
+    card: WKV6's (r, k, v, log_w, u, dy) in bf16 (``chip_smoke``'s
+    distributions) and the RG-LRU's (log_a, h, dh) float32, h from the
+    forward kernel."""
+    import numpy as np
+    from repro_torch.kernels.rglru import kernel as rk
+    rng = np.random.default_rng(23)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, s, h, hd = REC_WKV_SHAPE
+    wkv = cs.wkv6_inputs(torch, rng, b, s, h, hd, None, torch.bfloat16)
+    dy = torch.randn(wkv[0].shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    la = -torch.rand(REC_RGLRU_SHAPE, generator=gen, device="cuda") * 0.1 \
+        - 1e-3
+    hh = rk.rglru_fwd(la, torch.randn(REC_RGLRU_SHAPE, generator=gen,
+                                      device="cuda"))
+    dh = torch.randn(REC_RGLRU_SHAPE, generator=gen, device="cuda")
+    return (*wkv, dy), (la, hh, dh)
+
+
+def rec_bwd_phases(torch, cs) -> dict:
+    """The checkout's (the package on ``sys.path``) two recurrent
+    backwards whole and with each of ``REC_BWD_CUTS`` of its design left
+    out, at their training shapes: ``device_ms`` of each variant, and
+    ptxas's registers and spills of the whole kernels.  For the redesigned
+    kernels also ``REC_BWD_VARIANTS``, first held to the whole kernel's
+    results within ``chip_smoke.REC_BWD_TOL``, then timed in turns with
+    it (``in_turns``: a list of times each)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru import kernel as rk
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    (r, k, v, lw, u, dy), (la, hh, dh) = rec_bwd_inputs(torch, cs)
+    kinds, variants, designs = {}, {}, {}
+    for name, source in (("wkv6", wk.BWD_SOURCE), ("rglru", rk.SOURCE)):
+        kinds[name] = rec_bwd_kind(name, source.read_text())
+        variants[name] = cut_variants(source, REC_BWD_CUTS[name][kinds[name]],
+                                      "rec")
+        designs[name] = {} if kinds[name] == "parent" else cut_variants(
+            source, REC_BWD_VARIANTS[name], "design", "variant", False)
+    reports = _build.compile_sources([v["whole"] for v in variants.values()],
+                                     verbose=True)
+    _build.compile_sources([p for d in (variants, designs)
+                            for v in d.values() for p in v.values()])
+    out = {"kinds": kinds, "ptxas": {
+        path.stem: [line.strip() for line in rep.splitlines()
+                    if "registers" in line or "spill" in line]
+        for path, rep in reports.items()}}
+    stream = torch.cuda.current_stream().cuda_stream
+    b, s, h, hd = REC_WKV_SHAPE
+    geo = wk.bwd_geometry(b, h, hd, torch.bfloat16) \
+        if kinds["wkv6"] == "this" else wk.bwd_geometry(b, h, hd)
+    w_out = [torch.empty_like(r) for _ in range(3)] \
+        + [torch.empty_like(lw), torch.zeros_like(u)]
+    scratch = torch.empty(2 * r.numel() + 2 * b * h * hd,
+                          dtype=torch.float32, device="cuda")
+
+    def wkv_launcher(path, label):
+        fn = _build.load(path).wkv6_bwd_bf16
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+
+        def launch():
+            rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                    u.data_ptr(), dy.data_ptr(), None,
+                    *(x.data_ptr() for x in w_out), scratch.data_ptr(), b,
+                    s, h, hd, geo.threads, geo.smem_bytes, stream)
+            if rc != 0:
+                sys.exit(f"kernel_probe: wkv6_bwd {label} failed ({rc})")
+        return launch
+    bsz, seq, width = REC_RGLRU_SHAPE
+    r_out = [torch.empty_like(la), torch.empty_like(la)]
+    extra = ()
+    if kinds["rglru"] == "this":
+        g = rk.bwd_geometry(width, torch.float32)
+        extra = (g.threads, g.stages, g.smem_bytes)
+
+    def rglru_launcher(path, label):
+        fn = _build.load(path).rglru_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (
+            3 + len(extra)) + [ctypes.c_void_p]
+
+        def launch():
+            rc = fn(la.data_ptr(), hh.data_ptr(), dh.data_ptr(),
+                    *(x.data_ptr() for x in r_out), bsz, seq, width, *extra,
+                    stream)
+            if rc != 0:
+                sys.exit(f"kernel_probe: rglru_bwd {label} failed ({rc})")
+        return launch
+    for name, make, outs in (("wkv6", wkv_launcher, w_out),
+                             ("rglru", rglru_launcher, r_out)):
+        for variant, path in variants[name].items():
+            out[f"{name}_bwd {variant}"] = cs.device_ms(
+                torch, make(path, variant), 20)
+        if not designs[name]:
+            continue
+        launchers = {"whole": make(variants[name]["whole"], "whole")}
+        launchers["whole"]()
+        torch.cuda.synchronize()
+        want = [x.clone() for x in outs]
+        for variant, path in designs[name].items():
+            launchers[variant] = make(path, variant)
+            launchers[variant]()
+            torch.cuda.synchronize()
+            for got, ref in zip(outs, want):
+                if cs.rel_err(torch, got, ref) > cs.REC_BWD_TOL[
+                        cs.dtype_name(got.dtype)]:
+                    sys.exit(f"kernel_probe: {name}_bwd {variant} differs "
+                             "from the whole kernel")
+        turns = {n: [] for n in launchers}
+        for n in list(launchers) + list(launchers)[::-1]:
+            turns[n].append(cs.device_ms(torch, launchers[n], 20))
+        out[f"{name}_bwd in_turns"] = turns
     return out
 
 
@@ -733,7 +1101,7 @@ def _tree_cpu(tree):
 
 
 STEPS = ("turns", "tile", "wkv6", "spec", "floor", "pipeline", "bwd",
-         "rwkv_grad")
+         "rwkv_grad", "rec_bwd")
 
 
 def main() -> None:
@@ -789,6 +1157,17 @@ def main() -> None:
         res["bwd_breakdown"] = bwd_breakdown(torch, cs)
     if "rwkv_grad" in args.steps:
         res["rwkv_grad"] = rwkv_grad(torch)
+    if "rec_bwd" in args.steps:
+        runs = [("this", ROOT)]
+        if parent is not None:
+            runs = [("parent", parent), ("this", ROOT), ("this", ROOT),
+                    ("parent", parent)]
+            res["rec_bwd_in_turns"] = [
+                dict(checkout=name, **run_in(path, REC_BWD_TIMES))
+                for name, path in runs]
+        res["rec_bwd_phases"] = {name: run_in(path, REC_BWD_PHASES)
+                                 for name, path in dict(runs).items()}
+        print(f"rec_bwd: {json.dumps(res['rec_bwd_phases'])}", flush=True)
     print(json.dumps(res), flush=True)
     print(f"card: {cs.card_line()}", flush=True)
 

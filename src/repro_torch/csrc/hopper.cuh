@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's bf16 tensor-core
-// kernels (flash_attention.cu, moe_gemm.cu) and the CCM window kernel
-// (ccm_scorer.cu): shared-memory barriers (mbarrier), TMA tile loads and
-// stores (cp.async.bulk.tensor) and the tensor maps that describe them, 1-D bulk
+// kernels (flash_attention.cu, moe_gemm.cu), the CCM window kernel
+// (ccm_scorer.cu) and the RG-LRU backward's ring (rglru.cu):
+// shared-memory barriers (mbarrier), TMA tile loads and stores
+// (cp.async.bulk.tensor) and the tensor maps that describe them, 1-D bulk
 // copies (cp.async.bulk), warpgroup register hand-off (setmaxnreg), and
 // warpgroup matrix products (wgmma.mma_async) on 128-byte-swizzled shared
 // tiles.
@@ -436,8 +437,36 @@ inline int make_map_bf16(CUtensorMap* map, const void* ptr, uint64_t d0,
   return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
 }
 
+// A rank-3 float32 or bf16 tensor (d0 innermost, contiguous) as a map
+// without swizzle and a box of (box0, box1, 1): a box lands in shared
+// memory (128-byte aligned) as box1 rows of box0 elements, and a store
+// takes it from there laid out the same way.  box0 times the element's
+// bytes must be a multiple of 16.  Returns as make_map_bf16.
+inline int make_map_plain(CUtensorMap* map, bool bf16, const void* ptr,
+                          uint64_t d0, uint64_t d1, uint64_t d2,
+                          uint32_t box0, uint32_t box1) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const uint64_t size = bf16 ? 2 : 4;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || (d0 * size) % 16 != 0)
+    return -2;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * size, d0 * d1 * size};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map,
+                        bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        3, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
+}
+
 // the message of a launch's return code: a cudaError_t, or one of
-// make_map_bf16's
+// make_map_bf16's (make_map_plain's)
 inline const char* error_string(int code) {
   if (code == -1) return "cuTensorMapEncodeTiled not found in the driver";
   if (code == -2) return "TMA needs a 16-byte aligned base and row stride";

@@ -35,23 +35,52 @@
 // differentiates its jax.lax.associative_scan, and the Pallas forward has
 // no backward).  With g_t = dh_t + a_{t+1} g_{t+1} (g_S = 0), db_t = g_t
 // and dlog_a_t = g_t a_t h_{t-1} (h_{-1} = 0), from the forward's saved h;
-// h0 needs no gradient (models/rglru.py folds it into b_0).  The same
-// layout walking t backwards, STEPS steps of log_a, dh and h loaded ahead;
-// each step a multiply and an add for g, an exp and two multiplies for
-// dlog_a, in that order, as ref.py::rglru_backward computes them.  Bound at
-// the training shape (B = 2, S = 2560, W = 4096, float32): log_a, h and dh
-// read, dlog_a and db written once, 419 MB, 0.125 ms at 3.35 TB/s; it
-// takes 0.34 ms on an H100 80GB HBM3 at 700 W, where its 8192 threads,
-// two warps an SM, keep too few loads in flight (the chunked two-pass scan
-// would serve both directions).
+// h0 needs no gradient (models/rglru.py folds it into b_0).  Each step a
+// multiply and an add for g, an exp and two multiplies for dlog_a, in that
+// order, as ref.py::rglru_backward computes them, so the float32 results
+// are its bits.  Bound at the training shape (B = 2, S = 2560, W = 4096,
+// float32): log_a, h and dh read, dlog_a and db written once, 419 MB,
+// 0.125 ms at 3.35 TB/s.  The first design (one thread a channel loading
+// 16 steps ahead into registers) took 0.34 ms there: its 8192 threads, two
+// warps an SM, had bytes in flight only in bursts (leaving its loads out
+// saved 0.22 of 0.34 ms).
+// Design: a block of BWD_CHANNELS channels, a thread each, walks t
+// backwards through a ring in shared memory of BWD_STAGES stages, each a
+// TMA box of (BWD_CHANNELS x BWD_STEPS) of log_a, h (one step earlier)
+// and dh on one mbarrier, BWD_STAGES - 1 stages ahead (some 36 KB in
+// flight a block at float32, two blocks an SM); the outputs go to
+// BWD_OUTS tiles in shared memory and out by TMA stores, a tile reused
+// once its store has read it.  Chunks are aligned to t = 0 (the first
+// one walked may reach past S - 1, where the boxes arrive as zeros: a = 1
+// and g stays exactly 0, and nothing is stored), because a TMA store at a
+// negative coordinate stopped the kernel with an illegal instruction on
+// the card.  Rows that are not a whole number of 16 bytes (W not a
+// multiple of 4 at float32, of 8 at bf16) or unaligned addresses take the
+// first design's per-thread loads inside the same kernel; the launch's
+// threads, stages and shared memory are kernel.py::bwd_geometry's, which
+// the launcher checks.  Measured on an NVIDIA H100 80GB HBM3, 700.00 W, by
+// kernel_probe.py --parent DIR --steps rec_bwd: 0.165 ms in turns with the
+// first design's 0.341, 76 % of the bound; leaving out the loads saves
+// 0.037 ms, the stores 0.030, the walk 0.012: the walk alone, a warp on
+// its SM sub-partition running 2560 steps of expf, takes about 0.126 ms,
+// which the loads now overlap (a chunk's exps computed first, or the walk
+// fully unrolled, change nothing).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int THREADS = 64;
 constexpr int STEPS = 16;      // steps loaded ahead into registers
+// the backward (see the note above)
+constexpr int BWD_CHANNELS = 32;  // channels a block, a thread each
+constexpr int BWD_STEPS = 32;     // steps a box
+constexpr int BWD_STAGES = 4;     // stages of the ring
+constexpr int BWD_OUTS = 3;       // output tiles
+constexpr int PLAIN_STEPS = 16;   // steps loaded ahead, unaligned rows
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -104,51 +133,185 @@ int launch(const void* log_a, const void* b, void* h, int B, int S, int W,
   return (int)cudaGetLastError();
 }
 
+// the backward's walk of one step for one channel: g = dh_t + a_{t+1} g,
+// db_t = g and dlog_a_t = g a_t h_{t-1}, in that order; a_next becomes a_t
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rglru_bwd_kernel(const float* __restrict__ log_a, const T* __restrict__ h,
+__device__ __forceinline__ void bwd_step(float la, float dd, float hp,
+                                         float& g, float& a_next, T* db,
+                                         float* dla) {
+  g = __fadd_rn(dd, __fmul_rn(a_next, g));
+  const float a = expf(la);
+  *db = narrow<T>(g);
+  *dla = __fmul_rn(__fmul_rn(g, a), hp);
+  a_next = a;
+}
+
+// The ring: BWD_STAGES stages of (BWD_CHANNELS x BWD_STEPS) boxes of log_a,
+// h (one step earlier) and dh, and BWD_OUTS output tiles of dlog_a and db,
+// each box and tile 128-byte aligned; the stages' mbarriers after them
+template <typename T>
+struct BwdRing {
+  static constexpr int TILE = BWD_CHANNELS * BWD_STEPS;  // elements a box
+  static constexpr int H = TILE * 4;                     // offsets in a stage
+  static constexpr int DH = H + TILE * (int)sizeof(T);
+  static constexpr int STAGE = DH + TILE * (int)sizeof(T);
+  static constexpr int DB = TILE * 4;                    // offset in a tile
+  static constexpr int OUT = DB + TILE * (int)sizeof(T);
+  // 128 bytes to align the ring, the stages, the tiles, the mbarriers
+  static constexpr size_t SMEM =
+      128 + (size_t)BWD_STAGES * STAGE + (size_t)BWD_OUTS * OUT
+      + 8 * BWD_STAGES;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_CHANNELS)
+rglru_bwd_kernel(const __grid_constant__ CUtensorMap map_la,
+                 const __grid_constant__ CUtensorMap map_h,
+                 const __grid_constant__ CUtensorMap map_dh,
+                 const __grid_constant__ CUtensorMap map_dla,
+                 const __grid_constant__ CUtensorMap map_db,
+                 const float* __restrict__ log_a, const T* __restrict__ h,
                  const T* __restrict__ dh, float* __restrict__ dlog_a,
-                 T* __restrict__ db, int S, int W) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
-  if (w >= W) return;
-  const size_t base = (size_t)blockIdx.y * S * W + w;
+                 T* __restrict__ db, int S, int W, bool tma) {
+  const int c = threadIdx.x;
+  const int c0 = blockIdx.x * BWD_CHANNELS;
+  const int b = blockIdx.y;
   float g = 0.0f, a_next = 0.0f;
-  for (int t1 = S - 1; t1 >= 0; t1 -= STEPS) {
-    float la[STEPS], dd[STEPS], hp[STEPS];
+  if (!tma) {
+    // rows of W elements not 16-byte aligned: each thread loads its own
+    // channel, PLAIN_STEPS steps ahead into registers
+    const int w = c0 + c;
+    if (w >= W) return;
+    const size_t base = (size_t)b * S * W + w;
+    for (int t1 = S - 1; t1 >= 0; t1 -= PLAIN_STEPS) {
+      float la[PLAIN_STEPS], dd[PLAIN_STEPS], hp[PLAIN_STEPS];
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      const int t = t1 - s;
-      if (t >= 0) {
-        const size_t at = base + (size_t)t * W;
-        la[s] = log_a[at];
-        dd[s] = widen(dh[at]);
-        hp[s] = t > 0 ? widen(h[at - W]) : 0.0f;
+      for (int s = 0; s < PLAIN_STEPS; ++s) {
+        const int t = t1 - s;
+        if (t >= 0) {
+          const size_t at = base + (size_t)t * W;
+          la[s] = log_a[at];
+          dd[s] = widen(dh[at]);
+          hp[s] = t > 0 ? widen(h[at - W]) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < PLAIN_STEPS; ++s) {
+        const int t = t1 - s;
+        if (t >= 0) {
+          const size_t at = base + (size_t)t * W;
+          bwd_step(la[s], dd[s], hp[s], g, a_next, db + at, dlog_a + at);
+        }
       }
     }
-#pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      const int t = t1 - s;
-      if (t >= 0) {
-        const size_t at = base + (size_t)t * W;
-        g = __fadd_rn(dd[s], __fmul_rn(a_next, g));
-        const float a = expf(la[s]);
-        db[at] = narrow<T>(g);
-        dlog_a[at] = __fmul_rn(__fmul_rn(g, a), hp[s]);
-        a_next = a;
-      }
+    return;
+  }
+  using P = BwdRing<T>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  unsigned char* outs = ring + BWD_STAGES * P::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + BWD_OUTS * P::OUT);
+  const int n_chunks = (S + BWD_STEPS - 1) / BWD_STEPS;
+  // chunk k holds steps t0 .. t0 + BWD_STEPS - 1, t0 = (n_chunks - 1 - k)
+  // STEPS: the first chunk may reach past S - 1, where TMA fills log_a and
+  // dh with zeros (a = 1, and g stays exactly 0 until t = S - 1) and stores
+  // nothing; h_{-1} of the last chunk arrives as 0 the same way
+  auto issue = [&](int k) {
+    const int st = k % BWD_STAGES;
+    unsigned char* s = ring + st * P::STAGE;
+    const int t0 = (n_chunks - 1 - k) * BWD_STEPS;
+    hopper::mbar_expect_tx(&full[st], P::STAGE);
+    hopper::tma_load_3d(s, &map_la, &full[st], c0, t0, b);
+    hopper::tma_load_3d(s + P::H, &map_h, &full[st], c0, t0 - 1, b);
+    hopper::tma_load_3d(s + P::DH, &map_dh, &full[st], c0, t0, b);
+  };
+  if (c == 0) {
+    hopper::prefetch_map(&map_la);
+    hopper::prefetch_map(&map_h);
+    hopper::prefetch_map(&map_dh);
+    for (int s = 0; s < BWD_STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_barrier_init();
+    for (int k = 0; k < BWD_STAGES && k < n_chunks; ++k) issue(k);
+  }
+  __syncthreads();
+  for (int k = 0; k < n_chunks; ++k) {
+    const int st = k % BWD_STAGES;
+    hopper::mbar_wait(&full[st], (k / BWD_STAGES) & 1);
+    const unsigned char* s = ring + st * P::STAGE;
+    const float* la = reinterpret_cast<const float*>(s);
+    const T* hp = reinterpret_cast<const T*>(s + P::H);
+    const T* dd = reinterpret_cast<const T*>(s + P::DH);
+    unsigned char* o = outs + (k % BWD_OUTS) * P::OUT;
+    float* o_dla = reinterpret_cast<float*>(o);
+    T* o_db = reinterpret_cast<T*>(o + P::DB);
+#pragma unroll 8
+    for (int j = BWD_STEPS - 1; j >= 0; --j) {
+      const int e = j * BWD_CHANNELS + c;
+      bwd_step(la[e], widen(dd[e]), widen(hp[e]), g, a_next, o_db + e,
+               o_dla + e);
+    }
+    hopper::fence_proxy_async();
+    // the store of chunk k - 2 has read its tile, which chunk k + 1 writes
+    if (c == 0) hopper::bulk_wait_read<BWD_OUTS - 2>();
+    __syncthreads();  // the stage read, the tile written, by every thread
+    if (c == 0) {
+      const int t0 = (n_chunks - 1 - k) * BWD_STEPS;
+      hopper::tma_store_3d(&map_dla, o_dla, c0, t0, b);
+      hopper::tma_store_3d(&map_db, o_db, c0, t0, b);
+      hopper::bulk_commit();
+      if (k + BWD_STAGES < n_chunks) issue(k + BWD_STAGES);
     }
   }
+  // the block's shared memory outlives the last stores' reads of it
+  if (c == 0) hopper::bulk_wait_read<0>();
 }
 
 template <typename T>
 int launch_bwd(const void* log_a, const void* h, const void* dh,
-               void* dlog_a, void* db, int B, int S, int W, void* stream) {
-  const dim3 grid((unsigned)((W + THREADS - 1) / THREADS), (unsigned)B);
-  rglru_bwd_kernel<T><<<grid, THREADS, 0,
+               void* dlog_a, void* db, int B, int S, int W, int threads,
+               int stages, int smem, void* stream) {
+  using P = BwdRing<T>;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(log_a)
+      | reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(dh)
+      | reinterpret_cast<uintptr_t>(dlog_a) | reinterpret_cast<uintptr_t>(db);
+  const bool tma = ((size_t)W * sizeof(T)) % 16 == 0 && W % 4 == 0
+      && ptrs % 16 == 0;
+  if (threads != BWD_CHANNELS || stages != (tma ? BWD_STAGES : 0)
+      || (size_t)smem != (tma ? P::SMEM : 0))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[5] = {};
+  if (tma) {
+    constexpr bool BF16 = sizeof(T) == 2;
+    const uint64_t w = W, s = S, nb = B;
+    int rc = hopper::make_map_plain(&maps[0], false, log_a, w, s, nb,
+                                    BWD_CHANNELS, BWD_STEPS);
+    if (rc == 0)
+      rc = hopper::make_map_plain(&maps[1], BF16, h, w, s, nb, BWD_CHANNELS,
+                                  BWD_STEPS);
+    if (rc == 0)
+      rc = hopper::make_map_plain(&maps[2], BF16, dh, w, s, nb, BWD_CHANNELS,
+                                  BWD_STEPS);
+    if (rc == 0)
+      rc = hopper::make_map_plain(&maps[3], false, dlog_a, w, s, nb,
+                                  BWD_CHANNELS, BWD_STEPS);
+    if (rc == 0)
+      rc = hopper::make_map_plain(&maps[4], BF16, db, w, s, nb, BWD_CHANNELS,
+                                  BWD_STEPS);
+    if (rc != 0) return rc;
+    const cudaError_t err = cudaFuncSetAttribute(
+        rglru_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)((W + BWD_CHANNELS - 1) / BWD_CHANNELS),
+                  (unsigned)B);
+  rglru_bwd_kernel<T><<<grid, BWD_CHANNELS, (size_t)smem,
                         static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
       static_cast<const float*>(log_a), static_cast<const T*>(h),
       static_cast<const T*>(dh), static_cast<float*>(dlog_a),
-      static_cast<T*>(db), S, W);
+      static_cast<T*>(db), S, W, tma);
   return (int)cudaGetLastError();
 }
 
@@ -165,20 +328,26 @@ extern "C" int rglru_f32(const void* log_a, const void* b, void* h, int B,
 }
 
 // the backward: log_a, dlog_a float32; h (the forward's output), dh, db in
-// the entry's dtype; all (B, S, W), contiguous
+// the entry's dtype; all (B, S, W), contiguous.  `threads`, `stages` and
+// `smem` are kernel.py::bwd_geometry's; a launch they do not describe is
+// refused with cudaErrorInvalidValue.  Returns the cudaError_t of the
+// launch, or a negative code of hopper::make_map_plain.
 extern "C" int rglru_bwd_bf16(const void* log_a, const void* h,
                               const void* dh, void* dlog_a, void* db, int B,
-                              int S, int W, void* stream) {
+                              int S, int W, int threads, int stages,
+                              int smem, void* stream) {
   return launch_bwd<__nv_bfloat16>(log_a, h, dh, dlog_a, db, B, S, W,
-                                   stream);
+                                   threads, stages, smem, stream);
 }
 
 extern "C" int rglru_bwd_f32(const void* log_a, const void* h,
                              const void* dh, void* dlog_a, void* db, int B,
-                             int S, int W, void* stream) {
-  return launch_bwd<float>(log_a, h, dh, dlog_a, db, B, S, W, stream);
+                             int S, int W, int threads, int stages, int smem,
+                             void* stream) {
+  return launch_bwd<float>(log_a, h, dh, dlog_a, db, B, S, W, threads,
+                           stages, smem, stream);
 }
 
 extern "C" const char* rglru_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  return hopper::error_string(code);
 }

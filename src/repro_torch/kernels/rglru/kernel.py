@@ -8,12 +8,15 @@ raises, nothing falls back.  :func:`rglru_fwd` and :func:`rglru_bwd` launch
 them on CUDA tensors only, on the current stream, and count each launch in
 :data:`LAUNCHES` and :data:`BWD_LAUNCHES`; ``ops.rglru_scan_op`` is the
 entry point that also takes CPU tensors, and the autograd function that
-joins the two.
+joins the two.  The backward's launch (a TMA ring where rows are whole
+16-byte pieces, plain loads elsewhere) is :func:`bwd_geometry`'s, which the
+C side checks.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -28,7 +31,40 @@ BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 
 _DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 _MAX_GRID_Y = 65535
+#: the backward's channels a block (a thread each), steps a box, stages of
+#: its TMA ring and output tiles (csrc/rglru.cu)
+BWD_CHANNELS, BWD_STEPS, BWD_STAGES, BWD_OUTS = 32, 32, 4, 3
 _lib = None
+
+
+class BwdGeometry(NamedTuple):
+    """One launch of the backward (``rglru_bwd_*``): ``grid_x`` blocks of
+    ``threads`` channels for each batch row; ``tma``: boxes of ``steps``
+    steps through a ring of ``stages`` stages in ``smem_bytes`` of shared
+    memory, else (rows not 16-byte aligned) plain loads, no ring, none."""
+    grid_x: int
+    threads: int
+    steps: int
+    stages: int
+    smem_bytes: int
+    tma: bool
+
+
+def bwd_geometry(w: int, dtype: torch.dtype,
+                 aligned: bool = True) -> BwdGeometry:
+    """The backward for (B, S, w) with h, dh, db in ``dtype``: the TMA ring
+    where a row of w elements (and of log_a's float32) is a whole number of
+    16 bytes and the tensors' addresses are 16-byte aligned (``aligned``);
+    a stage holds a box of log_a, h and dh, an output tile one of dlog_a
+    and db, and 128 bytes align the ring."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    tma = aligned and (w * size) % 16 == 0 and w % 4 == 0
+    tile = BWD_CHANNELS * BWD_STEPS
+    smem = (128 + BWD_STAGES * tile * (4 + 2 * size)
+            + BWD_OUTS * tile * (4 + size) + 8 * BWD_STAGES) if tma else 0
+    return BwdGeometry(grid_x=-(-w // BWD_CHANNELS), threads=BWD_CHANNELS,
+                       steps=BWD_STEPS, stages=BWD_STAGES if tma else 0,
+                       smem_bytes=smem, tma=tma)
 
 
 def reset_launches() -> None:
@@ -52,7 +88,7 @@ def build(verbose: bool = False) -> Path:
         fn.restype = ctypes.c_int
     for name in ("rglru_bwd_bf16", "rglru_bwd_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.rglru_error_string.argtypes = [ctypes.c_int]
@@ -115,12 +151,15 @@ def rglru_bwd(log_a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
     if db.numel() == 0:
         return dlog_a, db
     build()
+    tensors = (log_a, h, dh, dlog_a, db)
+    geo = bwd_geometry(w, h.dtype,
+                       all(t.data_ptr() % 16 == 0 for t in tensors))
     fn = _lib.rglru_bwd_bf16 if h.dtype == torch.bfloat16 \
         else _lib.rglru_bwd_f32
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = fn(log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
-                dlog_a.data_ptr(), db.data_ptr(), bsz, s, w, stream)
+        rc = fn(*(t.data_ptr() for t in tensors), bsz, s, w, geo.threads,
+                geo.stages, geo.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError("rglru backward kernel launch failed: "
                            + _lib.rglru_error_string(rc).decode())

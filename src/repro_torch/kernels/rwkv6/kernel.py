@@ -35,8 +35,9 @@ _DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 MAX_HEAD_DIM = 128
 #: tokens staged at a time, and row groups of a head's state (csrc/wkv6.cu)
 TOKENS, ROW_GROUPS = 16, 8
-#: the backward's threads a row of the state (csrc/wkv6_bwd.cu)
-BWD_PARTS = 4
+#: the backward's groups of the index each walk sums over, and its per-token
+#: scalars' slots (csrc/wkv6_bwd.cu)
+BWD_GROUPS, BWD_SCALARS = 8, 36
 _lib = None
 _bwd_lib = None
 
@@ -69,24 +70,29 @@ def launch_geometry(b: int, h: int, hd: int, dtype: torch.dtype) -> Geometry:
 
 class BwdGeometry(NamedTuple):
     """The walks' launch of ``csrc/wkv6_bwd.cu``: ``grid`` blocks (a batch
-    and head in each of three roles) of ``threads``, ``parts`` threads a
-    row (or column) of the state padded to ``head_pad``, in ``smem_bytes``
-    of shared memory."""
+    and head in each of three roles) of ``threads``, the head dim padded to
+    ``head_pad``, the index a walk sums over spread over ``groups`` groups,
+    two lane indices a thread, in ``smem_bytes`` of shared memory."""
     grid: int
     threads: int
     head_pad: int
-    parts: int
+    groups: int
     smem_bytes: int
 
 
-def bwd_geometry(b: int, h: int, hd: int) -> BwdGeometry:
-    """The backward's walks for r of shape (b, S, h, hd) (any S and
-    dtype): r, k, v, w and dy of ``TOKENS`` + 2 tokens and u staged as
-    float32."""
+def bwd_geometry(b: int, h: int, hd: int, dtype: torch.dtype) -> BwdGeometry:
+    """The backward's walks for r of shape (b, S, h, hd) in ``dtype`` (any
+    S): a window of ``TOKENS`` + 1 tokens double-buffered raw (log_w
+    float32, r, k, v, dy in ``dtype``), three float32 arrays of it, the
+    walks' partial sums (``BWD_GROUPS`` a token and lane index), u and the
+    per-token scalars."""
     pad = 32 if hd <= 32 else 64 if hd <= 64 else 128
-    smem = 4 * (5 * (TOKENS + 2) * pad + pad)
-    return BwdGeometry(grid=3 * b * h, threads=BWD_PARTS * pad, head_pad=pad,
-                       parts=BWD_PARTS, smem_bytes=smem)
+    row = (TOKENS + 1) * pad
+    size = 2 if dtype == torch.bfloat16 else 4
+    smem = 4 * ((2 + 3) * row + TOKENS * BWD_GROUPS * pad + pad
+                + BWD_SCALARS) + size * 8 * row
+    return BwdGeometry(grid=3 * b * h, threads=BWD_GROUPS * pad // 2,
+                       head_pad=pad, groups=BWD_GROUPS, smem_bytes=smem)
 
 
 def reset_launches() -> None:
@@ -206,7 +212,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.numel() == 0:
         return dr, dk, dv, dlog_w, du
     build()
-    geo = bwd_geometry(b, h, hd)
+    geo = bwd_geometry(b, h, hd, r.dtype)
     scratch = torch.empty(r.numel() + 2 * b * h * hd, dtype=torch.float32,
                           device=r.device)
     fn = _bwd_lib.wkv6_bwd_bf16 if r.dtype == torch.bfloat16 \

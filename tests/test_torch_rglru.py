@@ -11,6 +11,8 @@ one bf16 ulp of the output for bf16 ``b``.  The plain backward
 oracle.  The CUDA kernels are held against the plain versions on the card
 by the ``cuda``-marked tests, which skip without a card.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 
 from repro.kernels.rglru import reference_rglru as r_reference_rglru
 from repro.kernels.rglru import rglru_scan_op as r_rglru_scan_op
+from repro_torch.kernels import _build
 from repro_torch.kernels.rglru import kernel, ops, ref
 
 CASES = [(128, 64, 32, 32), (256, 64, 64, 64), (64, 128, 64, 32)]
@@ -74,6 +77,56 @@ def test_cuda_launch_raises_on_cpu_tensors():
     x = torch.zeros((1, 8, 16))
     with pytest.raises(ValueError, match="CUDA"):
         kernel.rglru_fwd(x, x)
+
+
+def test_cuda_backward_raises_on_cpu_tensors():
+    """The backward's launcher takes CUDA tensors only, as the forward's
+    does: nothing falls back to the plain version."""
+    x = torch.zeros((1, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.rglru_bwd(x, x, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [50, 300, 4096, 4100])
+def test_bwd_geometry_fits_the_card(w, dtype):
+    """``kernel.bwd_geometry``, the backward's launch (which
+    ``csrc/rglru.cu`` checks): a thread a channel, ``BWD_CHANNELS`` a
+    block, whole warps; the TMA ring exactly where a row of W elements is
+    a whole number of 16 bytes in h's dtype (log_a's float32 rows then
+    are too; at W 50 in neither dtype, at 300 and 4100 in float32 only,
+    at 4096 in both) and the addresses are 16-byte aligned, else plain
+    loads with no ring and no shared memory; a box's rows a whole number
+    of 16 bytes and each box and output tile 128-byte aligned in the
+    ring; at least three stages; the ring within an H100's shared memory
+    with room for two blocks an SM.  The constants are the kernel
+    source's."""
+    src = kernel.SOURCE.read_text()
+    for name in ("BWD_CHANNELS", "BWD_STEPS", "BWD_STAGES", "BWD_OUTS"):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) \
+            == str(getattr(kernel, name))
+    size = 2 if dtype == torch.bfloat16 else 4
+    g = kernel.bwd_geometry(w, dtype)
+    assert g.threads == kernel.BWD_CHANNELS and g.threads % 32 == 0
+    assert (g.grid_x - 1) * g.threads < w <= g.grid_x * g.threads
+    assert g.tma == ((w * size) % 16 == 0)
+    assert g.tma == {50: False, 300: size == 4, 4096: True,
+                     4100: size == 4}[w]
+    assert not kernel.bwd_geometry(w, dtype, aligned=False).tma
+    if not g.tma:
+        assert (g.stages, g.smem_bytes) == (0, 0)
+        return
+    tile = kernel.BWD_CHANNELS * kernel.BWD_STEPS
+    for elem in (4, size):
+        assert (kernel.BWD_CHANNELS * elem) % 16 == 0
+        assert (tile * elem) % 128 == 0
+    assert max(kernel.BWD_CHANNELS, kernel.BWD_STEPS) <= 256
+    assert g.stages == kernel.BWD_STAGES >= 3 and kernel.BWD_OUTS >= 3
+    assert g.steps == kernel.BWD_STEPS
+    assert g.smem_bytes == 128 + g.stages * tile * (4 + 2 * size) \
+        + kernel.BWD_OUTS * tile * (4 + size) + 8 * g.stages
+    assert g.smem_bytes <= _build.MAX_SMEM_BYTES
+    assert 2 * (g.smem_bytes + 1024) <= 233472
 
 
 @pytest.mark.cuda
@@ -150,10 +203,10 @@ def test_launch_counts_reset():
 def test_cuda_backward_matches_plain_version_on_the_card():
     """The backward kernel (through ``ops.rglru_scan_op``'s autograd
     function) against the plain backward on the same card inputs: float32
-    within 1e-5 of each gradient's largest |value| (the same steps in the
-    same order; exp may differ in the last bit), bf16 db within one bf16
-    ulp (2^-7), at the training shape (2, 2560, 4096) and ragged S and W.
-    Skips without a card."""
+    within 1e-5 of each gradient's largest |value| and bit for bit (the
+    same steps in the same order, the same exp), bf16 db within one bf16
+    ulp (2^-7), at the training shape (2, 2560, 4096) and ragged S and W
+    (the TMA ring and the plain loads).  Skips without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for s, w in [(2560, 4096), (77, 50), (1, 300), (100, 4100)]:
@@ -169,6 +222,8 @@ def test_cuda_backward_matches_plain_version_on_the_card():
             assert got[1].dtype == dtype
             for g, wt, t in zip(got, want, (1e-5, tol)):
                 assert _share(g.float().cpu(), wt.cpu()) <= t
+            if dtype == torch.float32:
+                assert all(torch.equal(g, wt) for g, wt in zip(got, want))
 
 
 def test_cpu_path_differentiates_the_plain_version():

@@ -310,51 +310,121 @@ def test_wkv6_backward_at_the_decay_clip():
         assert _share(g, w) <= 2e-5, name
 
 
+def _fma(a, b, c):
+    """float32 fused multiply-add: the exact product and sum in float64,
+    rounded once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tree(x):
+    """Sum the last dim (a power of two) in the kernel's tree order:
+    neighbours first (the butterfly over lanes, the groups' partials)."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _row_dot(x, y, scale=None):
+    """The kernel's per-token dot product: 8 segments of HD / 8 elements,
+    each adding x_i y_i (x_i times ``scale`` first, rounded) in order with
+    fused multiply-adds, then the segments in tree order.  x, y
+    (..., HD)."""
+    if scale is not None:
+        x = x * scale
+    seg = x.shape[-1] // 8
+    xs = x.reshape(x.shape[:-1] + (8, seg))
+    ys = y.reshape(y.shape[:-1] + (8, seg))
+    acc = torch.zeros(x.shape[:-1] + (8,), dtype=torch.float32)
+    for m in range(seg):
+        acc = _fma(xs[..., m], ys[..., m], acc)
+    return _tree(acc)
+
+
+def _walk_sums(state, vec, sum_dim):
+    """A walk's product of one token, as the kernel sums it: ``state``
+    (BH, HD, HD); ``vec`` (BH, HD) over the summed index (the columns when
+    ``sum_dim`` is 2, the rows when 1), split into ``BWD_GROUPS`` groups
+    of R, each summed in two chains (even and odd c, fused multiply-adds)
+    and the chains added, then the groups in tree order."""
+    bh, hd_pad, _ = state.shape
+    groups = kernel.BWD_GROUPS
+    rr = hd_pad // groups
+    st = state if sum_dim == 2 else state.transpose(1, 2)
+    st = st.reshape(bh, hd_pad, groups, rr)
+    vg = vec.reshape(bh, 1, groups, rr)
+    chains = [torch.zeros((bh, hd_pad, groups)) for _ in range(2)]
+    for c in range(rr):
+        chains[c & 1] = _fma(st[..., c], vg[..., c], chains[c & 1])
+    return _tree(chains[0] + chains[1])
+
+
 def _kernel_walks(r, k, v, lw, u, dy, ds):
     """``csrc/wkv6_bwd.cu``'s algorithm, step for step in float32 torch on
-    folded (BH, S, hd) inputs, u (BH, hd), ds (BH, hd, hd): a forward walk
-    one token behind (S_{t-2}) for dr and c_t = r_t w_{t-1} (S_{t-2}
-    dy_t), a backward walk one token behind (G_{s+1}) for dk and e_s = k_s
-    w_{s+1} (G_{s+1} v_s), a backward walk of G for dv, and dlog_w as the
-    suffix sums of c (from the final state's c_T) less those of e."""
+    folded (BH, S, hd) inputs, u (BH, hd), ds (BH, hd, hd), padded to the
+    kernel's head dim with zeros (w = 1): the per-token dot products once a
+    token in the kernel's order (``_row_dot``: v_t . dy_t, v_t . dy_{t+1},
+    sum_i r u k); a forward walk one token behind (S_{t-2}) for dr and c_t = r_t
+    w_{t-1} (S_{t-2} dy_t), a backward walk one token behind (G_{s+1}) for
+    dk and e_s = k_s w_{s+1} (G_{s+1} v_s), a backward walk of G for dv,
+    each token's product summed as ``_walk_sums`` and each update S =
+    fma(w, S, k v) with k v rounded; c_T from the final state in the same
+    order; and dlog_w as the suffix sums of c (from c_T) less those of e,
+    du in t order."""
     bh, s, hd = r.shape
-    w = torch.exp(lw)
-    zero = torch.zeros((bh, hd), dtype=r.dtype)
-    vd = (v * dy).sum(-1)
-    state = torch.zeros((bh, hd, hd), dtype=r.dtype)
+    pad = 32 if hd <= 32 else 64 if hd <= 64 else 128
+
+    def padded(x, value=0.0):
+        return torch.nn.functional.pad(x, (0, pad - hd), value=value)
+    r, k, v, dy = (padded(x) for x in (r, k, v, dy))
+    w = torch.exp(padded(lw))
+    u = padded(u)
+    ds = torch.nn.functional.pad(ds, (0, pad - hd, 0, pad - hd))
+    zero = torch.zeros((bh, pad), dtype=torch.float32)
+    one = torch.ones_like(zero)
+    vd = _row_dot(v, dy)                                  # v_t . dy_t
+    vn = torch.zeros_like(vd)                              # v_t . dy_{t+1}
+    vn[:, :-1] = _row_dot(v[:, :-1], dy[:, 1:])
+    bonus = _row_dot(r, k, u[:, None])
+    state = torch.zeros((bh, pad, pad), dtype=torch.float32)
     dr, c = torch.empty_like(r), torch.empty_like(r)
+    du = torch.zeros_like(zero)
     for t in range(s):
-        wp, kp, vp = ((x[:, t - 1] if t else zero) for x in (w, k, v))
-        a = torch.einsum("bij,bj->bi", state, dy[:, t])
-        pv = (vp * dy[:, t]).sum(-1, keepdim=True)
-        dr[:, t] = wp * a + kp * pv + u * k[:, t] * vd[:, t, None]
-        c[:, t] = r[:, t] * (wp * a)
-        state = wp[:, :, None] * state + kp[:, :, None] * vp[:, None]
-    c_tail = w[:, -1] * (ds * state).sum(-1)
+        wp, kp, vp = ((x[:, t - 1] if t else z) for x, z in
+                      ((w, one), (k, zero), (v, zero)))
+        pv = vn[:, t - 1] if t else torch.zeros(bh)
+        wa = wp * _walk_sums(state, dy[:, t], 2)
+        dr[:, t] = (wa + kp * pv[:, None]) + (u * k[:, t]) * vd[:, t, None]
+        c[:, t] = r[:, t] * wa
+        du = _fma(r[:, t] * k[:, t], vd[:, t, None], du)
+        state = _fma(wp[:, :, None], state, kp[:, :, None] * vp[:, None])
+    groups = kernel.BWD_GROUPS
+    chain = torch.zeros((bh, pad, groups))
+    prod = (ds, state)
+    for cc in range(pad // groups):
+        chain = _fma(*(x.reshape(bh, pad, groups, -1)[..., cc] for x in prod),
+                     chain)
+    c_tail = w[:, -1] * _tree(chain)
     g = ds.clone()
     dk, e = torch.empty_like(r), torch.empty_like(r)
     for t in reversed(range(s)):
         last = t == s - 1
-        wn = torch.ones_like(zero) if last else w[:, t + 1]
+        wn = one if last else w[:, t + 1]
         rn, dyn = (zero, zero) if last else (r[:, t + 1], dy[:, t + 1])
-        bl = torch.einsum("bij,bj->bi", g, v[:, t])
-        pd = (dyn * v[:, t]).sum(-1, keepdim=True)
-        dk[:, t] = wn * bl + rn * pd + u * r[:, t] * vd[:, t, None]
-        e[:, t] = 0.0 if last else k[:, t] * (wn * bl)
-        g = wn[:, :, None] * g + rn[:, :, None] * dyn[:, None]
+        wb = wn * _walk_sums(g, v[:, t], 2)
+        dk[:, t] = (wb + rn * vn[:, t, None]) + (u * r[:, t]) * vd[:, t, None]
+        e[:, t] = 0.0 if last else k[:, t] * wb
+        g = _fma(wn[:, :, None], g, rn[:, :, None] * dyn[:, None])
     g = ds.clone()
     dv = torch.empty_like(r)
-    bonus = (r * u[:, None] * k).sum(-1, keepdim=True)
     for t in reversed(range(s)):
-        dv[:, t] = torch.einsum("bij,bi->bj", g, k[:, t]) \
-            + bonus[:, t] * dy[:, t]
-        g = w[:, t, :, None] * g + r[:, t, :, None] * dy[:, t, None]
+        dv[:, t] = _fma(bonus[:, t, None], dy[:, t], _walk_sums(g, k[:, t], 1))
+        g = _fma(w[:, t, :, None], g, r[:, t, :, None] * dy[:, t, None])
     acc, dlw = c_tail, torch.empty_like(r)
     for t in reversed(range(s)):
         acc = acc - e[:, t]
         dlw[:, t] = acc
         acc = acc + c[:, t]
-    return dr, dk, dv, dlw, (r * k * vd[..., None]).sum(1)
+    return tuple(x[..., :hd] for x in (dr, dk, dv, dlw, du))
 
 
 def _float64_grads(r, k, v, lw, u, dy, ds):
@@ -439,21 +509,38 @@ def test_meta_autograd_counts_the_backward():
 def test_bwd_geometry_fits_the_card(hd):
     """``kernel.bwd_geometry``, the backward walks' launch (which
     ``csrc/wkv6_bwd.cu`` checks): three blocks a (batch, head), one a
-    role; ``BWD_PARTS`` threads a row of the state padded to 32, 64 or
-    128, whole warps, in quads of four columns; within an H100's threads a
-    block and shared memory.  The constants are the kernel source's."""
+    role; the summed index of the state padded to 32, 64 or 128 in
+    ``BWD_GROUPS`` groups of a multiple of 4 (16-byte broadcast loads),
+    two lane indices a thread, whole warps; within an H100's threads a
+    block and, in both dtypes, its shared memory: the double-buffered raw
+    window of ``TOKENS`` + 1 tokens (log_w float32; r, k, v, dy in the
+    dtype), three float32 arrays of it, the walks' partial sums, u and
+    the per-token scalars (two a window row), each array 16-byte aligned.
+    The constants are the kernel source's."""
     src = kernel.BWD_SOURCE.read_text()
     for name, value in (("TOKENS", kernel.TOKENS),
-                        ("PARTS", kernel.BWD_PARTS)):
+                        ("GROUPS", kernel.BWD_GROUPS),
+                        ("SCALARS", kernel.BWD_SCALARS)):
         assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) \
             == str(value)
-    g = kernel.bwd_geometry(4, 64, hd)
-    assert g.grid == 3 * 256
-    assert g.head_pad in (32, 64, 128) and hd <= g.head_pad
-    assert g.threads == g.parts * g.head_pad
-    assert g.threads % 32 == 0 and g.threads <= 1024
-    assert (g.head_pad // g.parts) % 4 == 0 and 32 % g.parts == 0
-    assert g.smem_bytes <= _build.MAX_SMEM_BYTES
+    assert "constexpr int WINDOW = TOKENS + 1;" in src
+    window = kernel.TOKENS + 1
+    assert kernel.BWD_SCALARS >= 2 * window and kernel.BWD_SCALARS % 4 == 0
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        g = kernel.bwd_geometry(4, 64, hd, dtype)
+        assert g.grid == 3 * 256
+        assert g.head_pad in (32, 64, 128) and hd <= g.head_pad
+        assert g.threads == g.groups * g.head_pad // 2
+        assert g.threads % 32 == 0 and g.threads <= 1024
+        assert (g.head_pad // g.groups) % 4 == 0
+        # an item of the sums: 16 bytes of an output row, whole in the row
+        assert g.head_pad % (16 // size) == 0
+        row = window * g.head_pad
+        floats = (2 + 3) * row + kernel.TOKENS * g.groups * g.head_pad \
+            + g.head_pad + kernel.BWD_SCALARS
+        assert g.smem_bytes == 4 * floats + size * 8 * row
+        assert (4 * floats) % 16 == 0 and (size * row) % 16 == 0
+        assert g.smem_bytes <= _build.MAX_SMEM_BYTES
 
 
 @pytest.mark.cuda
