@@ -69,9 +69,11 @@ line):
    window) kernel launched in every phase; per-phase seconds, transfers,
    launches and ``score``/``commit`` seconds are printed.  Last, the
    async balancer ``ccm_lb_async`` on ``scaling_phase(256)`` at latency 0
-   (equal to the sync card run), 0.5 and uniform(0.5, 1.5) (equal to the
-   CPU's run, event trace included; the last profiled for the device's
-   idle share), and the fault benchmark's 64-rank ``crash`` and
+   (equal to the sync card run) and uniform(0.5, 1.5) (profiled for the
+   device's idle share), on the benchmark's ``scaling_phase(64)`` at 0.5
+   and uniform(0.5, 1.5) (equal to the CPU's run, event trace included;
+   at 256 ranks the CPU's runs took 31.7 s of the smoke's wall), and the
+   fault benchmark's 64-rank ``crash`` and
    ``crash_then_join`` (equal to the CPU's), each launching the pair
    kernel once a scorer call; walls, transfers, launches and
    ``FaultStats`` are printed.  Then the paper's Fig. 4a
@@ -307,7 +309,25 @@ line):
    each on its share of the configs, the served ones first, starting no
    cell after 60 s (those listed as not run); one line a cell (FLOPs,
    bytes, dominant term, per-device GB, fits in 80 GB) and the phase's
-   seconds.
+   seconds.  (d) Every model rank's tensor-parallel body on the card, one
+   rank after another (``RankReplay``: a ``sharding.ModelAxis`` whose
+   collectives are done by hand, the ranks run again until each
+   collective has every rank's input): at published width in float32 (no
+   TF32), 2 x 256 random tokens, for M = 2, 4 and 16 where the heads
+   divide (whisper's 20: 2 and 4), qwen's attention and its vocabulary
+   head's logits and loss (151936 entries), gemma2's local and global
+   attention (soft-cap 50), MLP and tied head (256000), an rwkv6 time mix
+   and channel mix, a recurrentgemma period (RG-LRU, MLP, RG-LRU, MLP,
+   local attention, MLP), a whisper encoder layer (non-causal attention,
+   MLP) and decoder layer (causal, cross, MLP), and llava's attention and
+   MLP: the ranks' sum in rank order and the input gradient within
+   ``TP_REL`` of the whole sub-layer's largest |value|, and two planted
+   faults fail it (rank 1's share dropped; for attention, rank 1 at its
+   head offset shifted by one head); each sub-layer's kernel (flash,
+   WKV6, the RG-LRU scan) launched forward and backward at a rank's shape
+   only, its launches counted; then flash, WKV6 and the RG-LRU scan timed
+   at the M = 4 ranks' shapes of qwen's, rwkv6's and recurrentgemma's
+   served batches (events and ``device_ms``, plain version, bound).
 7d. Training the other families on the card, each at its published width
    in bf16 through ``launch.train.train_loop``, a warm-up step and 3
    measured steps, freed before the next: ``rwkv6-7b`` at 8 of 32 layers
@@ -422,8 +442,8 @@ PIPE_PHASE = dict(num_ranks=256, num_tasks=6400, num_blocks=768,
                   num_comms=12800, mem_cap=1e12)
 PIPE_N, PIPE_DRIFT = 2, 0.08
 PIPE_KW = dict(n_iter=4, k_rounds=2, fanout=4, seed=0, batch_lock_events=8)
-# benchmarks/ccmlb_async.py (256 ranks) and ccmlb_fault.py at its largest
-# size (64 ranks)
+# benchmarks/ccmlb_async.py (256 ranks; its 64-rank instance for the runs
+# held to the CPU) and ccmlb_fault.py at its largest size (64 ranks)
 ASYNC_LATENCIES = (0.0, 0.5, ("uniform", 0.5, 1.5))
 FAULT_LAT = ("uniform", 0.5, 1.5)
 FAULT_RANKS = 64
@@ -1492,8 +1512,10 @@ def async_path(torch, kernel, launch, sync_run) -> dict:
     ``MAIN_KW``) on the card at each of ``ASYNC_LATENCIES``: at zero
     latency equal to the sync ``ccm_lb`` card run of the same phase,
     params and knobs (``sync_run``, main_path's f64 solo, whose knobs are
-    these), otherwise equal to the CPU's run, event trace and counters
-    included; the uniform run is the profiled one.  Then
+    these); the uniform run is the profiled one.  The other latencies'
+    runs are held to the CPU's, event trace and counters included, on
+    the benchmark's ``scaling_phase(FAULT_RANKS)`` instance (the CPU's
+    256-rank runs took 31.7 s of the smoke's wall).  Then
     ``benchmarks/ccmlb_fault.py``'s ``crash`` and ``crash_then_join`` at
     ``FAULT_RANKS`` ranks under ``FAULT_LAT``, each equal to the CPU's.
     Pair launches, counted from zero just before each card run and read
@@ -1511,7 +1533,9 @@ def async_path(torch, kernel, launch, sync_run) -> dict:
     small = scaling_phase(FAULT_RANKS)
     runs = {}
     cases = [(f"256 ranks, latency {lat!r}", big, dict(latency=lat))
-             for lat in ASYNC_LATENCIES]
+             for lat in (ASYNC_LATENCIES[0], ASYNC_LATENCIES[-1])]
+    cases += [(f"{FAULT_RANKS} ranks, latency {lat!r}", small,
+               dict(latency=lat)) for lat in ASYNC_LATENCIES[1:]]
     cases += [(f"{FAULT_RANKS} ranks, crash", small, dict(
                   latency=FAULT_LAT, fault=FaultSpec(kill=((3, 1, 0.5),),
                                                      seed=19))),
@@ -1523,8 +1547,9 @@ def async_path(torch, kernel, launch, sync_run) -> dict:
         a0 = initial_assignment(phase)
         kw = dict(MAIN_KW, seed=0, collect_trace=True, **kw)
         zero = kw["latency"] == 0.0
+        held = not zero and phase is small
         cpu_s = None
-        if not zero:
+        if held:
             t0 = time.perf_counter()
             want = ccm_lb_async(phase, a0, params, device="cpu", **kw)
             cpu_s = time.perf_counter() - t0
@@ -1551,7 +1576,7 @@ def async_path(torch, kernel, launch, sync_run) -> dict:
             if not (same_run(gpu, sync_run)
                     and gpu.lock_conflicts == gpu.yields == 0):
                 fail(f"async {label}: differs from the sync card run")
-        elif not same_async(gpu, want):
+        elif held and not same_async(gpu, want):
             fail(f"async {label}: cuda run differs from the cpu run")
         if (n == 0 or n != launch.STATS["calls"]
                 or sum(kernel.LAUNCHES.values()) or n_spec):
@@ -1583,8 +1608,9 @@ def async_path(torch, kernel, launch, sync_run) -> dict:
                 device_idle_share=prof["device_idle_share"],
                 device_idle_share_bounds=prof["device_idle_share_bounds"],
                 device_busy_ms=prof["device_busy_ms"])
-        print(f"async {label}: identical to "
-              f"{'the sync card run' if zero else 'cpu'}; "
+        same = ("identical to the sync card run; " if zero
+                else "identical to cpu; " if held else "")
+        print(f"async {label}: {same}"
               f"{gpu.transfers} transfers, {n} pair launches, "
               f"{len(gpu.events)} events, {gpu.lock_conflicts} conflicts; "
               f"wall cuda {wall!r} s{' (profiled)' if prof else ''}, cpu "
@@ -3920,6 +3946,360 @@ def dryrun_h100() -> dict:
     return {"seconds": seconds, "cells": cells}
 
 
+# --------------------------------------- 7c (d). the tensor-parallel ranks
+# (d)'s model-axis sizes (16 where the heads divide it), tokens, and limit:
+# the ranks' float32 sum against the whole sub-layer within TP_REL of the
+# whole output's (and input gradient's) largest |value|, or within
+# TP_ULP_X times what one-ulp noise on the inputs moves the whole
+# sub-layer by, where that is larger (float32 sums in another order; RWKV6's
+# input gradient is ill-conditioned: its dlog_w is a difference of suffix
+# sums); a planted fault moves them by O(1)
+TP_RANKS = (2, 4, 16)
+TP_BATCH, TP_SEQ = 2, 256
+TP_REL = 1e-4
+TP_ULP_X = 16
+# (d)'s sub-layers a family, in order: attention (its mask; "cross" reads
+# the encoder frames), the gated MLP, RWKV6's time and channel mixes, the
+# RG-LRU block, and the vocabulary head's logits and loss
+TP_FAMILIES = (
+    ("qwen3-moe-30b-a3b", ("causal", "logits", "nll")),
+    ("gemma2-27b", ("local", "causal", "mlp", "logits", "nll")),
+    ("rwkv6-7b", ("time_mix", "channel_mix")),
+    ("recurrentgemma-9b", ("rglru", "mlp", "rglru", "mlp", "local", "mlp")),
+    ("whisper-large-v3", ("none", "mlp", "causal", "cross", "mlp")),
+    ("llava-next-mistral-7b", ("causal", "mlp")),
+)
+# (d)'s kernels timed at the M = 4 shapes of the served batches
+TP_TIME_M = 4
+
+
+class RankReplay:
+    """One model rank of ``size``, run on the one card in turn with the
+    others: a ``sharding.ModelAxis`` whose collectives are done by hand.
+    ``enter`` is the identity (each rank's use of a value adds its own
+    share of the gradient).  A collective records this rank's input in
+    ``book`` and, once every rank's is there, returns the ranks' sum in
+    rank order (``sum``; ``scatter``: this rank's chunk of it), their
+    maximum (``max``) or their concatenation (``gather``).  Until then it
+    returns a stand-in of the right shape and marks the pass incomplete,
+    and the collectives after it in that pass record nothing:
+    :func:`replay_ranks` runs every rank again until a pass completes.
+    ``drop``: a rank whose inputs every collective takes as zeros (a
+    planted fault)."""
+
+    def __init__(self, rank: int, size: int, book: dict, drop=None):
+        self.rank, self.size, self.book, self.drop = rank, size, book, drop
+        self.calls, self.complete = 0, True
+
+    def start(self, n: int) -> int:
+        return self.rank * n
+
+    def enter(self, x):
+        return x
+
+    def _collect(self, x):
+        i = self.calls
+        self.calls += 1
+        if not self.complete:
+            return None
+        got = self.book.setdefault(i, {})
+        got[self.rank] = x
+        if len(got) < self.size:
+            self.complete = False
+            return None
+        return [got[r] if r != self.drop else got[r].detach() * 0
+                for r in range(self.size)]
+
+    def sum(self, x):
+        xs = self._collect(x)
+        if xs is None:
+            return x
+        out = xs[0]
+        for t in xs[1:]:
+            out = out + t
+        return out
+
+    def scatter(self, x, dim):
+        n = x.shape[dim] // self.size
+        return self.sum(x).narrow(dim, self.rank * n, n)
+
+    def max(self, x):
+        xs = self._collect(x.detach())
+        if xs is None:
+            return x.detach()
+        out = xs[0]
+        for t in xs[1:]:
+            out = out.maximum(t)
+        return out
+
+    def gather(self, x, dim):
+        import torch
+        xs = self._collect(x)
+        return torch.cat([x] * self.size if xs is None else xs, dim)
+
+
+def replay_ranks(fn, size: int, drop=None):
+    """``fn(axis)`` for every rank of ``size`` (a :class:`RankReplay`) in
+    rank order, again until a pass completes every rank's collectives;
+    returns (rank 0's output, which every rank's final sum or gather
+    equals, and the passes)."""
+    book = {}
+    for passes in range(1, 9):
+        outs, done = [], True
+        for rank in range(size):
+            axis = RankReplay(rank, size, book, drop)
+            outs.append(fn(axis))
+            done &= axis.complete
+        if done:
+            return outs[0], passes
+    fail(f"tp ranks: {size} ranks' collectives did not complete")
+
+
+def rank_shard(torch, tree, axes_tree, rank: int, size: int, shift=0):
+    """This rank's model-axis shard of every whole leaf of ``tree``
+    (logical axes ``axes_tree``) by ``sharding.spec_for`` on a 1 x ``size``
+    mesh (views, no copy); ``shift`` moves a "heads" dimension's shard by
+    that many heads (a planted fault)."""
+    from repro_torch import sharding
+    mesh = sharding.AbstractMesh((("data", 1), ("model", size)))
+    axes = sharding.MeshAxes(batch=("data",))
+
+    def one(t, ax):
+        spec = sharding.spec_for(mesh, axes, ax, tuple(t.shape))
+        for dim, entry in enumerate(spec):
+            if entry == "model":
+                n = t.shape[dim] // size
+                if shift and ax[dim] == "heads":
+                    t = torch.roll(t, -shift, dim)
+                return t.narrow(dim, rank * n, n)
+        return t
+    return sharding.tree_map(one, tree, axes_tree)
+
+
+def tp_sublayer(torch, cfg, kind: str, gen):
+    """(whole float32 params, their logical axes, ``fn(p, xs, tp)``, the
+    number of float inputs) of one ``kind`` of sub-layer at ``cfg``'s
+    width, every leaf drawn from ``gen`` (the zero and constant inits
+    perturbed, so that every leaf moves the output)."""
+    from repro_torch import sharding
+    from repro_torch.models import attention as attn
+    from repro_torch.models import rglru as rglru_lib
+    from repro_torch.models import rwkv6 as rwkv_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import init_mlp, mlp_axes, mlp_forward
+    kw = dict(dtype=torch.float32, device="cuda")
+    pos = torch.arange(TP_SEQ, device="cuda")[None].expand(TP_BATCH, TP_SEQ)
+    if kind in ("causal", "local", "none", "cross"):
+        mask = "none" if kind == "cross" else kind
+        p, axes = attn.init_attention(gen, cfg, **kw), attn.attention_axes()
+
+        def fn(p, xs, tp):
+            return attn.attention_forward_kv(
+                p, xs[0], cfg, mask_kind=mask, positions=pos,
+                kv_x=xs[1] if kind == "cross" else None, tp=tp)[0]
+        return p, axes, fn, 2 if kind == "cross" else 1
+    if kind in ("logits", "nll"):
+        w = torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
+                        **kw) / cfg.d_model ** 0.5
+        targets = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_SEQ),
+                                generator=gen, device="cuda")
+        if kind == "logits":
+            def fn(p, xs, tp):
+                return tf.head_logits(xs[0], p["w"], cfg, tp)
+        else:
+            def fn(p, xs, tp):
+                return tf.head_nll(xs[0], targets, p["w"], cfg, tp)[0]
+        return {"w": w}, {"w": ("embed", "vocab")}, fn, 1
+    if kind == "mlp":
+        p, axes = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw), mlp_axes()
+
+        def fn(p, xs, tp):
+            return mlp_forward(p, xs[0], cfg.act, tp)
+    elif kind == "time_mix":
+        p = rwkv_lib.init_time_mix(gen, cfg, **kw)
+        axes = rwkv_lib.time_mix_axes(cfg)
+
+        def fn(p, xs, tp):
+            return rwkv_lib.time_mix_forward(p, xs[0], cfg, tp=tp)[0]
+    elif kind == "channel_mix":
+        p = rwkv_lib.init_channel_mix(gen, cfg, **kw)
+        axes = rwkv_lib.channel_mix_axes()
+
+        def fn(p, xs, tp):
+            return rwkv_lib.channel_mix_forward(p, xs[0], tp=tp)[0]
+    elif kind == "rglru":
+        p = rglru_lib.init_rglru_block(gen, cfg, **kw)
+        axes = rglru_lib.rglru_axes(cfg)
+
+        def fn(p, xs, tp):
+            return rglru_lib.rglru_block_forward(p, xs[0], cfg, tp=tp)[0]
+    else:
+        raise ValueError(kind)
+    p = sharding.tree_map(lambda t: t + 0.02 * torch.randn(
+        t.shape, generator=gen, **kw), p)
+    return p, axes, fn, 1
+
+
+def tp_kernel_shape(cfg, kind: str, m: int):
+    """(the kernel a ``kind`` sub-layer launches, its first argument's
+    shape at one of ``m`` ranks), or (None, None)."""
+    if kind in ("causal", "local", "none", "cross"):
+        return "flash", (TP_BATCH * cfg.num_heads // m, TP_SEQ,
+                         cfg.head_dim)
+    if kind == "time_mix":
+        return "wkv6", (TP_BATCH, TP_SEQ,
+                        cfg.d_model // cfg.rwkv_head_dim // m,
+                        cfg.rwkv_head_dim)
+    if kind == "rglru":
+        return "rglru", (TP_BATCH, TP_SEQ, cfg.d_model // m)
+    return None, None
+
+
+def tp_check(torch, cfg, kind: str, gen, sizes, mods) -> dict:
+    """One sub-layer at full width: for each M of ``sizes``, every rank's
+    body in turn (:func:`replay_ranks`), the ranks' sum and the input
+    gradient held to the whole sub-layer's, and the planted faults (rank
+    1's share dropped; rank 1 at its heads' offset shifted by one head, for
+    attention) caught; each M's kernel launches and their shapes."""
+    p, axes, fn, n_in = tp_sublayer(torch, cfg, kind, gen)
+    xs = [torch.randn((TP_BATCH, TP_SEQ, cfg.d_model), generator=gen,
+                      device="cuda") for _ in range(n_in)]
+
+    def run(call):
+        ins = [x.clone().requires_grad_(True) for x in xs]
+        out = call(ins)
+        g = torch.ones_like(out) if out.dim() == 0 else torch.randn(
+            out.shape, generator=torch.Generator(device="cuda").manual_seed(
+                7), device="cuda")
+        (out * g).sum().backward()
+        return out.detach(), [t.grad for t in ins]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    whole, whole_g = run(lambda ins: fn(p, ins, None))
+    # the whole sub-layer's own float32 conditioning: its inputs moved by
+    # one ulp at random
+    noise = torch.Generator(device="cuda").manual_seed(11)
+    xs0 = xs
+    xs = [x * (1 + 2.0 ** -23 * (torch.randint(
+        0, 2, x.shape, generator=noise, device="cuda") * 2 - 1)) for x in xs0]
+    moved, moved_g = run(lambda ins: fn(p, ins, None))
+    xs = xs0
+    ulp = max([rel(moved, whole)] + [rel(a, b) for a, b in zip(moved_g,
+                                                               whole_g)])
+    limit = max(TP_REL, TP_ULP_X * ulp)
+    out = {}
+    for m in sizes:
+        def body(drop=None, shift=0):
+            def call(ins):
+                return replay_ranks(lambda ax: fn(rank_shard(
+                    torch, p, axes, ax.rank, m,
+                    shift if ax.rank == 1 else 0), ins, ax), m, drop)[0]
+            return call
+        for mod in mods.values():
+            mod.reset_launches()
+        with ShapeLog({k: mods[k] for k in ("flash", "wkv6", "rglru")}) \
+                as log:
+            got, got_g = run(body())
+        launches = launches_now(mods)
+        launches.update(wkv6=sum(mods["wkv6"].LAUNCHES.values()),
+                        wkv6_bwd=sum(mods["wkv6"].BWD_LAUNCHES.values()),
+                        rglru=sum(mods["rglru"].LAUNCHES.values()),
+                        rglru_bwd=sum(mods["rglru"].BWD_LAUNCHES.values()))
+        errs = [rel(got, whole)] + [rel(a, b) for a, b in zip(got_g,
+                                                              whole_g)]
+        faults = {"rank dropped": run(body(drop=1))[0]}
+        if kind in ("causal", "local", "none", "cross"):
+            faults["head offset shifted"] = run(body(shift=1))[0]
+        caught = {k: rel(v, whole) > limit for k, v in faults.items()}
+        shapes = {k: sorted({a[0] for (a, _) in v})
+                  for k, v in log.shapes.items() if v}
+        out[m] = dict(max_rel_err=max(errs), rel_errs=errs, one_ulp_rel=ulp,
+                      limit=limit, faults_caught=caught,
+                      launches={k: v for k, v in launches.items() if v},
+                      shapes={k: [list(s) for s in v]
+                              for k, v in shapes.items()})
+        # the kernel of the sub-layer, forward and backward, at a rank's
+        # shape only: flash's q (B x the rank's q heads, S, hd), WKV6's r
+        # (B, S, the rank's heads, hd), the scan's (B, S, its channels)
+        name, want = tp_kernel_shape(cfg, kind, m)
+        ok = name is None or (launches[name] > 0
+                              and launches[f"{name}_bwd"] > 0
+                              and shapes.get(name) == [want])
+        if max(errs) > limit or not all(caught.values()) or not ok:
+            fail(f"tp ranks {cfg.name} {kind} at {m} ranks: {out[m]} "
+                 f"(want {name} at {want})")
+    return out
+
+
+def tp_ranks(torch, mods) -> dict:
+    """(d): every family's sub-layers at published width, each model rank's
+    tensor-parallel body in turn on the card (see the module's
+    docstring), then the flash, WKV6 and RG-LRU kernels timed at the
+    M = 4 ranks' shapes of the served batches."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.rglru import ref as rglru_ref
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.models.attention import rank_heads
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    out, total = {}, Counter()
+    try:
+        for arch, kinds in TP_FAMILIES:
+            cfg = configs.get_config(arch)
+            sizes = [m for m in TP_RANKS if cfg.num_heads % m == 0]
+            gen = torch.Generator(device="cuda").manual_seed(29)
+            fam = {}
+            for i, kind in enumerate(kinds):
+                fam[f"{i} {kind}"] = r = tp_check(torch, cfg, kind, gen,
+                                                  sizes, mods)
+                for m, rec in r.items():
+                    total.update(rec["launches"])
+                    print(f"tp ranks {arch} {kind}, {m} ranks: the ranks' "
+                          f"sum and input gradient within "
+                          f"{rec['max_rel_err']!r} of the whole sub-layer's "
+                          f"largest |value| (limit {rec['limit']!r}; one "
+                          f"ulp on the inputs moves it "
+                          f"{rec['one_ulp_rel']!r}), faults "
+                          f"caught {rec['faults_caught']}, launches "
+                          f"{rec['launches']}, shapes {rec['shapes']}",
+                          flush=True)
+                gc.collect()
+                torch.cuda.empty_cache()
+            out[arch] = fam
+        seconds = time.perf_counter() - t0
+        # the kernels at the M = 4 ranks' shapes of the served batches:
+        # qwen's flash (its 32 / 4 q heads on one of its 4 kv heads), rwkv6's
+        # WKV6 (64 / 4 heads) and recurrentgemma's scan (4096 / 4 channels)
+        qwen = configs.get_config(SERVE_ARCH)
+        _, hq, _, hkv = rank_heads(qwen, RankReplay(0, TP_TIME_M, {}))
+        times = {"flash": time_flash(
+            torch, mods["flash"], flash_ref,
+            (SERVE_BATCH * hq, SERVE_PROMPT, qwen.head_dim),
+            (SERVE_BATCH * hkv, SERVE_PROMPT, qwen.head_dim), hq,
+            {"causal": True}, 0)}
+        rwkv = configs.get_config(RWKV_ARCH)
+        h = rwkv.d_model // rwkv.rwkv_head_dim // TP_TIME_M
+        times["wkv6"] = time_wkv6(
+            torch, mods, wkv_ref, np.random.default_rng(29),
+            (SERVE_BATCH, SERVE_PROMPT, h, rwkv.rwkv_head_dim), 0)
+        rg = configs.get_config(RG_ARCH)
+        times["rglru"] = time_rglru(
+            torch, mods, rglru_ref,
+            (SERVE_BATCH, REC_SERVES[1][1], rg.d_model // TP_TIME_M), 0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"tp ranks: {len(out)} families in {seconds:.1f} s, launches "
+          f"{dict(total)}", flush=True)
+    return {"families": out, "launches": dict(total), "seconds": seconds,
+            "times_m4": times}
+
+
 # ------------------------------------------- 7d. training the other families
 def expected_train_launches(cfg) -> dict:
     """Kernel launches of one train step (``launch.train.launch_counts``'
@@ -4925,71 +5305,83 @@ def time_serve_kernels(torch, flash_kernel, flash_ref, gemm_kernel, gemm_ref,
     return times
 
 
+def time_wkv6(torch, mods, ref, rng, r_shape, n: int) -> dict:
+    """WKV6 at one shape (bf16 r, k, v; float32 log_w and u): kernel (also
+    as ``device_ms``), the plain chunked version at chunk 16 and the bound:
+    the larger of the bytes, each input read once and each output written
+    once, over the HBM rate, and 4 hd^2 float32 operations a token and
+    head over the float32 peak.  No single PyTorch call computes a
+    data-dependent-decay WKV, so there is no library time."""
+    b, s, h, hd = r_shape
+    r, k, v, lw, u = wkv6_inputs(torch, rng, b, s, h, hd, None,
+                                 torch.bfloat16)
+
+    def launch_one():
+        mods["wkv6"].wkv6_fwd(r, k, v, lw, u)
+
+    k_ms = time_ms(torch, launch_one, 50)
+    k_dev = device_ms(torch, launch_one)
+    p_ms = time_ms(torch, lambda: ref.wkv6_chunked(r, k, v, lw, u), 3)
+    # r, k, v read and y written in bf16; log_w, u and the state float32
+    nbytes = (2 * 4 * r.numel() + 4 * lw.numel() + 4 * u.numel()
+              + 4 * b * h * hd * hd)
+    ops = 4 * hd * hd * b * s * h
+    t_b, t_o = (nbytes / HBM_BYTES_PER_S * 1e3,
+                ops / PEAK_OPS["float32"] * 1e3)
+    key = f"r={list(r_shape)}"
+    out = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
+               bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bytes=nbytes, operations=ops, launches=n)
+    print(f"time wkv6 {key}: kernel {k_ms!r} ms (device {k_dev!r} ms), "
+          f"plain {p_ms!r} ms, bound {max(t_b, t_o)!r} ms "
+          f"({out['bound_by']}, {nbytes} B, {ops} operations), {n} "
+          f"launches", flush=True)
+    return {key: out}
+
+
+def time_rglru(torch, mods, ref, shape, n: int) -> dict:
+    """The RG-LRU scan at one float32 shape: kernel (also as
+    ``device_ms``), the plain sequential version and the bound (bytes,
+    each input read once and the output written once, over the HBM rate,
+    against exp, multiply and add an element over the float32 peak).  No
+    single PyTorch call computes a linear recurrence, so there is no
+    library time."""
+    la = -torch.rand(shape, device="cuda") * 0.1 - 1e-3
+    bb = torch.randn(shape, device="cuda")
+
+    def launch_one():
+        mods["rglru"].rglru_fwd(la, bb)
+
+    k_ms = time_ms(torch, launch_one, 20)
+    k_dev = device_ms(torch, launch_one, reps=20)
+    p_ms = time_ms(torch, lambda: ref.reference_rglru(la, bb), 1, rounds=5)
+    nbytes = 3 * 4 * la.numel()
+    ops = 3 * la.numel()
+    t_b, t_o = (nbytes / HBM_BYTES_PER_S * 1e3,
+                ops / PEAK_OPS["float32"] * 1e3)
+    key = f"x={list(shape)}"
+    out = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
+               bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bytes=nbytes, operations=ops, launches=n)
+    print(f"time rglru {key}: kernel {k_ms!r} ms (device {k_dev!r} ms), "
+          f"plain {p_ms!r} ms, bound {max(t_b, t_o)!r} ms "
+          f"({out['bound_by']}, {nbytes} B), {n} launches", flush=True)
+    return {key: out}
+
+
 def time_recurrent_kernels(torch, mods, refs, flash_ref, rec, rng) -> dict:
-    """The recurrent paths' kernels at the shapes they launched: wkv6 (bf16
-    r, k, v; float32 log_w and u) and rglru (float32) against their plain
-    versions (the chunked WKV6 at chunk 16, the sequential RG-LRU) and
-    their bounds (the larger of the bytes, each input read once and each
-    output written once, over the HBM rate, and the float32 operations over
-    the float32 peak: 4 hd^2 a token and head for WKV6, exp, multiply and
-    add an element for the RG-LRU), kernel time also as ``device_ms``;
-    and flash at recurrentgemma's local-attention shape.  No single
-    PyTorch call computes a data-dependent-decay WKV or a linear
-    recurrence, so both have no library time."""
+    """The recurrent paths' kernels at the shapes they launched:
+    :func:`time_wkv6` and :func:`time_rglru`, and flash at
+    recurrentgemma's local-attention shape."""
     times = {"wkv6": {}, "rglru": {}, "flash": {}}
     for ((r_shape, *_), _), n in rec[RWKV_ARCH]["log_shapes"]["wkv6"].items():
-        b, s, h, hd = r_shape
-        r, k, v, lw, u = wkv6_inputs(torch, rng, b, s, h, hd, None,
-                                     torch.bfloat16)
-
-        def launch_one():
-            mods["wkv6"].wkv6_fwd(r, k, v, lw, u)
-
-        k_ms = time_ms(torch, launch_one, 50)
-        k_dev = device_ms(torch, launch_one)
-        p_ms = time_ms(torch, lambda: refs["wkv6"].wkv6_chunked(
-            r, k, v, lw, u), 3)
-        # r, k, v read and y written in bf16; log_w, u and the state float32
-        nbytes = (2 * 4 * r.numel() + 4 * lw.numel() + 4 * u.numel()
-                  + 4 * b * h * hd * hd)
-        ops = 4 * hd * hd * b * s * h
-        t_b, t_o = (nbytes / HBM_BYTES_PER_S * 1e3,
-                    ops / PEAK_OPS["float32"] * 1e3)
-        key = f"r={list(r_shape)}"
-        times["wkv6"][key] = dict(
-            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
-            bound_ms=max(t_b, t_o),
-            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
-            operations=ops, launches=n)
-        print(f"time wkv6 {key}: kernel {k_ms!r} ms (device {k_dev!r} ms), "
-              f"plain {p_ms!r} ms, bound {max(t_b, t_o)!r} ms "
-              f"({times['wkv6'][key]['bound_by']}, {nbytes} B, {ops} "
-              f"operations), {n} launches", flush=True)
+        times["wkv6"].update(time_wkv6(torch, mods, refs["wkv6"], rng,
+                                       r_shape, n))
     for ((la_shape, _), _), n in rec[RG_ARCH]["log_shapes"]["rglru"].items():
-        la = -torch.rand(la_shape, device="cuda") * 0.1 - 1e-3
-        bb = torch.randn(la_shape, device="cuda")
-
-        def launch_one():
-            mods["rglru"].rglru_fwd(la, bb)
-
-        k_ms = time_ms(torch, launch_one, 20)
-        k_dev = device_ms(torch, launch_one, reps=20)
-        p_ms = time_ms(torch, lambda: refs["rglru"].reference_rglru(la, bb),
-                       1, rounds=5)
-        nbytes = 3 * 4 * la.numel()
-        ops = 3 * la.numel()
-        t_b, t_o = (nbytes / HBM_BYTES_PER_S * 1e3,
-                    ops / PEAK_OPS["float32"] * 1e3)
-        key = f"x={list(la_shape)}"
-        times["rglru"][key] = dict(
-            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
-            bound_ms=max(t_b, t_o),
-            bound_by="bytes" if t_b >= t_o else "operations", bytes=nbytes,
-            operations=ops, launches=n)
-        print(f"time rglru {key}: kernel {k_ms!r} ms (device {k_dev!r} ms), "
-              f"plain {p_ms!r} ms, bound {max(t_b, t_o)!r} ms "
-              f"({times['rglru'][key]['bound_by']}, {nbytes} B), {n} "
-              f"launches", flush=True)
+        times["rglru"].update(time_rglru(torch, mods, refs["rglru"],
+                                         la_shape, n))
     times["flash"].update(time_logged_flash(torch, mods["flash"], flash_ref,
                                             rec[RG_ARCH]))
     return times
@@ -5157,6 +5549,12 @@ def main() -> None:
     dist.destroy_process_group()
     mesh["dryrun_h100"] = dryrun_h100()
     lap("7c mesh")
+    # 7c (d). every family's tensor-parallel ranks on the card (launch
+    # counts zeroed inside, per sub-layer and model-axis size)
+    tp = mesh["tp_ranks"] = tp_ranks(torch, serve_mods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("7c (d) tp ranks")
     # 7d. training rwkv6-7b, recurrentgemma-9b, whisper-large-v3 and
     # llava-next-mistral-7b (launch counts zeroed inside); each model is
     # freed before the next
@@ -5299,6 +5697,7 @@ def main() -> None:
         "train"]["mesh 1x1"]["launches_per_step"]["flash_fwd"]
     flash_by_path.update({f"train_{arch}": r["launches"]["flash"]["fwd"][
         "bfloat16"] for arch, r in fam_train.items()})
+    flash_by_path["tp_ranks (float32)"] = tp["launches"].get("flash", 0)
     for name, key, worst_err, source, replaces, by_path in (
             ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
              FLASH_REPLACES, flash_by_path),
@@ -5329,6 +5728,8 @@ def main() -> None:
             "library_ms": m["library_ms"], "shape": shape,
             "by_shape": by_shape,
         })
+        if key == "flash":
+            kernels[-1]["tp_m4"] = tp["times_m4"]["flash"]
     for name, key, dtype, arch, worst_bf16, worst_f32, source, replaces in (
             ("wkv6_bf16", "wkv6", "bfloat16", RWKV_ARCH,
              wkv_worst["bfloat16"]["y"], wkv_worst["float32"]["y"],
@@ -5341,7 +5742,8 @@ def main() -> None:
         m = by_shape[shape]
         by_path = {f"serve_{arch}": rec[arch]["launches"][key][dtype],
                    f"train_{arch}": fam_train[arch]["launches"][key]["fwd"][
-                       dtype]}
+                       dtype],
+                   "tp_ranks (float32)": tp["launches"].get(key, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -5356,6 +5758,7 @@ def main() -> None:
             + ("a data-dependent-decay WKV" if key == "wkv6"
                else "a linear recurrence"),
             "shape": shape, "by_shape": by_shape,
+            "tp_m4": tp["times_m4"][key],
         })
     kernels[-2]["max_abs_err_state"] = {k: v["state"]
                                         for k, v in wkv_worst.items()}
@@ -5381,6 +5784,8 @@ def main() -> None:
         if key == "flash_bwd":
             by_path.update({f"train_{arch}": r["launches"]["flash"]["bwd"][
                 "bfloat16"] for arch, r in fam_train.items()})
+            by_path["tp_ranks (float32)"] = tp["launches"].get(
+                "flash_bwd", 0)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "replaces_note": note,
@@ -5410,10 +5815,12 @@ def main() -> None:
         shape = next(iter(by_shape))
         m = by_shape[shape]
         n = fam_train[arch]["launches"][key]["bwd"][dtype]
+        by_path = {f"train_{arch}": n,
+                   "tp_ranks (float32)": tp["launches"].get(f"{key}_bwd", 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "replaces_note": note, "launches": n,
-            "launches_by_path": {f"train_{arch}": n},
+            "replaces": replaces, "replaces_note": note,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(e["abs"] for e in worst_err[dtype].values()),
             "max_rel_err": worst_err,
             "ms": m["ms"], "device_ms": m["device_ms"],

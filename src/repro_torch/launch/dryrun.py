@@ -14,7 +14,8 @@ has no counterpart: eager counting sees every layer.  Its
 kernel does that work).  Every kernel counts its backward in a train
 cell (flash, the expert GEMM, WKV6, the RG-LRU scan).
 
-Each record holds FLOPs, bytes, collective bytes and counts by kind, the
+Each record holds FLOPs, bytes, collective bytes and counts by kind (and
+bytes by mesh axis and kind), the
 kernels' calls, rank 0's bytes of parameters, their gradients (train),
 AdamW state, caches and batch, whether they fit the card's 80 GB (the
 activations and the weights gathered at use are not counted, so a cell

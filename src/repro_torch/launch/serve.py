@@ -35,6 +35,7 @@ import torch
 from repro_torch import configs, sharding
 from repro_torch.configs.base import BLOCK_LOCAL, ModelConfig
 from repro_torch.launch.steps import to_device
+from repro_torch.models import transformer as tf_lib
 from repro_torch.models.model import (build_model, cache_specs,
                                       decode_layout, local_batch)
 
@@ -142,19 +143,30 @@ def lay_out_caches(model, caches, batch, b: int, total: int, media=None):
     reference's ``cache_specs`` for ``b`` sequences of ``total``
     positions (the sequence over the model axis where it
     divides), as a ``sharding.LocalCaches`` that carries that layout to
-    decode (``models.model.decode_layout``).  The caches as they are
-    without a mesh."""
+    decode (``models.model.decode_layout``).  The recurrent state that
+    the rank computed for its own heads or channels
+    (``transformer.state_in_place``) is its model-axis shard already and
+    is kept as it is.  The caches as they are without a mesh."""
     ctx = model.ctx
     if ctx is None:
         return caches
     s = total
+    in_place = [()] * len(caches)
     if model.cfg.arch_type == "encdec":
         s = np.shape(media["audio_embed"])[1]
+    else:
+        in_place = tf_lib.lm_in_place(model.cfg, ctx)
     _, specs = cache_specs(model.cfg, b, s, ctx.mesh, ctx.axes, s_dec=total)
     specs = decode_layout(specs)
+
+    def kept(k, v, spec, keep):
+        if k in keep:
+            spec = tuple(None if ctx.axes.model in sharding._entry_axes(e)
+                         else e for e in spec)
+        return sharding.shard(v, ctx.mesh, spec)
     return sharding.LocalCaches(
-        [{k: sharding.shard(v, ctx.mesh, spec[k]) for k, v in c.items()}
-         for c, spec in zip(caches, specs, strict=True)],
+        [{k: kept(k, v, spec[k], keep) for k, v in c.items()}
+         for c, spec, keep in zip(caches, specs, in_place, strict=True)],
         specs, sharded=batch.sharded)
 
 

@@ -80,7 +80,13 @@ def sync_grads(params, ctx, batch) -> None:
     """Sum each leaf's gradient over the batch axes (when ``batch``, the
     rows the loss ran on, is sharded over them) that its spec does not
     shard it over: a gather over the data axis already reduce-scattered
-    it there."""
+    it there.  Nothing is summed over the model axis: a leaf sharded on
+    it has its shard's whole gradient, and a leaf replicated over it has
+    the same whole gradient on every model rank (a value that enters a
+    split product passes ``sharding.ModelAxis.enter``, whose gradient
+    sums the ranks' parts; a replicated leaf that a rank slices, as
+    ``w_k`` where the kv heads do not divide the axis, is entered
+    itself)."""
     if ctx is None or not ctx.for_rows(batch).batch_sharded:
         return
     for t, spec in zip(tree_leaves(params), tree_leaves_specs(ctx.specs),

@@ -11,6 +11,14 @@ and stays plain torch (:func:`_sdpa`), as it is jnp code outside any Pallas
 kernel in the reference.  The reference's ``_sdpa_chunked`` (the XLA
 stand-in for the flash kernel, behind ``cfg.attn_kv_chunk``) is not ported:
 the flash kernel does that work here.
+
+With ``tp`` (a ``sharding.ModelAxis``: the heads split over the model
+axis) a rank computes its H / M q heads (:func:`rank_heads`) and the kv
+heads they use: its shard of ``w_k`` and ``w_v`` where the kv heads divide
+the axis, else its slice of the replicated weights (one kv head for
+qwen's 2 q heads a rank at 16 ranks: a local group of 2, not 8).  The
+flash kernel runs on those heads, and ``w_o`` is row-parallel, its partial
+output summed over the axis.
 """
 from __future__ import annotations
 
@@ -38,6 +46,51 @@ def attention_axes():
             "w_k": ("embed", "kv_heads", "head_dim"),
             "w_v": ("embed", "kv_heads", "head_dim"),
             "w_o": ("heads", "head_dim", "embed")}
+
+
+def rank_heads(cfg: ModelConfig, tp):
+    """(lo, n, kv_lo, kv_n): the rank's q heads [lo, lo + n) and the kv
+    heads [kv_lo, kv_lo + kv_n) they use (q head h uses kv head h // g,
+    g = H / Hkv); all of them without ``tp``.  Raises where the rank's q
+    heads neither hold whole groups nor sit in one."""
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    if tp is None:
+        return 0, h, 0, hkv
+    n, g = h // tp.size, h // hkv
+    if n * tp.size != h or (n % g and g % n):
+        raise ValueError(f"{cfg.name}: {h} q heads in groups of {g} do not "
+                         f"split over {tp.size} model ranks")
+    lo = tp.start(n)
+    return lo, n, lo // g, max(1, n // g)
+
+
+def _kv_weights(params, cfg: ModelConfig, tp):
+    """``w_k`` and ``w_v`` for the rank's kv heads: its shard where the
+    spec splits them, else its slice of the replicated weights, whose
+    gradient is then summed over the model axis (ranks share kv heads)."""
+    w_k, w_v = params["w_k"], params["w_v"]
+    if tp is None or w_k.shape[1] != cfg.num_kv_heads:
+        return w_k, w_v
+    _, _, kv_lo, kv_n = rank_heads(cfg, tp)
+    return tuple(tp.enter(w)[:, kv_lo:kv_lo + kv_n] for w in (w_k, w_v))
+
+
+def whole_kv_heads(t: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """Every kv head of a (B, S, kv_n, hd) tensor that holds the rank's
+    (:func:`rank_heads`): gathered over the model axis, each head taken
+    from the first rank that computed it.  ``t`` itself without ``tp``."""
+    if tp is None:
+        return t
+    blocks = tp.gather(t, 2)                      # (B, S, M * kv_n, hd)
+    _, n, _, kv_n = rank_heads(cfg, tp)
+    g = cfg.num_heads // cfg.num_kv_heads
+    idx = []
+    for j in range(cfg.num_kv_heads):
+        r = j * g // n
+        idx.append(r * kv_n + j - r * n // g)
+    if idx == list(range(blocks.shape[2])):
+        return blocks
+    return blocks[:, :, idx]
 
 
 def _mask_bias(q_pos, k_pos, kind: str, window: int) -> torch.Tensor:
@@ -75,7 +128,7 @@ def _sdpa(q, k, v, bias, logit_cap: float) -> torch.Tensor:
 
 
 def attention_forward_kv(params, x, cfg: ModelConfig, *, mask_kind: str,
-                         positions, kv_x=None):
+                         positions, kv_x=None, tp=None):
     """Training/prefill attention.  ``kv_x`` set => cross-attention: K/V
     from ``kv_x``, no RoPE on either side, nothing masked.  ``mask_kind``:
     ``"causal"``, ``"local"`` (causal within ``cfg.window_size``) or
@@ -86,15 +139,27 @@ def attention_forward_kv(params, x, cfg: ModelConfig, *, mask_kind: str,
     reference's position masks for the positions the models make
     (``arange(S)``).  The reference's ``kv_positions`` only feed its
     ``"none"`` mask, which ignores them, so they are not taken here.
+
+    With ``tp`` the returned K/V hold the rank's kv heads
+    (:func:`rank_heads`; :func:`whole_kv_heads` makes the caches' whole).
     """
     if kv_x is not None and mask_kind != "none":
         raise ValueError(f"cross-attention is unmasked, got {mask_kind!r}")
     if mask_kind not in ("causal", "local", "none"):
         raise ValueError(mask_kind)
+    if tp is not None:
+        _, n, _, _ = rank_heads(cfg, tp)
+        if params["w_q"].shape[1] != n:
+            raise ValueError(f"{cfg.name}: w_q holds "
+                             f"{params['w_q'].shape[1]} heads, the rank "
+                             f"computes {n}")
+        x = tp.enter(x)
+        kv_x = None if kv_x is None else tp.enter(kv_x)
     kv_in = x if kv_x is None else kv_x
+    w_k, w_v = _kv_weights(params, cfg, tp)
     q = torch.einsum("bsd,dhe->bshe", x, params["w_q"])
-    k = torch.einsum("bsd,dhe->bshe", kv_in, params["w_k"])
-    v = torch.einsum("bsd,dhe->bshe", kv_in, params["w_v"])
+    k = torch.einsum("bsd,dhe->bshe", kv_in, w_k)
+    v = torch.einsum("bsd,dhe->bshe", kv_in, w_v)
     if kv_x is None:                                  # self-attention: RoPE
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -102,13 +167,14 @@ def attention_forward_kv(params, x, cfg: ModelConfig, *, mask_kind: str,
         q, k, v, causal=mask_kind != "none",
         window=cfg.window_size if mask_kind == "local" else 0,
         softcap=cfg.logit_softcap)
-    return torch.einsum("bshe,hed->bsd", out, params["w_o"]), k, v
+    out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
+    return (out if tp is None else tp.sum(out)), k, v
 
 
 # ------------------------------------------------------------------- decode
 def attention_decode(params, x, cache_k, cache_v, pos: int,
                      cfg: ModelConfig, *, mask_kind: str, cross: bool = False,
-                     ring: bool = False):
+                     ring: bool = False, tp=None):
     """One-token decode.  x: (B,1,d); cache_{k,v}: (B,S,Hkv,hd); pos: int.
 
     The new K/V row is written into the caches in place (``index_copy_``;
@@ -120,17 +186,27 @@ def attention_decode(params, x, cache_k, cache_v, pos: int,
     position pos - ((pos - s) mod S), masked while that is negative.  With
     S = min(window, prompt + new), as ``launch.serve.pad_caches`` makes
     it, that is the local mask.  Returns (out, cache_k, cache_v).
+
+    With ``tp`` the caches hold every kv head (as ``cache_specs`` lays
+    them out): the rank computes its q heads and its kv heads' new row,
+    writes every head's row (gathered over the model axis) and reads its
+    kv heads (:func:`rank_heads`).
     """
     b = x.shape[0]
     s_max = cache_k.shape[1]
     dev = x.device
+    if tp is not None:
+        x = tp.enter(x)
     q = torch.einsum("bsd,dhe->bshe", x, params["w_q"])
     at = torch.full((b, 1), pos, device=dev)
     if not cross:
-        k_new = torch.einsum("bsd,dhe->bshe", x, params["w_k"])
-        v_new = torch.einsum("bsd,dhe->bshe", x, params["w_v"])
+        w_k, w_v = _kv_weights(params, cfg, tp)
+        k_new = torch.einsum("bsd,dhe->bshe", x, w_k)
+        v_new = whole_kv_heads(torch.einsum("bsd,dhe->bshe", x, w_v), cfg,
+                               tp)
         q = apply_rope(q, at, cfg.rope_theta)
-        k_new = apply_rope(k_new, at, cfg.rope_theta)
+        k_new = whole_kv_heads(apply_rope(k_new, at, cfg.rope_theta), cfg,
+                               tp)
         write_at = torch.tensor([pos % s_max if ring else pos], device=dev)
         cache_k.index_copy_(1, write_at, k_new.to(cache_k.dtype))
         cache_v.index_copy_(1, write_at, v_new.to(cache_v.dtype))
@@ -145,6 +221,11 @@ def attention_decode(params, x, cache_k, cache_v, pos: int,
         bias = _mask_bias(at, slots,
                           "local" if mask_kind == "local" else "causal",
                           cfg.window_size)[:, None]
-    out = _sdpa(q, cache_k, cache_v, bias, cfg.logit_softcap)
+    k_read, v_read = cache_k, cache_v
+    if tp is not None:
+        _, _, kv_lo, kv_n = rank_heads(cfg, tp)
+        k_read = cache_k[:, :, kv_lo:kv_lo + kv_n]
+        v_read = cache_v[:, :, kv_lo:kv_lo + kv_n]
+    out = _sdpa(q, k_read, v_read, bias, cfg.logit_softcap)
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"])
-    return out, cache_k, cache_v
+    return (out if tp is None else tp.sum(out)), cache_k, cache_v

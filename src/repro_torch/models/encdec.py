@@ -20,9 +20,14 @@ self-attention's K/V, padded to prompt + new tokens by
 at the encoder's length, never written).
 
 On a mesh (``ctx``, a ``sharding.MeshCtx``) the batch is the local shard,
-each layer gathers its leaves at use (``transformer.gather_block``) and the
-loss is the global mean, as in ``models/transformer.py``; the reference
-pins its activations' layout with ``ctx.bconstrain``.
+each layer gathers its leaves over the data axis at use
+(``transformer.gather_block``) and splits its products over the model axis
+as their specs do (``transformer.tp_of``): the encoder's self-attention,
+the decoder's self- and cross-attention on the rank's heads (whisper's 20
+split at 2 and 4 ranks, whole at 16), the MLPs on its hidden columns; the
+embedding, head and loss are vocab-parallel and the loss the global mean,
+as in ``models/transformer.py``; the reference pins its activations'
+layout with ``ctx.bconstrain``.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from repro_torch.models.layers import (dense_init, init_mlp, mlp_axes,
 from repro_torch.models.transformer import (_leaf, _placed, _remat,
                                             embed_tokens, gather_block,
                                             gathered_caches, kept_caches,
-                                            masked_cross_entropy, unembed)
+                                            masked_cross_entropy, tp_of,
+                                            unembed)
 
 
 def decoder_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -132,10 +138,12 @@ def run_encoder(params, audio_embed, cfg: ModelConfig, ctx=None):
         h = rms_norm(x, blk["norm_attn"], cfg.norm_eps)
         a, _, _ = attn.attention_forward_kv(blk["attn"], h, cfg,
                                             mask_kind="none",
-                                            positions=positions)
+                                            positions=positions,
+                                            tp=tp_of(ctx, spec, "attn"))
         x = x + a
         h = rms_norm(x, blk["norm_mlp"], cfg.norm_eps)
-        return x + mlp_forward(blk["mlp"], h, cfg.act)
+        return x + mlp_forward(blk["mlp"], h, cfg.act,
+                               tp=tp_of(ctx, spec, "mlp"))
 
     body = _remat(layer, cfg) if torch.is_grad_enabled() else layer
     for blk, spec in zip(params["enc_blocks"],
@@ -145,22 +153,31 @@ def run_encoder(params, audio_embed, cfg: ModelConfig, ctx=None):
 
 
 def _dec_layer(blk, x, enc_out, positions, cfg: ModelConfig, ctx=None,
-               spec=None):
-    """One decoder block, full sequence -> (x, its four caches)."""
+               spec=None, return_kv: bool = False):
+    """One decoder block, full sequence -> (x, its four caches, every kv
+    head, or None)."""
     blk = gather_block(blk, spec, ctx)
+    tp_self, tp_cross = (tp_of(ctx, spec, k)
+                         for k in ("self_attn", "cross_attn"))
     h = rms_norm(x, blk["norm_self"], cfg.norm_eps)
     a, sk, sv = attn.attention_forward_kv(blk["self_attn"], h, cfg,
                                           mask_kind="causal",
-                                          positions=positions)
+                                          positions=positions, tp=tp_self)
     x = x + a
     h = rms_norm(x, blk["norm_cross"], cfg.norm_eps)
     a, ck, cv = attn.attention_forward_kv(blk["cross_attn"], h, cfg,
                                           mask_kind="none",
-                                          positions=positions, kv_x=enc_out)
+                                          positions=positions, kv_x=enc_out,
+                                          tp=tp_cross)
     x = x + a
     h = rms_norm(x, blk["norm_mlp"], cfg.norm_eps)
-    x = x + mlp_forward(blk["mlp"], h, cfg.act)
-    return x, {"sk": sk, "sv": sv, "ck": ck, "cv": cv}
+    x = x + mlp_forward(blk["mlp"], h, cfg.act, tp=tp_of(ctx, spec, "mlp"))
+    if not return_kv:
+        return x, None
+    whole = {"sk": (sk, tp_self), "sv": (sv, tp_self), "ck": (ck, tp_cross),
+             "cv": (cv, tp_cross)}
+    return x, {k: attn.whole_kv_heads(t, cfg, tp)
+               for k, (t, tp) in whole.items()}
 
 
 def run_decoder(params, tokens, enc_out, cfg: ModelConfig,
@@ -182,7 +199,8 @@ def run_decoder(params, tokens, enc_out, cfg: ModelConfig,
     for blk, spec in zip(params["dec_blocks"],
                          _specs(ctx, "dec_blocks", cfg.num_decoder_layers)):
         if collect_cache:
-            x, cache = _dec_layer(blk, x, enc_out, positions, cfg, ctx, spec)
+            x, cache = _dec_layer(blk, x, enc_out, positions, cfg, ctx, spec,
+                                  return_kv=True)
             caches.append(cache)
         else:
             x = body(x, blk, enc_out, spec)
@@ -222,15 +240,18 @@ def encdec_decode(params, caches, token, pos: int, cfg: ModelConfig,
         h = rms_norm(x, blk["norm_self"], cfg.norm_eps)
         a, sk, sv = attn.attention_decode(blk["self_attn"], h, cache["sk"],
                                           cache["sv"], pos, cfg,
-                                          mask_kind="causal")
+                                          mask_kind="causal",
+                                          tp=tp_of(ctx, spec, "self_attn"))
         x = x + a
         h = rms_norm(x, blk["norm_cross"], cfg.norm_eps)
         a, _, _ = attn.attention_decode(blk["cross_attn"], h, cache["ck"],
                                         cache["cv"], pos, cfg,
-                                        mask_kind="none", cross=True)
+                                        mask_kind="none", cross=True,
+                                        tp=tp_of(ctx, spec, "cross_attn"))
         x = x + a
         h = rms_norm(x, blk["norm_mlp"], cfg.norm_eps)
-        x = x + mlp_forward(blk["mlp"], h, cfg.act)
+        x = x + mlp_forward(blk["mlp"], h, cfg.act,
+                            tp=tp_of(ctx, spec, "mlp"))
         new.append({"sk": sk, "sv": sv, "ck": cache["ck"], "cv": cache["cv"]})
     x = rms_norm(x, _leaf(params, "final_norm", ctx), cfg.norm_eps)
     return kept_caches(new, caches, ctx), unembed(params, x, cfg, ctx)

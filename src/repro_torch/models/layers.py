@@ -115,8 +115,15 @@ def mlp_axes():
             "w_down": ("mlp", "embed")}
 
 
-def mlp_forward(params, x: torch.Tensor, act_name: str) -> torch.Tensor:
+def mlp_forward(params, x: torch.Tensor, act_name: str,
+                tp=None) -> torch.Tensor:
+    """The gated MLP.  With ``tp`` (a ``sharding.ModelAxis``) the params
+    hold the rank's hidden columns: gate and up are column-parallel,
+    ``w_down`` row-parallel, its partial output summed over the axis."""
     act = activation(act_name)
+    if tp is not None:
+        x = tp.enter(x)
     gate = act(torch.einsum("bsd,df->bsf", x, params["w_gate"]))
     up = torch.einsum("bsd,df->bsf", x, params["w_up"])
-    return torch.einsum("bsf,fd->bsd", gate * up, params["w_down"])
+    y = torch.einsum("bsf,fd->bsd", gate * up, params["w_down"])
+    return y if tp is None else tp.sum(y)

@@ -8,9 +8,10 @@ front end's stub, the ring cache) and the encoder-decoder
 ``DeviceMesh`` (``launch/mesh.py``) each rank holds its shard of every
 leaf by ``sharding.spec_for`` of the leaf's logical axes
 (:func:`param_axes`), and the closures take the local batch shard: the
-"replicated-token EP" layout of ``sharding.py``, whose dense products run
-on gathered weights (the reference's tensor parallelism of the dense
-products, left to GSPMD there, is not ported: ROADMAP queue 1).
+layout of ``sharding.py``, which the reference's GSPMD partitioner
+computes: the dense products split over the model axis where their leaves'
+specs split them (the rank's heads, hidden columns, recurrent channels and
+vocabulary rows), the experts over it too, FSDP over the data axis.
 
 :func:`batch_specs`, :func:`cache_specs` and :func:`decode_token_specs`
 are the reference's: meta tensors of a cell's global shapes with their

@@ -153,11 +153,12 @@ def moe_forward(params, x: torch.Tensor, cfg: ModelConfig, act_name: str,
     where stats = {'aux_loss', 'expert_counts'}.
 
     On a mesh (``ctx``, a ``sharding.MeshCtx``; ``spec``, the block's MoE
-    specs) ``params`` holds the router and shared expert gathered and this
-    rank's shards of the expert weights, which are gathered here over the
-    data axis only; every model rank's output is summed over the model
-    axis, the counts over the batch axes, and the aux loss averaged over
-    them."""
+    specs) ``params`` holds the router and shared expert gathered over the
+    data axis (the shared expert's hidden columns the rank's, where its
+    spec splits them over the model axis) and this rank's shards of the
+    expert weights, which are gathered here over the data axis only;
+    every model rank's expert output is summed over the model axis, the
+    counts over the batch axes, and the aux loss averaged over them."""
     b, s, d = x.shape
     if ctx is None:
         out, aux, counts = local_moe(
@@ -184,5 +185,9 @@ def moe_forward(params, x: torch.Tensor, cfg: ModelConfig, act_name: str,
             aux = sharding.psum(aux, mesh, ctx.reduce_axes) / n
     y = out.reshape(b, s, d).to(x.dtype)
     if cfg.num_shared_experts:
-        y = y + mlp_forward(params["shared"], x, act_name)
+        # the shared expert is a dense MLP, split over the model axis as
+        # its spec says, with its own sum (the experts' is above)
+        tp = None if ctx is None else ctx.model_axis(
+            spec["shared"]["w_down"][0])
+        y = y + mlp_forward(params["shared"], x, act_name, tp=tp)
     return y, {"aux_loss": aux, "expert_counts": counts}

@@ -8,6 +8,17 @@ runs ``jax.lax.associative_scan``.  A decode step (one token, with state)
 is ``h = a h0 + b`` in plain torch, which is what the reference's length-1
 scan computes; no kernel runs there in either package.  State is
 (h (B, d_rnn) float32, conv tail (B, conv_width - 1, d_rnn)).
+
+With ``tp`` (a ``sharding.ModelAxis``: the recurrent width split over the
+model axis) a rank computes its d_rnn / M channels: ``w_in_x`` and
+``w_in_gate`` are column-parallel, the conv, ``lambda_p``, ``b_a``,
+``b_x``, the scan and the state run on the rank's channels, and ``w_out``
+is row-parallel with a sum over the axis.  The gates ``w_a`` and ``w_x``
+are (rnn, rnn) with the model axis on their input dimension (the
+reference's spec), so a rank's float32 product is a partial sum over its
+input channels, which :meth:`ModelAxis.scatter` sums and splits to its
+output channels: every rank then computes only its own channels' gates,
+and no gate weight is gathered.
 """
 from __future__ import annotations
 
@@ -68,26 +79,34 @@ def _conv1d(p, y, tail=None):
     return out + p["conv_b"].to(y.dtype), new_tail
 
 
-def _gates(p, y, cfg: ModelConfig):
-    """RG-LRU gates in float32.  y: (..., dr).  Returns (log a, b); the
-    reference returns a = exp(log a) in place of log a."""
+def _gates(p, y, cfg: ModelConfig, tp=None):
+    """RG-LRU gates in float32.  y: (..., dr) (the rank's channels with
+    ``tp``).  Returns (log a, b); the reference returns a = exp(log a) in
+    place of log a."""
     yf = y.to(torch.float32)
-    r = torch.sigmoid(yf @ p["w_a"].to(torch.float32) + p["b_a"])
-    i = torch.sigmoid(yf @ p["w_x"].to(torch.float32) + p["b_x"])
+    pre_a = yf @ p["w_a"].to(torch.float32)
+    pre_x = yf @ p["w_x"].to(torch.float32)
+    if tp is not None:
+        pre_a, pre_x = tp.scatter(pre_a, -1), tp.scatter(pre_x, -1)
+    r = torch.sigmoid(pre_a + p["b_a"])
+    i = torch.sigmoid(pre_x + p["b_x"])
     log_a0 = F.logsigmoid(p["lambda_p"])       # log a in (-inf, 0)
     log_a = cfg.rglru_c * r * log_a0           # a_t = a^(c r_t)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return log_a, mult * (i * yf)
 
 
-def rglru_block_forward(p, x, cfg: ModelConfig, state=None):
+def rglru_block_forward(p, x, cfg: ModelConfig, state=None, tp=None):
     """Griffin recurrent block.  x: (B, S, d); state = (h, conv tail) or
-    None.  Returns (out, (h_last float32, new conv tail))."""
+    None (the rank's channels with ``tp``).  Returns (out, (h_last
+    float32, new conv tail))."""
     h0, tail = state if state is not None else (None, None)
+    if tp is not None:
+        x = tp.enter(x)
     y = x @ p["w_in_x"]
     gate = activation("gelu")((x @ p["w_in_gate"]).to(torch.float32))
     y, new_tail = _conv1d(p, y, tail)
-    log_a, b = _gates(p, y, cfg)
+    log_a, b = _gates(p, y, cfg, tp)
     if h0 is not None:
         # h0 folds into the first step: b_0 + a_0 h0
         b0 = b[:, :1] + torch.exp(log_a[:, :1]) * h0[:, None].to(
@@ -97,5 +116,5 @@ def rglru_block_forward(p, x, cfg: ModelConfig, state=None):
         h = b                                  # the length-1 scan
     else:
         h = rglru_ops.rglru_scan_op(log_a, b)
-    out = (h.to(y.dtype).to(torch.float32) * gate).to(x.dtype)
-    return out @ p["w_out"], (h[:, -1], new_tail)
+    out = (h.to(y.dtype).to(torch.float32) * gate).to(x.dtype) @ p["w_out"]
+    return (out if tp is None else tp.sum(out)), (h[:, -1], new_tail)

@@ -10,6 +10,16 @@ on the CPU), which also returns the final (B, H, hd, hd) state.  Decode
 code outside any Pallas kernel in the reference.  Parameter names and
 shapes are the reference's, so ``convert.lm_params_from_reference``
 carries weights across unchanged.
+
+With ``tp`` (a ``sharding.ModelAxis``: the recurrent width split over the
+model axis) a rank computes its H / M heads: ``w_r``, ``w_k``, ``w_v`` and
+``w_g`` are column-parallel, the decay's LoRA output takes the rank's
+columns of ``w_b``, WKV6 runs on its heads with its rows of ``u`` and
+``w0``, the group norm on its heads, and ``w_o`` is row-parallel with a
+sum over the axis.  The token-shift mixes (``mu``, ``mix_a``, ``mix_b``,
+``w_a``) stay whole, as their specs leave them.  In the channel mix
+``w_k`` is column-parallel and ``w_v`` row-parallel; ``w_r`` (embed,
+embed) stays whole.
 """
 from __future__ import annotations
 
@@ -100,40 +110,53 @@ def _ddlerp(p, x, shifted):
     return xf[None] + dx[None] * (p["mu"][:, None, None, :] + delta)
 
 
-def _projections(p, x, shifted, cfg: ModelConfig):
+def _projections(p, x, shifted, cfg: ModelConfig, tp=None):
+    """(r, k, v, g, log_w) of the rank's heads (all of them without
+    ``tp``)."""
     mixed = _ddlerp(p, x, shifted)
     xr, xk, xv, xw, xg = [mixed[i].to(x.dtype) for i in range(5)]
-    b, s, d = x.shape
-    h, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    b, s, _ = x.shape
+    hd = cfg.rwkv_head_dim
+    n = p["w_r"].shape[1]                      # the rank's channels
+    h = n // hd
+    if p["u"].shape[0] * hd != n:
+        raise ValueError(f"{cfg.name}: {n} channels a rank are not whole "
+                         f"heads of {hd}")
+    lora = torch.tanh(xw.to(torch.float32) @ p["w_a"])
+    w_b = p["w_b"]
+    if tp is not None:
+        xr, xk, xv, xg, lora = map(tp.enter, (xr, xk, xv, xg, lora))
+        w_b = tp.enter(w_b)[:, tp.start(n):tp.start(n) + n]
     r = (xr @ p["w_r"]).reshape(b, s, h, hd)
     k = (xk @ p["w_k"]).reshape(b, s, h, hd)
     v = (xv @ p["w_v"]).reshape(b, s, h, hd)
     g = activation("silu")(xg @ p["w_g"])
     # data-dependent log-decay, < 0 (w = exp(-exp(z))); the reference's
     # bf16 @ f32 promotes to f32
-    z = p["w0"].reshape(-1) + (torch.tanh(xw.to(torch.float32) @ p["w_a"])
-                               @ p["w_b"])
+    z = p["w0"].reshape(-1) + lora @ w_b
     log_w = -torch.exp(torch.clamp(z, -20.0, 8.0)).reshape(b, s, h, hd)
     return r, k, v, g, log_w
 
 
-def _out(p, y, g, x, h: int):
-    """Group norm over heads, the silu gate and the output projection."""
+def _out(p, y, g, x, h: int, tp=None):
+    """Group norm over heads, the silu gate and the output projection
+    (row-parallel with ``tp``)."""
     y = group_norm(y.to(x.dtype), p["ln_w"], p["ln_b"], num_groups=h)
     y = (y.to(torch.float32) * g).to(x.dtype)
-    return y @ p["w_o"]
+    y = y @ p["w_o"]
+    return y if tp is None else tp.sum(y)
 
 
-def time_mix_forward(p, x, cfg: ModelConfig, chunk: int = 16):
+def time_mix_forward(p, x, cfg: ModelConfig, chunk: int = 16, tp=None):
     """Prefill.  x: (B, S, d) -> (B, S, d), and the final (state
-    (B, H, hd, hd) float32, last x (B, d)).  ``chunk`` is the plain
-    version's chunk on the CPU."""
-    b, s, d = x.shape
-    h = d // cfg.rwkv_head_dim
+    (B, H, hd, hd) float32 (the rank's heads with ``tp``), last x
+    (B, d)).  ``chunk`` is the plain version's chunk on the CPU."""
+    b, s, _ = x.shape
     shifted = _token_shift(x)
-    r, k, v, g, log_w = _projections(p, x, shifted, cfg)
+    r, k, v, g, log_w = _projections(p, x, shifted, cfg, tp)
     y, state = wkv6_ops.wkv6(r, k, v, log_w, p["u"], chunk=chunk)
-    return _out(p, y.reshape(b, s, d), g, x, h), (state, x[:, -1, :])
+    return _out(p, y.reshape(b, s, -1), g, x, r.shape[2], tp), (
+        state, x[:, -1, :])
 
 
 def wkv6_step(state, r, k, v, log_w, u):
@@ -148,26 +171,32 @@ def wkv6_step(state, r, k, v, log_w, u):
     return new_state, y
 
 
-def time_mix_step(p, x, state, prev_x, cfg: ModelConfig):
-    """Decode step.  x: (B, 1, d); state: (B, H, hd, hd); prev_x: (B, d).
-    Returns (out (B, 1, d), (new state, last x))."""
-    b, _, d = x.shape
-    h = d // cfg.rwkv_head_dim
+def time_mix_step(p, x, state, prev_x, cfg: ModelConfig, tp=None):
+    """Decode step.  x: (B, 1, d); state: (B, H, hd, hd) (the rank's
+    heads with ``tp``); prev_x: (B, d).  Returns (out (B, 1, d), (new
+    state, last x))."""
+    b = x.shape[0]
     shifted = _token_shift(x, prev=prev_x)
-    r, k, v, g, log_w = _projections(p, x, shifted, cfg)
+    r, k, v, g, log_w = _projections(p, x, shifted, cfg, tp)
     new_state, y = wkv6_step(state, r[:, 0], k[:, 0], v[:, 0], log_w[:, 0],
                              p["u"])
-    return _out(p, y.reshape(b, 1, d), g, x, h), (new_state, x[:, -1, :])
+    return _out(p, y.reshape(b, 1, -1), g, x, r.shape[2], tp), (
+        new_state, x[:, -1, :])
 
 
-def channel_mix_forward(p, x, prev_x=None):
-    """Squared-ReLU channel mix.  Returns (out, last x carry)."""
+def channel_mix_forward(p, x, prev_x=None, tp=None):
+    """Squared-ReLU channel mix.  Returns (out, last x carry).  With
+    ``tp`` the params hold the rank's hidden columns."""
     shifted = _token_shift(x, prev=prev_x)
     dx = (shifted - x).to(torch.float32)
     xf = x.to(torch.float32)
     xk = (xf + dx * p["mu_k"]).to(x.dtype)
     xr = (xf + dx * p["mu_r"]).to(x.dtype)
+    if tp is not None:
+        xk = tp.enter(xk)
     kk = torch.square(F.relu(xk @ p["w_k"]))
-    out = torch.sigmoid((xr @ p["w_r"]).to(torch.float32)).to(x.dtype) \
-        * (kk @ p["w_v"])
+    kv = kk @ p["w_v"]
+    if tp is not None:
+        kv = tp.sum(kv)
+    out = torch.sigmoid((xr @ p["w_r"]).to(torch.float32)).to(x.dtype) * kv
     return out, x[:, -1, :]

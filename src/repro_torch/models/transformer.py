@@ -19,13 +19,22 @@ with a ring cache for the local layers under ``cfg.window_kv_cache``.  The
 encoder-decoder is ``models/encdec.py``.
 
 On a mesh (``ctx``, a ``sharding.MeshCtx``) every function takes the local
-batch shard and the parameters' local shards: each block gathers its dense
-leaves at use and hands the MoE block its local expert shards
-(``moe.moe_forward``); the loss sums its token counts and NLL over the
-batch axes; decode gathers each cache leaf by the layout the caches carry
-(``sharding.LocalCaches``) at use and keeps its shard of the result.
-Where the reference pins the activations' layout (``Ctx.bconstrain``), the
-port's activations are the local batch shard by construction.
+batch shard and the parameters' local shards, and computes as the
+reference's GSPMD layout does: each block gathers its dense leaves over the
+data axis only (:func:`gather_block`) and splits its dense products over
+the model axis where their specs do (:func:`tp_of`: attention heads, MLP
+hidden columns, RWKV6 heads, RG-LRU channels; ``sharding.ModelAxis``),
+the MoE block takes its local expert shards (``moe.moe_forward``); the
+embedding is a vocab-parallel lookup, the loss a vocab-parallel
+cross-entropy (the max and the sum of exponentials reduced over the model
+axis), and the served logits are the rank's vocabulary columns gathered
+once a step.  The loss sums its token counts and NLL over the batch axes.
+Decode gathers each cache leaf by the layout the caches carry
+(``sharding.LocalCaches``) at use, but for the recurrent state that the
+rank computes itself (:func:`state_in_place`), and keeps its shard of the
+result.  Where the reference pins the activations' layout
+(``Ctx.bconstrain``), the port's activations are the local batch shard by
+construction.
 """
 from __future__ import annotations
 
@@ -150,9 +159,9 @@ def init_lm(gen, cfg: ModelConfig, dtype=torch.bfloat16,
 
 
 def gather_block(p, spec, ctx):
-    """A block's leaves gathered at use on a mesh, but the MoE experts'
-    weights, which stay this rank's shards (``moe_forward`` gathers them
-    over the data axis only)."""
+    """A block's leaves gathered over the data axis at use on a mesh (each
+    keeps its model-axis shard), but the MoE experts' weights, which
+    ``moe_forward`` gathers itself."""
     if ctx is None:
         return p
     out = {k: ctx.gather_tree(v, spec[k]) for k, v in p.items()
@@ -162,6 +171,37 @@ def gather_block(p, spec, ctx):
                       else ctx.gather_tree(v, spec["moe"][k])
                       for k, v in p["moe"].items()}
     return out
+
+
+# the leaf (and its dimension) whose spec says whether a sub-layer's dense
+# products are split over the model axis
+_SPLIT_BY = {"attn": ("w_q", 1), "self_attn": ("w_q", 1),
+             "cross_attn": ("w_q", 1), "mlp": ("w_down", 0),
+             "time_mix": ("w_o", 0), "channel_mix": ("w_v", 0),
+             "rec": ("w_out", 0)}
+
+
+def tp_of(ctx, spec, sub: str):
+    """The ``sharding.ModelAxis`` that sub-layer ``sub`` of a block (specs
+    ``spec``) splits its dense products over, or None: no mesh, a model
+    axis of one rank, or a leaf that its spec leaves whole there."""
+    if ctx is None:
+        return None
+    leaf, dim = _SPLIT_BY[sub]
+    return ctx.model_axis(spec[sub][leaf][dim])
+
+
+def state_in_place(kind: str, spec, ctx):
+    """The recurrent state keys of a ``kind`` layer (specs ``spec``)
+    that a rank computes for its own heads or channels and so keeps in
+    place: RWKV6's WKV state, the RG-LRU's h and conv tail, where the
+    block's products are split over the model axis.  The token-shift
+    carries feed the whole-width mixes, so they are gathered."""
+    if kind == BLOCK_RWKV and tp_of(ctx, spec, "time_mix") is not None:
+        return ("wkv",)
+    if kind == BLOCK_REC and tp_of(ctx, spec, "rec") is not None:
+        return ("h", "conv")
+    return ()
 
 
 # ------------------------------------------------------------------- forward
@@ -175,21 +215,26 @@ def block_train(p, kind: str, x, positions, cfg: ModelConfig,
     stats = {}
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
-        y, (wkv, tm_last) = rwkv_lib.time_mix_forward(p["time_mix"], h, cfg)
+        y, (wkv, tm_last) = rwkv_lib.time_mix_forward(
+            p["time_mix"], h, cfg, tp=tp_of(ctx, spec, "time_mix"))
         x = x + y
         h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        y, cm_last = rwkv_lib.channel_mix_forward(p["channel_mix"], h)
+        y, cm_last = rwkv_lib.channel_mix_forward(
+            p["channel_mix"], h, tp=tp_of(ctx, spec, "channel_mix"))
         cache = {"wkv": wkv, "tm_shift": tm_last, "cm_shift": cm_last}
     elif kind == BLOCK_REC:
-        y, (h_last, tail) = rglru_lib.rglru_block_forward(p["rec"], h, cfg)
+        y, (h_last, tail) = rglru_lib.rglru_block_forward(
+            p["rec"], h, cfg, tp=tp_of(ctx, spec, "rec"))
         x = x + y
         h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        y = mlp_forward(p["mlp"], h, cfg.act)
+        y = mlp_forward(p["mlp"], h, cfg.act, tp=tp_of(ctx, spec, "mlp"))
         cache = {"h": h_last, "conv": tail}
     else:
         mask_kind = "local" if kind == BLOCK_LOCAL else "causal"
+        tp = tp_of(ctx, spec, "attn")
         a, k_c, v_c = attn.attention_forward_kv(
-            p["attn"], h, cfg, mask_kind=mask_kind, positions=positions)
+            p["attn"], h, cfg, mask_kind=mask_kind, positions=positions,
+            tp=tp)
         x = x + a
         h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
         if kind == BLOCK_MOE:
@@ -197,7 +242,10 @@ def block_train(p, kind: str, x, positions, cfg: ModelConfig,
                 p["moe"], h, cfg, cfg.act, ctx=ctx,
                 spec=None if ctx is None else spec["moe"])
         else:
-            y = mlp_forward(p["mlp"], h, cfg.act)
+            y = mlp_forward(p["mlp"], h, cfg.act,
+                            tp=tp_of(ctx, spec, "mlp"))
+        if return_kv:                   # the caches hold every kv head
+            k_c, v_c = (attn.whole_kv_heads(t, cfg, tp) for t in (k_c, v_c))
         cache = {"k": k_c, "v": v_c}
     return x + y, stats, (cache if return_kv else None)
 
@@ -212,31 +260,35 @@ def block_decode(p, kind: str, x, cache, pos: int, cfg: ModelConfig,
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
         y, (wkv, tm_last) = rwkv_lib.time_mix_step(
-            p["time_mix"], h, cache["wkv"], cache["tm_shift"], cfg)
+            p["time_mix"], h, cache["wkv"], cache["tm_shift"], cfg,
+            tp=tp_of(ctx, spec, "time_mix"))
         x = x + y
         h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        y, cm_last = rwkv_lib.channel_mix_forward(p["channel_mix"], h,
-                                                  prev_x=cache["cm_shift"])
+        y, cm_last = rwkv_lib.channel_mix_forward(
+            p["channel_mix"], h, prev_x=cache["cm_shift"],
+            tp=tp_of(ctx, spec, "channel_mix"))
         return x + y, {"wkv": wkv, "tm_shift": tm_last, "cm_shift": cm_last}
     if kind == BLOCK_REC:
         y, (h_last, tail) = rglru_lib.rglru_block_forward(
-            p["rec"], h, cfg, state=(cache["h"], cache["conv"]))
+            p["rec"], h, cfg, state=(cache["h"], cache["conv"]),
+            tp=tp_of(ctx, spec, "rec"))
         x = x + y
         h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        return x + mlp_forward(p["mlp"], h, cfg.act), {"h": h_last,
-                                                        "conv": tail}
+        return x + mlp_forward(p["mlp"], h, cfg.act,
+                               tp=tp_of(ctx, spec, "mlp")), {"h": h_last,
+                                                             "conv": tail}
     mask_kind = "local" if kind == BLOCK_LOCAL else "causal"
     ring = kind == BLOCK_LOCAL and cfg.window_kv_cache
     a, ck, cv = attn.attention_decode(p["attn"], h, cache["k"], cache["v"],
                                       pos, cfg, mask_kind=mask_kind,
-                                      ring=ring)
+                                      ring=ring, tp=tp_of(ctx, spec, "attn"))
     x = x + a
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     if kind == BLOCK_MOE:
         y, _ = moe_lib.moe_forward(p["moe"], h, cfg, cfg.act, ctx=ctx,
                                    spec=None if ctx is None else spec["moe"])
     else:
-        y = mlp_forward(p["mlp"], h, cfg.act)
+        y = mlp_forward(p["mlp"], h, cfg.act, tp=tp_of(ctx, spec, "mlp"))
     return x + y, {"k": ck, "v": cv}
 
 
@@ -329,18 +381,41 @@ def run_stack(params, x, positions, cfg: ModelConfig,
 
 # ----------------------------------------------------------------- embedding
 def _leaf(params, name: str, ctx):
-    """A top-level leaf, gathered on a mesh."""
+    """A top-level leaf, gathered over the data axis on a mesh (its
+    model-axis shard, the rank's vocabulary rows, stays)."""
     t = params[name]
-    return t if ctx is None else ctx.gather(t, ctx.specs[name])
+    return t if ctx is None else ctx.gather_local(t, ctx.specs[name])
 
 
 def _head(params, cfg: ModelConfig, ctx):
-    return _leaf(params, "embed", ctx).T if cfg.tie_embeddings \
-        else _leaf(params, "lm_head", ctx)
+    """(the output head (d, V) or its rank's vocabulary columns, the
+    ``sharding.ModelAxis`` the vocabulary is split over or None)."""
+    if cfg.tie_embeddings:
+        tp = None if ctx is None else ctx.model_axis(ctx.specs["embed"][0])
+        return _leaf(params, "embed", ctx).T, tp
+    tp = None if ctx is None else ctx.model_axis(ctx.specs["lm_head"][1])
+    return _leaf(params, "lm_head", ctx), tp
+
+
+def _rank_rows(ids, n: int, tp):
+    """(ids as rows of the rank's n vocabulary entries, clamped into
+    range; whether each id is the rank's)."""
+    local = ids - tp.start(n)
+    inside = (local >= 0) & (local < n)
+    return torch.clamp(local, 0, n - 1), inside
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig, ctx=None):
-    x = _leaf(params, "embed", ctx)[tokens]
+    """Token embeddings (times sqrt(d) for a tied head).  With the
+    vocabulary split over the model axis each rank looks up its rows,
+    zero elsewhere, and the ranks' rows are summed."""
+    table = _leaf(params, "embed", ctx)
+    tp = None if ctx is None else ctx.model_axis(ctx.specs["embed"][0])
+    if tp is None:
+        x = table[tokens]
+    else:
+        rows, inside = _rank_rows(tokens, table.shape[0], tp)
+        x = tp.sum(torch.where(inside[..., None], table[rows], 0))
     if cfg.tie_embeddings:
         scale = torch.sqrt(torch.tensor(float(cfg.d_model),
                                         dtype=torch.float32))
@@ -348,10 +423,23 @@ def embed_tokens(params, tokens, cfg: ModelConfig, ctx=None):
     return x
 
 
-def unembed(params, x, cfg: ModelConfig, ctx=None):
-    table = _head(params, cfg, ctx)
+def head_logits(x, table, cfg: ModelConfig, tp=None):
+    """Logits (float32, soft-capped) of ``x`` on the output head
+    ``table`` (d, V); with ``tp`` ``table`` holds the rank's vocabulary
+    columns and their logits are gathered, the whole logits on every
+    rank."""
+    if tp is not None:
+        x = tp.enter(x)
     logits = torch.einsum("bsd,dv->bsv", x, table).to(torch.float32)
-    return softcap(logits, cfg.final_softcap)
+    logits = softcap(logits, cfg.final_softcap)
+    return logits if tp is None else tp.gather(logits, -1)
+
+
+def unembed(params, x, cfg: ModelConfig, ctx=None):
+    """Logits (float32, soft-capped), computed vocab-parallel where the
+    head's spec splits the vocabulary over the model axis."""
+    table, tp = _head(params, cfg, ctx)
+    return head_logits(x, table, cfg, tp)
 
 
 def lm_inputs(params, batch, cfg: ModelConfig, ctx=None):
@@ -369,39 +457,61 @@ def lm_inputs(params, batch, cfg: ModelConfig, ctx=None):
 
 
 # -------------------------------------------------------------------- losses
-def _ce_piece(x, targets, table, cfg: ModelConfig):
+def _ce_piece(x, targets, table, cfg: ModelConfig, tp=None):
     """(nll_sum, token_count) over one sequence piece; the label logit is a
-    gather of the head's columns, no one-hot."""
+    gather of the head's columns, no one-hot.  With ``tp`` ``table`` holds
+    the rank's vocabulary columns: the logits' max and their exponentials'
+    sum are reduced over the model axis, and the label's logit comes from
+    the rank that holds the label."""
     logits = torch.einsum("bsd,dv->bsv", x, table).to(torch.float32)
     logits = softcap(logits, cfg.final_softcap)
-    lse = torch.logsumexp(logits, dim=-1)                    # (B, S)
     mask = targets >= 0
-    lbl_w = table[:, torch.clamp_min(targets, 0)]            # (d, B, S)
-    lbl_logit = torch.einsum("bsd,dbs->bs", x, lbl_w).to(torch.float32)
-    lbl_logit = softcap(lbl_logit, cfg.final_softcap)
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)                # (B, S)
+        lbl_w = table[:, torch.clamp_min(targets, 0)]        # (d, B, S)
+        lbl = torch.einsum("bsd,dbs->bs", x, lbl_w).to(torch.float32)
+    else:
+        top = tp.max(logits.amax(-1))
+        lse = top + torch.log(tp.sum(
+            torch.exp(logits - top[..., None]).sum(-1)))
+        cols, inside = _rank_rows(targets, table.shape[1], tp)
+        lbl = torch.einsum("bsd,dbs->bs", x, table[:, cols]).to(
+            torch.float32)
+        lbl = tp.sum(torch.where(inside & mask, lbl, 0))
+    lbl_logit = softcap(lbl, cfg.final_softcap)
     nll = (lse - lbl_logit) * mask
     return nll.sum(), mask.sum()
 
 
-def masked_cross_entropy(params, x, targets, cfg: ModelConfig, ctx=None):
-    """CE over the vocab without a one-hot: logsumexp - label logit, over
-    the tokens whose target is >= 0.  Returns (mean nll, token count).
-
-    With cfg.ce_chunk > 0 the sequence is processed in chunks, so the f32
-    (B, chunk, V) logits tile replaces the full (B, S, V) one.  On a mesh
-    the count is summed over the batch axes, and the mean is the global
-    one: each rank's NLL over the global count, summed over the batch
-    axes with an identity gradient."""
-    table = _head(params, cfg, ctx)
+def head_nll(x, targets, table, cfg: ModelConfig, tp=None):
+    """(nll_sum, token_count) of ``x`` on the output head ``table`` (the
+    rank's vocabulary columns with ``tp``), over the tokens whose target
+    is >= 0; with cfg.ce_chunk > 0 the sequence is processed in chunks, so
+    the f32 (B, chunk, V) logits tile replaces the full (B, S, V) one."""
+    if tp is not None:
+        x = tp.enter(x)
     s = x.shape[1]
     if cfg.ce_chunk and s > cfg.ce_chunk:
         pieces = [_ce_piece(x[:, lo:lo + cfg.ce_chunk],
-                            targets[:, lo:lo + cfg.ce_chunk], table, cfg)
+                            targets[:, lo:lo + cfg.ce_chunk], table, cfg, tp)
                   for lo in range(0, s, cfg.ce_chunk)]
         nll = functools.reduce(torch.add, (p[0] for p in pieces))
         cnt = functools.reduce(torch.add, (p[1] for p in pieces))
-    else:
-        nll, cnt = _ce_piece(x, targets, table, cfg)
+        return nll, cnt
+    return _ce_piece(x, targets, table, cfg, tp)
+
+
+def masked_cross_entropy(params, x, targets, cfg: ModelConfig, ctx=None):
+    """CE over the vocab without a one-hot: logsumexp - label logit, over
+    the tokens whose target is >= 0 (:func:`head_nll`).  Returns (mean
+    nll, token count).
+
+    On a mesh the vocabulary is split over the model axis where its spec
+    does (:func:`_ce_piece`), the count is summed over the batch axes, and
+    the mean is the global one: each rank's NLL over the global count,
+    summed over the batch axes with an identity gradient."""
+    table, tp = _head(params, cfg, ctx)
+    nll, cnt = head_nll(x, targets, table, cfg, tp)
     if ctx is not None:
         cnt = sharding.all_reduce_(cnt.clone(), ctx.mesh, ctx.reduce_axes)
     denom = torch.clamp_min(cnt, 1)
@@ -438,7 +548,9 @@ def lm_loss(params, batch, cfg: ModelConfig, ctx=None):
 def lm_prefill(params, batch, cfg: ModelConfig, ctx=None):
     """Prompt pass: returns (caches, last-position logits (B, 1, V) f32).
     On a mesh the caches are the local batch's, whole along the sequence
-    (``launch.serve`` lays them out)."""
+    and over the kv heads, the recurrent state that
+    :func:`state_in_place` names the rank's shard (``launch.serve`` lays
+    them out)."""
     x, positions = lm_inputs(params, batch, cfg, ctx)
     x, _, caches = run_stack(params, x, positions, cfg, collect_cache=True,
                              ctx=ctx)
@@ -446,25 +558,43 @@ def lm_prefill(params, batch, cfg: ModelConfig, ctx=None):
     return caches, unembed(params, x[:, -1:], cfg, ctx)
 
 
-def gathered_caches(caches, ctx):
+def gathered_caches(caches, ctx, in_place=None):
     """Each cache leaf whole at use on a mesh, by the layout the caches
-    carry (``sharding.LocalCaches``); the caches as they are otherwise."""
+    carry (``sharding.LocalCaches``), but the keys that ``in_place`` (one
+    tuple a layer, :func:`state_in_place`) names, which keep their
+    model-axis shard: a rank's K/V caches then hold every kv head over the
+    whole sequence (it reads its own heads), its recurrent state its own
+    heads or channels.  The caches as they are otherwise."""
     specs = getattr(caches, "specs", None)
     if ctx is None or specs is None:
         return caches
-    return [{k: ctx.gather(v, spec[k]) for k, v in c.items()}
-            for c, spec in zip(caches, specs, strict=True)]
+    in_place = in_place or [()] * len(caches)
+    return [{k: ctx.gather_local(v, spec[k]) if k in keep
+             else ctx.gather(v, spec[k]) for k, v in c.items()}
+            for c, spec, keep in zip(caches, specs, in_place, strict=True)]
 
 
-def kept_caches(new, caches, ctx):
-    """This rank's shards of the whole caches ``new``, laid out as
+def kept_caches(new, caches, ctx, in_place=None):
+    """This rank's shards of the caches ``new`` (whole, but the keys
+    ``in_place`` names, which are its shards already), laid out as
     ``caches`` (the decode's input) are."""
     specs = getattr(caches, "specs", None)
     if ctx is None or specs is None:
         return new
+    in_place = in_place or [()] * len(new)
     return caches.like(
-        [{k: sharding.shard(v, ctx.mesh, spec[k]) for k, v in c.items()}
-         for c, spec in zip(new, specs, strict=True)])
+        [{k: v if k in keep else sharding.shard(v, ctx.mesh, spec[k])
+          for k, v in c.items()}
+         for c, spec, keep in zip(new, specs, in_place, strict=True)])
+
+
+def lm_in_place(cfg: ModelConfig, ctx):
+    """:func:`state_in_place` of every layer (empty without a mesh)."""
+    if ctx is None:
+        return None
+    return [state_in_place(kind, spec, ctx)
+            for kind, spec in zip(cfg.layer_kinds(), ctx.specs["blocks"],
+                                  strict=True)]
 
 
 def lm_decode(params, caches, token, pos: int, cfg: ModelConfig, ctx=None):
@@ -472,11 +602,13 @@ def lm_decode(params, caches, token, pos: int, cfg: ModelConfig, ctx=None):
     updated in place and returned with the logits (B, 1, V) f32."""
     x = embed_tokens(params, token, cfg, ctx)
     specs = [None] * cfg.num_layers if ctx is None else ctx.specs["blocks"]
+    in_place = lm_in_place(cfg, ctx)
     new = []
     for p, kind, cache, spec in zip(params["blocks"], cfg.layer_kinds(),
-                                    gathered_caches(caches, ctx), specs,
-                                    strict=True):
+                                    gathered_caches(caches, ctx, in_place),
+                                    specs, strict=True):
         x, c = block_decode(p, kind, x, cache, pos, cfg, ctx=ctx, spec=spec)
         new.append(c)
     x = rms_norm(x, _leaf(params, "final_norm", ctx), cfg.norm_eps)
-    return kept_caches(new, caches, ctx), unembed(params, x, cfg, ctx)
+    return kept_caches(new, caches, ctx, in_place), unembed(params, x, cfg,
+                                                            ctx)

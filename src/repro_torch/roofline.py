@@ -19,7 +19,11 @@ op that moves memory (which is what eager execution moves; views and
 ``empty`` move none), and collectives by kind from the ``c10d`` ops, their
 operand bytes summed.  A hand-written kernel is no aten op: each kernel's
 ``ops.py`` meta branch adds its own FLOPs and bytes (:func:`add_kernel`),
-the arithmetic of PERF.md's bound column.
+the arithmetic of PERF.md's bound column.  The mesh's collectives
+(``sharding.py``) also report the axis they run over
+(:func:`add_axis_bytes`), so that a count splits its collective bytes by
+axis and kind (``collective_bytes_by_axis``): the FSDP gathers on
+"data", the tensor-parallel sums and the experts' on "model".
 """
 from __future__ import annotations
 
@@ -71,6 +75,14 @@ def add_kernel(name: str, flops: float, nbytes: float) -> None:
         c.kernels[name] += 1
 
 
+def add_axis_bytes(kind: str, axis: str, operand) -> None:
+    """A collective of ``kind`` over the mesh axis ``axis`` on
+    ``operand``, its bytes added to every active :class:`Counter`'s
+    by-axis split (``sharding.py``'s collectives call it)."""
+    for c in _ACTIVE:
+        c.axis_bytes[axis][kind] += _nbytes(operand)
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
@@ -99,6 +111,7 @@ class Counter(TorchDispatchMode):
         self.coll_bytes = {k: 0 for k in COLLECTIVE_OPS}
         self.coll_counts = {k: 0 for k in COLLECTIVE_OPS}
         self.kernels: Dict[str, int] = collections.Counter()
+        self.axis_bytes = collections.defaultdict(collections.Counter)
         self.ops = 0
 
     def __enter__(self):
@@ -141,6 +154,8 @@ class Counter(TorchDispatchMode):
             "collective_bytes": dict(self.coll_bytes),
             "collective_counts": dict(self.coll_counts),
             "collective_bytes_total": int(sum(self.coll_bytes.values())),
+            "collective_bytes_by_axis": {a: dict(k) for a, k in
+                                         sorted(self.axis_bytes.items())},
             "kernel_calls": dict(self.kernels),
             "ops": self.ops,
         }

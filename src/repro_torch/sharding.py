@@ -12,14 +12,22 @@ The spec logic reads only the mesh's axis names and sizes, so it runs on an
 :func:`placements_for` gives the DTensor ``Shard`` / ``Replicate``
 placements of a spec.
 
-The layout is the reference's "replicated-token EP": activations are
-batch-sharded over the batch axes and replicated over the model axis;
-experts are sharded over the model axis with their hidden dimension
-sharded over the data axis (FSDP) and gathered at use; every other leaf is
-stored by its spec and gathered at use (:func:`gather`).  The reference
-leaves the dense products' tensor parallelism to GSPMD; the port computes
-dense layers on gathered weights and the local batch shard (ROADMAP queues
-tensor parallelism of the dense products).
+The layout is the reference's, as its GSPMD partitioner computes it:
+activations are batch-sharded over the batch axes and replicated over the
+model axis; a dense leaf is stored by its spec, gathered at use over the
+data axis only (FSDP, :meth:`MeshCtx.gather_local`), and its model-axis
+shard is the rank's share of the product (Megatron's tensor parallelism):
+q, k, v, the MLP's gate and up, RWKV6's r, k, v, g and channel-mix key, the
+RG-LRU's input projections and the vocabulary are column-parallel (the
+rank's heads, channels or vocabulary rows), w_o, w_down and the recurrent
+blocks' output projections row-parallel with a sum over the model axis.
+A layer takes a :class:`ModelAxis` (``MeshCtx.model_axis``, None where
+the leaf is not split) and does that: :meth:`ModelAxis.enter` before a
+column-parallel product, :meth:`ModelAxis.sum` after a row-parallel one,
+:meth:`ModelAxis.scatter` where a row-parallel product feeds a consumer
+split by channel (the RG-LRU's gates).  Experts are sharded over the model
+axis with their hidden dimension sharded over the data axis
+(``models/moe.py``).
 
 Collectives run over a ``torch.distributed`` ``DeviceMesh``'s axis groups
 (NCCL on the card, gloo on the CPU, the ``fake`` backend in the dry-run)
@@ -39,6 +47,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch import roofline
 
 Entry = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Entry, ...]
@@ -226,6 +236,7 @@ def _all_gather(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     gather(out, src, group=mesh.get_group(name))
+    roofline.add_axis_bytes("all-gather", name, src)
     return out.movedim(0, dim)
 
 
@@ -237,15 +248,18 @@ def _reduce_scatter(x: torch.Tensor, mesh, name: str,
     scatter = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
     scatter(out, src, group=mesh.get_group(name))
+    roofline.add_axis_bytes("reduce-scatter", name, src)
     return out.movedim(0, dim)
 
 
-def all_reduce_(x: torch.Tensor, mesh, names: Sequence[str]) -> torch.Tensor:
-    """Sum ``x`` in place over the mesh axes ``names`` (no gradient);
-    axes of size 1 are skipped."""
+def all_reduce_(x: torch.Tensor, mesh, names: Sequence[str],
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` in place over the mesh axes ``names`` (a sum unless
+    ``op`` says otherwise; no gradient); axes of size 1 are skipped."""
     for name in names:
         if axis_size(mesh, name) > 1:
-            dist.all_reduce(x, group=mesh.get_group(name))
+            dist.all_reduce(x, op=op, group=mesh.get_group(name))
+            roofline.add_axis_bytes("all-reduce", name, x)
     return x
 
 
@@ -268,6 +282,21 @@ class _Gather(torch.autograd.Function):
             n = axis_size(mesh, name)
             g = g.chunk(n, dim)[axis_rank(mesh, name)].contiguous()
         return g, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over one mesh axis, each rank keeping its chunk along ``dim``;
+    the gradient is all-gathered (every rank's partial fed every chunk)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name, dim):
+        ctx.args = (mesh, name, dim)
+        return _reduce_scatter(x, mesh, name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, name, dim = ctx.args
+        return _all_gather(g, mesh, name, dim), None, None, None
 
 
 class _Psum(torch.autograd.Function):
@@ -349,6 +378,53 @@ def shard(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The model axis that a layer's dense products are split over, as
+    one rank sees it (``MeshCtx.model_axis``): ``size`` ranks, this one
+    ``rank``, whose shard of a split dimension is its n entries from
+    :meth:`start`.  Its collectives are Megatron's:
+    :meth:`enter` before a column-parallel product (the identity, the
+    gradient summed over the axis), :meth:`sum` after a row-parallel one
+    (the gradient the identity), :meth:`scatter` (a sum of which each rank
+    keeps its chunk), :meth:`max` (no gradient) and :meth:`gather` (the
+    chunks of a value that every rank then uses alike).  A layer takes
+    None where its leaves are not split, and computes them whole."""
+
+    mesh: object
+    name: str
+
+    @property
+    def size(self) -> int:
+        return axis_size(self.mesh, self.name)
+
+    @property
+    def rank(self) -> int:
+        return axis_rank(self.mesh, self.name)
+
+    def start(self, n: int) -> int:
+        """The first index of this rank's ``n`` entries of a dimension
+        split over the axis."""
+        return self.rank * n
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return fan_in(x, self.mesh, (self.name,))
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return psum(x, self.mesh, (self.name,))
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _ReduceScatter.apply(x, self.mesh, self.name,
+                                    dim % x.dim())
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_(x.detach().clone(), self.mesh, (self.name,),
+                           op=dist.ReduceOp.MAX)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _Gather.apply(x, self.mesh, self.name, dim % x.dim(), False)
+
+
+@dataclasses.dataclass(frozen=True)
 class MeshCtx:
     """A model's mesh: the ``DeviceMesh``, its axes' roles, the spec of
     every parameter leaf (``specs``, the params' tree), and whether the
@@ -384,9 +460,25 @@ class MeshCtx:
     def gather(self, x, spec: Spec, only=None):
         return gather(x, self.mesh, spec, self.reduce_axes, only)
 
+    def gather_local(self, x, spec: Spec):
+        """``x`` gathered over every axis but the model axis: a dense
+        leaf as the rank computes with it (its model-axis shard)."""
+        return self.gather(x, spec, only=tuple(
+            a for a in axis_names(self.mesh) if a != self.axes.model))
+
     def gather_tree(self, tree, specs):
-        """Every leaf of ``tree`` gathered."""
-        return tree_map(self.gather, tree, specs)
+        """Every leaf of ``tree`` as the rank computes with it
+        (:meth:`gather_local`)."""
+        return tree_map(self.gather_local, tree, specs)
+
+    def model_axis(self, entry: Entry) -> Optional[ModelAxis]:
+        """The :class:`ModelAxis` of a leaf dimension whose spec entry is
+        ``entry``, where that names the model axis and it has more than
+        one rank; None (compute whole) otherwise."""
+        if self.axes.model not in _entry_axes(entry) \
+                or axis_size(self.mesh, self.axes.model) == 1:
+            return None
+        return ModelAxis(self.mesh, self.axes.model)
 
     def batch_entry(self, b: int) -> Entry:
         """The batch dimension's entry for a batch of ``b``."""

@@ -9,15 +9,24 @@ hand count from the shapes.
   process group of its own) counts ``qwen3-moe-smoke``'s prefill of 4 x 32
   tokens through ``launch.dryrun`` on the ``h100`` mesh and on a fake 2 x 2
   mesh, and one MoE layer on the 2 x 2 mesh alone.  The FLOPs equal the
-  hand count: per layer the q, k, v and o products, the flash kernel's 4
-  hd a visible pair, the router's product and the three expert products
-  over the rank's E / M experts at the capacity of its T_loc tokens; the
-  last position's unembedding.  The MoE layer's collectives are its
-  schedule's: all-reduces of the (T_loc, d) float32 output over the model
-  axis and of the counts (E,) and the aux loss over the data axis, and the
-  data-axis all-gathers of the three expert shards.  A decode step on the
-  2 x 2 mesh keeps each rank's rows and quarter of the caches, and gathers
-  the caches' sequence over the model axis at use.  rwkv6's and
+  hand count of the layout, which splits the dense products over the model
+  axis (M ranks): per layer the q and o products and the flash kernel's 4
+  hd a visible pair over the rank's H / M heads, the k and v products over
+  the kv heads those use, the router's product and the three expert
+  products over the rank's E / M experts at the capacity of its T_loc
+  tokens; the last position's unembedding over the rank's V / M
+  vocabulary columns.  Its collectives by axis: on "data" one all-gather
+  of every leaf's shard (FSDP) and the MoE counts' and aux loss's
+  all-reduces; on "model" no leaf's gather, but the caches' kv heads and
+  the last logits' vocabulary columns, and the all-reduces of the
+  attention's and the embedding's (B_loc, S, d) bf16 partial sums and of
+  the experts' (T_loc, d) float32 output.  The MoE layer's collectives are
+  its schedule's: all-reduces of the (T_loc, d) float32 output over the
+  model axis and of the counts (E,) and the aux loss over the data axis,
+  and the data-axis all-gathers of the three expert shards.  A decode step
+  on the 2 x 2 mesh keeps each rank's rows and quarter of the caches, and
+  gathers over the model axis the caches' sequence at use, the new K/V
+  row's kv heads and the logits' vocabulary columns, and no leaf.  rwkv6's and
   recurrentgemma's ``train_4k`` cells are counted at full size on
   ``h100``, each kernel's backward among the calls.
 """
@@ -89,6 +98,17 @@ def _count(out: str) -> None:
     dryrun.fake_world(4)
     mesh = make_local_mesh(2, 2, device="cpu")
     res["2x2"] = lower_cell(cfg, shape, mesh).analyze()
+    # the bytes of every leaf's shard on the 2 x 2 mesh that has a data
+    # entry (each gathered over the data axis once a prefill)
+    from repro_torch.checkpoint import tree_leaves
+    from repro_torch.launch.steps import tree_leaves_specs
+    from repro_torch.models.model import abstract_params, param_specs
+    specs = tree_leaves_specs(param_specs(cfg, mesh))
+    res["data_leaf_bytes"] = sum(
+        int(np.prod(sharding.local_shape(mesh, s, t.shape)))
+        * t.element_size()
+        for t, s in zip(tree_leaves(abstract_params(cfg)), specs,
+                        strict=True) if "data" in s)
     # a decode step over a full cache on the 2 x 2 mesh: each rank's rows,
     # the cache's sequence gathered over the model axis at use
     lowered = lower_cell(cfg, ShapeConfig("tiny_decode", S, B, "decode"),
@@ -131,18 +151,22 @@ def counted(tmp_path_factory):
 
 
 def _hand_flops(cfg, data: int, model: int) -> int:
+    """The prefill's FLOPs a rank: the dense products over its H / M
+    heads (and the kv heads they use) and V / M vocabulary columns (qwen's
+    smoke config divides both at M = 2)."""
     from repro_torch.models.moe import _capacity
     b = B // data
     t = b * S
-    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
-        cfg.head_dim
+    d, hd = cfg.d_model, cfg.head_dim
+    h = cfg.num_heads // model
+    hkv = max(1, h * cfg.num_kv_heads // cfg.num_heads)
     e_loc = cfg.num_experts // model
     pairs = S * (S + 1) // 2
     per_layer = (2 * t * d * h * hd + 2 * 2 * t * d * hkv * hd
                  + 4 * b * h * pairs * hd + 2 * t * h * hd * d
                  + 2 * t * d * cfg.num_experts
                  + 3 * 2 * e_loc * _capacity(cfg, t) * d * cfg.moe_d_ff)
-    return cfg.num_layers * per_layer + 2 * b * d * cfg.vocab_size
+    return cfg.num_layers * per_layer + 2 * b * d * cfg.vocab_size // model
 
 
 @pytest.mark.parametrize("label,data,model", [("h100", 1, 1),
@@ -156,8 +180,19 @@ def test_dryrun_flops_equal_hand_count(counted, label, data, model):
                                   "expert_gemm_fwd": 3 * cfg.num_layers}
     if label == "h100":
         assert st["collective_bytes_total"] == 0
-    else:
-        assert st["collective_counts"]["all-reduce"] >= 3 * cfg.num_layers
+        return
+    b, layers, d = B // data, cfg.num_layers, cfg.d_model
+    kv_loc = cfg.num_kv_heads // model
+    assert st["collective_bytes_by_axis"] == {
+        "data": {"all-gather": counted["data_leaf_bytes"],
+                 "all-reduce": layers * (cfg.num_experts * 4 + 4)},
+        # no leaf is gathered over the model axis: the caches' kv heads
+        # (bf16) and the last logits' vocabulary columns (float32) are;
+        # the attention's and embedding's bf16 sums, the experts' float32
+        "model": {"all-gather": layers * 2 * b * S * kv_loc
+                  * cfg.head_dim * 2 + b * cfg.vocab_size // model * 4,
+                  "all-reduce": layers * (b * S * d * 2 + b * S * d * 4)
+                  + b * S * d * 2}}
 
 
 def test_decode_cell_on_a_mesh_gathers_its_caches(counted):
@@ -169,8 +204,13 @@ def test_decode_cell_on_a_mesh_gathers_its_caches(counted):
     local = cfg.num_layers * 2 * (B // 2) * (S // 2) * hkv * hd * 2
     assert st["cache_bytes"] == local
     assert st["kernel_calls"] == {"expert_gemm_fwd": 3 * cfg.num_layers}
-    # the caches' model-axis gathers, besides the weights'
-    assert st["collective_bytes"]["all-gather"] > local
+    # over the model axis: each rank's caches' sequence shard, the new K/V
+    # row's kv head (one of two a rank) and the logits' vocabulary columns
+    # (float32), and no leaf
+    b = B // 2
+    assert st["collective_bytes_by_axis"]["model"]["all-gather"] == (
+        local + cfg.num_layers * 2 * b * 1 * (hkv // 2) * hd * 2
+        + b * cfg.vocab_size // 2 * 4)
 
 
 def test_moe_layer_collectives_follow_the_schedule(counted):
