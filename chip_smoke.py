@@ -80,7 +80,8 @@ line):
    (``benchmarks/milp_vs_ccmlb.py``: ``random_phase(7, 4 ranks, 14 tasks,
    4 blocks, 16 comms)``, delta 1e-9, 1e-10, 1e-11 and 0): 12 CCM-LB seeds
    a delta on the card, each equal to the CPU's run, and the reduced FWMP
-   solved by branch and bound (host numpy, a 100-node limit, a clock limit
+   solved by branch and bound (host numpy, a 100-node limit, 10 at delta
+   0, whose solves reach any limit, a clock limit
    no solve reaches) without and with the card's best W_max as incumbent;
    a solve must end by optimality or the node limit, and a certified
    optimum must not lie above CCM-LB's best (status, objective, LP bound,
@@ -271,12 +272,11 @@ line):
    expert GEMMs in the forward and 24 in the backward every step, all
    bf16, and some pair launches; the losses finite and the last below the
    first.  One more step runs under ``torch.profiler`` (device idle
-   share, busy time by kernel).  Then the restart pair at 1 of 48 layers (a 4-layer checkpoint
-   is 31.1 GB, and the card hosts this script runs on end a run that
-   writes more than 45 GiB to their disk): the run uninterrupted, then with a checkpoint every 5 steps into
-   a temporary directory, failing at step 7 under ``run_with_restarts``:
-   it must restore step 5's checkpoint and its losses from there agree
-   with the uninterrupted run's within 1e-3 relative.  Prints the losses, seconds a step (median, min, max),
+   share, busy time by kernel).  (The restart from a checkpoint is held
+   in phase 10, by ``train_moe_ccm``: a checkpoint of these 4 layers is
+   31.1 GB, and the card hosts this script runs on end a run that writes
+   more than 45 GiB to their disk.)  Prints the losses, seconds a step
+   (median, min, max),
    tokens/s, peak memory, launches a step, each re-placement's imbalance
    and pair launches; then times both backwards at the training shapes
    against their plain versions' autograd, SDPA's and ``torch.bmm``'s
@@ -342,9 +342,42 @@ line):
    loss must fall over the measured steps.  Prints step seconds, tokens/s,
    peak memory, launches and one profiled step's idle share and busy time
    by kernel.  Each family's float32 card-vs-CPU check (``FAMILY_TRAINS``:
-   rwkv6 1 layer, recurrentgemma one period, whisper 2 + 2 layers at the
-   full 1500 frames, llava 2 layers at the full 1152 media positions) at
-   qwen's limits.
+   rwkv6 1 layer, recurrentgemma one RG-LRU layer and its local
+   attention on one request, whisper 2 + 2 layers at the full 1500
+   frames, llava 2 layers at the full 1152 media positions) at qwen's
+   limits.
+10. The six examples of ``repro_torch.examples`` on the card, after phase
+   8 and before the result lines, each example's launches counted from
+   zero just before its card run.  ``quickstart``, ``async_balancer`` and
+   ``pipeline_phases`` run on the CPU, then on the card: every result
+   equal bit for bit (assignments, transfer logs, max-work traces,
+   protocol counters, ``FaultStats``, dead and joined ranks, the MILP's
+   status, objective and nodes, the pipeline's CSR and warm-start flags,
+   the seqpack stream), pair launches equal to the scorer calls.
+   ``assembly_e2e`` with analytic durations on the CPU and the card (A/B/C
+   makespans, placement and homing equal, no tile launch), then as it
+   goes, measured on the card: tile launches exactly ``repeats * tasks +
+   signatures`` of its two configurations, the cost model trained on the
+   card, pair launches equal to the scorer calls; its makespans and
+   speedups are printed.  ``serve_batched`` on the four smoke configs in
+   bf16 (launches summed over the four: one flash an attention layer and
+   one WKV6 or RG-LRU scan a recurrent layer in each prefill, three expert
+   GEMMs an MoE layer and forward), then, through its loop body
+   ``serve_one``, ``tinyllama-1.1b``, ``llama3.2-3b`` and ``smollm-360m``
+   at published width and full depth (4 x 512-token prompts, 32 new
+   tokens, bf16 weights from a seeded generator on the card): exactly one
+   flash launch a layer and nothing else, the same prompts served again
+   with each prefill and decode step on CUDA events, and each model's
+   first 2 layers on the card in bf16 and float32 against one float32 CPU
+   run (``cut_vs_cpu``: the serving contract); flash held to its plain
+   versions and timed at their shapes, as phase 8 does for the others.  ``train_moe_ccm`` as it
+   goes with ``--steps 100`` (``CONFIG_100M``, 8 x 256 tokens a step, lr
+   1e-3, a checkpoint and a re-placement every 50 steps, into a temporary
+   directory removed after), then failing at step 60 under
+   ``run_with_restarts``, both under deterministic algorithms: every
+   step's launches exactly ``expected_train_launches``, the loss falling,
+   the restarted run restoring step 50 and its losses within 1e-3 of the
+   uninterrupted run's.
 8. Time the kernels, their plain versions and their bounds at the shapes
    the main paths launched most (the pair kernel also at E = 64, A = B =
    128, P = 32 an event, with the launcher's host time a call and its
@@ -367,7 +400,8 @@ line):
 9. Import every module of ``repro_torch``, check that no module of JAX or
    ``repro`` was loaded, then print one JSON line each of serve, recurrent
    serve, the other families' serve runs, per-run, pipeline and async,
-   MILP and planner, and assembly numbers, the launch floor, each phase's
+   MILP and planner, assembly and the examples' numbers, the launch floor,
+   each phase's
    wall seconds, the card line, the training numbers (qwen's and the
    families'), one JSON line of per-kernel numbers (the scorer's pair
    kernel and its full-tile kernel, each in float64 and float32, its
@@ -457,6 +491,11 @@ MILP_DELTAS = (1e-9, 1e-10, 1e-11, 0.0)
 MILP_SEEDS = 12
 MILP_KW = dict(n_iter=4, fanout=3)
 MILP_NODES = 100
+# delta 0's two solves reach any node limit (100 nodes took 22.4 and 23.5 s
+# of host B&B on an H100 host, 25 nodes 15.2 and 15.8 s on a slower one:
+# the first nodes' LPs cost most), so they stop at this one: the smoke's
+# wall
+MILP_DELTA0_NODES = 10
 MILP_NO_CLOCK = 3600.0
 # the planners: benchmarks/expert_placement.py's router counts drifting by a
 # lognormal sigma a window; tests/test_balance.py's stage-plan archs
@@ -560,21 +599,19 @@ GEMM_SHAPES = ((128, 168, 2048, 768), (128, 168, 768, 2048),
 # depth cut to 4 of 48 layers (3.11 G parameters: 37.4 GB of bf16 weights,
 # bf16 gradients and float32 AdamW moments before activations); 10 steps of
 # 4 x 512 tokens at lr 3e-4, a re-placement every 5 steps on 16 expert ranks
-# (the production mesh's model axis).  The restart check writes a
-# checkpoint every 5 steps, and a checkpoint of those 4 layers is 31.1 GB
-# (bf16 params, float32 m and v): two of them pass the 45 GiB that the card
-# hosts this script runs on let one run write to their disk, deleted files
-# included.  So the restart pair (the run
-# uninterrupted, then failing at step 7 and restarted from step 5's
-# checkpoint) runs at TRAIN_RESTART_LAYERS, whose checkpoint is 12.45 GB,
-# and the 4-layer run keeps no checkpoint
-TRAIN_ARCH, TRAIN_LAYERS, TRAIN_RESTART_LAYERS = "qwen3-moe-30b-a3b", 4, 1
+# (the production mesh's model axis).  It writes no checkpoint: one of those
+# 4 layers is 31.1 GB (bf16 params, float32 m and v), and the card hosts
+# this script runs on end a run that writes more than 45 GiB to their disk,
+# deleted files included.  The restart from a checkpoint is held by phase
+# 10's train_moe_ccm (a checkpoint of 1.2 GB); until it came, a qwen restart
+# pair at 1 layer (two 12.45 GB checkpoints) held it here
+TRAIN_ARCH, TRAIN_LAYERS = "qwen3-moe-30b-a3b", 4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 512, 4, 10, 3e-4
-TRAIN_REBALANCE, TRAIN_RANKS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 16, 5, 7
-# the restarted run's losses against the uninterrupted run's: the card's
-# index_add_ sums in no set order, and the restarted run resumes before the
-# step-5 re-placement (a function-preserving permutation) that the
-# uninterrupted run applied, so its expert sums run in another order
+TRAIN_REBALANCE, TRAIN_RANKS = 5, 16
+# a restarted run's losses against the uninterrupted run's (phase 10), and
+# the card's steps against the CPU's (below): AdamW moves an element by
+# about lr whatever its gradient's size, so where a gradient is near 0 the
+# two sides' rounding decides the step
 TRAIN_RESTART_RTOL = 1e-3
 # card vs cpu: the same float32 weights of qwen cut to 1 layer (2 before
 # phase 6c came: its CPU side took 76-84 s), a batch of
@@ -725,11 +762,16 @@ RGLRU_CASES = ((2, 128, 64), (2, 256, 64), (2, 64, 128), (4, 2560, 4096),
 # 27.6 GB of bf16 weights and gradients and float32 AdamW moments),
 # recurrentgemma one period of 38 layers (1.71 G, its 256000 x 4096
 # embedding tied; 2 x 2560 tokens, past the 2048-token window), whisper at
-# full depth (2.02 G), llava 8 of 32 (2.01 G)
+# full depth (2.02 G), llava 8 of 32 (2.01 G).  recurrentgemma's check runs
+# one RG-LRU layer and the local attention (1.42 G parameters; one period
+# is 1.60 G) on one request: on one period and two requests its CPU side,
+# the gradient and one AdamW update of the tied 256000 x 4096 embedding in
+# float32, took 41 of the check's 53 s on an H100 host
 FAMILY_STEPS = 3
 FAMILY_TRAINS = (
     (RWKV_ARCH, {"num_layers": 8}, 4, 512, {"num_layers": 1}, 2, 512),
-    (RG_ARCH, {"num_layers": 3}, 2, 2560, {"num_layers": 3}, 2, 64),
+    (RG_ARCH, {"num_layers": 3}, 2, 2560,
+     {"num_layers": 2, "block_pattern": ("rglru", "local_attn")}, 1, 64),
     (WHISPER_ARCH, {}, 4, 1500, {"num_layers": 2, "num_decoder_layers": 2},
      2, 1500),
     (LLAVA_ARCH, {"num_layers": 8}, 4, 1152 + 512, {"num_layers": 2}, 1,
@@ -1632,7 +1674,8 @@ def milp_path(torch, kernel, launch) -> dict:
     launches counted from zero just before the card runs and read just
     after (more than zero, equal to the scorer calls, no full-tile or
     window launch).  Then ``solve_milp(build_fwmp_reduced(...))`` (host
-    numpy) with ``max_nodes=MILP_NODES`` and a wall-clock limit no solve
+    numpy) with ``max_nodes=MILP_NODES`` (``MILP_DELTA0_NODES`` at delta
+    0, whose solves reach any limit) and a wall-clock limit no solve
     reaches, without and with the card runs' best W_max as
     ``incumbent_obj``; each solve must end by optimality or at the node
     limit, and a certified optimum must not lie above CCM-LB's best."""
@@ -1671,16 +1714,17 @@ def milp_path(torch, kernel, launch) -> dict:
         works = [float(r.max_work[-1]) for r in gpu]
         best = min(works)
         milp = build_fwmp_reduced(phase, params)
+        max_nodes = MILP_NODES if delta else MILP_DELTA0_NODES
         solves = {}
         for label, inc in (("no incumbent", np.inf),
                            ("ccm-lb incumbent", best)):
             t0 = time.perf_counter()
-            res = solve_milp(milp, incumbent_obj=inc, max_nodes=MILP_NODES,
+            res = solve_milp(milp, incumbent_obj=inc, max_nodes=max_nodes,
                              time_limit_s=MILP_NO_CLOCK)
             solve_s = time.perf_counter() - t0
-            if res.status != "optimal" and res.nodes < MILP_NODES:
+            if res.status != "optimal" and res.nodes < max_nodes:
                 fail(f"milp delta {delta!r}, {label}: ended {res.status} "
-                     f"after {res.nodes} of {MILP_NODES} nodes")
+                     f"after {res.nodes} of {max_nodes} nodes")
             if res.status == "optimal" and \
                     res.objective > best * (1 + 1e-9):
                 fail(f"milp delta {delta!r}, {label}: certified optimum "
@@ -3491,14 +3535,9 @@ def train_path(torch, mods) -> dict:
     the forward and six in the backward, all bf16, and each re-placement
     plan the pair kernel.  One more step profiled for the device's idle
     share and its busy time by kernel (the ``TRAIN_TOP_KERNELS``
-    longest).  Then the restart pair at ``TRAIN_RESTART_LAYERS``: the run
-    uninterrupted, and failing at ``TRAIN_FAIL_AT`` under
-    ``run_with_restarts`` with a checkpoint every ``TRAIN_CKPT_EVERY``
-    steps; it must restore step 5 and its losses from there agree with the
-    uninterrupted run's within ``TRAIN_RESTART_RTOL``."""
+    longest).  The restart from a checkpoint is held in phase 10
+    (``train_example``)."""
     import dataclasses
-    import shutil
-    import tempfile
 
     import numpy as np
 
@@ -3508,7 +3547,6 @@ def train_path(torch, mods) -> dict:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import TrainLog, train_loop
     from repro_torch.models.model import build_model
-    from repro_torch.runtime.fault import FaultInjector, run_with_restarts
     full = configs.get_config(TRAIN_ARCH)
     cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
     common = dict(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
@@ -3546,47 +3584,6 @@ def train_path(torch, mods) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the restart pair: uninterrupted, then failing at TRAIN_FAIL_AT, both
-    # under deterministic algorithms, so that the two runs are the same
-    # until the restart (the expert combine's index_add_ is otherwise
-    # atomic: its sums' order moved a near-tied routing and, through the
-    # step-5 plan, the two runs' losses 2.8e-3 apart by step 7 on an H100)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    cut = dataclasses.replace(full, num_layers=TRAIN_RESTART_LAYERS)
-    _, _, ref_losses = train_loop(cut, **common)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
-    inj = FaultInjector(fail_at_steps=(TRAIN_FAIL_AT,))
-    flog = TrainLog()
-    parts = []
-
-    def once():
-        gc.collect()
-        torch.cuda.empty_cache()
-        parts.append(train_loop(cut, ckpt_dir=str(tmp),
-                                ckpt_every=TRAIN_CKPT_EVERY, fault=inj,
-                                log=flog, **common)[2])
-
-    try:
-        print(f"train: checkpoints under {tmp} (free "
-              f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB)", flush=True)
-        t0 = time.perf_counter()
-        stats = run_with_restarts(once)
-        fault_wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        torch.use_deterministic_algorithms(False)
-    gc.collect()
-    torch.cuda.empty_cache()
-    first = TRAIN_CKPT_EVERY
-    resumed = parts[-1] if parts else []
-    agree = len(resumed) == TRAIN_STEPS - first and np.allclose(
-        resumed, ref_losses[first:], rtol=TRAIN_RESTART_RTOL, atol=0)
-    if not (stats.completed and stats.restarts == 1
-            and flog.restored_from == [first] and agree):
-        fail(f"train restart: {stats}, restored from {flog.restored_from}, "
-             f"losses {resumed} against {ref_losses[first:]}")
     step_s = sorted(log.step_s)
     med = step_s[len(step_s) // 2]
     out = dict(
@@ -3602,24 +3599,14 @@ def train_path(torch, mods) -> dict:
         kernels_unrecorded=prof["kernels_unrecorded"],
         device_ms_by_kernel=dict(sorted(
             ((k[:100], r["device_ms"]) for k, r in prof["by_name"].items()),
-            key=lambda kv: -kv[1])[:TRAIN_TOP_KERNELS]),
-        restart=dict(layers=TRAIN_RESTART_LAYERS, restarts=stats.restarts,
-                     restored_from=flog.restored_from, losses=resumed,
-                     uninterrupted=ref_losses, wall_s=fault_wall,
-                     step_s=flog.step_s,
-                     checkpoint_and_restore_s=fault_wall - sum(flog.step_s)))
+            key=lambda kv: -kv[1])[:TRAIN_TOP_KERNELS]))
     print(f"train {cfg.name} ({TRAIN_LAYERS} of 48 layers, {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens): losses {losses}; step s median {med!r} "
           f"(min {step_s[0]!r}, max {step_s[-1]!r}); {out['tokens_per_s']!r} "
           f"tokens/s; peak {peak_gb!r} GB; run {wall:.1f} s; launches a "
           f"step {log.launches[0]}; re-placements {log.replacements}; "
           f"device idle {prof['device_idle_share']} "
-          f"({prof['device_idle_share_bounds']}); restart at "
-          f"{TRAIN_RESTART_LAYERS} layer(s) from {flog.restored_from} agrees "
-          f"within {TRAIN_RESTART_RTOL} ({resumed} against "
-          f"{ref_losses[first:]}), {fault_wall:.1f} s of which "
-          f"{out['restart']['checkpoint_and_restore_s']:.1f} s not in steps",
-          flush=True)
+          f"({prof['device_idle_share_bounds']})", flush=True)
     return out
 
 
@@ -4689,8 +4676,6 @@ def serve_family(torch, arch, batch_size, prompt_len, frames, n_flash, cut,
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.launch.serve import stub_media
-    from repro_torch.models.model import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4711,7 +4696,6 @@ def serve_family(torch, arch, batch_size, prompt_len, frames, n_flash, cut,
         out["seconds"]["ring_vs_full"] = out["ring_vs_full"]["seconds"]
     t0 = time.perf_counter()
     # keep only the cut's weights on the card
-    cut_cfg = dataclasses.replace(cfg, **cut)
     if cfg.arch_type == "encdec":
         cut_params = dict(params, enc_blocks=params["enc_blocks"][
             :cut["num_layers"]], dec_blocks=params["dec_blocks"][
@@ -4721,6 +4705,27 @@ def serve_family(torch, arch, batch_size, prompt_len, frames, n_flash, cut,
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
+    out["card_vs_cpu"] = cut_vs_cpu(torch, cfg, cut, cut_params, rng, frames)
+    out["seconds"]["card_vs_cpu"] = time.perf_counter() - t0
+    return out
+
+
+def cut_vs_cpu(torch, cfg, cut, cut_params, rng, frames: int = 0) -> dict:
+    """The weights ``cut_params`` of ``cfg`` cut to ``cut`` on the card
+    against the CPU, teacher-forced on a ``CHECK_PROMPT``-token prompt
+    drawn from ``rng`` after the stub front end's full-size inputs
+    (``frames`` encoder frames): the CPU runs once, in float32 on the
+    served (bf16) values, and holds the card in bf16 (the served weights:
+    the serving contract, an argmax differing only at a near tie) and in
+    float32 (the same values widened: the serving contract).  bf16 products
+    on the CPU are slow (phase 7's recurrentgemma check), so this runs
+    none."""
+    import dataclasses
+
+    from repro_torch.launch.serve import stub_media
+    from repro_torch.models.model import build_model
+
+    cut_cfg = dataclasses.replace(cfg, **cut)
     check = rng.integers(0, cfg.vocab_size, (1, CHECK_PROMPT + CHECK_STEPS))
     check_media = stub_media(cfg, 1, rng, frames)
     t0 = time.perf_counter()
@@ -4730,7 +4735,7 @@ def serve_family(torch, arch, batch_size, prompt_len, frames, n_flash, cut,
                         wide, check, check_media)
     cpu_s = time.perf_counter() - t0
     del wide
-    out["card_vs_cpu"] = {"cpu_s": cpu_s}
+    out = {"cpu_s": cpu_s}
     for dtype in (torch.bfloat16, torch.float32):
         name = dtype_name(dtype)
         card = forced_logits(
@@ -4748,13 +4753,443 @@ def serve_family(torch, arch, batch_size, prompt_len, frames, n_flash, cut,
               f"(cpu top-two gaps {res['cpu_top2_gap']}); cpu {cpu_s:.1f} s",
               flush=True)
         if name == "float32" and not res["contract_met"]:
-            fail(f"card vs cpu, {arch} float32: serving contract missed: "
+            fail(f"card vs cpu, {cfg.name} float32: serving contract missed: "
                  f"{res}")
         if res["max_excess"] > 0 or res["argmax_unexplained"]:
-            fail(f"card vs cpu, {arch} {name}: a difference beyond the "
+            fail(f"card vs cpu, {cfg.name} {name}: a difference beyond the "
                  f"serving contract that rounding does not explain: {res}")
-        out["card_vs_cpu"][name] = res
-    out["seconds"]["card_vs_cpu"] = time.perf_counter() - t0
+        out[name] = res
+    return out
+
+
+# ---------------------------------------------------------- 10. the examples
+# the configs the card had never served (ROADMAP C2), each at its published
+# width and full depth in bf16 through the serve example's loop body
+# (serve_batched.serve_one) on the serve cells' batch, then cut to
+# EXAMPLE_CHECK on the card against the CPU (cut_vs_cpu)
+EXAMPLE_SERVES = ("tinyllama-1.1b", "llama3.2-3b", "smollm-360m")
+EXAMPLE_CHECK = {"num_layers": 2}
+# train_moe_ccm: the example's run (a checkpoint every 50 steps, its
+# constant) with --steps EXAMPLE_TRAIN_STEPS, then the same failing at
+# EXAMPLE_FAIL_AT, restarted from its step-50 checkpoint: its losses from
+# there within TRAIN_RESTART_RTOL of the uninterrupted run's.  Both under
+# deterministic algorithms (the expert combine's index_add_ is otherwise
+# atomic).  The example's own 300 steps made the pair 121-144 s of the
+# smoke (0.16-0.19 s a step), so the smoke's wall takes it at 100
+EXAMPLE_TRAIN_STEPS, EXAMPLE_FAIL_AT, EXAMPLE_CKPT_EVERY = 100, 60, 50
+
+
+def same_quickstart(a, b) -> bool:
+    return (same_run(a.result, b.result) and a.best == b.best
+            and (a.initial_max_work, a.initial_imbalance)
+            == (b.initial_max_work, b.initial_imbalance)
+            and (a.milp.status, a.milp.objective, a.milp.nodes)
+            == (b.milp.status, b.milp.objective, b.milp.nodes))
+
+
+def same_async_runs(a, b) -> bool:
+    return list(a) == list(b) and all(
+        same_async(a[t], b[t]) and a[t].gossip_dropped == b[t].gossip_dropped
+        and a[t].max_grant_chain == b[t].max_grant_chain for t in a)
+
+
+def same_pipeline_demo(a, b) -> bool:
+    import numpy as np
+    runs = list(zip(a.cold.runs + a.warm.runs, b.cold.runs + b.warm.runs,
+                    strict=True))
+    return all(same_run(x.result, y.result) and x.csr_reused == y.csr_reused
+               and x.warm_started == y.warm_started for x, y in runs) \
+        and all(np.array_equal(x.assignment, y.assignment)
+                and x.imbalance_after == y.imbalance_after
+                for x, y in zip(a.stream, b.stream, strict=True))
+
+
+def summarize_example(name, r) -> dict:
+    """The numbers an example printed, for the examples JSON."""
+    if name == "quickstart":
+        return dict(initial_max_work=r.initial_max_work,
+                    max_work=float(r.result.max_work[-1]),
+                    imbalance=float(r.result.imbalance[-1]),
+                    transfers=r.result.transfers, best_of_12=r.best,
+                    milp=dict(status=r.milp.status,
+                              objective=float(r.milp.objective),
+                              nodes=r.milp.nodes, seconds=r.milp.wall_s))
+    if name == "async_balancer":
+        return {tag: dict(transfers=res.transfers,
+                          imbalance=[res.imbalance[0], res.imbalance[-1]],
+                          messages=res.messages, conflicts=res.lock_conflicts,
+                          yields=res.yields, chains=res.grant_chains,
+                          dead=res.dead_ranks, joined=res.joined_ranks)
+                for tag, res in r.items()}
+    return dict(
+        cold_transfers=[x.result.transfers for x in r.cold.runs],
+        warm_transfers=[x.result.transfers for x in r.warm.runs],
+        cold_s=r.cold.total_seconds, warm_s=r.warm.total_seconds,
+        cold_over_warm=r.cold.total_seconds / r.warm.total_seconds,
+        seqpack_imbalance=[[x.imbalance_before, x.imbalance_after]
+                           for x in r.stream])
+
+
+def balancer_examples(torch, kernel, launch) -> dict:
+    """``quickstart``, ``async_balancer`` and ``pipeline_phases`` as their
+    ``run`` goes, on the CPU and then on the card: every result equal
+    (assignments, transfer logs, traces, counters, ``FaultStats``, the
+    MILP's status, objective and nodes, the pipeline's flags, the
+    seqpack stream), the pair kernel launched exactly once a scorer call
+    (counted from zero just before the card run) and nothing else of the
+    scorer."""
+    from repro_torch.examples import (async_balancer, pipeline_phases,
+                                      quickstart)
+    out = {}
+    for name, mod, same in (("quickstart", quickstart, same_quickstart),
+                            ("async_balancer", async_balancer,
+                             same_async_runs),
+                            ("pipeline_phases", pipeline_phases,
+                             same_pipeline_demo)):
+        launch.reset_stats()
+        t0 = time.perf_counter()
+        cpu = mod.run("cpu")
+        cpu_s = time.perf_counter() - t0
+        cpu_calls = launch.STATS["calls"]
+        kernel.reset_launches()
+        launch.reset_stats()
+        t0 = time.perf_counter()
+        card = mod.run("cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        n, calls = kernel.PAIR_LAUNCHES["float64"], launch.STATS["calls"]
+        if not same(card, cpu):
+            fail(f"example {name}: the card's run differs from the cpu's")
+        if (n == 0 or n != calls or calls != cpu_calls
+                or kernel.PAIR_LAUNCHES["float32"]
+                or sum(kernel.LAUNCHES.values())
+                or sum(kernel.SPEC_LAUNCHES.values())):
+            fail(f"example {name}: pair launches {kernel.PAIR_LAUNCHES} vs "
+                 f"scorer calls {calls} (cpu run {cpu_calls}), full-tile "
+                 f"{kernel.LAUNCHES}, window {kernel.SPEC_LAUNCHES}")
+        out[name] = dict(cuda_s=card_s, cpu_s=cpu_s, pair_launches=n,
+                         scorer_calls=calls,
+                         result=summarize_example(name, card))
+        print(f"example {name}: the card's run equals the cpu's; {n} pair "
+              f"launches = scorer calls; wall cuda {card_s!r} s, cpu "
+              f"{cpu_s!r} s", flush=True)
+    return out
+
+
+def assembly_example(torch, kernel, launch, asm_kernel) -> dict:
+    """``assembly_e2e``: with analytic durations on the CPU and the card
+    (the A/B/C makespans, the placement and the homing plan equal, no
+    tile launch), then as the example goes, measured on the card: every
+    task of the training and the target configurations timed (tile
+    launches exactly ``repeats * tasks + signatures`` of each), the cost
+    model trained on the card, CCM-LB on the pair kernel (launches equal
+    to scorer calls)."""
+    from repro_torch.examples import assembly_e2e
+    cpu = assembly_e2e.run("cpu", durations="analytic").run
+    kernel.reset_launches()
+    launch.reset_stats()
+    asm_kernel.reset_launches()
+    card = assembly_e2e.run("cuda", durations="analytic").run
+    torch.cuda.synchronize()
+    n_analytic = kernel.PAIR_LAUNCHES["float64"]
+    if not same_assembly_run(card, cpu):
+        fail("example assembly_e2e (analytic): the card's run differs from "
+             "the cpu's")
+    if (n_analytic == 0 or n_analytic != launch.STATS["calls"]
+            or asm_kernel.LAUNCHES["float32"]):
+        fail(f"example assembly_e2e (analytic): pair launches {n_analytic} "
+             f"vs scorer calls {launch.STATS['calls']}, tile launches "
+             f"{asm_kernel.LAUNCHES}")
+    kernel.reset_launches()
+    launch.reset_stats()
+    asm_kernel.reset_launches()
+    t0 = time.perf_counter()
+    demo = assembly_e2e.run("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = demo.run
+    tiles = asm_kernel.LAUNCHES["float32"]
+    want = sum(2 * p.num_tasks + len(signatures(p))
+               for p in (demo.train_problem, run.problem))
+    n = kernel.PAIR_LAUNCHES["float64"]
+    if tiles != want or n == 0 or n != launch.STATS["calls"]:
+        fail(f"example assembly_e2e: {tiles} tile launches (expected "
+             f"{want}), pair launches {n} vs scorer calls "
+             f"{launch.STATS['calls']}")
+    homing_s = run.homing.est_time_s if run.homing else 0.0
+    out = dict(
+        analytic=dict(pair_launches=n_analytic,
+                      makespans=[card.makespan_baseline,
+                                 card.makespan_overdecomposed,
+                                 card.makespan_ccmlb],
+                      speedups=[card.speedup_overdecomposed,
+                                card.speedup_ccmlb]),
+        measured=dict(
+            wall_s=wall, tile_launches=tiles, pair_launches=n,
+            tasks=[demo.train_problem.num_tasks, run.problem.num_tasks],
+            train_durations_us=[float(demo.train_durations.min() * 1e6),
+                                float(demo.train_durations.max() * 1e6)],
+            cost_model=demo.metrics,
+            makespans=[run.makespan_baseline, run.makespan_overdecomposed,
+                       run.makespan_ccmlb],
+            speedups=[run.speedup_overdecomposed, run.speedup_ccmlb],
+            homing_s=homing_s,
+            homing_waves=len(run.homing.waves) if run.homing else 0,
+            imbalance=[run.imbalance_before, run.imbalance_after],
+            off_home=run.n_off_home_ranks, stage_s=run.stage_seconds))
+    print(f"example assembly_e2e: analytic run on the card equals the "
+          f"cpu's ({n_analytic} pair launches); measured on the card: "
+          f"{tiles} tile launches, {n} pair launches, A/B/C "
+          f"{out['measured']['makespans']} s, speedups "
+          f"{out['measured']['speedups']}, wall {wall!r} s", flush=True)
+    return out
+
+
+def expected_serve_launches(cfg, max_new: int) -> dict:
+    """A ``serve_batch`` run's kernel launches ({kernel: {dtype: n}}): one
+    flash a prefill's attention layer, one WKV6 or RG-LRU scan (float32,
+    the model's gates) a recurrent layer's prefill, three expert GEMMs an
+    MoE layer's forward (the prefill and every decode step)."""
+    from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_LOCAL,
+                                          BLOCK_MOE, BLOCK_REC, BLOCK_RWKV)
+    want = {k: {"bfloat16": 0, "float32": 0}
+            for k in ("flash", "gemm", "wkv6", "rglru")}
+    for kind in cfg.layer_kinds():
+        if kind in (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_MOE):
+            want["flash"]["bfloat16"] += 1
+        if kind == BLOCK_MOE:
+            want["gemm"]["bfloat16"] += 3 * (1 + max_new)
+        if kind == BLOCK_RWKV:
+            want["wkv6"]["bfloat16"] += 1
+        if kind == BLOCK_REC:
+            want["rglru"]["float32"] += 1
+    return want
+
+
+def serve_examples(torch, mods) -> dict:
+    """``serve_batched`` as its ``run`` goes on the card (the four smoke
+    configs, bf16), launches summed over the four and held to
+    ``expected_serve_launches``; then the configs of ``EXAMPLE_SERVES``
+    (``serve_published``)."""
+    from repro_torch import configs
+    from repro_torch.examples import serve_batched
+    for mod in mods.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    served = serve_batched.run("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: dict(mod.LAUNCHES) for name, mod in mods.items()}
+    want = {k: {"bfloat16": 0, "float32": 0} for k in mods}
+    for arch in serve_batched.ARCHS:
+        for k, by in expected_serve_launches(
+                configs.get_smoke_config(arch), 16).items():
+            for dt, n in by.items():
+                want[k][dt] += n
+    if launches != want:
+        fail(f"example serve_batched: launches {launches}, expected {want}")
+    out = {"smoke": dict(
+        wall_s=wall, launches=launches,
+        runs={s.arch: dict(seconds=s.seconds, tokens_per_s=s.tokens_per_s,
+                           first_row=s.tokens[0, :8].tolist())
+              for s in served})}
+    print(f"example serve_batched: four smoke configs on the card, "
+          f"launches {launches} as expected; "
+          + ", ".join(f"{s.arch} {s.tokens_per_s:.1f} tok/s"
+                      for s in served), flush=True)
+    del served
+    for arch in EXAMPLE_SERVES:
+        out[arch] = serve_published(torch, arch, mods)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_published(torch, arch, mods) -> dict:
+    """``arch`` at its published width and full depth served through
+    ``serve_batched.serve_one`` on the card (bf16, the port's init on the
+    card; ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens from numpy
+    seed 0, ``SERVE_NEW`` new tokens): launches counted from zero, exactly
+    one flash a layer and nothing else; the same prompts served again with
+    each prefill and decode step on CUDA events (uncounted); then the
+    weights cut to ``EXAMPLE_CHECK`` on the card against the CPU."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.examples import serve_batched
+    from repro_torch.launch.serve import serve_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_config(arch)
+    rng = np.random.default_rng(0)
+    for mod in mods.values():
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with ShapeLog(mods) as log:
+        t0 = time.perf_counter()
+        s = serve_batched.serve_one(cfg, "cuda", torch.bfloat16, rng=rng,
+                                    batch=SERVE_BATCH,
+                                    prompt_len=SERVE_PROMPT,
+                                    max_new=SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: dict(mod.LAUNCHES) for name, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_serve_launches(cfg, SERVE_NEW)
+    if launches != want or want["flash"]["bfloat16"] != cfg.num_layers:
+        fail(f"serve {arch}: launches {launches}, expected {want}")
+    if s.tokens.shape != (SERVE_BATCH, SERVE_NEW) or s.tokens.min() < 0 \
+            or s.tokens.max() >= cfg.vocab_size:
+        fail(f"serve {arch}: bad tokens {s.tokens.shape}")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    clock = StepClock(torch, s.model)
+    again = serve_batch(s.model, s.params, prompts, SERVE_NEW)
+    clock.restore()
+    decode_s = clock.seconds("decode")
+    if not (np.array_equal(again, s.tokens)
+            and torch.isfinite(clock.logits).all()):
+        fail(f"serve {arch}: the same prompts served again gave other "
+             "tokens or non-finite logits")
+    n_params = sum(t.numel() for t in tree_leaves(s.params))
+    out = dict(
+        arch=cfg.name, layers=cfg.num_layers, q_heads=cfg.num_heads,
+        kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        params=n_params, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+        new_tokens=SERVE_NEW, wall_s=wall, serve_s=s.seconds,
+        tokens_per_s=s.tokens_per_s, prefill_s=clock.seconds("prefill")[0],
+        decode_step_s_median=float(np.median(decode_s)),
+        decode_step_s_min=min(decode_s), decode_step_s_max=max(decode_s),
+        peak_memory_gb=peak / 1e9, launches=launches,
+        shapes={name: [[list(k), n] for k, n in c.most_common()]
+                for name, c in log.shapes.items() if c},
+        log_shapes=log.shapes)
+    print(f"serve {cfg.name} (example serve_batched.serve_one): "
+          f"{cfg.num_layers} layers, {n_params} parameters; {SERVE_BATCH} x "
+          f"{SERVE_PROMPT}-token prompts, {SERVE_NEW} new tokens in "
+          f"{s.seconds!r} s ({s.tokens_per_s!r} tok/s; {wall!r} s with the "
+          f"build and init); again: prefill {out['prefill_s']!r} s, decode "
+          f"step median {out['decode_step_s_median']!r} s; peak "
+          f"{peak / 1e9!r} GB; launches {launches}", flush=True)
+    cut_params = dict(s.params, blocks=s.params["blocks"][
+        :EXAMPLE_CHECK["num_layers"]])
+    del s, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = cut_vs_cpu(torch, cfg, EXAMPLE_CHECK, cut_params,
+                                    rng)
+    return out
+
+
+def train_example(torch, mods) -> dict:
+    """``train_moe_ccm`` on the card as the example goes (``CONFIG_100M``,
+    8 x 256 tokens a step, lr 1e-3, a checkpoint and a re-placement every
+    50 steps) for ``EXAMPLE_TRAIN_STEPS`` steps (its ``--steps``), then
+    failing at ``EXAMPLE_FAIL_AT`` under
+    ``run_with_restarts``, both into temporary directories this removes
+    and under deterministic algorithms: every step's launches exactly
+    ``expected_train_launches``, the loss falling, the restarted run
+    restoring its step-50 checkpoint and landing within
+    ``TRAIN_RESTART_RTOL`` of the uninterrupted run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.examples import train_moe_ccm
+    cfg = train_moe_ccm.CONFIG_100M
+    want_step = expected_train_launches(cfg)
+    tmp = Path(tempfile.mkdtemp(prefix="moe_ccm_"))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mod in mods.values():
+            mod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole = train_moe_ccm.run("cuda", steps=EXAMPLE_TRAIN_STEPS,
+                                  ckpt_dir=str(tmp / "whole"))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        last = max((tmp / "whole").glob("step_*"))
+        ckpt_bytes = sum(f.stat().st_size for f in last.rglob("*")
+                         if f.is_file())
+        shutil.rmtree(tmp / "whole")
+        t0 = time.perf_counter()
+        failed = train_moe_ccm.run("cuda", steps=EXAMPLE_TRAIN_STEPS,
+                                   ckpt_dir=str(tmp / "failed"),
+                                   fail_at=EXAMPLE_FAIL_AT)
+        fault_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+    steps = len(whole.losses)
+    if any(rec != want_step for rec in whole.log.launches
+           + failed.log.launches):
+        fail(f"example train_moe_ccm: launches a step "
+             f"{whole.log.launches[:2]} ... (expected {want_step})")
+    losses = np.asarray(whole.losses)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and whole.stats.restarts == 0 and whole.stats.completed):
+        fail(f"example train_moe_ccm: losses {losses[[0, -1]]}, "
+             f"{whole.stats}")
+    first = EXAMPLE_FAIL_AT // EXAMPLE_CKPT_EVERY * EXAMPLE_CKPT_EVERY
+    agree = len(failed.losses) == steps - first and np.allclose(
+        failed.losses, losses[first:], rtol=TRAIN_RESTART_RTOL, atol=0)
+    if not (failed.stats.completed and failed.stats.restarts == 1
+            and failed.log.restored_from == [first] and agree):
+        fail(f"example train_moe_ccm --fail-at {EXAMPLE_FAIL_AT}: "
+             f"{failed.stats}, restored from {failed.log.restored_from}, "
+             f"losses {failed.losses} against {whole.losses[first:]}")
+    step_s = sorted(whole.log.step_s)
+    med = step_s[len(step_s) // 2]
+    # a run writes every EXAMPLE_CKPT_EVERY steps and at its last step; the
+    # failed run writes the same steps, over its two attempts
+    n_ckpt = len(set(range(EXAMPLE_CKPT_EVERY, steps + 1,
+                           EXAMPLE_CKPT_EVERY)) | {steps})
+    out = dict(
+        params=whole.n_params, steps=steps, losses_first_last=[
+            float(losses[0]), float(losses[-1])],
+        step_s_median=med, step_s_min=step_s[0], step_s_max=step_s[-1],
+        tokens_per_s=8 * 256 / med, wall_s=wall, peak_gb=peak / 1e9,
+        launches_per_step=want_step,
+        launches={k: sum(rec[k] for rec in whole.log.launches
+                         + failed.log.launches) for k in want_step},
+        replacements=whole.log.replacements,
+        checkpoint_bytes=ckpt_bytes, checkpoints_written=2 * n_ckpt,
+        restart=dict(fail_at=EXAMPLE_FAIL_AT, restarts=failed.stats.restarts,
+                     restored_from=failed.log.restored_from,
+                     wall_s=fault_wall,
+                     max_rel_diff=float(np.max(np.abs(
+                         np.asarray(failed.losses) - losses[first:])
+                         / np.abs(losses[first:]))),
+                     steps_run=len(failed.log.steps)))
+    print(f"example train_moe_ccm: {whole.n_params} parameters, {steps} "
+          f"steps, loss {losses[0]!r} -> {losses[-1]!r}; step s median "
+          f"{med!r} (min {step_s[0]!r}, max {step_s[-1]!r}), "
+          f"{out['tokens_per_s']!r} tokens/s, run {wall:.1f} s, peak "
+          f"{peak / 1e9!r} GB; launches a step {want_step}; a checkpoint "
+          f"{ckpt_bytes} B, {2 * n_ckpt} written; --fail-at "
+          f"{EXAMPLE_FAIL_AT}: restored from {failed.log.restored_from}, "
+          f"losses within {out['restart']['max_rel_diff']!r} of the "
+          f"uninterrupted run's, {fault_wall:.1f} s", flush=True)
+    return out
+
+
+def examples_path(torch, kernel, launch, asm_kernel, mods) -> dict:
+    """Phase 10: the six examples of ``repro_torch.examples`` on the card
+    (``balancer_examples``, ``assembly_example``, ``serve_examples``,
+    ``train_example``), each counted from zero and timed."""
+    out = {}
+    t0 = time.perf_counter()
+    out["balancers"] = balancer_examples(torch, kernel, launch)
+    out["assembly_e2e"] = assembly_example(torch, kernel, launch, asm_kernel)
+    out["seconds"] = {"balancers": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["serve_batched"] = serve_examples(torch, mods)
+    out["seconds"]["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train_moe_ccm"] = train_example(torch, mods)
+    out["seconds"]["train"] = time.perf_counter() - t0
     return out
 
 
@@ -5592,6 +6027,14 @@ def main() -> None:
     prof = profile_main_path(torch, kernel)
     prof_spec = profile_spec_path(torch, kernel)
     lap("8 timing and profiles")
+    # 10. the six examples of repro_torch.examples on the card (launch
+    # counts zeroed inside, per example), the C2 configs served through
+    # serve_batched's loop body; flash held and timed at their shapes
+    ex = examples_path(torch, kernel, launch, asm_kernel, serve_mods)
+    for arch in EXAMPLE_SERVES:
+        serve_times["flash"].update(time_logged_flash(
+            torch, flash_kernel, flash_ref, ex["serve_batched"][arch]))
+    lap("10 examples")
 
     # 9. imports, then the result
     import repro_torch
@@ -5623,6 +6066,10 @@ def main() -> None:
                             if isinstance(v, dict) and v["kernel"] == "pair"})
             by_path["re-placement plan"] = serve["replacement"][
                 "pair_launches"]
+            by_path.update({f"example {k}": v["pair_launches"]
+                            for k, v in ex["balancers"].items()})
+            by_path.update({f"example assembly_e2e {k}": v["pair_launches"]
+                            for k, v in ex["assembly_e2e"].items()})
         kernels.append({
             "name": f"ccm_scorer_pairs_{short}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -5672,12 +6119,16 @@ def main() -> None:
         "library_note": "no PyTorch call scores a CCM window",
         "shape": spec_times["shape"], "by_shape": spec_by_shape,
     })
+    asm_example = ex["assembly_e2e"]["measured"]
     key = max(asm_times, key=lambda k: asm_times[k]["quad_order_launches"])
     m = asm_times[key]
     kernels.append({
         "name": "assembly_tile_f32", "route": "cuda", "source": ASM_SOURCE,
-        "replaces": ASM_REPLACES, "launches": asm["launches"],
-        "launches_by_path": {"assembly": asm["launches"]},
+        "replaces": ASM_REPLACES,
+        "launches": asm["launches"] + asm_example["tile_launches"],
+        "launches_by_path": {"assembly": asm["launches"],
+                             "example assembly_e2e":
+                             asm_example["tile_launches"]},
         "max_abs_err": max(asm_worst, asm["real_task_max_abs_err"]),
         "ms": m["ms"], "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -5698,6 +6149,12 @@ def main() -> None:
     flash_by_path.update({f"train_{arch}": r["launches"]["flash"]["fwd"][
         "bfloat16"] for arch, r in fam_train.items()})
     flash_by_path["tp_ranks (float32)"] = tp["launches"].get("flash", 0)
+    ex_serve, ex_train = ex["serve_batched"], ex["train_moe_ccm"]["launches"]
+    flash_by_path["example serve_batched"] = ex_serve["smoke"]["launches"][
+        "flash"]["bfloat16"]
+    flash_by_path.update({f"example serve_batched {arch}": ex_serve[arch][
+        "launches"]["flash"]["bfloat16"] for arch in EXAMPLE_SERVES})
+    flash_by_path["example train_moe_ccm"] = ex_train["flash_fwd"]
     for name, key, worst_err, source, replaces, by_path in (
             ("flash_attention_bf16", "flash", flash_worst, FLASH_SOURCE,
              FLASH_REPLACES, flash_by_path),
@@ -5710,8 +6167,10 @@ def main() -> None:
                  f"mesh_serve_{SERVE_ARCH}": mesh["serve"]["mesh 1x1"][
                      "launches"]["gemm"],
                  f"mesh_train_{TRAIN_ARCH}": MESH_TRAIN_STEPS * mesh[
-                     "train"]["mesh 1x1"]["launches_per_step"]["gemm_fwd"]}
-             )):
+                     "train"]["mesh 1x1"]["launches_per_step"]["gemm_fwd"],
+                 "example serve_batched": ex_serve["smoke"]["launches"][
+                     "gemm"]["bfloat16"],
+                 "example train_moe_ccm": ex_train["gemm_fwd"]})):
         by_shape = serve_times[key]
         shape = max(by_shape, key=lambda k: by_shape[k]["launches"])
         m = by_shape[shape]
@@ -5743,7 +6202,9 @@ def main() -> None:
         by_path = {f"serve_{arch}": rec[arch]["launches"][key][dtype],
                    f"train_{arch}": fam_train[arch]["launches"][key]["fwd"][
                        dtype],
-                   "tp_ranks (float32)": tp["launches"].get(key, 0)}
+                   "tp_ranks (float32)": tp["launches"].get(key, 0),
+                   "example serve_batched": ex_serve["smoke"]["launches"][
+                       key][dtype]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -5780,7 +6241,8 @@ def main() -> None:
         m = by_shape[shape]
         by_path = {f"train_{TRAIN_ARCH}": train["launches"][key]["bfloat16"],
                    f"mesh_train_{TRAIN_ARCH}": MESH_TRAIN_STEPS * mesh[
-                       "train"]["mesh 1x1"]["launches_per_step"][key]}
+                       "train"]["mesh 1x1"]["launches_per_step"][key],
+                   "example train_moe_ccm": ex_train[key]}
         if key == "flash_bwd":
             by_path.update({f"train_{arch}": r["launches"]["flash"]["bwd"][
                 "bfloat16"] for arch, r in fam_train.items()})
@@ -5856,6 +6318,12 @@ def main() -> None:
     print(json.dumps({"train_families": fam_train}), flush=True)
     print(json.dumps({"assembly": {
         k: v for k, v in asm.items() if k not in ("problems", "signatures")}}),
+        flush=True)
+    print(json.dumps({"examples": {
+        k: v for k, v in ex.items() if k != "serve_batched"} | {
+        "serve_batched": {arch: {k: v for k, v in r.items()
+                                 if k != "log_shapes"}
+                          for arch, r in ex["serve_batched"].items()}}}),
         flush=True)
     print(json.dumps({"launch_floor": floor}), flush=True)
     lap("9 imports and result")
