@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the assembly tile's, WKV6's, the CCM scorer call's, the window
-kernel's and the training backwards' time goes on one GPU, and how well
-conditioned rwkv6's float32 gradients are.
+kernel's, the RG-LRU scan's and the training backwards' time goes on one
+GPU, how well conditioned rwkv6's float32 gradients are, and how flash's
+bf16-p check fares on many inputs.
 
     python3 kernel_probe.py [--parent DIR] [--steps STEP ...]
 
@@ -98,9 +99,49 @@ application's 16 x 16 tiles, WKV6 at (4, 512, 64, 64) in bf16.
    walk fully unrolled), each held to the kernel's results and timed in
    turns with it.
 
+10. ``--steps scan256``, the RG-LRU forward at its three timed shapes
+   (``chip_smoke.RGLRU_TIMED``: the serve shape (4, 2560, 4096), the
+   training shape (2, 2560, 4096), a 4-rank model axis's (4, 2560, 1024);
+   float32) and the flash backward at recurrentgemma's training shape
+   (``chip_smoke.RG_TRAIN_ATTN``: B·Hq 32 on B·Hkv 2, S 2560, hd 256,
+   causal, window 2048; bf16): with ``--parent``, the parent's and this
+   checkout's public entry points (``kernel.rglru_fwd``;
+   ``kernel.flash_attention_bwd`` on the forward's output, and its row
+   statistics where the checkout's backward takes them) in turns, parent,
+   this, this, parent, each in a process of its own, ``device_ms`` of
+   each; then, for each checkout in a process of its own, each kernel
+   whole and with each of its phases left out (``SCAN256_CUTS``: the
+   parent's scan's loads, chain and stores and its backward's three
+   kernels; this checkout's chunked scan's loads, walks, carries and
+   stores, and its backward's D pass,
+   dK/dV, partial-sum and dQ kernels), built from that checkout's source
+   with those lines cut, with ptxas's registers and spills of the whole
+   kernels.  The cut variants are for timing only: their results are
+   wrong.
+
+11. ``--steps flash_p``: phase 8's bf16-p check of the flash forward at
+   gemma2-27b's global layer on 12 seeds, against the plain model of the
+   kernel's tile walk with its slack (the check), without it, and the
+   model that rounds p against each row's final max, at
+   ``chip_smoke.FLASH_P_TOL``.  Then the reading that sets the slack
+   (``p_flips``): in each head's first ``FLIP_ROWS`` rows (one kv tile,
+   few keys, so one p's rounding shows in the output), every p that lies
+   within 2^-12 (relatively) of a bf16 midpoint, its distance from the
+   midpoint computed in float64, and whether the kernel rounded it the
+   other way: the least-squares weight of that flip's effect on the row's
+   hd outputs (1 flipped, 0 not) and its standard error; and the check's
+   misses at each slack of ``FLASH_P_SLACKS``.
+
+12. ``--steps scan_sweep``: the RG-LRU forward through the public entry
+   point (``kernel.rglru_fwd``) at S 2560 across B·W (``SCAN_SWEEP``),
+   float32, on the same inputs; with ``--parent``, the parent's and this
+   checkout's in turns (parent, this, this, parent), each in a process
+   of its own, with the design each picks, the bytes' bound and how far
+   the checkouts' sums of h differ.
+
 ``--steps`` runs only the named steps (``turns`` for step 1, ``tile``,
 ``wkv6``, ``spec``, ``floor``, ``pipeline``, ``bwd``, ``rwkv_grad``,
-``rec_bwd``); all by default.
+``rec_bwd``, ``scan256``, ``flash_p``, ``scan_sweep``); all by default.
 Prints one JSON line of results, then the card's name and power limit.
 """
 from __future__ import annotations
@@ -209,6 +250,24 @@ SPEC_CUTS = {
 
 #: the recurrent backwards' training shapes (``chip_smoke.time_rec_bwd``)
 REC_WKV_SHAPE, REC_RGLRU_SHAPE = (4, 512, 64, 64), (2, 2560, 4096)
+#: ``--steps flash_p``: gemma2-27b's global layer as phase 8 times it (B·Hq
+#: 64 on B·Hkv 32, S 4608, hd 128, causal, soft-cap 50), and its seeds
+FLASH_P_SHAPE = (64, 32, 4608, 128, dict(causal=True, softcap=50.0))
+FLASH_P_SEEDS = 12
+#: the rows of each head whose p roundings ``p_flips`` reads (all in the
+#: first kv tile), and the distances from a midpoint it bins them by
+#: (log2, relative)
+FLIP_ROWS, FLIP_BINS = 32, tuple(range(-24, -11))
+#: the slacks (log2) at which ``--steps flash_p`` also counts the check's
+#: misses
+FLASH_P_SLACKS = (-16, -18, -20, -21, -22, -23)
+#: ``--steps scan_sweep``: the RG-LRU forward's (B, S, W), float32, from
+#: 4096 to 32768 channels (a checkout with the forward's TMA ring picks it
+#: from RING_WARPS warps an SM: 3 x 32 x 132 = 12672 channels)
+SCAN_SWEEP = ((1, 2560, 4096), (2, 2560, 4096), (3, 2560, 4096),
+              (4, 2560, 4096), (5, 2560, 4096), (6, 2560, 4096),
+              (8, 2560, 4096), (4, 2560, 1024), (8, 2560, 1024),
+              (16, 2560, 1024))
 # (kernel -> kind -> name -> ((what the source says, what it is replaced
 # by), ...)) for each phase of the recurrent backwards that a variant
 # leaves out: of the first designs ("parent", told apart by their source)
@@ -407,6 +466,247 @@ def rec_bwd_kind(name: str, text: str) -> str:
         return "parent" if "auto stage = [&](int t0, int n) {" in text \
             else "this"
     return "this" if "int stages" in text else "parent"
+
+
+#: (kernel -> design -> name -> ((what the source says, what it is
+#: replaced by), ...)): the phases of the RG-LRU forward and of the hd 256
+#: flash backward that a variant of ``--steps scan256`` leaves out, for the
+#: design each checkout's source holds (``scan256_kind``): the parent's
+#: RG-LRU walk (one thread a channel, loads ahead in registers) and its
+#: float32-core backward; this checkout's chunked scan and its tensor-core
+#: backward
+SCAN256_CUTS = {
+    "rglru": {
+        "parent": {
+            "loads": (("        la[s] = log_a[g];\n"
+                       "        bb[s] = widen(b[g]);",
+                       "        la[s] = -1e-3f * s;\n        bb[s] = 0.5f;"),),
+            "chain": (("        h = __fadd_rn(__fmul_rn(expf(la[s]), h), "
+                       "bb[s]);", "        h = bb[s];"),),
+            "stores": (("        h_out[base + (size_t)(t0 + s) * W] = "
+                        "narrow<T>(h);",
+                        "        if (t0 + s == S - 1) h_out[base + (size_t)"
+                        "(t0 + s) * W] = narrow<T>(h);"),),
+        },
+        "chunked": {
+            "loads": (("      x[j] = in ? pa[(size_t)j * W] : 0.0f;\n"
+                       "      y[j] = in ? widen(pb[(size_t)j * W]) : 0.0f;",
+                       "      x[j] = in ? -1e-3f * j : 0.0f;\n"
+                       "      y[j] = in ? 0.5f : 0.0f;"),),
+            "walks": (("    for (int j = 0; j < SCAN_STEPS; ++j) x[j] = "
+                       "expf(x[j]);",
+                       "    for (int j = 0; false; ++j) x[j] = expf(x[j]);"),
+                      ("      e = __fadd_rn(__fmul_rn(x[j], e), y[j]);\n"
+                       "      prod = __fmul_rn(x[j], prod);",
+                       "      e = y[j];\n      prod = x[j];"),
+                      ("      h = __fadd_rn(__fmul_rn(x[j], h), y[j]);\n"
+                       "      if (live && t0 + j < S)",
+                       "      h = y[j];\n      if (live && t0 + j < S)")),
+            "carries": (("  if (warp == 0 && k + 1 < chunks) {",
+                         "  if (false) {"),
+                        ("  if (j >= 0 && j < k) {  // chunk",
+                         "  if (false) {  // chunk")),
+            "stores": (("      if (live && t0 + j < S) out[(size_t)j * W]",
+                        "      if (live && t0 + j == S - 1) "
+                        "out[(size_t)j * W]"),),
+        },
+    },
+    "flash256": {
+        "parent": {
+            "prep": (("  prep<<<grid_q, THREADS, smem, stream>>>(",
+                      "  if (false) prep<<<grid_q, THREADS, smem, "
+                      "stream>>>("),),
+            "dK/dV": (("  dkdv<<<grid_kv, THREADS, smem, stream>>>(",
+                       "  if (false) dkdv<<<grid_kv, THREADS, smem, "
+                       "stream>>>("),),
+            "dQ": (("  dqk<<<grid_q, THREADS, smem, stream>>>(",
+                    "  if (false) dqk<<<grid_q, THREADS, smem, stream>>>("),),
+        },
+        "this": {
+            "D": (("  bwd_delta_tc<<<(unsigned)((rows + 7) / 8), 256, 0, "
+                   "stream>>>(\n      o, dout, delta, (int)rows, sq, sq_pad, "
+                   "P::HD);",
+                   "  if (false) bwd_delta_tc<<<(unsigned)((rows + 7) / 8), "
+                   "256, 0, stream>>>(\n      o, dout, delta, (int)rows, sq, "
+                   "sq_pad, P::HD);"),),
+            "dK/dV": (("  dkdv<<<(unsigned)((skv + 63) / 64 * bhkv * splits),",
+                       "  if (false) dkdv<<<(unsigned)((skv + 63) / 64 * bhkv "
+                       "* splits),"),),
+            "sum": (("  bwd_dkdv_sum256<<<",
+                     "  if (false) bwd_dkdv_sum256<<<"),),
+            "dQ": (("  dqk<<<(unsigned)((sq + 127) / 128 * bhq), P::THREADS, "
+                    "Dq256::SMEM,",
+                    "  if (false) dqk<<<(unsigned)((sq + 127) / 128 * bhq), "
+                    "P::THREADS, Dq256::SMEM,"),),
+        },
+    },
+}
+
+
+def scan256_kind(name: str, text: str) -> str:
+    """Which design of the RG-LRU forward or the hd 256 flash backward
+    ``text`` (its source) holds: ``parent`` or ``this``."""
+    key = "rglru_chunked_kernel" if name == "rglru" else "bwd_dkdv_tc256"
+    return "this" if key in text else "parent"
+
+
+def scan256_inputs(torch, cs):
+    """The RG-LRU forward's arguments at ``chip_smoke.RGLRU_TIMED``
+    (float32, ``chip_smoke``'s distributions) and the hd 256 flash
+    backward's at recurrentgemma's training shape
+    (``chip_smoke.RG_TRAIN_ATTN``, bf16: q, k, v, dO), on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    scans = [(-torch.rand(shape, generator=gen, device="cuda") * 0.1 - 1e-3,
+              torch.randn(shape, generator=gen, device="cuda"))
+             for shape in cs.RGLRU_TIMED]
+    b, sq, skv, hq, hkv, hd, *_ = cs.RG_TRAIN_ATTN
+    attn = [torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b * hq, sq, hd), (b * hkv, skv, hd),
+                                      (b * hkv, skv, hd), (b * hq, sq, hd))]
+    return scans, attn
+
+
+def scan256_times(torch, cs) -> dict:
+    """The checkout's (the package on ``sys.path``) RG-LRU forward at
+    ``RGLRU_TIMED`` and hd 256 flash backward at ``RG_TRAIN_ATTN`` through
+    its public entry points (the backward on the forward's LSE output where
+    the checkout's backward takes it): ``device_ms`` of each."""
+    from repro_torch.kernels.flash import kernel as fk
+    from repro_torch.kernels.rglru import kernel as rk
+    scans, (q, k, v, do) = scan256_inputs(torch, cs)
+    out = {}
+    for la, bb in scans:
+        out[f"rglru_fwd x={list(la.shape)}"] = cs.device_ms(
+            torch, lambda: rk.rglru_fwd(la, bb), 20)
+    *_, causal, window, cap = cs.RG_TRAIN_ATTN
+    kw = dict(causal=causal, window=window, softcap=cap)
+    lse_kw = {}
+    if fk.tc_backward(q.dtype, q.shape[-1]):
+        o, lse_kw["lse"] = fk.flash_attention_fwd(q, k, v, with_lse=True,
+                                                  **kw)
+    else:
+        o = fk.flash_attention_fwd(q, k, v, **kw)
+    out["flash_bwd hd256"] = cs.device_ms(
+        torch, lambda: fk.flash_attention_bwd(q, k, v, o, do, **lse_kw,
+                                              **kw), 5)
+    return out
+
+
+def scan256_phases(torch, cs) -> dict:
+    """The checkout's RG-LRU forward and hd 256 flash backward whole and
+    with each of ``SCAN256_CUTS`` of its design left out, at their timed
+    shapes, launched through the C entries as the checkout's wrappers
+    launch them: ``device_ms`` of each variant, and
+    ptxas's registers and spills of the whole kernels.  The cut variants
+    are for timing only: their results are wrong."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import kernel as fk
+    from repro_torch.kernels.rglru import kernel as rk
+    scans, (q, k, v, do) = scan256_inputs(torch, cs)
+    kinds = {name: scan256_kind(name, src.read_text())
+             for name, src in (("rglru", rk.SOURCE),
+                               ("flash256", fk.BWD_SOURCE))}
+    cuts = SCAN256_CUTS["rglru"]
+    design = "parent" if kinds["rglru"] == "parent" else "chunked"
+    r_vars = cut_variants(rk.SOURCE, cuts[design], f"s256{design}")
+    f_vars = cut_variants(fk.BWD_SOURCE,
+                          SCAN256_CUTS["flash256"][kinds["flash256"]],
+                          "s256")
+    reports = _build.compile_sources([r_vars["whole"], f_vars["whole"]],
+                                     verbose=True)
+    _build.compile_sources([p for v in (r_vars, f_vars) for p in v.values()])
+    out = {"kinds": kinds, "ptxas": {
+        path.stem: [line.strip() for line in rep.splitlines()
+                    if "registers" in line or "spill" in line]
+        for path, rep in reports.items()}}
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for la, bb in scans:
+        bsz, s, w = la.shape
+        h = torch.empty_like(bb)
+        extra, scratch = (), None
+        if design == "chunked":
+            g = rk.fwd_geometry(bsz, s, w)
+            extra = (g.threads, g.chunks, g.steps)
+            scratch = torch.empty(g.scratch_bytes, dtype=torch.uint8,
+                                  device="cuda")
+        for variant, path in r_vars.items():
+            fn = _build.load(path).rglru_f32
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
+                3 + len(extra)) + [ctypes.c_void_p] * (2 if extra else 1)
+            args = (la.data_ptr(), bb.data_ptr(), h.data_ptr(), bsz, s, w,
+                    *extra) + ((scratch.data_ptr(),) if extra else ())
+
+            def launch():
+                if fn(*args, stream) != 0:
+                    sys.exit(f"kernel_probe: rglru {variant} failed")
+            out[f"rglru_fwd x={[bsz, s, w]} ({design}) {variant}"] = \
+                cs.device_ms(torch, launch, 20)
+    b, sq, skv, hq, hkv, hd, causal, window, cap = cs.RG_TRAIN_ATTN
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    scale = 1.0 / hd ** 0.5
+    if kinds["flash256"] == "this":
+        o, lse = fk.flash_attention_fwd(q, k, v, with_lse=True,
+                                        causal=causal, window=window,
+                                        softcap=cap)
+        splits = fk.dkdv_splits(b * hq, b * hkv, skv, sms)
+        scratch = [torch.empty((b * hq, fk.lse_rows(sq)), device="cuda"),
+                   torch.empty((2, splits, b * hkv, skv, hd), device="cuda")]
+        name, n_ptr = "flash_attention_bwd_bf16_tc256", 11
+        head = (q, k, v, o, do, lse, *outs, *scratch)
+        ints = (b * hq, b * hkv, sq, skv, splits, int(causal), int(window))
+    else:
+        o = fk.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   softcap=cap)
+        scratch = [torch.empty((2, b * hq, sq), device="cuda"),
+                   torch.empty((b * hq, sq), device="cuda")]
+        name, n_ptr = "flash_attention_bwd_bf16", 10
+        head = (q, k, v, o, do, *outs, *scratch)
+        ints = (b * hq, b * hkv, sq, skv, hd, int(causal), int(window))
+    for variant, path in f_vars.items():
+        fn = getattr(_build.load(path), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        args = tuple(t.data_ptr() for t in head) + ints + (scale, cap)
+
+        def launch():
+            if fn(*args, stream) != 0:
+                sys.exit(f"kernel_probe: flash256 {variant} failed")
+        out[f"flash_bwd hd256 {variant}"] = cs.device_ms(torch, launch, 5)
+    return out
+
+
+# the RG-LRU forward and the hd 256 flash backward through a checkout's
+# public entry points, then whole and with each phase cut, in a process of
+# its own
+SCAN256_TIMES = r'''
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import kernel_probe as kp
+print(json.dumps(kp.scan256_times(torch, cs)))
+'''
+SCAN256_PHASES = r'''
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import kernel_probe as kp
+print(json.dumps(kp.scan256_phases(torch, cs)))
+'''
+
+
+# the RG-LRU forward across SCAN_SWEEP through a checkout's public entry
+# point, in a process of its own
+SCAN_SWEEP_TIMES = r'''
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import kernel_probe as kp
+print(json.dumps(kp.scan_sweep_times(torch, cs)))
+'''
 
 
 # the recurrent backwards at their training shapes through a checkout's
@@ -1092,6 +1392,237 @@ def rwkv_grad(torch) -> dict:
     return out
 
 
+def flash_p_seeds(torch, cs) -> dict:
+    """Phase 8's bf16-p check of the flash forward at gemma2-27b's global
+    layer (``FLASH_P_SHAPE``), on ``FLASH_P_SEEDS`` inputs drawn as phase
+    8 draws them (``torch.randn`` in bf16 on the card, here after
+    ``torch.manual_seed(seed)``): the kernel against the plain model of
+    its tile walk (``ref.reference_attention_bf16_tiles``) with its slack
+    (the check: ``tiles``) and without (``tiles_no_slack``), and against
+    the model that rounds p against each row's final max
+    (``ref.reference_attention_bf16_p``, the check's model until now), each
+    at ``chip_smoke.FLASH_P_TOL``: the largest absolute error, the
+    elements over the limit, the largest error over its limit, and at
+    that element the slack and the keys its row sees; and whether kernel
+    and models repeat bit for bit."""
+    from repro_torch.kernels.flash import kernel as fk
+    from repro_torch.kernels.flash import ref as fr
+    bhq, bhkv, s, hd, kw = FLASH_P_SHAPE
+    atol, rtol = cs.FLASH_P_TOL["atol"], cs.FLASH_P_TOL["rtol"]
+    out = {}
+    for seed in range(FLASH_P_SEEDS):
+        torch.manual_seed(seed)
+        q = torch.randn((bhq, s, hd), dtype=torch.bfloat16, device="cuda")
+        k = torch.randn((bhkv, s, hd), dtype=torch.bfloat16, device="cuda")
+        v = torch.randn((bhkv, s, hd), dtype=torch.bfloat16, device="cuda")
+        got = fk.flash_attention_fwd(q, k, v, **kw).float()
+        rec = {"repeats": torch.equal(
+            got, fk.flash_attention_fwd(q, k, v, **kw).float())}
+        tiles, slack = fr.reference_attention_bf16_tiles(q, k, v, **kw,
+                                                         slack=True)
+        row_max = fr.reference_attention_bf16_p(q, k, v, **kw)
+        rec["tiles_repeats"] = torch.equal(
+            tiles, fr.reference_attention_bf16_tiles(q, k, v, **kw))
+        rec["row_max_repeats"] = torch.equal(
+            row_max, fr.reference_attention_bf16_p(q, k, v, **kw))
+        for name, model, sl in (("tiles", tiles, slack),
+                                ("tiles_no_slack", tiles, None),
+                                ("row_max", row_max, None)):
+            err = (got - model).abs()
+            share = err / (atol + rtol * model.abs()
+                           + (0.0 if sl is None else sl))
+            at = int(share.argmax())
+            row = (at // hd) % s
+            rec[name] = dict(max_abs=err.max().item(),
+                             over=int((share > 1).sum().item()),
+                             worst_share=share.flatten()[at].item(),
+                             worst_slack=slack.flatten()[at].item(),
+                             worst_row_keys=row + 1,
+                             worst_at=[at // (s * hd), row, at % hd])
+            del err, share
+        rec["over_by_log2_slack"] = {}
+        for e in FLASH_P_SLACKS:
+            keep, fr.P_SLACK = fr.P_SLACK, 2.0 ** e
+            try:
+                model, sl = fr.reference_attention_bf16_tiles(q, k, v, **kw,
+                                                              slack=True)
+            finally:
+                fr.P_SLACK = keep
+            rec["over_by_log2_slack"][e] = int(
+                ((got - model).abs() - sl - atol - rtol * model.abs() > 0)
+                .sum().item())
+            del model, sl
+        rec["flips"] = p_flips(torch, q, k, v, got, kw)
+        bh, row, _ = rec["tiles_no_slack"]["worst_at"]
+        rec["worst_row_flips"] = [f for f in rec["flips"]
+                                  if f[0] == bh and f[1] == row]
+        out[seed] = rec
+        print(f"flash_p seed {seed}: "
+              f"{ {k: v for k, v in rec.items() if k != 'flips'} }",
+              flush=True)
+        del q, k, v, got, tiles, slack, row_max
+        torch.cuda.empty_cache()
+    out["flip_summary"] = flip_summary(
+        [f for rec in out.values() for f in rec["flips"]])
+    for rec in out.values():
+        if "flips" in rec:
+            rec["flips"] = len(rec["flips"])
+    print(f"flash_p flips: {out['flip_summary']}", flush=True)
+    return out
+
+
+def bf16_neighbours(np, p):
+    """The bf16 values either side of each p in (0, 1] (float64, exact),
+    and the midpoint between them."""
+    e = np.floor(np.log2(p))
+    ulp = np.exp2(e - 7)
+    lo = np.floor(p / ulp) * ulp
+    return lo, lo + ulp, lo + ulp / 2
+
+
+def p_flips(torch, q, k, v, got, kw) -> list:
+    """For each head's rows 1 .. ``FLIP_ROWS`` - 1 (keys 0 .. row, all in
+    the first kv tile, so p = 2^(s - the row's max)): every visible p of
+    the plain model (``ref.reference_attention_bf16_tiles``' float32
+    arithmetic, step for step) within 2^-12 of a bf16 midpoint.  The
+    residual of the kernel's row (``got``) against the model's output in
+    float64 (each p rounded to its nearest bf16) is fitted, by least
+    squares over the hd outputs, with the effects of rounding those p the
+    other way ((other - near) v_j / l each).  Returns, for each such p,
+    (head, row, log2 of its relative distance |p - midpoint| / p, the
+    same with p and the scores in float64, the weight, its standard
+    error): a weight near 1 is a p the kernel rounded the other way."""
+    import math
+
+    import numpy as np
+    from repro_torch.kernels.flash import ref as fr
+    bhq, _, hd = q.shape
+    group = bhq // k.shape[0]
+    n = FLIP_ROWS
+    cap = kw.get("softcap", 0.0)
+    # the model's first tile, as it computes it
+    kf = torch.repeat_interleave(k.float(), group, dim=0)
+    sm_scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    sc = torch.einsum("bqd,bkd->bqk", q.float(), kf[:, :fr.KV_TILE])
+    if cap > 0.0:
+        sc = cap * torch.tanh(sc * sm_scale.item() / cap) * fr.LOG2E
+    else:
+        sc = sc * (sm_scale * torch.tensor(fr.LOG2E,
+                                           dtype=torch.float32)).item()
+    sc = sc[:, :n, :n].cpu()
+    del kf
+    qd = q[:, :n].double().cpu().numpy()
+    kd = np.repeat(k[:, :n].double().cpu().numpy(), group, 0)
+    vd = np.repeat(v[:, :n].double().cpu().numpy(), group, 0)
+    gd = got[:, :n].double().cpu().numpy()
+    sd = np.einsum("bqd,bkd->bqk", qd, kd) / math.sqrt(hd)
+    if cap > 0.0:
+        sd = cap * np.tanh(sd / cap)
+    sd = sd * fr.LOG2E
+    out = []
+    for bh in range(bhq):
+        for row in range(1, n):
+            s32 = sc[bh, row, :row + 1]
+            p = torch.exp2(s32 - s32.max()).double().numpy()
+            lo, hi, mid = bf16_neighbours(np, p)
+            up = (p > mid) | ((p == mid) & (np.round(lo / (hi - lo)) % 2 == 1))
+            near, other = np.where(up, hi, lo), np.where(up, lo, hi)
+            dist = np.abs(p - mid) / p
+            cand = np.nonzero((dist < 2.0 ** -12) & (p < 1.0))[0]
+            if len(cand) == 0:
+                continue
+            cand = cand[np.argsort(dist[cand])[:6]]
+            s64 = sd[bh, row, :row + 1]
+            p64 = np.exp2(s64 - s64.max())
+            dist64 = np.abs(p64 - mid) / p64
+            l = p.sum()
+            vr = vd[bh, :row + 1]
+            resid = gd[bh, row] - (near[:, None] * vr).sum(0) / l
+            eff = (other - near)[cand, None] * vr[cand] / l
+            w, *_ = np.linalg.lstsq(eff.T, resid, rcond=None)
+            rest = resid - eff.T @ w
+            sigma = np.sqrt((rest ** 2).sum() / max(1, hd - len(cand)))
+            se = sigma * np.sqrt(np.diag(np.linalg.pinv(eff @ eff.T)))
+            out.extend((bh, row, float(np.log2(dist[j])),
+                        float(np.log2(dist64[j])), float(wj), float(sj))
+                       for j, wj, sj in zip(cand, w, se))
+    return out
+
+
+def flip_summary(flips) -> dict:
+    """``p_flips``' p read where a flip shows clearly (standard error
+    under 0.2): by bin of log2 distance of the model's p from the midpoint,
+    the count and the flipped ones (weight over 0.5); the farthest flip and
+    the nearest p not flipped."""
+    clear = [f for f in flips if f[5] < 0.2]
+    flipped = [f for f in clear if f[4] > 0.5]
+    kept = [f for f in clear if f[4] <= 0.5]
+    bins = {}
+    for lo in FLIP_BINS:
+        inside = [f for f in clear if lo <= f[2] < lo + 1
+                  or (lo == FLIP_BINS[0] and f[2] < lo)]
+        bins[f"[2^{lo}, 2^{lo + 1})"] = [len(inside), sum(
+            f[4] > 0.5 for f in inside)]
+    return dict(candidates=len(flips), clear=len(clear),
+                flipped=len(flipped),
+                farthest_flip=max(flipped, key=lambda f: f[2], default=None),
+                farthest_flip_float64=max(flipped, key=lambda f: f[3],
+                                          default=None),
+                nearest_kept=min(kept, key=lambda f: f[2], default=None),
+                by_log2_distance=bins)
+
+
+def scan_sweep_times(torch, cs) -> dict:
+    """The checkout's (the package on ``sys.path``) RG-LRU forward through
+    its public entry point (``kernel.rglru_fwd``) at each ``SCAN_SWEEP``
+    shape, float32, on inputs drawn from one seed: ``device_ms``, the
+    design its ``fwd_geometry`` picks (``ring``, ``chunked``, or
+    ``parent`` where it has none: one thread a channel), and the float64
+    sum of h, which the checkouts' runs must agree on."""
+    from repro_torch.kernels.rglru import kernel as rk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    for shape in SCAN_SWEEP:
+        la = -torch.rand(shape, generator=gen, device="cuda") * 0.1 - 1e-3
+        bb = torch.randn(shape, generator=gen, device="cuda")
+        # a checkout with the ring picks it from RING_WARPS warps an SM
+        ring = getattr(rk, "RING_WARPS", 0)
+        design = ("parent" if not hasattr(rk, "fwd_geometry") else "ring"
+                  if ring and shape[0] * shape[2] >= ring * 32 * sms
+                  else "chunked")
+        out[f"x={list(shape)}"] = dict(
+            design=design, ms=cs.device_ms(
+                torch, lambda: rk.rglru_fwd(la, bb), 20),
+            h_sum=rk.rglru_fwd(la, bb).double().sum().item())
+        del la, bb
+    return out
+
+
+def scan_sweep(torch, cs, parent) -> dict:
+    """:func:`scan_sweep_times` of this checkout, and with ``parent`` of
+    both in turns (parent, this, this, parent), each in a process of its
+    own; by shape the times in that order, the designs, the bytes' bound,
+    and the largest relative difference of the h sums between turns."""
+    runs = [("this", ROOT)] if parent is None else [
+        ("parent", parent), ("this", ROOT), ("this", ROOT),
+        ("parent", parent)]
+    turns = [(name, run_in(path, SCAN_SWEEP_TIMES)) for name, path in runs]
+    out = {}
+    for shape in SCAN_SWEEP:
+        key = f"x={list(shape)}"
+        sums = [t[key]["h_sum"] for _, t in turns]
+        out[key] = dict(
+            channels=shape[0] * shape[2],
+            designs={name: t[key]["design"] for name, t in turns},
+            ms=[[name, t[key]["ms"]] for name, t in turns],
+            bound_ms=12 * shape[0] * shape[1] * shape[2]
+            / cs.HBM_BYTES_PER_S * 1e3,
+            h_sum_rel_diff=(max(sums) - min(sums)) / abs(sums[0]))
+        print(f"scan_sweep {key}: {out[key]}", flush=True)
+    return out
+
+
 def _tree_cpu(tree):
     if isinstance(tree, dict):
         return {k: _tree_cpu(v) for k, v in tree.items()}
@@ -1101,7 +1632,7 @@ def _tree_cpu(tree):
 
 
 STEPS = ("turns", "tile", "wkv6", "spec", "floor", "pipeline", "bwd",
-         "rwkv_grad", "rec_bwd")
+         "rwkv_grad", "rec_bwd", "scan256", "flash_p", "scan_sweep")
 
 
 def main() -> None:
@@ -1168,6 +1699,23 @@ def main() -> None:
         res["rec_bwd_phases"] = {name: run_in(path, REC_BWD_PHASES)
                                  for name, path in dict(runs).items()}
         print(f"rec_bwd: {json.dumps(res['rec_bwd_phases'])}", flush=True)
+    if "scan256" in args.steps:
+        runs = [("this", ROOT)]
+        if parent is not None:
+            runs = [("parent", parent), ("this", ROOT), ("this", ROOT),
+                    ("parent", parent)]
+            res["scan256_in_turns"] = [
+                dict(checkout=name, **run_in(path, SCAN256_TIMES))
+                for name, path in runs]
+            print(f"scan256 in turns: {json.dumps(res['scan256_in_turns'])}",
+                  flush=True)
+        res["scan256_phases"] = {name: run_in(path, SCAN256_PHASES)
+                                 for name, path in dict(runs).items()}
+        print(f"scan256: {json.dumps(res['scan256_phases'])}", flush=True)
+    if "flash_p" in args.steps:
+        res["flash_p"] = flash_p_seeds(torch, cs)
+    if "scan_sweep" in args.steps:
+        res["scan_sweep"] = scan_sweep(torch, cs, parent)
     print(json.dumps(res), flush=True)
     print(f"card: {cs.card_line()}", flush=True)
 

@@ -49,10 +49,11 @@
 //   so hd is a multiple of 8 (the wrapper raises otherwise); the tiles are
 //   fixed (64 x 64 per warpgroup).  csrc/hopper.cuh holds the TMA,
 //   mbarrier and wgmma helpers.  Training launches a second instance
-//   (flash_attention_bf16_lse, hd 64 and 128: the shapes whose backward
-//   runs on the tensor cores) that also writes each row's log-sum-exp in
-//   log2 units, m + log2(l), for flash_attention_bwd.cu; the serve path's
-//   instance is compiled without that store, so its output is unchanged.
+//   (flash_attention_bf16_lse, hd 64, 128 and 256: the shapes whose
+//   backward runs on the tensor cores) that also writes each row's
+//   log-sum-exp in log2 units, m + log2(l), for flash_attention_bwd.cu;
+//   the serve path's instance is compiled without that store, so its
+//   output is unchanged.
 // - float32 (flash_fwd_kernel): the TPU kernel's float32 arithmetic on the
 //   float32 cores, one block of 256 threads per (q tile, bh), q, k, v and
 //   the scores in float32 shared tiles (113.5 KB at hd 128), each thread
@@ -617,7 +618,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 // The same forward, also writing each row's log-sum-exp (log2 units) to
 // lse (BHq, sq_pad) float32, sq_pad = Sq rounded up to a multiple of 64
 // (rows past Sq are left as they are): for the tensor-core backward, so
-// hd 64 or 128 only (another returns cudaErrorInvalidValue).
+// hd 64, 128 or 256 only (another returns cudaErrorInvalidValue).
 extern "C" int flash_attention_bf16_lse(const void* q, const void* k,
                                         const void* v, void* out, void* lse,
                                         int bhq, int bhkv, int sq, int skv,
@@ -633,6 +634,10 @@ extern "C" int flash_attention_bf16_lse(const void* q, const void* k,
                                     sq_pad, st);
   if (hd == 128)
     return launch_bf16_hd<128, true>(q, k, v, out, bhq, bhkv, sq, skv, hd,
+                                     causal, window, sm_scale, softcap, l,
+                                     sq_pad, st);
+  if (hd == 256)
+    return launch_bf16_hd<256, true>(q, k, v, out, bhq, bhkv, sq, skv, hd,
                                      causal, window, sm_scale, softcap, l,
                                      sq_pad, st);
   return (int)cudaErrorInvalidValue;

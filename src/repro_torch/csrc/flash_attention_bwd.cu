@@ -24,7 +24,7 @@
 // block bh reads kv row block bh / group (the kv-major GQA fold of ops.py).
 // Every output element is owned by one block (no float atomics), and every
 // sum is taken in a fixed order, so two runs on the same inputs give the
-// same bits.  Two designs, chosen by the shape alone before the launch
+// same bits.  The designs, chosen by the shape alone before the launch
 // (kernels/flash/kernel.py::tc_backward):
 //
 // - bf16 with hd 64 or 128 (the training shape, gemma2's and qwen's heads):
@@ -55,7 +55,31 @@
 //      k^T and dP = dO v^T, then dQ += dS k with k read MN-major.
 //   TMA needs the lse and D rows 16-byte aligned, so both are (BHq, Sq
 //   rounded up to 64) float32; the rows past Sq are never read as values.
-// - float32, and bf16 at other head dims (8, 32, 256 among the checked
+// - bf16 with hd 256 (recurrentgemma's local attention): the tensor cores
+//   too, flash_attention_bwd_bf16_tc256, the same D pass and LSE, P and
+//   dS rounded as above.  A (64, 256) float32 accumulator is 128
+//   registers a thread.
+//   2. bwd_dkdv_tc256, a block a (64-row kv tile, kv head, split of the
+//      group's q heads).  dK and dV together would be 256 registers, so
+//      the two consumer warpgroups share every (q tile, kv tile) pair and
+//      each owns one half of hd of dK and dV: consumer c computes S^T and
+//      dP^T for the pair's 32 q columns 32 c .. (m64n32 over all of hd),
+//      P^T and dS^T there, and hands them over, rounded to bf16, through
+//      a shared 64 x 64 tile laid out as a K-major operand; then each adds
+//      the products over all 64 columns to its half (m64n128, A from
+//      shared memory), so no product runs twice.  Two stages of 64 KB (q
+//      and dO) beside k and v resident (64 KB) and 32 KB of exchange
+//      tiles fill 226 KB of shared memory.  The training shape has 2 x 40
+//      kv tiles for 132 SMs, so a kv head's 16 q heads are split over
+//      blocks (kernel.py::dkdv_splits: the fewest splits that give two
+//      blocks an SM), each writing float32 partial sums, and
+//      bwd_dkdv_sum256 adds them in split order (no atomics).
+//   3. bwd_dq_tc256, a block a (128-row q tile, q head), the last first:
+//      each consumer's 64 rows' dQ in its own accumulator (128 registers,
+//      with S and dP of a whole kv tile, 64 more), q and dO resident (128
+//      KB), k and v streamed through three 32 KB slots in load order (k_t,
+//      v_t, k_{t+1}, ...), a slot freed as soon as its tile is read.
+// - float32, and bf16 at other head dims (8 and 32 among the checked
 //   shapes): the float32 cores, flash_attention_bwd_{bf16,f32}, three
 //   kernels:
 //   1. bwd_prep_kernel, one block per (q tile, bh): the row max m and 1 / l
@@ -84,7 +108,18 @@
 // counts five (S and dP in both kernels), over whole 64 x 64 tiles (the
 // diagonal's masked halves included), and reads q, dO, k and v from L2
 // once per tile pair rather than once; the float32-core design runs at 67
-// TFLOP/s at best.
+// TFLOP/s at best.  At recurrentgemma's training shape (B = 2, Hq = 16,
+// Hkv = 1, S = 2560, hd = 256, causal, window 2048) the visible pairs'
+// five products are 258 GFLOP, 0.261 ms at the bf16 peak, against 0.053
+// ms of bytes: operations bound it, and the float32-core kernels' eight
+// products at 67 TFLOP/s take at least 6.2 ms; the hd 256 design does
+// seven products on the tensor cores, its dK/dV blocks reading 64 KB of q
+// and dO from L2 a pair.  Measured on an NVIDIA H100 80GB HBM3, 700.00 W,
+// by kernel_probe.py --parent DIR --steps scan256: 0.953 ms in turns with
+// the float32-core kernels' 35 ms (3.6x the bound; SDPA's backward with
+// the window as a mask takes 2.9), dK/dV 0.47 and dQ 0.42 of it (each
+// kernel cut in turn); dK/dV's S^T and dP^T at N = 32, both operands read
+// from shared memory, are the suspect, not yet measured apart.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1083,6 +1118,525 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- bf16, hd 256: the tensor cores
+// (see the header).  In dK/dV a consumer warpgroup's (64, 256) float32
+// accumulators, dK and dV, would be 256 registers a thread, so each of the
+// two consumers owns one half of hd (128 columns) of both, and the two
+// share each (q tile, kv tile) pair: consumer c computes S^T and dP^T for
+// the pair's q columns 32 c .. 32 c + 31 over all of hd (m64n32), P^T and
+// dS^T there, and stores them rounded to bf16 into a shared 64 x 64 tile
+// laid out as TMA lays out a K-major operand; after a barrier of the two,
+// each adds the products over all 64 columns to its half (m64n128, P^T or
+// dS^T from shared memory, dO or q MN-major).  No product runs twice.  The
+// exchange tiles are double-buffered by the pair's parity, so one barrier
+// a pair orders every write and read of them.  dQ needs one accumulator,
+// so its consumers own 64 rows each (bwd_dq_tc256).
+struct Tc256 {
+  static constexpr int HD = 256;
+  static constexpr int BOXES = 4;              // 64-column boxes of a row
+  static constexpr int TILE = 64 * HD * 2;     // a 64-row bf16 tile, 32 KB
+  static constexpr int XT = 64 * 64 * 2;       // a 64 x 64 bf16 exchange tile
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 384;
+  // dK/dV: k and v resident, a ring of (q, dO) tiles and their rows' lse
+  // and D, two (P^T, dS^T) exchange pairs: 231,464 bytes
+  static constexpr size_t KV_SMEM = 1024 + 2 * TILE + STAGES * 2 * TILE
+                                    + 2 * 2 * XT
+                                    + STAGES * 128 * sizeof(float)
+                                    + (1 + 2 * STAGES) * sizeof(uint64_t);
+};
+static_assert(Tc256::KV_SMEM <= 232448, "");
+
+// a bf16 pair (columns col, col + 1; col even) into row `row` of a 64 x 64
+// tile laid out as a 128-byte-swizzled K-major operand (a row of 128 bytes,
+// its 16-byte chunks permuted by row % 8; the tile 1024-byte aligned)
+__device__ __forceinline__ void put_pair_sw128(uint8_t* tile, int row,
+                                               int col, uint32_t pair) {
+  const int chunk = (col >> 3) ^ (row & 7);
+  *reinterpret_cast<uint32_t*>(tile + row * 128 + chunk * 16
+                               + (col & 7) * 2) = pair;
+}
+
+// the products over hd of a 64-row tile at `a` (K-major, M) with rows
+// 32 c .. 32 c + 31 of a 64-row tile at `b` (K-major, N = 32) into d
+__device__ __forceinline__ void half_scores(float* d, const uint8_t* a,
+                                            const uint8_t* b, int c) {
+#pragma unroll
+  for (int kk = 0; kk < Tc256::HD / 16; ++kk) {
+    const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+    hopper::WgmmaSS<32, 0, 0>::run(
+        d, hopper::desc_sw128(a + off, 16, 1024),
+        hopper::desc_sw128(b + c * 32 * 128 + off, 16, 1024), kk > 0);
+  }
+}
+
+// d += x . t[:, 128 c .. 128 c + 127]: x a 64 x 64 exchange tile (K-major),
+// t a 64-row tile of hd 256 read MN-major (its rows are the reduction)
+__device__ __forceinline__ void half_product(float* d, const uint8_t* x,
+                                             const uint8_t* t, int c) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::WgmmaSS<128, 0, 1>::run(
+        d, hopper::desc_sw128(x + kk * 32, 16, 1024),
+        hopper::desc_sw128(t + c * 2 * 64 * 128 + kk * 16 * 128, 64 * 128,
+                           1024),
+        1);
+}
+
+// dK and dV at hd 256: a block a (64-row kv tile, kv head, split of the
+// group's q heads), kv tile major, the first kv tiles first (the longest
+// under the causal mask).  Its items, the (q head of its split, 64-row q
+// tile) pairs that can see the kv tile, run on both consumers together
+// through one ring that a producer thread fills (k and v once, then q, dO
+// and their rows' lse and D an item).  Each consumer's half of the float32
+// sums goes to part_dk, part_dv [split][kv head][kv row][256];
+// bwd_dkdv_sum256 adds the splits in order.
+template <bool CAP>
+__global__ void __launch_bounds__(384, 1)
+bwd_dkdv_tc256(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_do,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ part_dk, float* __restrict__ part_dv,
+               int group, int splits, int bhkv, int sq, int skv, int sq_pad,
+               int causal, int window, float sm_scale, float softcap) {
+  using P = Tc256;
+  constexpr int S = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* s_k = align1024(smem_raw);
+  uint8_t* s_v = s_k + P::TILE;
+  uint8_t* ring = s_v + P::TILE;              // stage: q tile, dO tile
+  uint8_t* xch = ring + S * 2 * P::TILE;      // [parity]: P^T, dS^T
+  float* stats = reinterpret_cast<float*>(xch + 4 * P::XT);  // [st][2][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + S * 128);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  const int per_tile = bhkv * splits;
+  const int k0 = (blockIdx.x / per_tile) * 64;
+  const int kvh = (blockIdx.x % per_tile) / splits;
+  const int split = blockIdx.x % splits;
+  const int heads = group / splits;             // q heads of a split
+  const int k_last = min(k0 + 64, skv) - 1;
+  // the q rows that can see some row of this kv tile, in 64-row tiles
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(sq, k_last + window) : sq;
+  const int t_lo = q_lo / 64;
+  const int n_t = q_lo < q_hi ? (q_hi + 63) / 64 - t_lo : 0;
+  const int items = heads * n_t;  // item i: head i / n_t, q tile i % n_t
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // a consumer warp each
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    hopper::regs_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&map_q);
+      hopper::prefetch_map(&map_k);
+      hopper::prefetch_map(&map_v);
+      hopper::prefetch_map(&map_do);
+      hopper::mbar_expect_tx(kv_full, 2 * P::TILE);
+      for (int b = 0; b < P::BOXES; ++b) {
+        hopper::tma_load_3d(s_k + b * 64 * 128, &map_k, kv_full, 64 * b, k0,
+                            kvh);
+        hopper::tma_load_3d(s_v + b * 64 * 128, &map_v, kv_full, 64 * b, k0,
+                            kvh);
+      }
+      for (int i = 0; i < items; ++i) {
+        const int st = i % S;
+        hopper::mbar_wait(&empty[st], ((i / S) & 1) ^ 1);
+        const int bh = kvh * group + split * heads + i / n_t;
+        const int q0 = (t_lo + i % n_t) * 64;
+        hopper::mbar_expect_tx(&full[st], 2 * P::TILE + 512);
+        uint8_t* dst = ring + st * 2 * P::TILE;
+        for (int b = 0; b < P::BOXES; ++b) {
+          hopper::tma_load_3d(dst + b * 64 * 128, &map_q, &full[st], 64 * b,
+                              q0, bh);
+          hopper::tma_load_3d(dst + P::TILE + b * 64 * 128, &map_do,
+                              &full[st], 64 * b, q0, bh);
+        }
+        const long long at = (long long)bh * sq_pad + q0;
+        hopper::bulk_load(stats + st * 128, lse + at, 256, &full[st]);
+        hopper::bulk_load(stats + st * 128 + 64, delta + at, 256, &full[st]);
+      }
+    }
+    return;
+  }
+
+  // consumer c: its tile rows rl and rl + 8 (kv rows kr, kr + 8), its q
+  // columns 32 c + 8 j + cq + {0, 1} of a pair, its hd columns 128 c + 8 j
+  // + cq + {0, 1} of dK and dV
+  hopper::regs_inc<240>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rl = warp * 16 + lane / 4;
+  const int kr = k0 + rl;
+  const int cq = 2 * (lane % 4);
+  const float scale2 = sm_scale * LOG2E;
+
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int i = 0; i < items; ++i) {
+    const int st = i % S;
+    const int q0 = (t_lo + i % n_t) * 64;
+    hopper::mbar_wait(&full[st], (i / S) & 1);
+    const uint8_t* s_q = ring + st * 2 * P::TILE;
+    const uint8_t* s_do = s_q + P::TILE;
+    const float* s_lse = stats + st * 128;
+    const float* s_dl = s_lse + 64;
+    uint8_t* x_p = xch + (i & 1) * 2 * P::XT;
+    uint8_t* x_ds = x_p + P::XT;
+
+    // S^T = k . q^T and dP^T = v . dO^T at this consumer's 32 q columns
+    float s[16], dp[16];
+    hopper::wgmma_fence();
+    half_scores(s, s_k, s_q, c);
+    half_scores(dp, s_v, s_do, c);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<16>(s);
+    hopper::fence_regs<16>(dp);
+
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 32 * c + 8 * jj + cq + e;
+        const float lse2 = s_lse[col], dl = s_dl[col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int idx = 4 * jj + 2 * h + e;
+          p_and_ds_tc<CAP>(s[idx], dp[idx], lse2, dl,
+                           visible(q0 + col, kr + 8 * h, sq, skv, causal,
+                                   window),
+                           sm_scale, scale2, softcap);
+        }
+      }
+    }
+    // P^T and dS^T, rounded to bf16, into the exchange tiles
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rl + 8 * h, col = 32 * c + 8 * jj + cq;
+        put_pair_sw128(x_p, row, col,
+                       pack_bf16(s[4 * jj + 2 * h], s[4 * jj + 2 * h + 1]));
+        put_pair_sw128(x_ds, row, col,
+                       pack_bf16(dp[4 * jj + 2 * h], dp[4 * jj + 2 * h + 1]));
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_sync(1, 256);  // both halves of P^T and dS^T written
+
+    // dV[:, half] += P^T . dO[:, half] and dK[:, half] += dS^T . q[:, half]
+    hopper::fence_regs<64>(dv_acc);
+    hopper::fence_regs<64>(dk_acc);
+    hopper::wgmma_fence();
+    half_product(dv_acc, x_p, s_do, c);
+    half_product(dk_acc, x_ds, s_q, c);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<64>(dv_acc);
+    hopper::fence_regs<64>(dk_acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  const long long head = ((long long)split * bhkv + kvh) * skv * P::HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = kr + 8 * h;
+    if (r >= skv) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const long long at = head + (long long)r * P::HD + 128 * c + 8 * j + cq;
+      *reinterpret_cast<float2*>(part_dk + at) =
+          make_float2(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(part_dv + at) =
+          make_float2(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// dK and dV from the splits' partial sums: each element's terms added in
+// split order (the same bits every run), dK times sm_scale, rounded to
+// bf16; four elements a thread
+__global__ void __launch_bounds__(256)
+bwd_dkdv_sum256(const float* __restrict__ part_dk,
+                const float* __restrict__ part_dv, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, long long n, int splits,
+                float sm_scale) {
+  const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 a = *reinterpret_cast<const float4*>(part_dk + i);
+  float4 b = *reinterpret_cast<const float4*>(part_dv + i);
+  for (int s = 1; s < splits; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(part_dk + s * n + i);
+    const float4 y = *reinterpret_cast<const float4*>(part_dv + s * n + i);
+    a = make_float4(__fadd_rn(a.x, x.x), __fadd_rn(a.y, x.y),
+                    __fadd_rn(a.z, x.z), __fadd_rn(a.w, x.w));
+    b = make_float4(__fadd_rn(b.x, y.x), __fadd_rn(b.y, y.y),
+                    __fadd_rn(b.z, y.z), __fadd_rn(b.w, y.w));
+  }
+  __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + i);
+  __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + i);
+  k2[0] = __floats2bfloat162_rn(a.x * sm_scale, a.y * sm_scale);
+  k2[1] = __floats2bfloat162_rn(a.z * sm_scale, a.w * sm_scale);
+  v2[0] = __floats2bfloat162_rn(b.x, b.y);
+  v2[1] = __floats2bfloat162_rn(b.z, b.w);
+}
+
+// dQ at hd 256: a block a (128-row q tile, q head), the last q tiles first
+// (under the causal mask they see the most kv tiles); two consumer
+// warpgroups of 64 q rows with their q and dO resident, each computing
+// its rows' S = q k^T and dP = dO v^T over a whole kv tile and dQ += dS k
+// into its (64, 256) accumulator (two m64n128 halves, dS from registers):
+// no exchange.  q and dO fill 128 KB, so k and v stream through a ring of
+// three 32 KB slots, k_t, v_t, k_{t+1}, ... in load order: a consumer
+// frees v's slot once dP is computed and k's once dQ is, so the next
+// tile's k is in flight during a tile and its v during dS and dQ.
+struct Dq256 {
+  static constexpr int SLOTS = 3;
+  static constexpr size_t SMEM = 1024 + 4 * Tc256::TILE
+                                 + SLOTS * Tc256::TILE
+                                 + (1 + 2 * SLOTS) * sizeof(uint64_t);
+};
+static_assert(Dq256::SMEM <= 232448, "");
+
+template <bool CAP>
+__global__ void __launch_bounds__(384, 1)
+bwd_dq_tc256(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v,
+             const __grid_constant__ CUtensorMap map_do,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, int group, int bhq, int sq, int skv,
+             int sq_pad, int causal, int window, float sm_scale,
+             float softcap) {
+  using P = Tc256;
+  constexpr int SLOTS = Dq256::SLOTS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* s_q = align1024(smem_raw);       // consumer c's at + c TILE
+  uint8_t* s_do = s_q + 2 * P::TILE;        // likewise
+  uint8_t* ring = s_do + 2 * P::TILE;       // slots: k_t, v_t, k_{t+1}, ..
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + SLOTS * P::TILE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + SLOTS;
+
+  const int n_qt = (sq + 127) / 128;
+  const int bh = blockIdx.x % bhq;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / bhq) * 128;
+  const int q_last = min(q0 + 128, sq) - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(skv, q_last + 1) : skv;
+  const int t_lo = k_lo / 64;
+  const int t_hi = (k_hi + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < SLOTS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // a consumer warp each
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    hopper::regs_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&map_q);
+      hopper::prefetch_map(&map_k);
+      hopper::prefetch_map(&map_v);
+      hopper::prefetch_map(&map_do);
+      hopper::mbar_expect_tx(q_full, 4 * P::TILE);
+      for (int c = 0; c < 2; ++c)
+        for (int b = 0; b < P::BOXES; ++b) {
+          hopper::tma_load_3d(s_q + c * P::TILE + b * 64 * 128, &map_q,
+                              q_full, 64 * b, q0 + 64 * c, bh);
+          hopper::tma_load_3d(s_do + c * P::TILE + b * 64 * 128, &map_do,
+                              q_full, 64 * b, q0 + 64 * c, bh);
+        }
+      const int kvh = bh / group;
+      for (int n = 0; n < 2 * (t_hi - t_lo); ++n) {  // k_t, then v_t
+        const int sl = n % SLOTS;
+        hopper::mbar_wait(&empty[sl], ((n / SLOTS) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[sl], P::TILE);
+        const CUtensorMap* map = n % 2 ? &map_v : &map_k;
+        for (int b = 0; b < P::BOXES; ++b)
+          hopper::tma_load_3d(ring + sl * P::TILE + b * 64 * 128, map,
+                              &full[sl], 64 * b, (t_lo + n / 2) * 64, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumer c: q rows qa + ..; this thread's rows r0 and r0 + 8, its kv
+  // columns 8 j + cq + {0, 1} of a tile, its hd columns 8 j + cq + {0, 1}
+  hopper::regs_inc<240>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int qa = q0 + 64 * c;
+  const int r0 = qa + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float scale2 = sm_scale * LOG2E;
+  const uint8_t* s_qc = s_q + c * P::TILE;
+  const uint8_t* s_doc = s_do + c * P::TILE;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const long long at = (long long)bh * sq_pad + r;
+    lse2[h] = r < sq ? lse[at] : 0.0f;
+    dl[h] = r < sq ? delta[at] : 0.0f;
+  }
+
+  float dq_acc[P::HD / 2];
+#pragma unroll
+  for (int i = 0; i < P::HD / 2; ++i) dq_acc[i] = 0.0f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
+    const int nk = 2 * i, nv = 2 * i + 1;  // the tile's loads
+    const int sk = nk % SLOTS, sv = nv % SLOTS;
+    const int k0 = t * 64;
+    // a tile no row of this consumer sees adds nothing
+    const bool dead = k0 >= skv || (causal && k0 > qa + 63)
+                      || (window > 0 && k0 + 63 <= qa - window);
+    hopper::mbar_wait(&full[sk], (nk / SLOTS) & 1);
+    hopper::mbar_wait(&full[sv], (nv / SLOTS) & 1);
+    const uint8_t* s_k = ring + sk * P::TILE;
+    const uint8_t* s_v = ring + sv * P::TILE;
+    float s[32], dp[32];
+    if (!dead) {
+      // S = q . k^T and dP = dO . v^T, (64 q rows, 64 kv columns)
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < P::HD / 16; ++kk) {
+        const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+        hopper::WgmmaSS<64, 0, 0>::run(
+            s, hopper::desc_sw128(s_qc + off, 16, 1024),
+            hopper::desc_sw128(s_k + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < P::HD / 16; ++kk) {
+        const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+        hopper::WgmmaSS<64, 0, 0>::run(
+            dp, hopper::desc_sw128(s_doc + off, 16, 1024),
+            hopper::desc_sw128(s_v + off, 16, 1024), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<32>(s);
+      hopper::fence_regs<32>(dp);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[sv]);  // v_t is read
+    if (!dead) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k_pos = k0 + 8 * jj + cq + e;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int idx = 4 * jj + 2 * h + e;
+            p_and_ds_tc<CAP>(s[idx], dp[idx], lse2[h], dl[h],
+                             visible(r0 + 8 * h, k_pos, sq, skv, causal,
+                                     window),
+                             sm_scale, scale2, softcap);
+          }
+        }
+      }
+      // dQ += dS . k: dS, rounded to bf16, is the A fragment; k MN-major,
+      // in two halves of hd
+      hopper::fence_regs<P::HD / 2>(dq_acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t a0 = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
+        const uint32_t a1 = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+        const uint32_t a2 = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+        const uint32_t a3 = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          hopper::WgmmaRS<128, 1>::run(
+              dq_acc + 64 * half, a0, a1, a2, a3,
+              hopper::desc_sw128(s_k + half * 2 * 64 * 128 + kk * 16 * 128,
+                                 64 * 128, 1024),
+              1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<P::HD / 2>(dq_acc);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[sk]);  // k_t is read
+  }
+  store_acc<P::HD>(dq + (long long)bh * sq * P::HD, dq_acc, sm_scale, r0, sq,
+                   cq);
+}
+
+template <bool CAP>
+int launch_tc256(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                 const bf16* dout, const float* lse, bf16* dq, bf16* dk,
+                 bf16* dv, float* delta, float* part, int bhq, int bhkv,
+                 int sq, int skv, int splits, int causal, int window,
+                 float sm_scale, float softcap, cudaStream_t stream) {
+  using P = Tc256;
+  const int group = bhq / bhkv;
+  if (splits < 1 || group % splits != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int rc = hopper::make_map_bf16(&map_q, q, P::HD, sq, bhq, 64);
+  if (rc == 0) rc = hopper::make_map_bf16(&map_do, dout, P::HD, sq, bhq, 64);
+  if (rc == 0) rc = hopper::make_map_bf16(&map_k, k, P::HD, skv, bhkv, 64);
+  if (rc == 0) rc = hopper::make_map_bf16(&map_v, v, P::HD, skv, bhkv, 64);
+  if (rc != 0) return rc;
+  auto dkdv = bwd_dkdv_tc256<CAP>;
+  auto dqk = bwd_dq_tc256<CAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::KV_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Dq256::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int sq_pad = (sq + 63) / 64 * 64;
+  const long long rows = (long long)bhq * sq;
+  bwd_delta_tc<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      o, dout, delta, (int)rows, sq, sq_pad, P::HD);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long n = (long long)bhkv * skv * P::HD;
+  dkdv<<<(unsigned)((skv + 63) / 64 * bhkv * splits), P::THREADS,
+         P::KV_SMEM, stream>>>(map_q, map_k, map_v, map_do, lse, delta, part,
+                               part + splits * n, group, splits, bhkv, sq,
+                               skv, sq_pad, causal, window, sm_scale,
+                               softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkdv_sum256<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
+      part, part + splits * n, dk, dv, n, splits, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<(unsigned)((sq + 127) / 128 * bhq), P::THREADS, Dq256::SMEM,
+        stream>>>(map_q, map_k, map_v, map_do, lse, delta, dq, group, bhq,
+                  sq, skv, sq_pad, causal, window, sm_scale, softcap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Returns the cudaError_t of the launches (0
@@ -1147,6 +1701,30 @@ extern "C" int flash_attention_bwd_bf16_tc(
   }
 #undef FLASH_BWD_TC
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core backward at hd 256 (bf16): as flash_attention_bwd_bf16_tc,
+// and part, float32 scratch of 2 * splits * BHkv * Skv * 256 elements for
+// the dK/dV blocks' partial sums (kernels/flash/kernel.py::dkdv_splits
+// picks splits, which must divide the group BHq / BHkv; another returns
+// cudaErrorInvalidValue).
+extern "C" int flash_attention_bwd_bf16_tc256(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, void* part, int bhq, int bhkv, int sq, int skv, int splits,
+    int causal, int window, float sm_scale, float softcap, void* stream) {
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* ot = static_cast<const bf16*>(o);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  const float* lt = static_cast<const float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto fn = softcap > 0.0f ? launch_tc256<true> : launch_tc256<false>;
+  return fn(qt, kt, vt, ot, dot, lt, static_cast<bf16*>(dq),
+            static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+            static_cast<float*>(delta), static_cast<float*>(part), bhq, bhkv,
+            sq, skv, splits, causal, window, sm_scale, softcap, st);
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int code) {

@@ -342,7 +342,10 @@ struct WgmmaRS;
 // (dX: both K-major; dW: both MN-major; N a multiple of 64), attention's
 // q . k^T (both K-major, N = 64) and p . v (p from registers, v MN-major),
 // which its backward reuses (S, dP and their transposes K-major; dV, dK
-// and dQ with P or dS from registers and dO, q or k MN-major)
+// and dQ with P or dS from registers and dO, q or k MN-major); at hd 256
+// the backward's S^T and dP^T a half tile at a time (both K-major, N = 32)
+// and dV, dK a half of hd at a time with P^T or dS^T from shared memory
+// (K-major) and dO or q MN-major (N = 128)
 HOPPER_WGMMA_SS(8, 4, 1, 0)
 HOPPER_WGMMA_SS(16, 8, 1, 0)
 HOPPER_WGMMA_SS(24, 12, 1, 0)
@@ -375,10 +378,12 @@ HOPPER_WGMMA_SS(232, 116, 1, 0)
 HOPPER_WGMMA_SS(240, 120, 1, 0)
 HOPPER_WGMMA_SS(248, 124, 1, 0)
 HOPPER_WGMMA_SS(256, 128, 1, 0)
+HOPPER_WGMMA_SS(32, 16, 0, 0)
 HOPPER_WGMMA_SS(64, 32, 0, 0)
 HOPPER_WGMMA_SS(128, 64, 0, 0)
 HOPPER_WGMMA_SS(192, 96, 0, 0)
 HOPPER_WGMMA_SS(256, 128, 0, 0)
+HOPPER_WGMMA_SS(128, 64, 0, 1)
 HOPPER_WGMMA_SS(64, 32, 1, 1)
 HOPPER_WGMMA_SS(128, 64, 1, 1)
 HOPPER_WGMMA_SS(192, 96, 1, 1)

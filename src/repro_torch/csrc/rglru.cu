@@ -14,23 +14,40 @@
 // or float32); h (B, S, W) in T.  The model's path launches rglru_f32
 // only: models/rglru.py computes the gates, and so b, in float32 whatever
 // the weights' dtype.  rglru_bf16 keeps the TPU kernel's dtype contract (h
-// in b's dtype, bf16 b included) for callers of ops.rglru_scan_op.  Grid (ceil(W / 64), B): one thread per
-// (batch, channel), neighbouring threads on neighbouring channels, so each
-// step's loads and stores are coalesced.  The TPU grid's sequential chunk
-// axis is the loop over t inside the thread here, because CUDA blocks run
-// in no order.  Each thread loads STEPS steps of log_a and b into
-// registers before it walks them, so that many loads are in flight while
-// the dependent chain of multiplies and adds runs.  Any S and W.
+// in b's dtype, bf16 b included) for callers of ops.rglru_scan_op.  The
+// TPU grid's sequential chunk axis is a loop over t inside a thread here,
+// a thread a (batch row, channel), because CUDA blocks run in no order.
 //
-// Bound on an H100 SXM at the serve shape (B = 4, S = 2560, W = 4096,
-// float32): 503 MB moved (log_a and b read once, h written once), 0.150 ms
-// at 3.35 TB/s; 3 operations an element (exp, multiply, add), far below
-// the arithmetic peak, so bytes bound it.  What the design does about it:
-// only B * W = 16384 threads exist, about 124 an SM, so each keeps STEPS
-// steps of loads (8 bytes each) in flight to keep enough bytes moving.  A
-// chunked two-pass scan (each chunk's local scan, then a carry pass) would
-// give the card more threads for small B * W; that is a later step.
-//
+// Bound on an H100 SXM, float32: log_a and b read once, h written once, 12
+// bytes an element against 3 operations (exp, multiply, add), so bytes
+// bound it: 0.150 ms at the serve shape (B = 4, S = 2560, W = 4096; 503
+// MB), 0.075 ms at the training shape (2, 2560, 4096), 0.038 ms at a
+// 4-rank model axis's serve shape (4, 2560, 1024).  The first design (one
+// thread a channel, 16 steps of loads ahead in registers) took 0.265 ms,
+// 0.229 ms at the rank shape: with B * W threads, 31 to 124 an SM, a
+// thread's 2560 dependent steps and its loads' latency are the time.  The
+// chunked scan (rglru_chunked_kernel; kernels/rglru/kernel.py::
+// fwd_geometry gives its launch, which the launch checks): time cut into
+// chunks of 256 steps (longer past 16 chunks), a block of 16 warps a
+// (chunk, 32 channels), each warp a segment of 16 steps held in
+// registers.  A segment is walked twice: from 0 for its summary (end
+// state e and product A of its a), then from its carry (the chunks and
+// segments before it folded in order, h = A h + e) for its h.  Log_a and b
+// are read once; a chunk's carry waits only on the first walks of earlier
+// chunks, whose blocks took an earlier ticket.  The first segment has the
+// plain version's bits; later ones differ by their carries' roundings (a <
+// 1 damps them: one float32 ulp of h was the most seen).  Any S and W.
+// Measured on an NVIDIA H100 80GB HBM3, 700.00 W, by kernel_probe.py
+// --parent DIR --steps scan256, in turns with the first design: 0.096 ms
+// against 0.243 at the training shape and 0.053 against 0.229 at the rank
+// shape (79 % and 72 % of the bound; its loads half of it, its walks a
+// quarter, its carries 3 %).  The backward's TMA ring run forwards (a
+// block of 32 channels, a thread each; the plain version's bits) is no
+// faster where channels are many: at S = 2560 and B * W of 16384 to 32768
+// it took 0.6 % more to 3.3 % less than this scan (the serve shape 0.182
+// ms against 0.185; kernel_probe.py --parent DIR --steps scan_sweep, DIR
+// a checkout with both, in turns), so this scan runs at every shape.
+
 // The backward (rglru_bwd_*; no TPU kernel to replace: the JAX package
 // differentiates its jax.lax.associative_scan, and the Pallas forward has
 // no backward).  With g_t = dh_t + a_{t+1} g_{t+1} (g_S = 0), db_t = g_t
@@ -73,8 +90,10 @@
 
 namespace {
 
-constexpr int THREADS = 64;
-constexpr int STEPS = 16;      // steps loaded ahead into registers
+// the forward (see the note above)
+constexpr int SCAN_WARPS = 16;   // warps a block: a chunk's segments
+constexpr int SCAN_STEPS = 16;   // steps a warp holds in registers at once
+constexpr long long CARRY_SPINS = 1LL << 22;  // polls of a flag, at most
 // the backward (see the note above)
 constexpr int BWD_CHANNELS = 32;  // channels a block, a thread each
 constexpr int BWD_STEPS = 32;     // steps a box
@@ -95,41 +114,173 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// The chunked forward: time in `chunks` chunks of `len` steps, a block a
+// (chunk, batch row, 32 channels), a lane a channel; each of its
+// SCAN_WARPS warps owns a segment of len / SCAN_WARPS steps (`reps`
+// register loads of SCAN_STEPS steps each, a load's steps all in flight
+// at once), walks it from h = 0 for its end state e and the product A of
+// its a (pass 1) and hands (A, e) over in shared memory.  Warp 0 folds the
+// segments in order into the chunk's summary (sum_a, sum_e
+// [chunk][batch][channel]; the last chunk's is never read) and raises the
+// block's flag; warp j + 1 (j < k) waits for chunk j's flag and brings its
+// summary to shared memory, so the waits and loads overlap.  Each warp
+// then folds, in order, the chunks before this one and the segments
+// before its own (h = A h + e) into its carry and walks its segment again
+// (pass 2) from the values still in its registers (reps 1; else
+// reloaded, mostly from L2), writing h: log_a and b are read from device
+// memory once.  Blocks take their (chunk, ...) from a ticket in launch
+// order, chunk major, so every block a block waits on took its ticket
+// before it, and runs or has run: the waits cannot deadlock (a flag
+// polled CARRY_SPINS times traps, so the launch fails instead of hanging
+// or writing a wrong h).  Steps past S
+// are a = 1, b = 0, which change no state.  The first segment has the
+// plain version's bits; every later one differs from them by the
+// roundings of its carry's folds.
+// two blocks an SM (64 registers a thread) where b is float32, the model's
+// path; bf16 b (its conversions) would spill there, so one
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rglru_kernel(const float* __restrict__ log_a, const T* __restrict__ b,
-             T* __restrict__ h_out, int S, int W) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
-  if (w >= W) return;
-  const size_t base = (size_t)blockIdx.y * S * W + w;
-  float h = 0.0f;
-  for (int t0 = 0; t0 < S; t0 += STEPS) {
-    float la[STEPS], bb[STEPS];
+__global__ void __launch_bounds__(SCAN_WARPS * 32, sizeof(T) == 4 ? 2 : 1)
+rglru_chunked_kernel(const float* __restrict__ log_a,
+                     const T* __restrict__ b, T* __restrict__ h_out, int B,
+                     int S, int W, int chunks, int reps, int groups,
+                     float* __restrict__ sum_a, float* __restrict__ sum_e,
+                     unsigned* __restrict__ flags) {
+  __shared__ unsigned s_ticket;
+  __shared__ float s_a[SCAN_WARPS][32], s_e[SCAN_WARPS][32];
+  __shared__ float s_ca[SCAN_WARPS][32], s_ce[SCAN_WARPS][32];
+  if (threadIdx.x == 0) {
+    s_ticket = atomicAdd(flags + chunks * groups, 1u);
+  }
+  __syncthreads();
+  const int ticket = (int)s_ticket;
+  const int k = ticket / groups, g = ticket % groups;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int w_groups = (W + 31) / 32;
+  const int bb = g / w_groups;
+  const int w = (g % w_groups) * 32 + lane;
+  const bool live = w < W;
+  const int seg = SCAN_STEPS * reps;               // steps a warp
+  const int t_w = (k * SCAN_WARPS + warp) * seg;   // its first step
+  const size_t base = (size_t)bb * S * W + (live ? w : 0);
+  float x[SCAN_STEPS], y[SCAN_STEPS];  // a = exp(log_a) and b of a load
+  auto load = [&](int r) {
+    const int t0 = t_w + r * SCAN_STEPS;
+    const float* pa = log_a + base + (size_t)min(t0, S - 1) * W;
+    const T* pb = b + base + (size_t)min(t0, S - 1) * W;
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      if (t0 + s < S) {
-        const size_t g = base + (size_t)(t0 + s) * W;
-        la[s] = log_a[g];
-        bb[s] = widen(b[g]);
-      }
+    for (int j = 0; j < SCAN_STEPS; ++j) {
+      const bool in = live && t0 + j < S;
+      x[j] = in ? pa[(size_t)j * W] : 0.0f;
+      y[j] = in ? widen(pb[(size_t)j * W]) : 0.0f;
     }
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      if (t0 + s < S) {
-        h = __fadd_rn(__fmul_rn(expf(la[s]), h), bb[s]);
-        h_out[base + (size_t)(t0 + s) * W] = narrow<T>(h);
-      }
+    for (int j = 0; j < SCAN_STEPS; ++j) x[j] = expf(x[j]);
+  };
+
+  // pass 1: the segment's summary
+  float e = 0.0f, prod = 1.0f;
+  for (int r = 0; r < reps; ++r) {
+    load(r);
+#pragma unroll
+    for (int j = 0; j < SCAN_STEPS; ++j) {
+      e = __fadd_rn(__fmul_rn(x[j], e), y[j]);
+      prod = __fmul_rn(x[j], prod);
+    }
+  }
+  s_a[warp][lane] = prod;
+  s_e[warp][lane] = e;
+  __syncthreads();
+
+  if (warp == 0 && k + 1 < chunks) {
+    // the chunk's summary, for the chunks after it
+    float ce = 0.0f, ca = 1.0f;
+#pragma unroll
+    for (int v = 0; v < SCAN_WARPS; ++v) {
+      ce = __fadd_rn(__fmul_rn(s_a[v][lane], ce), s_e[v][lane]);
+      ca = __fmul_rn(s_a[v][lane], ca);
+    }
+    if (live) {
+      const size_t at = ((size_t)k * B + bb) * W + w;
+      sum_a[at] = ca;
+      sum_e[at] = ce;
+    }
+    __syncwarp();  // the lanes' stores, then the release that covers them
+    if (lane == 0) store_release(flags + k * groups + g, 1u);
+  }
+  const int j = warp - 1;
+  if (j >= 0 && j < k) {  // chunk j's summary, once its flag is up
+    if (lane == 0) {
+      for (long long n = 0; load_acquire(flags + j * groups + g) == 0u; ++n)
+        if (n >= CARRY_SPINS) __trap();  // a lost carry fails the launch
+    }
+    __syncwarp();
+    const size_t at = ((size_t)j * B + bb) * W + (live ? w : 0);
+    s_ca[j][lane] = __ldcg(sum_a + at);
+    s_ce[j][lane] = __ldcg(sum_e + at);
+  }
+  __syncthreads();
+
+  // the carry: the chunks before this one, then the segments before this
+  // warp's, folded in order
+  float h = 0.0f;
+  for (int j = 0; j < k; ++j)
+    h = __fadd_rn(__fmul_rn(s_ca[j][lane], h), s_ce[j][lane]);
+  for (int v = 0; v < warp; ++v)
+    h = __fadd_rn(__fmul_rn(s_a[v][lane], h), s_e[v][lane]);
+
+  // pass 2: the segment's h from its carry
+  for (int r = 0; r < reps; ++r) {
+    if (reps > 1) load(r);
+    const int t0 = t_w + r * SCAN_STEPS;
+    T* out = h_out + base + (size_t)min(t0, S - 1) * W;
+#pragma unroll
+    for (int j = 0; j < SCAN_STEPS; ++j) {
+      h = __fadd_rn(__fmul_rn(x[j], h), y[j]);
+      if (live && t0 + j < S) out[(size_t)j * W] = narrow<T>(h);
     }
   }
 }
 
+// the forward's launch; `threads`, `chunks` and `len` are
+// kernel.py::fwd_geometry's, and a launch they do not describe is refused
+// with cudaErrorInvalidValue.  scratch: the chunks' summaries, 2 * chunks
+// * B * W float32, then their flags and the ticket, chunks * groups + 1
+// uint32 (groups = B * ceil(W / 32)), zeroed here
 template <typename T>
 int launch(const void* log_a, const void* b, void* h, int B, int S, int W,
-           void* stream) {
-  const dim3 grid((unsigned)((W + THREADS - 1) / THREADS), (unsigned)B);
-  rglru_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+           int threads, int chunks, int len, void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int per_chunk = SCAN_WARPS * SCAN_STEPS;
+  if (threads != SCAN_WARPS * 32 || chunks < 1 || chunks > SCAN_WARPS
+      || len < per_chunk
+      || len % per_chunk != 0
+      || (long long)chunks * len < S || (long long)(chunks - 1) * len >= S)
+    return (int)cudaErrorInvalidValue;
+  const int groups = B * ((W + 31) / 32);
+  float* sums = static_cast<float*>(scratch);
+  const size_t n = (size_t)chunks * B * W;
+  unsigned* flags = reinterpret_cast<unsigned*>(sums + 2 * n);
+  cudaError_t err = cudaMemsetAsync(
+      flags, 0, ((size_t)chunks * groups + 1) * sizeof(unsigned), st);
+  if (err != cudaSuccess) return (int)err;
+  rglru_chunked_kernel<T><<<(unsigned)(chunks * groups), SCAN_WARPS * 32, 0,
+                            st>>>(
       static_cast<const float*>(log_a), static_cast<const T*>(b),
-      static_cast<T*>(h), S, W);
+      static_cast<T*>(h), B, S, W, chunks, len / per_chunk, groups, sums,
+      sums + n, flags);
   return (int)cudaGetLastError();
 }
 
@@ -317,14 +468,21 @@ int launch_bwd(const void* log_a, const void* h, const void* dh,
 
 }  // namespace
 
+// the forward: log_a float32, b and h in the entry's dtype, all (B, S, W),
+// contiguous; `threads`, `chunks`, `len` and `scratch` as launch() takes
+// them.  Returns the cudaError_t of the launch.
 extern "C" int rglru_bf16(const void* log_a, const void* b, void* h, int B,
-                          int S, int W, void* stream) {
-  return launch<__nv_bfloat16>(log_a, b, h, B, S, W, stream);
+                          int S, int W, int threads, int chunks, int len,
+                          void* scratch, void* stream) {
+  return launch<__nv_bfloat16>(log_a, b, h, B, S, W, threads, chunks, len,
+                               scratch, stream);
 }
 
 extern "C" int rglru_f32(const void* log_a, const void* b, void* h, int B,
-                         int S, int W, void* stream) {
-  return launch<float>(log_a, b, h, B, S, W, stream);
+                         int S, int W, int threads, int chunks, int len,
+                         void* scratch, void* stream) {
+  return launch<float>(log_a, b, h, B, S, W, threads, chunks, len, scratch,
+                       stream);
 }
 
 // the backward: log_a, dlog_a float32; h (the forward's output), dh, db in

@@ -12,6 +12,9 @@ the cost model trains there, and CCM-LB scores with the pair kernel;
 tasks' FLOPs at a fixed rate (``execute.analytic_durations``) and balances
 on them directly, with no cost model: that run is deterministic, so it is
 the one held to the JAX package's ``run_assembly_comparison``.
+``run(home=False)`` stops before the homing stage and returns the balanced
+run, for a caller that plans the homing itself
+(``plan_assembly_homing``).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.assembly import (AssemblyProblem, AssemblyRun,
-                                  build_problem, run_assembly_comparison)
+                                  balance_assembly, build_problem,
+                                  plan_assembly_homing)
 from repro_torch.assembly.execute import analytic_durations, measure_durations
 from repro_torch.costmodel import CostModel, train_cost_model
 from repro_torch.costmodel.train import evaluate_cost_model
@@ -40,7 +44,12 @@ class AssemblyDemo:
     run: AssemblyRun
 
 
-def run(device="cuda", durations: str = "measured") -> AssemblyDemo:
+# the target configuration that the cost model is applied to
+TARGET = dict(n_unknowns=1536, num_ranks=8, seed=2, task_limit_u=32)
+
+
+def run(device="cuda", durations: str = "measured",
+        home: bool = True) -> AssemblyDemo:
     if durations not in ("measured", "analytic"):
         raise ValueError(f"durations must be 'measured' or 'analytic', not "
                          f"{durations!r}")
@@ -76,9 +85,10 @@ def run(device="cuda", durations: str = "measured") -> AssemblyDemo:
               "durations (no cost model) ...")
 
     # --- balance a larger, different configuration with predictions --------
-    res = run_assembly_comparison(n_unknowns=1536, num_ranks=8,
-                                  durations=durations, cost_model=model,
-                                  seed=2, task_limit_u=32, device=device)
+    res = balance_assembly(**TARGET, durations=durations, cost_model=model,
+                           device=device)
+    if home:
+        res = plan_assembly_homing(res)
     homing_t = res.homing.est_time_s if res.homing else 0.0
     print(f"  A  baseline (no overdecomposition) : {res.makespan_baseline:.4f}s")
     print(f"  B  overdecomposed, home layout     : "

@@ -7,11 +7,13 @@ replaces no TPU kernel: the JAX package differentiates its jnp attention,
 while the port's forward runs a kernel whose gradient must be a kernel too.
 Built and bound like the port's other kernels (``kernels/_build.py``); a
 failed build or launch raises, nothing falls back.  The backward's design is
-chosen by the shape alone (:func:`tc_backward`): bf16 at hd 64 or 128 runs
-on the tensor cores and reads each row's log-sum-exp from the forward's
-LSE instance (``flash_attention_fwd(..., with_lse=True)``); float32 and the
-other bf16 head dims run the float32-core kernels, which rebuild the row
-statistics themselves.
+chosen by the shape alone (:func:`tc_backward`): bf16 at hd 64, 128 or
+256 runs on the tensor cores and reads each row's log-sum-exp from the
+forward's LSE instance (``flash_attention_fwd(..., with_lse=True)``); at hd
+256 a kv head's q heads are split over :func:`dkdv_splits` blocks whose
+float32 partial sums of dK and dV a last kernel adds in order.  float32
+and the other bf16 head dims run the float32-core kernels, which rebuild
+the row statistics themselves.
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` launch them on
 CUDA tensors only, on the current stream, and count the launches in
 :data:`LAUNCHES` and :data:`BWD_LAUNCHES`; ``ops.flash_attention`` is the
@@ -39,6 +41,8 @@ _DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 TILE = 64            # the kernel's largest q and kv tile (rows)
 MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65535
+#: streaming multiprocessors of an H100 SXM (the default of dkdv_splits)
+SMS = 132
 _lib = None
 _bwd_lib = None
 
@@ -82,6 +86,10 @@ def build(verbose: bool = False) -> Path:
         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
                                 ctypes.c_void_p]
     bwd.flash_attention_bwd_bf16_tc.restype = ctypes.c_int
+    bwd.flash_attention_bwd_bf16_tc256.argtypes = [ctypes.c_void_p] * 11 \
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
+                                ctypes.c_void_p]
+    bwd.flash_attention_bwd_bf16_tc256.restype = ctypes.c_int
     bwd.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     bwd.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     _lib, _bwd_lib = lib, bwd
@@ -90,10 +98,24 @@ def build(verbose: bool = False) -> Path:
 
 def tc_backward(dtype: torch.dtype, hd: int) -> bool:
     """Whether the backward of this shape runs on the tensor cores (bf16,
-    hd 64 or 128: wgmma fed by TMA, the row statistics from the forward's
-    LSE instance); otherwise the float32-core kernels.  Decided by the
-    shape alone, before any launch."""
-    return dtype == torch.bfloat16 and hd in (64, 128)
+    hd 64, 128 or 256: wgmma fed by TMA, the row statistics from the
+    forward's LSE instance); otherwise the float32-core kernels.  Decided
+    by the shape alone, before any launch."""
+    return dtype == torch.bfloat16 and hd in (64, 128, 256)
+
+
+def dkdv_splits(bhq: int, bhkv: int, skv: int, sms: int = SMS) -> int:
+    """The hd 256 backward's splits of a kv head's q heads over dK/dV
+    blocks: the fewest (a divisor of the group BHq / BHkv) that give at
+    least two blocks of (64-row kv tile, kv head, split) a streaming
+    multiprocessor, else one a q head.  Each split's blocks write float32
+    partial sums of dK and dV, added in split order after them."""
+    group = bhq // bhkv
+    blocks = -(-skv // TILE) * bhkv
+    for splits in range(1, group + 1):
+        if group % splits == 0 and blocks * splits >= 2 * sms:
+            return splits
+    return group
 
 
 def lse_rows(sq: int) -> int:
@@ -166,8 +188,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{block_k})")
     if with_lse and not tc_backward(q.dtype, hd):
         raise ValueError("flash_attention: the LSE instance is for the "
-                         "tensor-core backward's shapes (bf16, hd 64 or "
-                         f"128); got {q.dtype}, hd {hd}")
+                         "tensor-core backward's shapes (bf16, hd 64, 128 "
+                         f"or 256); got {q.dtype}, hd {hd}")
     block_q, block_k = min(block_q, max(sq, 1)), min(block_k, max(skv, 1))
     _check(q, k, v, block_q, block_k)
     if q.dtype == torch.bfloat16:
@@ -206,10 +228,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``d_out`` (BHq, Sq, hd), k and v (BHkv, Skv, hd), one dtype (bfloat16 or
     float32), contiguous on one CUDA device -> (dq, dk, dv) in that dtype,
     accumulated in float32 and rounded once.  Where :func:`tc_backward`
-    (bf16, hd 64 or 128) the tensor-core kernels run on ``lse``, the
+    (bf16, hd 64, 128 or 256) the tensor-core kernels run on ``lse``, the
     forward's LSE output (required there), with rowsum(dO o O) as float32
-    scratch of this call; elsewhere the float32-core kernels, whose scratch
-    also holds each row's softmax max and reciprocal sum (2, BHq, Sq)."""
+    scratch of this call (at hd 256 also the dK/dV blocks' partial sums,
+    2 x :func:`dkdv_splits` x BHkv x Skv x 256); elsewhere the float32-core
+    kernels, whose scratch also holds each row's softmax max and
+    reciprocal sum (2, BHq, Sq)."""
     _check(q, k, v, TILE, TILE)
     for name, t in (("out", out), ("d_out", d_out)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -238,12 +262,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, out, d_out = (_aligned(t) for t in (q, k, v, out, d_out))
             delta = torch.empty((bhq, lse_rows(sq)), dtype=torch.float32,
                                 device=q.device)
-            rc = _bwd_lib.flash_attention_bwd_bf16_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bhq, bhkv,
-                sq, skv, hd, int(causal), int(window), scale, float(softcap),
-                stream)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
+            if hd == 256:
+                sms = torch.cuda.get_device_properties(
+                    q.device).multi_processor_count
+                splits = dkdv_splits(bhq, bhkv, skv, sms)
+                part = torch.empty((2, splits, bhkv, skv, hd),
+                                   dtype=torch.float32, device=q.device)
+                rc = _bwd_lib.flash_attention_bwd_bf16_tc256(
+                    *ptrs, part.data_ptr(), bhq, bhkv, sq, skv, splits,
+                    int(causal), int(window), scale, float(softcap), stream)
+            else:
+                rc = _bwd_lib.flash_attention_bwd_bf16_tc(
+                    *ptrs, bhq, bhkv, sq, skv, hd, int(causal), int(window),
+                    scale, float(softcap), stream)
         else:
             stats = torch.empty((2, bhq, sq), dtype=torch.float32,
                                 device=q.device)

@@ -8,9 +8,11 @@ raises, nothing falls back.  :func:`rglru_fwd` and :func:`rglru_bwd` launch
 them on CUDA tensors only, on the current stream, and count each launch in
 :data:`LAUNCHES` and :data:`BWD_LAUNCHES`; ``ops.rglru_scan_op`` is the
 entry point that also takes CPU tensors, and the autograd function that
-joins the two.  The backward's launch (a TMA ring where rows are whole
-16-byte pieces, plain loads elsewhere) is :func:`bwd_geometry`'s, which the
-C side checks.
+joins the two.  The forward cuts time into chunks, each walked twice (for its
+summary, then from its carry); :func:`fwd_geometry` gives its launch.  The
+backward's launch (a TMA ring where rows are
+whole 16-byte pieces, plain loads elsewhere) is :func:`bwd_geometry`'s.
+The C side checks both.
 """
 from __future__ import annotations
 
@@ -31,6 +33,10 @@ BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 
 _DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 _MAX_GRID_Y = 65535
+#: the forward's warps a block (32 channels, a segment of a chunk a warp),
+#: steps a warp holds in registers, and the most chunks before a warp's
+#: segment grows (a chunk's carry folds the chunks before it; csrc/rglru.cu)
+SCAN_WARPS, SCAN_STEPS, MAX_CHUNKS = 16, 16, 16
 #: the backward's channels a block (a thread each), steps a box, stages of
 #: its TMA ring and output tiles (csrc/rglru.cu)
 BWD_CHANNELS, BWD_STEPS, BWD_STAGES, BWD_OUTS = 32, 32, 4, 3
@@ -48,6 +54,33 @@ class BwdGeometry(NamedTuple):
     stages: int
     smem_bytes: int
     tma: bool
+
+
+class FwdGeometry(NamedTuple):
+    """One launch of the forward (``rglru_*``): ``chunks`` chunks of
+    ``steps`` steps, blocks of ``threads`` threads (``SCAN_WARPS`` warps
+    over 32 channels), ``grid`` blocks in all, and ``scratch_bytes`` of
+    global scratch (the chunks' summaries, flags and ticket)."""
+    grid: int
+    threads: int
+    chunks: int
+    steps: int
+    scratch_bytes: int
+
+
+def fwd_geometry(bsz: int, s: int, w: int) -> FwdGeometry:
+    """The forward for (B, S, W): chunks of ``SCAN_WARPS`` segments, a
+    segment ``SCAN_STEPS`` steps (a chunk 256) or, where S needs more than
+    ``MAX_CHUNKS`` such chunks, the smallest whole number of
+    ``SCAN_STEPS`` loads that keeps within them."""
+    per_chunk = SCAN_WARPS * SCAN_STEPS
+    steps = per_chunk * max(1, -(-s // (per_chunk * MAX_CHUNKS)))
+    chunks = max(1, -(-s // steps))
+    groups = bsz * -(-w // 32)
+    return FwdGeometry(grid=chunks * groups, threads=SCAN_WARPS * 32,
+                       chunks=chunks, steps=steps,
+                       scratch_bytes=8 * chunks * bsz * w
+                       + 4 * (chunks * groups + 1))
 
 
 def bwd_geometry(w: int, dtype: torch.dtype,
@@ -83,8 +116,8 @@ def build(verbose: bool = False) -> Path:
     lib = _build.load(SOURCE, verbose)
     for name in ("rglru_bf16", "rglru_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     for name in ("rglru_bwd_bf16", "rglru_bwd_f32"):
         fn = getattr(lib, name)
@@ -116,17 +149,22 @@ def _check(log_a, b) -> None:
 
 def rglru_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: log_a (B, S, W) float32, b (B, S, W) bfloat16 or
-    float32, contiguous on one CUDA device -> h (B, S, W) in b's dtype."""
+    float32, contiguous on one CUDA device -> h (B, S, W) in b's dtype, in
+    :func:`fwd_geometry`'s launch."""
     _check(log_a, b)
     bsz, s, w = b.shape
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
     build()
+    geo = fwd_geometry(bsz, s, w)
+    scratch = torch.empty(geo.scratch_bytes, dtype=torch.uint8,
+                          device=b.device)
     fn = _lib.rglru_bf16 if b.dtype == torch.bfloat16 else _lib.rglru_f32
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         rc = fn(log_a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, s, w,
+                geo.threads, geo.chunks, geo.steps, scratch.data_ptr(),
                 stream)
     if rc != 0:
         raise RuntimeError("rglru kernel launch failed: "

@@ -1,9 +1,10 @@
 """Entry point of the RG-LRU scan: the plain torch version on CPU tensors
 (differentiated by autograd), the CUDA kernels on CUDA tensors (the
-counterpart of the JAX package's ``kernels/rglru/ops.py``; the kernels walk
-the sequence one step at a time, so there are no chunk or block
-arguments).  Under autograd the card runs :class:`RgLruScan`: the forward
-kernel, and the backward kernel for its gradient.  On ``meta`` tensors
+counterpart of the JAX package's ``kernels/rglru/ops.py``; the kernels
+take their launches from the shape, ``kernel.fwd_geometry`` and
+``kernel.bwd_geometry``, so there are no chunk or block arguments).
+Under autograd the card runs :class:`RgLruScan`: the forward kernel, and
+the backward kernel for its gradient.  On ``meta`` tensors
 (the dry-run) nothing runs: an empty output, and the kernels' FLOPs and
 bytes added to the active count (``roofline.add_kernel``)."""
 from __future__ import annotations

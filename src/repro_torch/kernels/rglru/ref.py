@@ -3,6 +3,8 @@
 (:func:`rglru_backward`).  The CPU tests use them, the entry point takes
 the scan for CPU tensors (autograd differentiates it), and ``chip_smoke.py``
 holds the CUDA kernels (``csrc/rglru.cu``) against them on the card.
+:func:`rglru_chunked` is the chunked forward kernel's arithmetic, for the
+tests.
 """
 from __future__ import annotations
 
@@ -21,6 +23,61 @@ def reference_rglru(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for t in range(a.shape[1]):
         h = a[:, t] * h + bf[:, t]
         hs.append(h)
+    return torch.stack(hs, dim=1).to(b.dtype)
+
+
+def rglru_chunked(log_a: torch.Tensor, b: torch.Tensor, chunks: int,
+                  steps: int, segments: int = 8) -> torch.Tensor:
+    """The chunked forward kernel's arithmetic in plain torch: time in
+    ``chunks`` chunks of ``steps`` steps, each in ``segments`` segments;
+    each segment walked from h = 0 for its end state e and the product A
+    of its a (a = exp(log_a), float32, step by step); a chunk's summary its
+    segments' folded in order (e = A_v e + e_v, A = A_v A); the carry into
+    chunk k the chunks before it folded in order, into a segment the
+    chunk's carry with the segments before it folded on; then each segment
+    walked again from its carry, as :func:`reference_rglru` walks.  Same
+    arguments and result as :func:`reference_rglru`; the first segment is
+    its bits.  For tests; no path of the port calls it."""
+    a = torch.exp(log_a.to(torch.float32))
+    bf = b.to(torch.float32)
+    bsz, s, w = a.shape
+    seg = steps // segments
+    zero = torch.zeros((bsz, w), dtype=torch.float32, device=b.device)
+
+    def fold(h, prod, e):
+        return prod * h + e
+
+    parts = []  # [chunk][segment] (A, e)
+    for k in range(chunks):
+        row = []
+        for v in range(segments):
+            e, prod = zero.clone(), torch.ones_like(zero)
+            for t in range(k * steps + v * seg,
+                           min(s, k * steps + (v + 1) * seg)):
+                e = fold(e, a[:, t], bf[:, t])
+                prod = a[:, t] * prod
+            row.append((prod, e))
+        parts.append(row)
+    summaries = []
+    for row in parts[:-1]:
+        e, prod = zero.clone(), torch.ones_like(zero)
+        for pa, pe in row:
+            e = fold(e, pa, pe)
+            prod = pa * prod
+        summaries.append((prod, e))
+    hs = []
+    for k in range(chunks):
+        carry = zero.clone()
+        for pa, pe in summaries[:k]:
+            carry = fold(carry, pa, pe)
+        for v in range(segments):
+            h = carry.clone()
+            for pa, pe in parts[k][:v]:
+                h = fold(h, pa, pe)
+            for t in range(k * steps + v * seg,
+                           min(s, k * steps + (v + 1) * seg)):
+                h = fold(h, a[:, t], bf[:, t])
+                hs.append(h)
     return torch.stack(hs, dim=1).to(b.dtype)
 
 

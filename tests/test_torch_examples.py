@@ -55,6 +55,7 @@ from repro.models.layers import split_lp_tree
 from repro.models.model import build_model as r_build_model
 from repro.optim import adamw_init as r_adamw_init
 from repro_torch import configs
+from repro_torch.assembly import plan_assembly_homing
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.examples import (assembly_e2e, async_balancer,
@@ -253,6 +254,23 @@ def test_assembly_e2e_analytic_matches_reference():
         assert len(run.homing.waves) == len(want.homing.waves)
         assert run.homing.est_time_s == want.homing.est_time_s
     assert run.speedup_ccmlb == want.speedup_ccmlb
+
+
+def test_assembly_e2e_stops_before_homing_when_asked():
+    """Tolerance: none.  ``run(home=False)`` returns the balanced target
+    run with no homing plan; planning its homing then gives the whole
+    run's plan, and the placement is the same."""
+    whole = assembly_e2e.run("cpu", durations="analytic").run
+    part = assembly_e2e.run("cpu", durations="analytic", home=False).run
+    assert part.homing is None
+    np.testing.assert_array_equal(part.lb_result.assignment,
+                                  whole.lb_result.assignment)
+    done = plan_assembly_homing(part)
+    assert (done.homing is None) == (whole.homing is None)
+    if whole.homing is not None:
+        assert len(done.homing.waves) == len(whole.homing.waves)
+        assert done.homing.est_time_s == whole.homing.est_time_s
+    assert done.makespan_ccmlb == whole.makespan_ccmlb
 
 
 def test_assembly_e2e_refuses_other_durations():

@@ -128,6 +128,53 @@ def test_bf16_p_model_matches_reference(case):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,causal,window,cap", CASES)
+def test_bf16_tile_walk_model_matches_reference_and_row_max_model(
+        b, sq, skv, hq, hkv, hd, causal, window, cap):
+    """The plain model of the bf16 kernel's online softmax
+    (``ref.reference_attention_bf16_tiles``: p rounded to bf16 against the
+    running max of its walk over 64-key tiles) on bf16 inputs: against the
+    reference's oracle at the bf16 tolerance (2e-2, atol and rtol), and
+    against the model that rounds p against each row's final max
+    (``ref.reference_attention_bf16_p``) within 2^-8 of the largest |v|
+    (each of the two rounds a p to within 2^-9 of its exact value, and the
+    rows' weights sum to 1), plus 1e-5 for float32 sums in another
+    order; and its slack (what a p within ``ref.P_SLACK`` of a bf16
+    rounding midpoint moves an output if rounded the other way, at most
+    2^-7 of the largest |v|) covers what every p moved by ``P_SLACK`` of
+    itself, up or down, before its rounding does to the output, within
+    1e-5."""
+    jdt, tdt, tol = DTYPES["bfloat16"]
+    q, k, v = (_fold(a, h) for a, h in zip(_inputs(b, sq, skv, hq, hkv, hd),
+                                           (hq, hkv, hkv)))
+    tq, tk, tv = (torch.tensor(a, dtype=tdt) for a in (q, k, v))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = ref.reference_attention_bf16_tiles(tq, tk, tv, **kw)
+    assert got.dtype == torch.float32 and got.shape == tq.shape
+    want = r_reference_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                 **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+    row_max = ref.reference_attention_bf16_p(tq, tk, tv, **kw)
+    bound = 2 ** -8 * float(tv.float().abs().max()) + 1e-5
+    assert float((got - row_max).abs().max()) <= bound
+    # its slack: what a p within P_SLACK of a bf16 midpoint moves an output
+    # if it rounds the other way; every p moved by P_SLACK of itself before
+    # its rounding (which flips exactly those) moves the model's output by
+    # no more than that, beyond float32 noise
+    out, slack = ref.reference_attention_bf16_tiles(tq, tk, tv, **kw,
+                                                    slack=True)
+    assert torch.equal(out, got) and (slack >= 0).all()
+    assert float(slack.max()) <= 2 ** -7 * float(tv.float().abs().max())
+    bf16 = ref._bf16
+    for sign in (1.0, -1.0):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ref, "_bf16",
+                       lambda t, s=sign: bf16(t * (1 + s * ref.P_SLACK)))
+            moved = ref.reference_attention_bf16_tiles(tq, tk, tv, **kw)
+        assert bool(((moved - out).abs() <= slack + 1e-5).all())
+
+
 def test_bf16_launch_raises_on_other_tiles():
     """The bf16 kernel's tiles are fixed: another block shape raises, it is
     not ignored."""
@@ -149,8 +196,10 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
     """The CUDA kernel against the plain version on the same card inputs,
     with the tolerances above, at these cases and the served shapes (qwen,
     recurrentgemma and gemma2-27b's soft-capped local attention); in bf16
-    also against the plain model of its p rounding (atol 4e-3, rtol half a
-    bf16 ulp, as ``chip_smoke.py``); and block-shape independence (atol
+    also against the plain model of its tile walk and p rounding
+    (``ref.reference_attention_bf16_tiles``; atol 4e-3, rtol half a bf16
+    ulp beyond the model's slack for p near a bf16 midpoint, as
+    ``chip_smoke.py``); and block-shape independence (atol
     1e-5 in float32, the reference's own bound).  Skips without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -172,11 +221,13 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
             if tdt == torch.bfloat16:
-                model = ref.reference_attention_bf16_p(
-                    *fold, causal=causal, window=window, softcap=cap)
-                model = model.reshape(b, hq, sq, hd).transpose(1, 2)
-                torch.testing.assert_close(got.float(), model, atol=4e-3,
-                                           rtol=2 ** -8)
+                model, slack = (m.reshape(b, hq, sq, hd).transpose(1, 2)
+                                for m in ref.reference_attention_bf16_tiles(
+                                    *fold, causal=causal, window=window,
+                                    softcap=cap, slack=True))
+                over = (got.float() - model).abs() - slack \
+                    - (4e-3 + 2 ** -8 * model.abs())
+                assert float(over.max()) <= 0, (case, float(over.max()))
     t = [torch.tensor(a, device="cuda") for a in _inputs(1, 128, 128, 2, 2,
                                                          64)]
     outs = [ops.flash_attention(*t, block_q=bq, block_k=bk)
@@ -214,8 +265,11 @@ def test_unmasked_plain_version_matches_sdpa(b, sq, skv, hq, hkv, hd, dtype):
 
 # ------------------------------------------------------------------ gradient
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, cap): CASES with the reference
-# _sdpa's masks (a window is causal there, "local"), and causal Sq != Skv
-GRAD_CASES = CASES + [(1, 96, 160, 2, 2, 64, True, 0, 0.0)]
+# _sdpa's masks (a window is causal there, "local"), causal Sq != Skv, and
+# recurrentgemma's local attention cut (hd 256, one kv head, a window, a
+# length that is no multiple of the 64-row tile)
+GRAD_CASES = CASES + [(1, 96, 160, 2, 2, 64, True, 0, 0.0),
+                      (1, 160, 160, 4, 1, 256, True, 64, 0.0)]
 
 
 def _sdpa_grads(q, k, v, d_out, causal, window, cap):
@@ -413,13 +467,14 @@ def test_row_lse_of_rows_that_see_no_key():
 
 
 def test_tensor_core_backward_is_chosen_by_shape():
-    """bf16 at hd 64 and 128 takes the tensor-core backward (and the
+    """bf16 at hd 64, 128 and 256 takes the tensor-core backward (and the
     forward's LSE instance); float32 and the other head dims do not; the
     LSE instance refuses another shape before anything else."""
     assert kernel.tc_backward(torch.bfloat16, 64)
     assert kernel.tc_backward(torch.bfloat16, 128)
+    assert kernel.tc_backward(torch.bfloat16, 256)
     for dtype, hd in ((torch.bfloat16, 8), (torch.bfloat16, 32),
-                      (torch.bfloat16, 256), (torch.float32, 64),
+                      (torch.float32, 256), (torch.float32, 64),
                       (torch.float32, 128), (torch.bfloat16, 96)):
         assert not kernel.tc_backward(dtype, hd)
     assert kernel.lse_rows(1) == 64 and kernel.lse_rows(512) == 512 \
@@ -429,10 +484,32 @@ def test_tensor_core_backward_is_chosen_by_shape():
         kernel.flash_attention_fwd(q, q, q, with_lse=True)
 
 
+@pytest.mark.parametrize("bhq,bhkv,skv,sms,want", [
+    (32, 2, 2560, 132, 4),    # recurrentgemma's training shape: 80 kv blocks
+    (64, 4, 2560, 132, 2),    # its served batch: 160
+    (4, 1, 160, 132, 4),      # few kv tiles: one block a q head
+    (2, 2, 70, 132, 1),       # no group to split
+    (32, 2, 2560, 16, 1),     # a card of 16 SMs
+    (36, 2, 2560, 132, 6)])   # the fewest that divide the group of 18
+def test_hd256_dkdv_splits(bhq, bhkv, skv, sms, want):
+    """``kernel.dkdv_splits``, the hd 256 backward's split of a kv head's q
+    heads over dK/dV blocks: the fewest splits dividing the group that give
+    at least two (kv tile, kv head, split) blocks a streaming
+    multiprocessor, else one a q head; chosen by the shape alone."""
+    got = kernel.dkdv_splits(bhq, bhkv, skv, sms)
+    assert got == want
+    group = bhq // bhkv
+    blocks = -(-skv // kernel.TILE) * bhkv
+    assert group % got == 0
+    assert blocks * got >= 2 * sms or got == group
+    assert all(group % s or blocks * s < 2 * sms for s in range(1, got))
+
+
 @pytest.mark.cuda
 def test_cuda_tensor_core_backward_matches_its_model():
-    """The tensor-core backward (bf16, hd 64 and 128) at the gradient cases
-    and the training shape: the forward's LSE instance gives the plain
+    """The tensor-core backward (bf16, hd 64, 128 and 256) at the gradient
+    cases and the training shapes (qwen's, recurrentgemma's local
+    attention): the forward's LSE instance gives the plain
     instance's output bit for bit and row statistics within 2e-5 of
     ``ref.row_lse``; two backward launches give the same bits; dq, dk, dv
     within 2^-7 of each one's largest |value| of the plain model of their
@@ -442,7 +519,8 @@ def test_cuda_tensor_core_backward_matches_its_model():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(7)
-    for case in GRAD_CASES + [(4, 512, 512, 32, 4, 128, True, 0, 0.0)]:
+    for case in GRAD_CASES + [(4, 512, 512, 32, 4, 128, True, 0, 0.0),
+                              (2, 2560, 2560, 16, 1, 256, True, 2048, 0.0)]:
         b, sq, skv, hq, hkv, hd, causal, window, cap = case
         if not kernel.tc_backward(torch.bfloat16, hd):
             continue

@@ -129,22 +129,96 @@ def test_bwd_geometry_fits_the_card(w, dtype):
     assert 2 * (g.smem_bytes + 1024) <= 233472
 
 
+# (B, S, W): recurrentgemma's serve shape, its training shape, its serve
+# shape on a 4-rank model axis, then ragged ones (a last chunk cut short,
+# segments of two register loads)
+FWD_SHAPES = [(4, 2560, 4096), (2, 2560, 4096), (4, 2560, 1024),
+              (4, 100, 4100), (3, 600, 50), (1, 5000, 64), (1, 1, 300)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,s,w", FWD_SHAPES)
+def test_fwd_geometry_fits_the_card(bsz, s, w, dtype):
+    """``kernel.fwd_geometry``, the forward's launch (which ``csrc/rglru.cu``
+    checks), from the shape alone and the same for b in either dtype (the
+    chunks' summaries are float32): chunks that cover S with the last one
+    not empty (the three timed shapes: 10 chunks of 256 steps), each
+    ``SCAN_WARPS`` segments of a whole number of ``SCAN_STEPS`` register
+    loads, no more than ``MAX_CHUNKS`` of them, a block of whole warps a
+    (chunk, 32 channels), and the scratch the launch zeroes and the kernel
+    fills: two float32 summaries a (chunk, channel), then a flag a block
+    and the ticket.  The constants are the kernel source's."""
+    src = kernel.SOURCE.read_text()
+    for name in ("SCAN_WARPS", "SCAN_STEPS"):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) \
+            == str(getattr(kernel, name))
+    assert dtype in kernel._DTYPES
+    g = kernel.fwd_geometry(bsz, s, w)
+    per_chunk = kernel.SCAN_WARPS * kernel.SCAN_STEPS
+    assert g.threads == 32 * kernel.SCAN_WARPS
+    assert g.chunks * g.steps >= s > (g.chunks - 1) * g.steps
+    assert g.steps % per_chunk == 0 and 1 <= g.chunks <= kernel.MAX_CHUNKS
+    # warp j + 1 brings chunk j's summary: k < chunks <= SCAN_WARPS
+    assert kernel.MAX_CHUNKS <= kernel.SCAN_WARPS
+    assert g.steps == per_chunk or (g.steps - per_chunk) * kernel.MAX_CHUNKS \
+        < s
+    groups = bsz * -(-w // 32)
+    assert g.grid == g.chunks * groups
+    assert g.scratch_bytes == 8 * g.chunks * bsz * w + 4 * (g.grid + 1)
+    assert (g.chunks, g.steps) == {(4, 2560, 4096): (10, 256),
+                                   (2, 2560, 4096): (10, 256),
+                                   (4, 2560, 1024): (10, 256),
+                                   (4, 100, 4100): (1, 256),
+                                   (3, 600, 50): (3, 256),
+                                   (1, 5000, 64): (10, 512),
+                                   (1, 1, 300): (1, 256)}[(bsz, s, w)]
+
+
+@pytest.mark.parametrize("bsz,s,w,cut", [(2, 2560, 4096, 256),
+                                         (4, 2560, 1024, 256),
+                                         (3, 600, 50, 50), (1, 5000, 64, 64)])
+def test_chunked_model_matches_the_sequential_scan(bsz, s, w, cut):
+    """The chunked forward's arithmetic (``ref.rglru_chunked``: segments
+    walked from 0, their summaries folded into chunks' and carries) at the
+    chunks ``kernel.fwd_geometry`` gives the shape, on ``cut`` of its
+    channels, against the sequential plain version in float32: within
+    atol 1e-5 and rtol 1e-5, as the card's kernel is held in the ``cuda``
+    test below (only the carries' roundings differ, and a < 1 damps them:
+    one float32 ulp of h at most here), and the first segment bit for
+    bit."""
+    g = kernel.fwd_geometry(bsz, s, w)
+    assert g.chunks > 1
+    la, b = (torch.tensor(x) for x in _inputs(bsz, s, cut, seed=6))
+    got = ref.rglru_chunked(la, b, g.chunks, g.steps, kernel.SCAN_WARPS)
+    want = ref.reference_rglru(la, b)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    seg = g.steps // kernel.SCAN_WARPS
+    assert torch.equal(got[:, :seg], want[:, :seg])
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version_on_the_card():
-    """The CUDA kernel against the plain version on the same card inputs:
-    float32 ``atol=1e-5, rtol=1e-5`` (the same steps in the same order; exp
-    may differ in the last bit), bf16 one bf16 ulp, at the cases above and
-    ragged shapes.  Skips without a card."""
+    """The CUDA kernel against the plain version on the same card inputs,
+    at the cases above, the three timed shapes of ``FWD_SHAPES`` (serve,
+    training, model-axis) and ragged ones: float32 ``atol=1e-5,
+    rtol=1e-5`` (exp may differ in the last bit; a chunk's carry rounds
+    once), its first segment bit for bit (the same steps in the same order
+    from h = 0), bf16 one bf16 ulp.  Skips without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for s, w in [(128, 64), (256, 64), (64, 128), (77, 50), (1, 300)]:
-        la, b = (torch.tensor(x, device="cuda") for x in _inputs(2, s, w))
+    for bsz, s, w in [(2, 128, 64), (2, 256, 64), (2, 64, 128),
+                      (2, 77, 50)] + FWD_SHAPES:
+        la, b = (torch.tensor(x, device="cuda")
+                 for x in _inputs(bsz, s, w))
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
             got = ops.rglru_scan_op(la, b.to(dtype))
             want = ref.reference_rglru(la, b.to(dtype))
             assert got.dtype == dtype
             torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
                                        rtol=tol)
+            seg = kernel.fwd_geometry(bsz, s, w).steps // kernel.SCAN_WARPS
+            if dtype == torch.float32:
+                assert torch.equal(got[:, :seg], want[:, :seg])
 
 
 def _share(got, want):
